@@ -1,0 +1,154 @@
+"""Guards of the port: it imports nothing of JAX or of the JAX package, its
+entry points never fall back to the CPU on their own, and its kernel
+wrappers never return the plain version for a tensor on the card."""
+import ast
+import subprocess
+import sys
+import warnings
+from pathlib import Path
+
+import pytest
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+
+from transformerengine_tpu_torch import _build
+from transformerengine_tpu_torch.inference import generate
+from transformerengine_tpu_torch.models.llama import LLAMA_TINY, LlamaModel
+from transformerengine_tpu_torch.ops import (
+    decode_attention as da, decode_matmul as dm, flash_attention as fa)
+
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "transformerengine_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "transformerengine_tpu")
+
+_IMPORT_ALL = f"""
+import importlib, pkgutil, sys
+FORBIDDEN = {FORBIDDEN!r}
+
+def forbidden(name):
+    return name.split(".")[0] in FORBIDDEN
+
+# Forget anything preloaded, and refuse any later import of them.
+for name in [n for n in sys.modules if forbidden(n)]:
+    del sys.modules[name]
+
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if forbidden(name):
+            raise ImportError("the port imported " + name)
+        return None
+
+sys.meta_path.insert(0, Refuse())
+sys.path.insert(0, {str(ROOT)!r})
+import transformerengine_tpu_torch as pkg
+names = [pkg.__name__]
+for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(info.name)
+    names.append(info.name)
+left = sorted(n for n in sys.modules if forbidden(n))
+print(len(names), left)
+assert not left, left
+"""
+
+
+def test_importing_the_whole_port_loads_no_jax():
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL],
+                         capture_output=True, text=True, timeout=300,
+                         cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    count, left = out.stdout.split(" ", 1)
+    assert int(count) >= 20 and left.strip() == "[]"
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_source_scan_finds_no_jax_import():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) >= 20
+    for path in files:
+        bad = set(_imported_roots(path)) & set(FORBIDDEN)
+        assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_entry_points_without_a_device_need_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LlamaModel(LLAMA_TINY)
+    model = LlamaModel(LLAMA_TINY, device="cpu")
+    tokens = torch.ones((1, 4), dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        generate(model, tokens, torch.tensor([4]), 2)
+    # A model on the CPU given to an entry point bound for the card.
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(ValueError, match="expected cuda"):
+        generate(model, tokens, torch.tensor([4]), 2)
+
+
+def _calls():
+    """One call of each kernel wrapper on tensors that lie on the card.
+    They are fake tensors (shapes, dtypes and a device, no storage), so
+    no card is needed to build them."""
+    bf16 = torch.bfloat16
+
+    def cuda(*shape, dtype=bf16):
+        return torch.empty(shape, dtype=dtype, device="cuda")
+
+    return {
+        "te_decode_tn_matvec": lambda: dm.decode_tn_matvec(
+            cuda(8, 1024), cuda(2048, 1024, dtype=torch.float8_e4m3fn),
+            cuda(1, dtype=torch.float32)),
+        "te_flash_attention_fwd": lambda: fa.flash_fwd(
+            cuda(2, 64, 4, 32), cuda(2, 64, 2, 32), cuda(2, 64, 2, 32),
+            scale=0.2, causal=True),
+        "te_decode_attention": lambda: da.decode_attention(
+            cuda(2, 1, 4, 32), cuda(2, 128, 2, 32, dtype=torch.float8_e4m3fn),
+            cuda(2, 128, 2, 32, dtype=torch.float8_e4m3fn),
+            cuda(2, dtype=torch.int32), kv_scale=cuda(2, dtype=torch.float32)),
+    }
+
+
+@pytest.mark.parametrize("entry", ["te_decode_tn_matvec",
+                                   "te_flash_attention_fwd",
+                                   "te_decode_attention"])
+def test_wrappers_on_the_card_launch_or_raise(entry, monkeypatch):
+    """On a CUDA tensor a wrapper launches its kernel, and counts the
+    launch, or raises; it never returns its plain version."""
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(dm, "decode_tn_matvec_plain", plain)
+    monkeypatch.setattr(fa, "flash_fwd_plain", plain)
+    monkeypatch.setattr(da, "decode_attention_plain", plain)
+    monkeypatch.setattr(_build, "stream", lambda t: None)
+    launched = []
+    with warnings.catch_warnings(), FakeTensorMode():
+        # Fake tensors warn that their data pointers are not real.
+        warnings.simplefilter("ignore", UserWarning)
+        call = _calls()[entry]
+        # Here there is no nvcc and no card: the launch raises.
+        with pytest.raises(Exception) as err:
+            call()
+        assert not isinstance(err.value, AssertionError)
+        before = _build.LAUNCHES.copy()
+        monkeypatch.setattr(_build, "launch",
+                            lambda name, *args: launched.append(name))
+        call()
+    assert launched == [entry]
+    grown = _build.LAUNCHES - before
+    assert sum(grown.values()) == 1
+
+
+def test_wrappers_refuse_mixed_devices():
+    x = torch.zeros((8, 1024), dtype=torch.bfloat16)
+    w = torch.zeros((2048, 1024), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="all on one CUDA device"):
+        dm.decode_tn_matvec(x, w)

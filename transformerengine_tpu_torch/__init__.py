@@ -1,0 +1,15 @@
+"""PyTorch and CUDA port of transformerengine_tpu for NVIDIA Hopper.
+
+The JAX package ``transformerengine_tpu`` is the reference; this package
+imports nothing of it (nor of JAX) and mirrors its layout: ``quantize/``,
+``ops/``, ``inference/``, ``models/``, the functional layers, ``nn/`` in
+place of ``flax/``, and ``csrc/`` for the hand-written CUDA kernels,
+which are built with nvcc at first use (``_build.py``).
+
+Entry points run on the card (``device="cuda"``) unless the caller asks
+for ``device="cpu"``; on CPU tensors every kernel wrapper runs its plain
+PyTorch version.
+"""
+from .common.recipe import Float8CurrentScaling, Recipe
+
+__all__ = ["Float8CurrentScaling", "Recipe"]
