@@ -15,7 +15,11 @@ from transformerengine_tpu_torch import _build
 from transformerengine_tpu_torch.inference import generate
 from transformerengine_tpu_torch.models.llama import LLAMA_TINY, LlamaModel
 from transformerengine_tpu_torch.ops import (
-    decode_attention as da, decode_matmul as dm, flash_attention as fa)
+    decode_attention as da, decode_matmul as dm, flash_attention as fa,
+    quantize_kernels as qk)
+from transformerengine_tpu_torch.quantize import qmath
+from transformerengine_tpu_torch.quantize.quantizer import (
+    CurrentScaleQuantizer, DelayedScaleQuantizer, QuantizeLayout)
 
 torch.set_num_threads(2)
 
@@ -94,13 +98,20 @@ def test_entry_points_without_a_device_need_the_card(monkeypatch):
 
 
 def _calls():
-    """One call of each kernel wrapper on tensors that lie on the card.
-    They are fake tensors (shapes, dtypes and a device, no storage), so
-    no card is needed to build them."""
-    bf16 = torch.bfloat16
+    """One call of each kernel wrapper, and of the quantizer methods that
+    reach the fused casts, on tensors that lie on the card. They are fake
+    tensors (shapes, dtypes and a device, no storage), so no card is
+    needed to build them."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    both = QuantizeLayout.ROWWISE_COLWISE
 
     def cuda(*shape, dtype=bf16):
         return torch.empty(shape, dtype=dtype, device="cuda")
+
+    def delayed():
+        return DelayedScaleQuantizer(torch.float8_e4m3fn,
+                                     scale=cuda(1, dtype=f32),
+                                     amax_history=cuda(16, dtype=f32))
 
     return {
         "te_decode_tn_matvec": lambda: dm.decode_tn_matvec(
@@ -113,21 +124,60 @@ def _calls():
             cuda(2, 1, 4, 32), cuda(2, 128, 2, 32, dtype=torch.float8_e4m3fn),
             cuda(2, 128, 2, 32, dtype=torch.float8_e4m3fn),
             cuda(2, dtype=torch.int32), kv_scale=cuda(2, dtype=torch.float32)),
+        "te_flash_attention_bwd": lambda: fa.flash_bwd(
+            cuda(2, 64, 4, 32), cuda(2, 64, 2, 32), cuda(2, 64, 2, 32),
+            cuda(2, 64, 4, 32), cuda(2, 4, 64, dtype=torch.float32),
+            cuda(2, 64, 4, 32), scale=0.2, causal=True),
+        "te_cast_transpose": lambda: qk.cast_transpose(
+            cuda(64, 128), cuda(1, dtype=torch.float32), torch.float8_e5m2),
+        "te_norm_cast_transpose": lambda: qk.norm_cast_transpose(
+            cuda(256, 128), cuda(128, dtype=torch.float32), None,
+            cuda(1, dtype=torch.float32), torch.float8_e4m3fn),
+        # Shapes that are not multiples of 16 launch the kernel too.
+        "delayed_quantize_2x": lambda: delayed().quantize(
+            cuda(24, 40), layout=both),
+        "current_quantize_2x": lambda: CurrentScaleQuantizer(
+            torch.float8_e5m2).quantize(cuda(3, 8, 40, dtype=f32),
+                                        layout=both),
+        "quantize_normed": lambda: delayed().quantize_normed(
+            cuda(256, 128), cuda(128, dtype=f32), None, norm="rmsnorm",
+            zero_centered_gamma=False, epsilon=1e-6),
     }
+
+
+# The C entry points each call launches, where they are not the one the
+# case is named after: the flash backward runs a dQ and a dK/dV kernel.
+_LAUNCHED = {"te_flash_attention_bwd": ["te_flash_attention_bwd_dq",
+                                        "te_flash_attention_bwd_dkv"],
+             "delayed_quantize_2x": ["te_cast_transpose"],
+             "current_quantize_2x": ["te_cast_transpose"],
+             "quantize_normed": ["te_norm_cast_transpose"]}
 
 
 @pytest.mark.parametrize("entry", ["te_decode_tn_matvec",
                                    "te_flash_attention_fwd",
-                                   "te_decode_attention"])
+                                   "te_decode_attention",
+                                   "te_flash_attention_bwd",
+                                   "te_cast_transpose",
+                                   "te_norm_cast_transpose",
+                                   "delayed_quantize_2x",
+                                   "current_quantize_2x",
+                                   "quantize_normed"])
 def test_wrappers_on_the_card_launch_or_raise(entry, monkeypatch):
     """On a CUDA tensor a wrapper launches its kernel, and counts the
-    launch, or raises; it never returns its plain version."""
+    launch, or raises; it never returns its plain version, and the
+    quantizers never quantize both orientations the unfused way."""
     def plain(*args, **kwargs):
         raise AssertionError("the plain version ran for a CUDA tensor")
 
     monkeypatch.setattr(dm, "decode_tn_matvec_plain", plain)
     monkeypatch.setattr(fa, "flash_fwd_plain", plain)
     monkeypatch.setattr(da, "decode_attention_plain", plain)
+    monkeypatch.setattr(fa, "flash_bwd_plain", plain)
+    monkeypatch.setattr(qk, "cast_transpose_plain", plain)
+    monkeypatch.setattr(qk, "norm_cast_transpose_plain", plain)
+    monkeypatch.setattr(qmath, "tensor_scale_quantize", plain)
+    monkeypatch.setattr(qmath, "current_scale_quantize", plain)
     monkeypatch.setattr(_build, "stream", lambda t: None)
     launched = []
     with warnings.catch_warnings(), FakeTensorMode():
@@ -142,9 +192,10 @@ def test_wrappers_on_the_card_launch_or_raise(entry, monkeypatch):
         monkeypatch.setattr(_build, "launch",
                             lambda name, *args: launched.append(name))
         call()
-    assert launched == [entry]
+    expected = _LAUNCHED.get(entry, [entry])
+    assert launched == expected
     grown = _build.LAUNCHES - before
-    assert sum(grown.values()) == 1
+    assert sum(grown.values()) == len(expected)
 
 
 def test_wrappers_refuse_mixed_devices():

@@ -10,6 +10,9 @@ Entry points run on the card (``device="cuda"``) unless the caller asks
 for ``device="cpu"``; on CPU tensors every kernel wrapper runs its plain
 PyTorch version.
 """
-from .common.recipe import Float8CurrentScaling, Recipe
+from .common.recipe import (DelayedScaling, Float8CurrentScaling, Format,
+                            Recipe)
+from .quantize.helper import autocast, get_quantize_config
 
-__all__ = ["Float8CurrentScaling", "Recipe"]
+__all__ = ["DelayedScaling", "Float8CurrentScaling", "Format", "Recipe",
+           "autocast", "get_quantize_config"]

@@ -31,7 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 # Keep in step with DTypeCode in csrc/common.cuh.
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2,
+               torch.float8_e5m2: 3}
 
 LAUNCHES: collections.Counter = collections.Counter()
 
@@ -45,6 +46,13 @@ _SIGNATURES = {
                                _I, _I, _I, _I, _I, _P),
     "te_decode_attention": (_P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I,
                             _I, _I, _I, _F, _I, _P),
+    "te_flash_attention_bwd_dq": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+                                  _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    "te_flash_attention_bwd_dkv": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+                                   _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "te_cast_transpose": (_P, _I, _P, _I, _P, _P, _P, _I, _I, _P),
+    "te_norm_cast_transpose": (_P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _F, _P),
 }
 
 _lock = threading.Lock()

@@ -1,3 +1,5 @@
-from .recipe import Float8CurrentScaling, Recipe
+from .recipe import (E4M3, E5M2, HYBRID, DelayedScaling, Float8CurrentScaling,
+                     Format, Recipe)
 
-__all__ = ["Float8CurrentScaling", "Recipe"]
+__all__ = ["E4M3", "E5M2", "HYBRID", "DelayedScaling", "Float8CurrentScaling",
+           "Format", "Recipe"]

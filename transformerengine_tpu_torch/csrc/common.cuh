@@ -9,7 +9,7 @@
 #include <stdint.h>
 
 // Dtype codes; keep in step with DTYPE_CODES in _build.py.
-enum DTypeCode { kFloat32 = 0, kBFloat16 = 1, kFloat8E4M3 = 2 };
+enum DTypeCode { kFloat32 = 0, kBFloat16 = 1, kFloat8E4M3 = 2, kFloat8E5M2 = 3 };
 
 // The JAX reference's mask and running-max floors (ops/flash_attention.py,
 // ops/decode_attention.py).
@@ -100,6 +100,52 @@ __device__ __forceinline__ float half_warp_max(float v) {
   for (int o = 8; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// Loads 4 consecutive elements (8 bytes of bf16, 16 of f32, aligned to
+// that size) and widens them to f32.
+__device__ __forceinline__ void load4(const float* p, float* out) {
+  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+  out[0] = v.x;
+  out[1] = v.y;
+  out[2] = v.z;
+  out[3] = v.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* out) {
+  const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
+  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) out[i] = __bfloat162float(e[i]);
+}
+
+// The per-tensor FP8 cast of quantize/qmath.py: clip to +-q_max, then
+// round to nearest even (the clip comes first, so saturation never
+// decides a value).
+struct Fp8Cast {
+  float q_max;
+  __nv_fp8_interpretation_t kind;
+  __host__ __device__ explicit Fp8Cast(int e5m2)
+      : q_max(e5m2 ? 57344.f : 448.f), kind(e5m2 ? __NV_E5M2 : __NV_E4M3) {}
+  __device__ __forceinline__ uint8_t operator()(float y) const {
+    y = fminf(fmaxf(y, -q_max), q_max);
+    return __nv_cvt_float_to_fp8(y, __NV_SATFINITE, kind);
+  }
+};
+
+// Block-wide max of a non-negative value per thread into *out (which
+// the caller zeroed): an atomicMax on the f32 bit pattern, exact because
+// the order of a max does not matter. `scratch` holds one float per warp.
+__device__ __forceinline__ void block_amax_to(float v, float* scratch,
+                                              float* out) {
+  v = warp_max(v);
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) scratch[warp] = v;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float m = 0.f;
+    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) m = fmaxf(m, scratch[w]);
+    atomicMax(reinterpret_cast<int*>(out), __float_as_int(m));
+  }
 }
 
 // Raises the dynamic shared memory limit of `kernel` when it needs more

@@ -1,0 +1,462 @@
+// Flash attention backward over BSHD tensors: dQ, dK and dV from the
+// forward's log-sum-exp, without the S x S probabilities in memory.
+//
+// Replaces transformerengine_tpu/ops/flash_attention.py `_flash_bwd`
+// (the Pallas `_bwd_dq_kernel[_steps]` and `_bwd_dkv_kernel[_steps]`,
+// bodies `_bwd_dq_block_body` and `_bwd_dkv_block_body`). Scope: exactly
+// the forward kernel's (no mask, causal with a bottom-right offset, the
+// padding mask from per-sequence lengths; GQA with Hq % Hkv == 0; bf16 or
+// f32; D <= 256 with D % 16 == 0).
+//
+// Numerics follow the reference: the caller passes q pre-scaled by
+// scale * log2(e) in q's dtype, LSE moved into the log2 domain
+// (lse2 = lse * log2(e), (B, Hq, Sq)) and delta = rowsum(dO * O) in f32
+// ((B, Sq, Hq), the layout the row sum leaves). For each
+// visible (query, key) pair p = exp2(s - lse2) and ds = p * (dp - delta)
+// with dp = dO . v; masked pairs give p = 0, so fully masked rows
+// (LSE = -1e30) and padded keys yield exact zeros. ds is rounded to the
+// inputs' dtype before both of its products and p before the dV product.
+// Epilogues: dQ = scale * sum(ds k); dK = ln(2) * sum(ds q_scaled) (q
+// carries scale * log2(e)); dV = sum(p dO).
+//
+// Bound on an H100: operations. At the training shape (B 2, S 2048,
+// Hq 32, Hkv 8, D 128, bf16, causal) the five products over half the S^2
+// pairs are 1.72e11 FLOP, 0.17 ms at the 989 TFLOP/s bf16 tensor-core
+// peak; the bytes (Q, K, V, O, dO, LSE in; dQ, dK, dV out) are about
+// 168 MB, 0.05 ms. This design runs its products as f32 FMAs on the CUDA
+// cores (and recomputes s and dp in both kernels: seven products), so
+// the FMA rate, not the bound, is its real limit; tensor cores come later.
+//
+// Design (simple and right first): two kernels, no atomics, so the result
+// is deterministic.
+// - dQ: one block per (q tile, q head, batch), the forward kernel's
+//   layout: Q and dO tiles stay in shared memory as f32 while the block
+//   walks the K/V tiles up to the causal diagonal and the sequence's
+//   length. Each of the 256 threads holds a (BQ/16) x (BK/16) block of s
+//   and dp (rows 16-apart lanes share), writes ds to shared memory, and
+//   accumulates BQ/16 rows x D/16 columns of dQ.
+// - dK/dV: one block per (k tile, kv head, batch). It walks the q tiles
+//   of every query head of its GQA group (so the group's sum stays inside
+//   one block), starting at the first tile the causal mask lets see its
+//   keys. Threads hold s and dp transposed (keys x queries), write p and
+//   ds to shared memory, and accumulate BK/16 keys x D/16 columns of dK
+//   and of dV.
+// Tiles are 64 x 64 for D <= 128 and 32 x 32 for D = 256, which keeps
+// the f32 tiles within the 227 KB of shared memory a block may use; rows
+// are padded to D + 1 floats so that lanes reading 16 rows hit distinct
+// banks.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr float kLn2 = 0.6931471805599453f;
+
+struct Shape {
+  int Sq, Skv, Hq, Hkv, D, causal, offset;
+};
+
+// Copies rows [r0, r0 + R) of one head of a BSHD tensor into a shared
+// [R][ld] f32 tile; rows past S read as 0.
+template <typename T, int R>
+__device__ __forceinline__ void load_tile(const T* __restrict__ src, int b,
+                                          int r0, int S, int H, int h, int D,
+                                          float* dst, int ld) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int vecs = D / kVec;
+  for (int i = threadIdx.x; i < R * vecs; i += kThreads) {
+    const int r = i / vecs;
+    const int d = (i - r * vecs) * kVec;
+    float v[kVec];
+    if (r0 + r < S) {
+      load16(src + (((size_t)b * S + r0 + r) * H + h) * D + d, v);
+    } else {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) v[e] = 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) dst[r * ld + d + e] = v[e];
+  }
+}
+
+__device__ __forceinline__ bool visible(const Shape& sh, int qi, int kj,
+                                        int qlen, int klen) {
+  bool ok = qi < sh.Sq && kj < sh.Skv && qi < qlen && kj < klen;
+  if (sh.causal) ok = ok && kj <= qi + sh.offset;
+  return ok;
+}
+
+template <int DMAX>
+struct Tiles {
+  static constexpr int kB = DMAX <= 128 ? 64 : 32;  // BQ = BK
+  static constexpr int kR = kB / 16;                // rows (or keys) a thread
+  static constexpr int kCols = DMAX / 16;           // columns a thread
+};
+
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dout,
+                        const float* __restrict__ lse2,
+                        const float* __restrict__ delta, T* __restrict__ dq,
+                        const int* __restrict__ qlens,
+                        const int* __restrict__ klens, Shape sh, float scale) {
+  constexpr int kB = Tiles<DMAX>::kB, kR = Tiles<DMAX>::kR;
+  constexpr int kCols = Tiles<DMAX>::kCols;
+  extern __shared__ float smem[];
+  const int D = sh.D, ld = D + 1;
+  float* Qs = smem;             // [kB][ld]
+  float* dOs = Qs + kB * ld;    // [kB][ld]
+  float* Ks = dOs + kB * ld;    // [kB][ld]
+  float* Vs = Ks + kB * ld;     // [kB][ld]
+  float* dSs = Vs + kB * ld;    // [kB][kB + 1]
+  float* Ls = dSs + kB * (kB + 1);  // [kB]
+  float* Dl = Ls + kB;              // [kB]
+
+  const int q0 = blockIdx.x * kB;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / (sh.Hq / sh.Hkv);
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+  const int qlen = qlens != nullptr ? qlens[b] : sh.Sq;
+  const int klen = klens != nullptr ? klens[b] : sh.Skv;
+  int kend = min(sh.Skv, klen);
+  if (sh.causal) kend = min(kend, q0 + kB + sh.offset);
+  if (q0 >= qlen) kend = 0;
+
+  load_tile<T, kB>(q, b, q0, sh.Sq, sh.Hq, h, D, Qs, ld);
+  load_tile<T, kB>(dout, b, q0, sh.Sq, sh.Hq, h, D, dOs, ld);
+  for (int i = threadIdx.x; i < kB; i += kThreads) {
+    const bool in = q0 + i < sh.Sq;
+    const size_t at = ((size_t)b * sh.Hq + h) * sh.Sq + q0 + i;
+    const size_t dat = ((size_t)b * sh.Sq + q0 + i) * sh.Hq + h;
+    Ls[i] = in ? lse2[at] : 0.f;
+    Dl[i] = in ? delta[dat] : 0.f;
+  }
+
+  float acc[kR][kCols];
+#pragma unroll
+  for (int r = 0; r < kR; ++r)
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) acc[r][c] = 0.f;
+
+  for (int k0 = 0; k0 < kend; k0 += kB) {
+    __syncthreads();  // Q/dO loaded; the previous K/V/dS no longer read
+    load_tile<T, kB>(k, b, k0, sh.Skv, sh.Hkv, hk, D, Ks, ld);
+    load_tile<T, kB>(v, b, k0, sh.Skv, sh.Hkv, hk, D, Vs, ld);
+    __syncthreads();
+
+    float s[kR][kR], dp[kR][kR];
+#pragma unroll
+    for (int r = 0; r < kR; ++r)
+#pragma unroll
+      for (int c = 0; c < kR; ++c) s[r][c] = dp[r][c] = 0.f;
+    for (int d = 0; d < D; ++d) {
+      float qv[kR], ov[kR], kv[kR], vv[kR];
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        qv[r] = Qs[(ty * kR + r) * ld + d];
+        ov[r] = dOs[(ty * kR + r) * ld + d];
+      }
+#pragma unroll
+      for (int c = 0; c < kR; ++c) {
+        kv[c] = Ks[(tx + 16 * c) * ld + d];
+        vv[c] = Vs[(tx + 16 * c) * ld + d];
+      }
+#pragma unroll
+      for (int r = 0; r < kR; ++r)
+#pragma unroll
+        for (int c = 0; c < kR; ++c) {
+          s[r][c] = fmaf(qv[r], kv[c], s[r][c]);
+          dp[r][c] = fmaf(ov[r], vv[c], dp[r][c]);
+        }
+    }
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      const int row = ty * kR + r;
+#pragma unroll
+      for (int c = 0; c < kR; ++c) {
+        const int key = tx + 16 * c;
+        float ds = 0.f;
+        if (visible(sh, q0 + row, k0 + key, qlen, klen)) {
+          const float p = exp2f(s[r][c] - Ls[row]);
+          ds = p * (dp[r][c] - Dl[row]);
+        }
+        dSs[row * (kB + 1) + key] = round_to<T>(ds);
+      }
+    }
+    __syncthreads();
+
+    for (int j = 0; j < kB; ++j) {
+      float dsv[kR];
+#pragma unroll
+      for (int r = 0; r < kR; ++r) dsv[r] = dSs[(ty * kR + r) * (kB + 1) + j];
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        if (c * 16 < D) {
+          const float kk = Ks[j * ld + tx + 16 * c];
+#pragma unroll
+          for (int r = 0; r < kR; ++r) acc[r][c] = fmaf(dsv[r], kk, acc[r][c]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    const int qi = q0 + ty * kR + r;
+    if (qi >= sh.Sq) continue;
+    T* dst = dq + (((size_t)b * sh.Sq + qi) * sh.Hq + h) * D;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c)
+      if (c * 16 < D) dst[tx + 16 * c] = from_float<T>(acc[r][c] * scale);
+  }
+}
+
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ dout,
+                         const float* __restrict__ lse2,
+                         const float* __restrict__ delta, T* __restrict__ dk,
+                         T* __restrict__ dv, const int* __restrict__ qlens,
+                         const int* __restrict__ klens, Shape sh) {
+  constexpr int kB = Tiles<DMAX>::kB, kR = Tiles<DMAX>::kR;
+  constexpr int kCols = Tiles<DMAX>::kCols;
+  extern __shared__ float smem[];
+  const int D = sh.D, ld = D + 1;
+  float* Ks = smem;             // [kB][ld]
+  float* Vs = Ks + kB * ld;     // [kB][ld]
+  float* Qs = Vs + kB * ld;     // [kB][ld]
+  float* dOs = Qs + kB * ld;    // [kB][ld]
+  float* Pt = dOs + kB * ld;    // [kB keys][kB + 1]
+  float* dSt = Pt + kB * (kB + 1);  // [kB keys][kB + 1]
+  float* Ls = dSt + kB * (kB + 1);  // [kB]
+  float* Dl = Ls + kB;              // [kB]
+
+  const int k0 = blockIdx.x * kB;
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z;
+  const int group = sh.Hq / sh.Hkv;
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+  const int qlen = qlens != nullptr ? qlens[b] : sh.Sq;
+  const int klen = klens != nullptr ? klens[b] : sh.Skv;
+  const int qend = min(sh.Sq, qlen);
+  int qbeg = sh.causal ? max(0, k0 - sh.offset) : 0;
+  qbeg = (qbeg / kB) * kB;
+  const bool live = k0 < min(sh.Skv, klen);
+
+  load_tile<T, kB>(k, b, k0, sh.Skv, sh.Hkv, hk, D, Ks, ld);
+  load_tile<T, kB>(v, b, k0, sh.Skv, sh.Hkv, hk, D, Vs, ld);
+
+  float acc_k[kR][kCols], acc_v[kR][kCols];
+#pragma unroll
+  for (int r = 0; r < kR; ++r)
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) acc_k[r][c] = acc_v[r][c] = 0.f;
+
+  for (int h = hk * group; live && h < (hk + 1) * group; ++h) {
+    for (int q0 = qbeg; q0 < qend; q0 += kB) {
+      __syncthreads();  // K/V loaded; the previous Q/dO/P/dS no longer read
+      load_tile<T, kB>(q, b, q0, sh.Sq, sh.Hq, h, D, Qs, ld);
+      load_tile<T, kB>(dout, b, q0, sh.Sq, sh.Hq, h, D, dOs, ld);
+      for (int i = threadIdx.x; i < kB; i += kThreads) {
+        const bool in = q0 + i < sh.Sq;
+        const size_t at = ((size_t)b * sh.Hq + h) * sh.Sq + q0 + i;
+        const size_t dat = ((size_t)b * sh.Sq + q0 + i) * sh.Hq + h;
+        Ls[i] = in ? lse2[at] : 0.f;
+        Dl[i] = in ? delta[dat] : 0.f;
+      }
+      __syncthreads();
+
+      // Transposed blocks: keys ty * kR + r, queries tx + 16 * c.
+      float st[kR][kR], dpt[kR][kR];
+#pragma unroll
+      for (int r = 0; r < kR; ++r)
+#pragma unroll
+        for (int c = 0; c < kR; ++c) st[r][c] = dpt[r][c] = 0.f;
+      for (int d = 0; d < D; ++d) {
+        float kv[kR], vv[kR], qv[kR], ov[kR];
+#pragma unroll
+        for (int r = 0; r < kR; ++r) {
+          kv[r] = Ks[(ty * kR + r) * ld + d];
+          vv[r] = Vs[(ty * kR + r) * ld + d];
+        }
+#pragma unroll
+        for (int c = 0; c < kR; ++c) {
+          qv[c] = Qs[(tx + 16 * c) * ld + d];
+          ov[c] = dOs[(tx + 16 * c) * ld + d];
+        }
+#pragma unroll
+        for (int r = 0; r < kR; ++r)
+#pragma unroll
+          for (int c = 0; c < kR; ++c) {
+            st[r][c] = fmaf(kv[r], qv[c], st[r][c]);
+            dpt[r][c] = fmaf(vv[r], ov[c], dpt[r][c]);
+          }
+      }
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        const int key = ty * kR + r;
+#pragma unroll
+        for (int c = 0; c < kR; ++c) {
+          const int row = tx + 16 * c;
+          float p = 0.f, ds = 0.f;
+          if (visible(sh, q0 + row, k0 + key, qlen, klen)) {
+            p = exp2f(st[r][c] - Ls[row]);
+            ds = p * (dpt[r][c] - Dl[row]);
+          }
+          Pt[key * (kB + 1) + row] = round_to<T>(p);
+          dSt[key * (kB + 1) + row] = round_to<T>(ds);
+        }
+      }
+      __syncthreads();
+
+      for (int j = 0; j < kB; ++j) {
+        float pv[kR], dsv[kR];
+#pragma unroll
+        for (int r = 0; r < kR; ++r) {
+          pv[r] = Pt[(ty * kR + r) * (kB + 1) + j];
+          dsv[r] = dSt[(ty * kR + r) * (kB + 1) + j];
+        }
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) {
+          if (c * 16 < D) {
+            const float ov = dOs[j * ld + tx + 16 * c];
+            const float qv = Qs[j * ld + tx + 16 * c];
+#pragma unroll
+            for (int r = 0; r < kR; ++r) {
+              acc_v[r][c] = fmaf(pv[r], ov, acc_v[r][c]);
+              acc_k[r][c] = fmaf(dsv[r], qv, acc_k[r][c]);
+            }
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    const int kj = k0 + ty * kR + r;
+    if (kj >= sh.Skv) continue;
+    const size_t at = (((size_t)b * sh.Skv + kj) * sh.Hkv + hk) * D;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      if (c * 16 < D) {
+        dk[at + tx + 16 * c] = from_float<T>(acc_k[r][c] * kLn2);
+        dv[at + tx + 16 * c] = from_float<T>(acc_v[r][c]);
+      }
+    }
+  }
+}
+
+template <int DMAX>
+size_t dq_smem(int D) {
+  constexpr int kB = Tiles<DMAX>::kB;
+  return sizeof(float) *
+         (4 * (size_t)kB * (D + 1) + (size_t)kB * (kB + 1) + 2 * kB);
+}
+
+template <int DMAX>
+size_t dkv_smem(int D) {
+  constexpr int kB = Tiles<DMAX>::kB;
+  return sizeof(float) *
+         (4 * (size_t)kB * (D + 1) + 2 * (size_t)kB * (kB + 1) + 2 * kB);
+}
+
+template <typename T, int DMAX>
+cudaError_t launch_dq(const void* q, const void* k, const void* v,
+                      const void* dout, const float* lse2, const float* delta,
+                      void* dq, const int* qlens, const int* klens, int B,
+                      const Shape& sh, float scale, cudaStream_t stream) {
+  constexpr int kB = Tiles<DMAX>::kB;
+  auto kernel = flash_bwd_dq_kernel<T, DMAX>;
+  const size_t smem = dq_smem<DMAX>(sh.D);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((sh.Sq + kB - 1) / kB, sh.Hq, B);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse2, delta,
+      static_cast<T*>(dq), qlens, klens, sh, scale);
+  return cudaGetLastError();
+}
+
+template <typename T, int DMAX>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse2,
+                       const float* delta, void* dk, void* dv,
+                       const int* qlens, const int* klens, int B,
+                       const Shape& sh, cudaStream_t stream) {
+  constexpr int kB = Tiles<DMAX>::kB;
+  auto kernel = flash_bwd_dkv_kernel<T, DMAX>;
+  const size_t smem = dkv_smem<DMAX>(sh.D);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((sh.Skv + kB - 1) / kB, sh.Hkv, B);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse2, delta,
+      static_cast<T*>(dk), static_cast<T*>(dv), qlens, klens, sh);
+  return cudaGetLastError();
+}
+
+bool bad_shape(int B, int Sq, int Skv, int Hq, int Hkv, int D) {
+  return B < 1 || Sq < 1 || Skv < 1 || Hkv < 1 || Hq % Hkv != 0 || D < 16 ||
+         D > 256 || D % 16 != 0 || B > 65535 || Hq > 65535;
+}
+
+}  // namespace
+
+extern "C" int te_flash_attention_bwd_dq(
+    const void* q, const void* k, const void* v, int dtype, const void* dout,
+    const float* lse2, const float* delta, void* dq, const int* qlens,
+    const int* klens, int B, int Sq, int Skv, int Hq, int Hkv, int D,
+    int causal, int offset, float scale, void* stream) {
+  if (bad_shape(B, Sq, Skv, Hq, Hkv, D)) return cudaErrorInvalidValue;
+  const Shape sh{Sq, Skv, Hq, Hkv, D, causal, offset};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define TE_DQ(T, DM) \
+  launch_dq<T, DM>(q, k, v, dout, lse2, delta, dq, qlens, klens, B, sh, scale, s)
+  switch (dtype) {
+    case kBFloat16:
+      return D <= 64 ? TE_DQ(__nv_bfloat16, 64)
+             : D <= 128 ? TE_DQ(__nv_bfloat16, 128)
+                        : TE_DQ(__nv_bfloat16, 256);
+    case kFloat32:
+      return D <= 64 ? TE_DQ(float, 64)
+             : D <= 128 ? TE_DQ(float, 128)
+                        : TE_DQ(float, 256);
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef TE_DQ
+}
+
+extern "C" int te_flash_attention_bwd_dkv(
+    const void* q, const void* k, const void* v, int dtype, const void* dout,
+    const float* lse2, const float* delta, void* dk, void* dv,
+    const int* qlens, const int* klens, int B, int Sq, int Skv, int Hq,
+    int Hkv, int D, int causal, int offset, void* stream) {
+  if (bad_shape(B, Sq, Skv, Hq, Hkv, D)) return cudaErrorInvalidValue;
+  const Shape sh{Sq, Skv, Hq, Hkv, D, causal, offset};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define TE_DKV(T, DM)                                                       \
+  launch_dkv<T, DM>(q, k, v, dout, lse2, delta, dk, dv, qlens, klens, B, sh, \
+                    s)
+  switch (dtype) {
+    case kBFloat16:
+      return D <= 64 ? TE_DKV(__nv_bfloat16, 64)
+             : D <= 128 ? TE_DKV(__nv_bfloat16, 128)
+                        : TE_DKV(__nv_bfloat16, 256);
+    case kFloat32:
+      return D <= 64 ? TE_DKV(float, 64)
+             : D <= 128 ? TE_DKV(float, 128)
+                        : TE_DKV(float, 256);
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef TE_DKV
+}

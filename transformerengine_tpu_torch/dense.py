@@ -1,29 +1,160 @@
-"""Dense layer, forward only (counterpart of transformerengine_tpu/dense.py
-for a kernel without a quantizer set, or a prequantized kernel).
-Autograd and activation quantization arrive with the training slice."""
+"""Dense layer with its backward (counterpart of transformerengine_tpu/
+dense.py), and the GEMM forward and backward that the fused layers share.
+
+Each layer is a ``torch.autograd.Function`` mirroring the reference's
+``custom_vjp``, with two branches:
+
+* no quantizer set: plain operands; the residuals are the operands;
+* every quantizer per-tensor scaled (current or delayed scaling): one
+  orientation of each operand is quantized ("1x", rowwise), and the
+  backward contracts the same payloads along the needed axis (dgrad
+  ``q_dot(qg, qk, 1, 1)``, wgrad ``q_dot(qx, qg, 0, 0)``), as the scales
+  are scalars. Block-scaled sets are not ported yet and raise.
+
+Quantizer state: the reference returns the updated quantizer set as the
+set's cotangent ("overwrite with gradient"). Here the backward computes
+the same update (``QuantizerSet.update`` with this step's amaxes of x,
+the kernel and the gradient) and writes it, once per backward, into the
+tensors of the set it was given (``QuantizerSet.write_back``): for an
+``nn`` module those are its ``{name}_{role}_scale`` and
+``{name}_{role}_amax_history`` buffers. A forward without a backward
+(``torch.no_grad``) leaves the state as it was, as the reference's
+primal does.
+
+Residuals go through ``ctx.save_for_backward``, so autograd's version
+check raises when a saved parameter is updated in place before the
+backward that reads it. When no input requires a gradient (serving under
+``torch.no_grad``), the layers run their forward directly, without an
+autograd node.
+
+A :class:`~.quantize.prequant.PrequantizedKernel` serves the forward
+only; a backward through it raises.
+"""
 from __future__ import annotations
+
+import math
 
 import torch
 
-from .ops.gemm import prequant_dot, q_dot
+from .ops.gemm import prequant_dot, q_dot, tn_dot
 from .quantize.prequant import PrequantizedKernel
+from .quantize.quantizer import (QuantizeLayout, QuantizerSet,
+                                 noop_quantizer_set)
+from .quantize.tensor import ScaledTensor1x, get_rowwise
 
 
-def forward_gemm(x2d: torch.Tensor, kernel) -> torch.Tensor:
-    """(M, N) f32 ``x2d (M, K) . kernel`` for a (K, ...) kernel tensor or
-    a :class:`PrequantizedKernel` (whose (N, K) storage small-M shapes
-    read through the decode kernel)."""
+def all_tensor_scaling(qset: QuantizerSet) -> bool:
+    """True when every quantizer of the set is per-tensor scaled, so one
+    quantized orientation serves the forward and the backward."""
+    return all(q is not None and q.is_tensor_scaling
+               for q in (qset.x, qset.kernel, qset.dgrad))
+
+
+def needs_grad(*inputs) -> bool:
+    """True when autograd records and some input requires a gradient."""
+    return torch.is_grad_enabled() and any(
+        getattr(t, "requires_grad", False) for t in inputs)
+
+
+def split_residuals(res):
+    """(tensors, tag) of :func:`gemm_fwd`'s residuals: the tensors for
+    ``ctx.save_for_backward``, the tag (branch, dtypes) for ``ctx``."""
+    if res[0] == "1x":
+        qx, qk = res[1:]
+        return ((qx.data, qx.scale_inv, qx.amax, qk.data, qk.scale_inv,
+                 qk.amax), ("1x", qx.dq_dtype, qk.dq_dtype))
+    return res[1:], res[:1]
+
+
+def join_residuals(tag, tensors):
+    """The residuals that :func:`split_residuals` split."""
+    if tag[0] == "1x":
+        xd, xs, xa, kd, ks, ka = tensors
+        return ("1x", ScaledTensor1x(xd, xs, xa, tag[1]),
+                ScaledTensor1x(kd, ks, ka, tag[2]))
+    return tag + tuple(tensors)
+
+
+def _amax_of(t) -> torch.Tensor:
+    a = getattr(get_rowwise(t), "amax", None)
+    return a if a is not None else torch.zeros((), dtype=torch.float32)
+
+
+def gemm_fwd(x2d: torch.Tensor, kernel, qset: QuantizerSet):
+    """``(M, N) f32 x2d (M, K) . kernel`` for a (K, ...) kernel or a
+    PrequantizedKernel, and the residuals its backward needs."""
     if isinstance(kernel, PrequantizedKernel):
-        return prequant_dot(x2d, kernel.colwise)
-    k = kernel.shape[0]
-    return q_dot(x2d, kernel.reshape(k, -1), 1, 0)
+        return prequant_dot(x2d, kernel.colwise, qset.x), ("prequant",)
+    k2d = kernel.reshape(kernel.shape[0], -1)
+    if qset.x is None:
+        return q_dot(x2d, k2d, 1, 0), ("plain", x2d, k2d)
+    if not all_tensor_scaling(qset):
+        raise NotImplementedError(
+            "quantizer sets that are not per-tensor scaled throughout "
+            "(block-scaled recipes) are not ported yet")
+    qx = qset.x.quantize(x2d, layout=QuantizeLayout.ROWWISE)
+    qk = qset.kernel.quantize(k2d, layout=QuantizeLayout.ROWWISE)
+    return q_dot(qx, qk, 1, 0), ("1x", qx, qk)
 
 
-def dense(x: torch.Tensor, kernel) -> torch.Tensor:
+def gemm_bwd(g2d: torch.Tensor, res, qset: QuantizerSet, need_dw=True):
+    """(dx2d, dw2d (K, N) or None, the set's updated state or None) of
+    the GEMM that :func:`gemm_fwd` ran."""
+    if res[0] == "prequant":
+        raise NotImplementedError(
+            "backward through a PrequantizedKernel (inference-only "
+            "weights); use plain kernels for training")
+    if res[0] == "plain":
+        _, x2d, k2d = res
+        dw2d = q_dot(x2d, g2d, 0, 0) if need_dw else None
+        return tn_dot(g2d, k2d), dw2d, None
+    _, qx, qk = res
+    qg = qset.dgrad.quantize(g2d, layout=QuantizeLayout.ROWWISE)
+    dx2d = q_dot(qg, qk, 1, 1)
+    dw2d = q_dot(qx, qg, 0, 0) if need_dw else None
+    new = qset.update(QuantizerSet(x=_amax_of(qx), kernel=_amax_of(qk),
+                                   dgrad=_amax_of(qg)))
+    return dx2d, dw2d, new
+
+
+def _dense_fwd(x, kernel, qset):
+    out2d, res = gemm_fwd(x.reshape(-1, kernel.shape[0]), kernel, qset)
+    return out2d.reshape(*x.shape[:-1], *kernel.shape[1:]).to(x.dtype), res
+
+
+class _Dense(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, kernel, qset):
+        out, res = _dense_fwd(x, kernel, qset)
+        tensors, ctx.tag = split_residuals(res)
+        ctx.save_for_backward(*tensors)
+        ctx.qset = qset
+        ctx.shapes = (x.shape, x.dtype, tuple(kernel.shape), kernel.dtype)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x_shape, x_dtype, k_shape, k_dtype = ctx.shapes
+        n = math.prod(k_shape[1:])
+        res = join_residuals(ctx.tag, ctx.saved_tensors)
+        dx2d, dw2d, new = gemm_bwd(g.reshape(-1, n), res, ctx.qset,
+                                   need_dw=ctx.needs_input_grad[1])
+        if new is not None:
+            ctx.qset.write_back(new)
+        dw = dw2d.reshape(k_shape).to(k_dtype) if dw2d is not None else None
+        return dx2d.reshape(x_shape).to(x_dtype), dw, None
+
+
+def dense(x: torch.Tensor, kernel, *,
+          quantizer_set: QuantizerSet = noop_quantizer_set) -> torch.Tensor:
     """``out = x . kernel``, contracting the last dim of ``x`` with the
-    first of ``kernel``; the result takes ``x``'s dtype."""
+    first of ``kernel``; the result takes ``x``'s dtype. Differentiable
+    in ``x`` and ``kernel``; the quantizer set's state is updated by the
+    backward (module docstring)."""
     if kernel.shape[0] != x.shape[-1]:
         raise ValueError(f"kernel {tuple(kernel.shape)} does not contract "
                          f"with x {tuple(x.shape)}")
-    out2d = forward_gemm(x.reshape(-1, x.shape[-1]), kernel)
-    return out2d.reshape(*x.shape[:-1], *kernel.shape[1:]).to(x.dtype)
+    if needs_grad(x, kernel):
+        return _Dense.apply(x, kernel, quantizer_set)
+    return _dense_fwd(x, kernel, quantizer_set)[0]

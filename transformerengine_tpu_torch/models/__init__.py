@@ -1,1 +1,2 @@
-from .llama import LLAMA_8B, LLAMA_TINY, LlamaConfig, LlamaModel, load_flax_params
+from .llama import (LLAMA_8B, LLAMA_TINY, LlamaConfig, LlamaModel,
+                    cross_entropy_loss, load_flax_params)

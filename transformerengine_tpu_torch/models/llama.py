@@ -1,6 +1,11 @@
 """Llama-class causal LM (counterpart of transformerengine_tpu/models/
 llama.py): RMSNorm + SwiGLU LayerNormMLP + GQA attention + RoPE, with
-tied input/output embeddings."""
+tied input/output embeddings, and its token-level cross-entropy loss.
+
+A training step is the model's forward (no caches), ``cross_entropy_loss``
+and ``loss.backward()``; under ``autocast`` with ``DelayedScaling`` the
+backward also rolls every GEMM's quantizer state in the modules' buffers
+(the reference's ``quantize_meta`` collection)."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,6 +16,7 @@ import torch
 from torch import nn
 
 from ..attention import SequenceDescriptor
+from ..dense import needs_grad
 from ..device import resolve_device
 from ..inference.kv_cache import KVCache
 from ..nn.module import LayerNorm
@@ -55,7 +61,7 @@ class LlamaModel(nn.Module):
         gen = torch.Generator(device=dev).manual_seed(seed)
         self.embedding = nn.Parameter(
             torch.randn((cfg.vocab_size, cfg.hidden_size), generator=gen,
-                        device=dev).to(cfg.dtype), requires_grad=False)
+                        device=dev).to(cfg.dtype))
         self.layers = nn.ModuleList(
             TransformerLayer(
                 cfg.hidden_size, cfg.intermediate_size,
@@ -87,32 +93,77 @@ class LlamaModel(nn.Module):
                       kv_cache=kv_caches[i] if kv_caches is not None else None)
         x = self.final_norm(x)
         b, s, h = x.shape
-        # bf16 operands with f32 accumulation and f32 logits, without an
-        # f32 copy of the embedding.
-        logits = matmul_f32(x.reshape(b * s, h), self.embedding.t())
+        x2d = x.reshape(b * s, h)
+        if needs_grad(x2d, self.embedding):
+            logits = _Logits.apply(x2d, self.embedding)
+        else:
+            logits = matmul_f32(x2d, self.embedding.t())
         return logits.reshape(b, s, -1)
 
 
+class _Logits(torch.autograd.Function):
+    """f32 logits ``x . embedding^T`` from the activations' dtype: bf16
+    operands with f32 accumulation, without an f32 copy of the embedding
+    in the forward. The backward takes the f32 logits' gradient against
+    the widened operands (f32 products, as the reference's transposed dot
+    with an f32 preferred type) and rounds the results to the operands'
+    dtypes."""
+
+    @staticmethod
+    def forward(ctx, x2d, embedding):
+        ctx.save_for_backward(x2d, embedding)
+        return matmul_f32(x2d, embedding.t())
+
+    @staticmethod
+    def backward(ctx, g):
+        x2d, embedding = ctx.saved_tensors
+        g = g.float()
+        dx = (g @ embedding.float()).to(x2d.dtype) \
+            if ctx.needs_input_grad[0] else None
+        demb = (g.t() @ x2d.float()).to(embedding.dtype) \
+            if ctx.needs_input_grad[1] else None
+        return dx, demb
+
+
+def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token-level cross entropy of (B, S, V) logits against (B, S)
+    targets, in f32; with ``mask`` the mean over the valid tokens."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = logp.gather(-1, targets.long()[..., None])[..., 0]
+    if mask is not None:
+        mask = mask.float()
+        return -(ll * mask).sum() / mask.sum().clamp_min(1.0)
+    return -ll.mean()
+
+
 def load_flax_params(params_np: Mapping, config: LlamaConfig,
-                     device="cuda") -> dict:
+                     device="cuda",
+                     quantize_meta: Optional[Mapping] = None) -> dict:
     """Maps the reference model's ``variables["params"]`` (nested dicts of
     numpy arrays, boxes removed) to a :class:`LlamaModel` ``state_dict`` on
     ``device``: ``layer_{i}`` becomes ``layers.{i}``, kernels take
-    ``config.dtype`` and norm scales stay f32."""
+    ``config.dtype`` and norm scales stay f32. ``quantize_meta``, the
+    reference's collection of the same name, adds the delayed-scaling
+    state (``{gemm}_{role}_scale`` and ``_amax_history``, f32) under the
+    same keys; ``load_state_dict`` creates those buffers."""
     dev = resolve_device(device)
     state = {}
 
-    def walk(tree, prefix):
+    def walk(tree, prefix, param_dtype):
         for name, sub in tree.items():
             key = f"layers.{name[len('layer_'):]}" if name.startswith(
                 "layer_") else name
             key = f"{prefix}{key}"
             if isinstance(sub, Mapping):
-                walk(sub, key + ".")
+                walk(sub, key + ".", param_dtype)
                 continue
-            dtype = torch.float32 if name == "scale" else config.dtype
+            dtype = param_dtype if param_dtype is not None else (
+                torch.float32 if name == "scale" else config.dtype)
             arr = np.array(sub, dtype=np.float32)
             state[key] = torch.from_numpy(arr).to(device=dev, dtype=dtype)
 
-    walk(params_np, "")
+    walk(params_np, "", None)
+    if quantize_meta is not None:
+        walk(quantize_meta, "", torch.float32)
     return state

@@ -1,27 +1,42 @@
 """``torch.nn`` modules over the functional layers (counterpart of
 transformerengine_tpu/flax/module.py: LayerNorm, DenseGeneral,
-LayerNormDenseGeneral, LayerNormMLP), forward only.
+LayerNormDenseGeneral, LayerNormMLP).
 
 Parameters keep the reference's names and layouts (kernels contracting
 dim first, norm ``scale`` in f32), so a Flax params tree maps onto a
-``state_dict`` one to one. After
+``state_dict`` one to one, and they are trainable. After
 :func:`~..quantize.prequant.prequantize_kernels`, a kernel parameter is
 replaced by a :class:`~..quantize.prequant.PrequantizedKernel` whose
 buffers hold the resident (N, K) payload.
+
+Under :func:`~..quantize.helper.autocast`, each GEMM takes the quantizer
+set of :meth:`TransformerEngineBase.quantizer_set`. A delayed-scaling
+quantizer is backed by two buffers of the module, named as the
+reference's ``quantize_meta`` variables: ``{name}_{role}_scale`` (1,) and
+``{name}_{role}_amax_history`` (L,), role x, kernel or dgrad. They are
+created at the first quantized call (as Flax creates the variables at
+init), or by ``load_state_dict`` from a state that holds them, and every
+backward pass writes the updated state into them (``dense.py``).
 """
 from __future__ import annotations
 
 import math
+import re
 from typing import Optional, Sequence, Union
 
 import torch
 from torch import nn
 
 from ..dense import dense
+from ..layernorm import layernorm
 from ..layernorm_dense import layernorm_dense
 from ..layernorm_mlp import layernorm_mlp
 from ..ops.activation import normalize_activation_type
-from ..ops.normalization import rmsnorm_fwd
+from ..quantize.helper import QuantizerFactory, get_quantize_config
+from ..quantize.quantizer import (DelayedScaleQuantizer, QuantizerSet,
+                                  noop_quantizer_set)
+
+_META = re.compile(r"^\w+_(x|kernel|dgrad)_(scale|amax_history)$")
 
 
 def init_kernel(shape, fan_in: int, dtype: torch.dtype, device,
@@ -29,18 +44,71 @@ def init_kernel(shape, fan_in: int, dtype: torch.dtype, device,
     """LeCun-normal kernel (std 1/sqrt(fan_in)), drawn in f32."""
     w = torch.randn(shape, generator=generator, device=device,
                     dtype=torch.float32) / math.sqrt(fan_in)
-    return nn.Parameter(w.to(dtype), requires_grad=False)
+    return nn.Parameter(w.to(dtype))
 
 
 def _ones(n: int, device) -> nn.Parameter:
-    return nn.Parameter(torch.ones(n, dtype=torch.float32, device=device),
-                        requires_grad=False)
+    return nn.Parameter(torch.ones(n, dtype=torch.float32, device=device))
+
+
+class TransformerEngineBase(nn.Module):
+    """Holds the delayed-scaling state of the module's GEMMs."""
+
+    def quantizer_set(self, name: str) -> QuantizerSet:
+        """The quantizer set of GEMM ``name`` under the active recipe (the
+        no-op set outside ``autocast``), its delayed-scaling state in this
+        module's buffers."""
+        cfg = get_quantize_config()
+        if not cfg.enabled:
+            return noop_quantizer_set
+        qset = QuantizerFactory.create_set(cfg.recipe, device=self._device())
+        out = {}
+        for role in ("x", "kernel", "dgrad"):
+            q = getattr(qset, role)
+            if isinstance(q, DelayedScaleQuantizer):
+                scale = self._meta_buffer(f"{name}_{role}_scale", q.scale)
+                hist = self._meta_buffer(f"{name}_{role}_amax_history",
+                                         q.amax_history)
+                q = DelayedScaleQuantizer(
+                    q.q_dtype, q.q_layout, scale=scale, amax_history=hist,
+                    margin=q.margin, amax_compute_algo=q.amax_compute_algo)
+            out[role] = q
+        return QuantizerSet(**out)
+
+    def _device(self) -> torch.device:
+        t = next(self.parameters(), None)
+        if t is None:
+            t = next(self.buffers())
+        return t.device
+
+    def _meta_buffer(self, name: str, init: torch.Tensor) -> torch.Tensor:
+        if name not in self._buffers:
+            self.register_buffer(name, init.clone())
+        return self._buffers[name]
+
+    def _load_from_state_dict(self, state_dict, prefix, local_metadata,
+                              strict, missing_keys, unexpected_keys,
+                              error_msgs):
+        # Delayed-scaling buffers in the incoming state that this module
+        # has not created yet (it has not run under the recipe) are
+        # registered first, so a saved or converted state loads whole.
+        for key, value in state_dict.items():
+            if not key.startswith(prefix):
+                continue
+            name = key[len(prefix):]
+            if "." not in name and _META.match(name) and \
+                    name not in self._buffers:
+                self.register_buffer(name, torch.empty_like(
+                    value, device=self._device()))
+        super()._load_from_state_dict(state_dict, prefix, local_metadata,
+                                      strict, missing_keys, unexpected_keys,
+                                      error_msgs)
 
 
 class LayerNorm(nn.Module):
     """RMSNorm over the last axis with an f32 ``scale`` (the reference's
-    ``LayerNorm(norm_type="rmsnorm")``; LayerNorm proper arrives with the
-    training slice)."""
+    ``LayerNorm(norm_type="rmsnorm")``), differentiable through the
+    functional ``layernorm``."""
 
     def __init__(self, hidden: int, *, epsilon: float = 1e-6, device=None):
         super().__init__()
@@ -48,11 +116,13 @@ class LayerNorm(nn.Module):
         self.scale = _ones(hidden, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return rmsnorm_fwd(x, self.scale, epsilon=self.epsilon)[0]
+        return layernorm(x, self.scale, None, "rmsnorm",
+                         epsilon=self.epsilon)
 
 
-class DenseGeneral(nn.Module):
-    """``x . kernel`` with a (in_features, features) kernel."""
+class DenseGeneral(TransformerEngineBase):
+    """``x . kernel`` with a (in_features, features) kernel; quantizer
+    set "dense"."""
 
     def __init__(self, in_features: int, features: int, *,
                  dtype: torch.dtype = torch.bfloat16, device=None,
@@ -62,11 +132,12 @@ class DenseGeneral(nn.Module):
                                   dtype, device, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return dense(x, self.kernel)
+        return dense(x, self.kernel,
+                     quantizer_set=self.quantizer_set("dense"))
 
 
-class LayerNormDenseGeneral(nn.Module):
-    """``rmsnorm(x) . kernel``."""
+class LayerNormDenseGeneral(TransformerEngineBase):
+    """``rmsnorm(x) . kernel``; quantizer set "ln_dense"."""
 
     def __init__(self, in_features: int, features: int, *,
                  epsilon: float = 1e-6, dtype: torch.dtype = torch.bfloat16,
@@ -79,12 +150,14 @@ class LayerNormDenseGeneral(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return layernorm_dense(x, self.kernel, self.scale,
-                               epsilon=self.epsilon)
+                               epsilon=self.epsilon,
+                               quantizer_set=self.quantizer_set("ln_dense"))
 
 
-class LayerNormMLP(nn.Module):
+class LayerNormMLP(TransformerEngineBase):
     """``dense(act(dense(rmsnorm(x))))`` with ``wi_kernel`` (hidden,
-    n_act, intermediate) and ``wo_kernel`` (intermediate, hidden)."""
+    n_act, intermediate) and ``wo_kernel`` (intermediate, hidden);
+    quantizer sets "mlp1" and "mlp2"."""
 
     def __init__(self, hidden: int, intermediate_dim: int, *,
                  epsilon: float = 1e-6,
@@ -105,4 +178,6 @@ class LayerNormMLP(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return layernorm_mlp(x, self.scale, self.wi_kernel, self.wo_kernel,
                              epsilon=self.epsilon,
-                             activation_type=self.activations)
+                             activation_type=self.activations,
+                             quantizer_sets=(self.quantizer_set("mlp1"),
+                                             self.quantizer_set("mlp2")))

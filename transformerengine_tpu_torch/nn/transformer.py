@@ -1,6 +1,7 @@
 """Transformer blocks (counterpart of transformerengine_tpu/flax/
 transformer.py): causal self-attention with RMSNorm, RoPE, GQA and the
-contiguous KV cache, and a decoder-only TransformerLayer. Not ported
+contiguous KV cache, and a decoder-only TransformerLayer. Without a cache
+the forward is the training forward, differentiable end to end. Not ported
 yet: other masks and norms, MoE, cross-attention, relative position
 bias, dropout, sliding windows, softmax sinks and the paged cache."""
 from __future__ import annotations
@@ -10,7 +11,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..attention import AttnMaskType, SequenceDescriptor
+from ..attention import AttnMaskType, SequenceDescriptor, fused_attn
 from ..inference.kv_cache import KVCache, cache_append, calibrate_kv_scale
 from ..ops.decode_attention import decode_attention
 from ..ops.flash_attention import flash_attention
@@ -51,7 +52,8 @@ class MultiHeadAttention(nn.Module):
                 sequence_descriptor: Optional[SequenceDescriptor] = None, *,
                 kv_cache: Optional[KVCache] = None) -> torch.Tensor:
         """Causal attention, padding-causal where ``sequence_descriptor``
-        gives the lengths. ``kv_cache``: the layer's cache. A call with
+        gives the lengths; differentiable without a cache. ``kv_cache``:
+        the layer's cache. A call with
         S > 1 tokens is a prefill into an empty cache; S == 1 is a decode
         step. Positions continue from the cache's lengths."""
         b, s = x.shape[:2]
@@ -70,8 +72,13 @@ class MultiHeadAttention(nn.Module):
             ctx = self._cached_attention(q, k, v, kv_cache,
                                          sequence_descriptor)
         else:
-            ctx = flash_attention(q, k, v, sequence_descriptor,
-                                  attn_mask_type=AttnMaskType.CAUSAL)
+            # Training and cache-free forward: the reference's
+            # DotProductAttention through fused_attn (flash backend).
+            ctx = fused_attn(
+                (q, k, v), sequence_descriptor,
+                attn_mask_type=(AttnMaskType.PADDING_CAUSAL
+                                if sequence_descriptor is not None
+                                else AttnMaskType.CAUSAL))
         return self.out(ctx.reshape(b, s, hq * d))
 
     def _cached_attention(self, q, k, v, cache: KVCache,

@@ -1,5 +1,6 @@
-"""Activations (counterpart of transformerengine_tpu/ops/activation.py),
-forward only. Computed in f32; callers cast back.
+"""Activations and their gradients (counterpart of
+transformerengine_tpu/ops/activation.py act_lu / dact_lu). Computed in
+f32; results take the input's dtype.
 
 Gated activations take ``[..., 2, H]``: ``act(x[..., 0, :]) *
 x[..., 1, :]``, so SwiGLU applies SiLU to the first half of the
@@ -50,6 +51,36 @@ def act_lu(x: torch.Tensor,
     else:
         out = _ACT[acts[0]](x)
     return out.to(x.dtype)
+
+
+def _dsilu(x: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """The VJP of ``x * sigmoid(x)`` in the order the reference's
+    autodiff takes: ``dout * s + (dout * x) * (s * (1 - s))``."""
+    s = torch.sigmoid(x)
+    return dout * s + (dout * x) * (s * (1.0 - s))
+
+
+def _dact(name: str, x: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    if name in ("silu", "swish"):
+        return _dsilu(x, dout)
+    return dout
+
+
+def dact_lu(dz: torch.Tensor, x: torch.Tensor,
+            activation_type: Union[str, Sequence[str]] = "swiglu"
+            ) -> torch.Tensor:
+    """The VJP of :func:`act_lu` at ``x`` for the output gradient ``dz``,
+    in ``x``'s dtype. Gated: ``x`` is [..., 2, H] and so is the result."""
+    acts = normalize_activation_type(activation_type)
+    dzf = dz.float()
+    if len(acts) == 2:
+        x0, x1 = x[..., 0, :].float(), x[..., 1, :].float()
+        a, g = _ACT[acts[0]](x0), _ACT[acts[1]](x1)
+        dx = torch.stack([_dact(acts[0], x0, dzf * g),
+                          _dact(acts[1], x1, dzf * a)], dim=-2)
+    else:
+        dx = _dact(acts[0], x.float(), dzf)
+    return dx.to(x.dtype)
 
 
 def swiglu(x: torch.Tensor) -> torch.Tensor:

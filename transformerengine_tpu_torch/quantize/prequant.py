@@ -42,6 +42,11 @@ class PrequantizedKernel(nn.Module):
         return self.logical_shape
 
     @property
+    def dtype(self) -> torch.dtype:
+        """The dtype the kernel had before it was prequantized."""
+        return self.dq_dtype
+
+    @property
     def colwise(self):
         """What the GEMMs read: a resident ScaledTensor1x, or the plain
         (N, K) tensor."""

@@ -1,5 +1,6 @@
 """Per-tensor quantization math (counterpart of the tensor-scaling half of
-transformerengine_tpu/quantize/qmath.py). These functions are bit-exact
+transformerengine_tpu/quantize/qmath.py), for current and delayed
+scaling. These functions are bit-exact
 to the reference: f32 amax, f32 scale = q_max / amax, and a clip to the
 format's range BEFORE the round-to-nearest-even cast, so no value relies
 on the cast's own overflow behaviour."""
@@ -31,6 +32,16 @@ def compute_scale_from_amax(amax, q_dtype: torch.dtype,
 def saturate_cast(x: torch.Tensor, q_dtype: torch.dtype) -> torch.Tensor:
     m = dtype_max(q_dtype)
     return x.float().clamp(-m, m).to(q_dtype)
+
+
+def tensor_scale_quantize(x: torch.Tensor, q_dtype: torch.dtype,
+                          scale: torch.Tensor):
+    """Quantizes with a given f32 scale (delayed scaling). Returns (data,
+    scale_inv (1,), amax)."""
+    amax = compute_amax(x)
+    scale = scale.float().reshape(())
+    data = saturate_cast(x.float() * scale, q_dtype)
+    return data, (1.0 / scale).reshape(1), amax
 
 
 def current_scale_quantize(x: torch.Tensor, q_dtype: torch.dtype):

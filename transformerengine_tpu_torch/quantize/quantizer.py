@@ -1,41 +1,213 @@
 """Quantizers (counterpart of transformerengine_tpu/quantize/quantizer.py),
-ported for per-tensor current scaling in one orientation."""
+for the two per-tensor recipes: current scaling and delayed scaling.
+
+A quantizer is a frozen dataclass. Delayed scaling's state (``scale`` and
+``amax_history``) is held in tensors; :meth:`DelayedScaleQuantizer.update`
+returns a new quantizer with the rolled state, as the reference does, and
+:meth:`QuantizerSet.write_back` copies such a state into the tensors of
+the set it was computed from, in place. The layers call it once per
+backward pass, which is how the reference's "the quantizer set's
+cotangent is the updated state" reaches the buffers of an ``nn`` module.
+
+Both orientations at once (``QuantizeLayout.ROWWISE_COLWISE``) go through
+``ops/quantize_kernels.cast_transpose``, and ``quantize_normed`` through
+``norm_cast_transpose``: the kernels on CUDA tensors, their plain versions
+on CPU tensors.
+"""
 from __future__ import annotations
 
 import dataclasses
 import enum
+from typing import ClassVar, Optional
 
 import torch
 
+from ..ops import quantize_kernels as qk
 from . import qmath
-from .tensor import ScaledTensor1x
+from .tensor import ScaledTensor1x, ScaledTensor2x
 
 
 class QuantizeLayout(enum.Enum):
     ROWWISE = enum.auto()
     COLWISE = enum.auto()
+    ROWWISE_COLWISE = enum.auto()
 
 
 @dataclasses.dataclass(frozen=True)
-class CurrentScaleQuantizer:
-    """Per-tensor scaling from the current amax. ROWWISE keeps the
-    logical layout; COLWISE stores the 2D view transposed, so the
-    quantized axis is again the last one (the (N, K) layout a TN GEMM
-    reads)."""
+class Quantizer:
+    """Base of the per-tensor quantizers. ROWWISE keeps the logical
+    layout; COLWISE stores the 2D view (leading dims folded) transposed,
+    so the quantized axis is again the last one (the (N, K) layout a TN
+    GEMM reads); ROWWISE_COLWISE returns both as a ScaledTensor2x."""
 
     q_dtype: torch.dtype
     q_layout: QuantizeLayout = QuantizeLayout.ROWWISE
 
-    def quantize(self, x: torch.Tensor, *, dq_dtype=None) -> ScaledTensor1x:
-        """Quantizes ``x`` (any rank; its 2D view folds the leading
-        dims)."""
+    is_tensor_scaling: ClassVar[bool] = True
+
+    def _quantize_2d(self, x2d):
+        """(data, scale_inv (1,), amax) of a 2D tensor."""
+        raise NotImplementedError
+
+    def _fused_2x(self, x2d):
+        """(row, scale_inv, col, amax) of both orientations from one pass
+        (``cast_transpose``)."""
+        raise NotImplementedError
+
+    def quantize(self, x: torch.Tensor, *, dq_dtype=None,
+                 layout: Optional[QuantizeLayout] = None):
+        """Quantizes ``x`` (any rank; its 2D view folds the leading dims).
+        ``layout`` overrides the quantizer's own ``q_layout``."""
+        q_layout = layout if layout is not None else self.q_layout
         dq_dtype = dq_dtype or x.dtype
         x2d = x.reshape(-1, x.shape[-1])
-        if self.q_layout is QuantizeLayout.ROWWISE:
-            data, s_inv, amax = qmath.current_scale_quantize(x2d, self.q_dtype)
+        t_shape = (x.shape[-1],) + tuple(x.shape[:-1])
+        if q_layout is QuantizeLayout.COLWISE:
+            data, s_inv, amax = self._quantize_2d(x2d.t())
+            return ScaledTensor1x(data.contiguous().reshape(t_shape), s_inv,
+                                  amax, dq_dtype, layout="T")
+        if q_layout is QuantizeLayout.ROWWISE:
+            data, s_inv, amax = self._quantize_2d(x2d)
             return ScaledTensor1x(data.reshape(x.shape), s_inv, amax,
                                   dq_dtype, layout="N")
-        data, s_inv, amax = qmath.current_scale_quantize(x2d.t(), self.q_dtype)
-        t_shape = (x.shape[-1],) + tuple(x.shape[:-1])
-        return ScaledTensor1x(data.contiguous().reshape(t_shape), s_inv, amax,
-                              dq_dtype, layout="T")
+        row, s_inv, col, amax = self._fused_2x(x2d)
+        return ScaledTensor2x(
+            rowwise=ScaledTensor1x(row.reshape(x.shape), s_inv, amax,
+                                   dq_dtype, layout="N"),
+            colwise=ScaledTensor1x(col.reshape(t_shape), s_inv, amax,
+                                   dq_dtype, layout="T"))
+
+    def update(self, amax) -> "Quantizer":
+        """End-of-step state update (the quantizer itself when it keeps
+        no state)."""
+        return self
+
+
+@dataclasses.dataclass(frozen=True)
+class CurrentScaleQuantizer(Quantizer):
+    """Per-tensor scaling from the current amax."""
+
+    def _quantize_2d(self, x2d):
+        return qmath.current_scale_quantize(x2d, self.q_dtype)
+
+    def _fused_2x(self, x2d):
+        amax = qmath.compute_amax(x2d)
+        scale = qmath.compute_scale_from_amax(amax, self.q_dtype)
+        row, col, _ = qk.cast_transpose(x2d, scale.reshape(1), self.q_dtype)
+        return row, (1.0 / scale).reshape(1), col, amax
+
+
+def _ones_scale():
+    return torch.ones((1,), dtype=torch.float32)
+
+
+def _zero_history():
+    return torch.zeros((1024,), dtype=torch.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class DelayedScaleQuantizer(Quantizer):
+    """Per-tensor scaling from an amax history carried across steps:
+    ``scale`` (1,) f32 quantizes this step; :meth:`update` records this
+    step's amax, rolls the history and computes the next scale."""
+
+    scale: torch.Tensor = dataclasses.field(default_factory=_ones_scale)
+    amax_history: torch.Tensor = dataclasses.field(
+        default_factory=_zero_history)
+    margin: float = 0.0
+    amax_compute_algo: str = "max"
+
+    def _quantize_2d(self, x2d):
+        return qmath.tensor_scale_quantize(x2d, self.q_dtype, self.scale)
+
+    def _fused_2x(self, x2d):
+        row, col, amax = qk.cast_transpose(x2d, self.scale.reshape(1),
+                                           self.q_dtype)
+        s_inv = (1.0 / self.scale.float()).reshape(1)
+        return row, s_inv, col, amax.reshape(())
+
+    def quantize_normed(self, x2d: torch.Tensor, gamma: torch.Tensor,
+                        beta: Optional[torch.Tensor], *, norm: str,
+                        zero_centered_gamma: bool, epsilon: float,
+                        dq_dtype=None, layout=None):
+        """Normalization fused with the quantize of both orientations:
+        (ScaledTensor2x, mu or None, rsigma (M,)), bit-identical to
+        ``ops/normalization`` followed by :meth:`quantize`; the rowwise
+        ScaledTensor1x alone for ``layout=ROWWISE``. None when the shape
+        rule of the fused kernel (M % 8 == 0, H % 128 == 0, M >= 256)
+        does not hold."""
+        m, h = x2d.shape
+        if m % 8 or h % 128 or m < 256:
+            return None
+        outs = qk.norm_cast_transpose(
+            x2d, gamma, beta, self.scale.reshape(1), self.q_dtype, norm=norm,
+            zero_centered_gamma=zero_centered_gamma, epsilon=epsilon)
+        row, col, amax, rsigma = outs[:4]
+        amax = amax.reshape(())
+        mu = outs[4].reshape(m) if norm == "layernorm" else None
+        dq_dtype = dq_dtype or x2d.dtype
+        s_inv = (1.0 / self.scale.float()).reshape(1)
+        rw = ScaledTensor1x(row, s_inv, amax, dq_dtype, layout="N")
+        if layout is QuantizeLayout.ROWWISE:
+            return rw, mu, rsigma.reshape(m)
+        cw = ScaledTensor1x(col, s_inv, amax, dq_dtype, layout="T")
+        return ScaledTensor2x(rowwise=rw, colwise=cw), mu, rsigma.reshape(m)
+
+    def update(self, amax) -> "DelayedScaleQuantizer":
+        """Records ``amax`` in slot 0 of the history, reduces the history
+        (``max`` or ``most_recent``), computes the next scale with the
+        margin, then rolls the history by one and clears slot 0."""
+        hist = self.amax_history.float().clone()
+        hist[0] = torch.as_tensor(amax, dtype=torch.float32,
+                                  device=hist.device).reshape(())
+        amax_red = hist.max() if self.amax_compute_algo == "max" else hist[0]
+        new_scale = qmath.compute_scale_from_amax(amax_red, self.q_dtype,
+                                                  self.margin)
+        new_hist = torch.roll(hist, -1)
+        new_hist[0] = 0.0
+        return dataclasses.replace(self, scale=new_scale.reshape(1),
+                                   amax_history=new_hist)
+
+    def write_back(self, new: "DelayedScaleQuantizer") -> None:
+        """Copies ``new``'s state into this quantizer's tensors."""
+        self.scale.copy_(new.scale)
+        self.amax_history.copy_(new.amax_history)
+
+
+@dataclasses.dataclass(frozen=True)
+class NoopQuantizer(Quantizer):
+    """Pass-through quantizer for a tensor role left in high precision."""
+
+    def quantize(self, x, *, dq_dtype=None, layout=None):
+        return x
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantizerSet:
+    """The quantizers of one GEMM: activation input, weight and incoming
+    gradient."""
+
+    x: Optional[Quantizer]
+    kernel: Optional[Quantizer]
+    dgrad: Optional[Quantizer]
+
+    def update(self, amaxes: "QuantizerSet") -> "QuantizerSet":
+        """Each quantizer updated with the matching entry of ``amaxes``."""
+        return QuantizerSet(
+            x=self.x.update(amaxes.x) if self.x is not None else None,
+            kernel=(self.kernel.update(amaxes.kernel)
+                    if self.kernel is not None else None),
+            dgrad=(self.dgrad.update(amaxes.dgrad)
+                   if self.dgrad is not None else None))
+
+    def write_back(self, new: "QuantizerSet") -> None:
+        """Copies the state of ``new`` (computed from this set by
+        :meth:`update`) into this set's tensors, in place: a module's
+        quantizer set holds its buffers, so they take the new state."""
+        for role in ("x", "kernel", "dgrad"):
+            q = getattr(self, role)
+            if isinstance(q, DelayedScaleQuantizer):
+                q.write_back(getattr(new, role))
+
+
+noop_quantizer_set = QuantizerSet(x=None, kernel=None, dgrad=None)

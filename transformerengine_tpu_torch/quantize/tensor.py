@@ -1,5 +1,6 @@
 """Quantized tensors (counterpart of transformerengine_tpu/quantize/
-tensor.py), per-tensor scaling only."""
+tensor.py), per-tensor scaling only: one usage (``ScaledTensor1x``) or
+both (``ScaledTensor2x``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -37,3 +38,26 @@ class ScaledTensor1x:
         """The high-precision tensor, in stored orientation."""
         return (self.data.float() * self.scale_inv.float().reshape(())
                 ).to(self.dq_dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class ScaledTensor2x:
+    """Rowwise (layout "N") and colwise (layout "T") usages of one tensor.
+    Under per-tensor scaling both share one scale, so the colwise payload
+    is the exact transpose of the rowwise one."""
+
+    rowwise: ScaledTensor1x
+    colwise: ScaledTensor1x
+
+    def dequantize(self) -> torch.Tensor:
+        return self.rowwise.dequantize()
+
+
+def get_rowwise(x):
+    """The rowwise usage of a ScaledTensor2x; anything else as it is."""
+    return x.rowwise if isinstance(x, ScaledTensor2x) else x
+
+
+def get_colwise(x):
+    """The colwise usage of a ScaledTensor2x; anything else as it is."""
+    return x.colwise if isinstance(x, ScaledTensor2x) else x
