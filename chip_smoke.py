@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases 3,4,5,6,7] [--train-seeds 21]
+    python3 chip_smoke.py [--phases 3,4,5,6,7,8] [--train-seeds 21]
 
 Phases, each of which raises (and so exits non-zero) on failure:
   1. the card's name and power limit (nvidia-smi);
@@ -13,7 +13,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
      on this card; then its other dtypes, head dims, masks and options at
      small shapes. The fused quantize kernels are reached through the
      quantizer API (``DelayedScaleQuantizer.quantize`` in the 2x layout
-     and ``quantize_normed``);
+     and ``quantize_normed``), the MXFP8 norm kernel through
+     ``BlockScaleQuantizer.quantize_normed``;
   4. FP8-resident serving at LLAMA_8B width (seeded random weights, FP8
      KV cache, B = 8, prompts of 512 and 384 tokens, 32 new tokens)
      through prefill and decode_steps, with TTFT, decode ms/step, tok/s
@@ -30,14 +31,21 @@ Phases, each of which raises (and so exits non-zero) on failure:
      activations (both orientations, and the fused norm + cast), held to
      the layers' one-orientation payloads;
   7. training, the card against the CPU: one step of two layers at
-     LLAMA_8B width, B = 1, S = 256, without a recipe and under
-     DelayedScaling: loss, every gradient (in norm and largest element),
-     the updated scales and the residual stream layer by layer; beside
-     them, the CPU's own difference when its attention runs unfused. The
-     same card step with planted faults must fail the gradient check.
+     LLAMA_8B width, B = 1, S = 256, without a recipe, under
+     DelayedScaling and under MXFP8BlockScaling: loss, every gradient
+     (in norm and largest element), the updated scales and the residual
+     stream layer by layer; beside them, the CPU's own difference when
+     its attention runs unfused. The same card step with planted faults
+     must fail the gradient check;
+  8. MXFP8 training at LLAMA_8B width, 4 layers, B = 2, S = 2048, under
+     MXFP8BlockScaling(): five SGD steps with finite losses and exact
+     launch counts of the three MXFP8 kernels and flash attention, ms/step,
+     tokens/s, peak memory, the device's busy share and top kernels beside
+     phase 6's DelayedScaling step; then the forward without a gradient
+     at the same shape, with its own exact launch counts.
 Then one ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 A kernel's ``launches`` is the sum of its counts over the runs of the
-paths (phases 4 and 6), each counted from zero; comparisons with the
+paths (phases 4, 6 and 8), each counted from zero; comparisons with the
 plain versions do not count. ``--phases`` runs a subset (for iterating on
 one path); the default runs all. ``--train-seeds`` gives phase 7 other
 seeds (``21,22,23`` reads what its limits were set from).
@@ -741,6 +749,244 @@ def check_train_variants(torch) -> None:
                             f"beta={beta} {qt}", got, ref, scale)
 
 
+# The MLP's activation at the training shape and a hidden-sized tensor.
+MXFP8_SHAPES = ((TRAIN_B * TRAIN_S, 14336), (TRAIN_B * TRAIN_S, 4096))
+
+
+def mxfp8_input(torch, g, m: int, n: int, dtype=None, mag: float = 1.0):
+    """Normal values, the second half of the rows 2^10 larger: a colwise
+    block that took a row's scale would be far off."""
+    x = torch.randn((m, n), generator=g, device="cuda") * mag
+    x[m // 2:] *= 1024.0
+    return x.to(dtype or torch.bfloat16)
+
+
+def check_mxfp8_equal(torch, name: str, got, ref,
+                      parts=("row", "col", "srow", "scol")) -> None:
+    """Holds MXFP8 payloads and scale grids (None where absent) to the
+    plain version's, byte for byte."""
+    found, ok = [], True
+    for part, a, r in zip(parts, got, ref):
+        if r is None and a is None:
+            continue
+        n = payload_diff(torch, a, r)[0] if a.shape == r.shape else -1
+        found.append(f"{part} {n}")
+        ok = ok and n == 0
+    log(f"  {name}: bytes that differ from the plain version: "
+        f"{', '.join(found)} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: MXFP8 bytes are not equal")
+
+
+def check_mxfp8_quantize(torch, timer, results):
+    from transformerengine_tpu_torch.ops.quantize_kernels import (
+        mxfp8_quantize_1x, mxfp8_quantize_1x_plain, mxfp8_quantize_2x,
+        mxfp8_quantize_2x_plain)
+    e4m3 = torch.float8_e4m3fn
+    log(f"[3i] mxfp8_quantize_2x and mxfp8_quantize_1x: {MXFP8_SHAPES} "
+        f"bf16 -> e4m3 with E8M0 scales, rows of two magnitudes 2^10 apart")
+    g = torch.Generator(device="cuda").manual_seed(9)
+    for m, n in MXFP8_SHAPES:
+        x = mxfp8_input(torch, g, m, n)
+        got = mxfp8_quantize_2x(x)
+        torch.cuda.synchronize()
+        check_mxfp8_equal(torch, f"2x ({m}, {n})", got,
+                          mxfp8_quantize_2x_plain(x, e4m3))
+        for colwise in (False, True):
+            got = mxfp8_quantize_1x(x, colwise=colwise)
+            torch.cuda.synchronize()
+            check_mxfp8_equal(
+                torch, f"1x {'colwise' if colwise else 'rowwise'} ({m}, {n})",
+                got, mxfp8_quantize_1x_plain(x, e4m3, colwise=colwise),
+                ("data", "scale"))
+        ms2 = timer(lambda: mxfp8_quantize_2x(x))
+        plain2 = timer(lambda: mxfp8_quantize_2x_plain(x, e4m3))
+        ms_row = timer(lambda: mxfp8_quantize_1x(x))
+        ms_col = timer(lambda: mxfp8_quantize_1x(x, colwise=True))
+        plain1 = timer(lambda: mxfp8_quantize_1x_plain(x, e4m3,
+                                                       colwise=True))
+        # Read x once; write each payload and its grid, a byte an element
+        # and a byte per 32; about four f32 operations an element and
+        # orientation (abs, max, multiply, clip).
+        el = m * n
+        b2, by2 = bound_ms(2 * el + 2 * (el + el // 32), 8 * el, F32_FLOPS)
+        b1, by1 = bound_ms(2 * el + el + el // 32, 4 * el, F32_FLOPS)
+        log(f"  ({m}, {n}): 2x kernel {ms2:.4f} ms, plain {plain2:.4f} ms, "
+            f"bound {b2:.4f} ms ({by2}); 1x rowwise {ms_row:.4f} ms, "
+            f"colwise {ms_col:.4f} ms, plain (colwise) {plain1:.4f} ms, bound "
+            f"{b1:.4f} ms ({by1})")
+        if n != 14336:
+            continue
+        results["mxfp8_quantize_2x"] = dict(
+            name="mxfp8_quantize_2x", route="cuda",
+            source="transformerengine_tpu_torch/csrc/mxfp8_quantize.cu",
+            replaces="transformerengine_tpu/ops/quantize_kernels.py:826",
+            max_abs_err=0.0, ms=ms2, plain_ms=plain2, bound_ms=b2,
+            bound_by=by2, library_ms=None,
+            shape=f"({m}, {n}) bf16 -> e4m3 + E8M0, both orientations")
+        results["mxfp8_quantize_1x"] = dict(
+            name="mxfp8_quantize_1x", route="cuda",
+            source="transformerengine_tpu_torch/csrc/mxfp8_quantize.cu",
+            replaces="transformerengine_tpu/ops/quantize_kernels.py:765",
+            max_abs_err=0.0, ms=(ms_row + ms_col) / 2, plain_ms=plain1,
+            bound_ms=b1, bound_by=by1, library_ms=None,
+            shape=f"({m}, {n}) bf16 -> e4m3 + E8M0, one orientation (the "
+                  f"mean of rowwise {ms_row:.4f} and colwise {ms_col:.4f} ms)")
+
+
+def check_mxfp8_norm_outs(torch, name: str, outs, x, gamma, beta, kw):
+    """Holds mxfp8_norm_quantize_2x's (row, col, srow, scol, rsigma[, mu])
+    to its plain version: payloads and grids byte for byte to the plain
+    normalize and quantize from the kernel's own statistics; the
+    statistics to the plain version's within f32 ulps; and against the
+    fully plain version (statistics summed in another order) at most one
+    byte in 10^5 one step apart. Returns the largest difference of the
+    rowwise dequantized values against the fully plain version's."""
+    from transformerengine_tpu_torch.ops.quantize_kernels import (
+        mxfp8_norm_quantize_2x_plain)
+    from transformerengine_tpu_torch.quantize.scaling_modes import (
+        ScalingMode)
+    from transformerengine_tpu_torch.quantize.tensor import ScaledTensor1x
+    layernorm = kw["norm"] == "layernorm"
+    q = outs[0].dtype
+    own = mxfp8_norm_quantize_2x_plain(
+        x, gamma, beta, q, stats=(outs[5] if layernorm else None, outs[4]),
+        **kw)
+    check_mxfp8_equal(torch, f"{name} (its own statistics)", outs[:4],
+                      own[:4])
+    ref = mxfp8_norm_quantize_2x_plain(x, gamma, beta, q, **kw)
+    check(f"{name} rsigma", outs[4], ref[4],
+          RSIGMA_RTOL * float(ref[4].abs().max()))
+    if layernorm:
+        check(f"{name} mu", outs[5], ref[5],
+              1e-6 * float(ref[5].abs().max()) + 1e-7)
+    for part, a, r in zip(("row", "col", "srow", "scol"), outs[:4], ref[:4]):
+        if r is None:
+            continue
+        n, dist, _ = payload_diff(torch, a, r)
+        limit = NORM_DIFF_SHARE * r.numel()
+        ok = n <= limit and dist <= 1
+        log(f"  {name} {part} against the fully plain version: {n} of "
+            f"{r.numel()} bytes differ (limit {limit:.0f}), largest code "
+            f"distance {dist} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} {part} disagrees")
+
+    def values(row, srow):
+        return ScaledTensor1x(row, srow, None, torch.float32,
+                              scaling_mode=ScalingMode.MXFP8_1D_SCALING
+                              ).dequantize()
+    return float((values(outs[0], outs[2]) - values(ref[0], ref[2])).abs()
+                 .max())
+
+
+def check_mxfp8_norm(torch, timer, results):
+    from transformerengine_tpu_torch.ops.quantize_kernels import (
+        mxfp8_norm_quantize_2x_plain)
+    from transformerengine_tpu_torch.quantize.quantizer import (
+        BlockScaleQuantizer, QuantizeLayout)
+    m, h = TRAIN_B * TRAIN_S, 4096
+    e4m3 = torch.float8_e4m3fn
+    log(f"[3j] mxfp8_norm_quantize_2x through "
+        f"BlockScaleQuantizer.quantize_normed: RMSNorm of the layers' "
+        f"({m}, {h}) bf16 input, e4m3, both orientations and rowwise-only")
+    g = torch.Generator(device="cuda").manual_seed(10)
+    x = torch.randn((m, h), generator=g, device="cuda").to(torch.bfloat16)
+    gamma = 1 + 0.1 * torch.randn((h,), generator=g, device="cuda")
+    quant = BlockScaleQuantizer(e4m3, QuantizeLayout.ROWWISE_COLWISE)
+    kw = dict(norm="rmsnorm", zero_centered_gamma=False, epsilon=1e-5)
+    err, ms = 0.0, {}
+    for layout in (None, QuantizeLayout.ROWWISE):
+        ro = layout is not None
+
+        def fused(layout=layout):
+            return quant.quantize_normed(x, gamma, None, layout=layout, **kw)
+
+        out, _, rsigma = fused()
+        torch.cuda.synchronize()
+        rw, cw = (out, None) if ro else (out.rowwise, out.colwise)
+        outs = (rw.data, None if ro else cw.data, rw.scale_inv,
+                None if ro else cw.scale_inv, rsigma.reshape(m, 1))
+        err = max(err, check_mxfp8_norm_outs(
+            torch, "rmsnorm rowwise-only" if ro else "rmsnorm 2x", outs, x,
+            gamma, None, dict(kw, rowwise_only=ro)))
+        ms[ro] = timer(fused)
+    plain_ms = timer(lambda: mxfp8_norm_quantize_2x_plain(x, gamma, None,
+                                                          e4m3, **kw))
+    # Read x and gamma, write two payloads, two grids and rsigma; about
+    # fourteen f32 operations an element (square, sum, normalize, scale,
+    # round, and both orientations' abs, max, multiply, clip).
+    el = m * h
+    b_ms, b_by = bound_ms(2 * el + 4 * h + 2 * (el + el // 32) + 4 * m,
+                          14 * el, F32_FLOPS)
+    log(f"  2x kernel {ms[False]:.4f} ms, rowwise-only {ms[True]:.4f} ms, "
+        f"plain (2x) {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    results["mxfp8_norm_quantize_2x"] = dict(
+        name="mxfp8_norm_quantize_2x", route="cuda",
+        source="transformerengine_tpu_torch/csrc/mxfp8_norm_quantize.cu",
+        replaces="transformerengine_tpu/ops/quantize_kernels.py:553",
+        max_abs_err=err, ms=ms[False], plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None,
+        shape=f"RMSNorm ({m}, {h}) bf16 -> e4m3 + E8M0, both orientations "
+              f"(rowwise-only {ms[True]:.4f} ms)")
+
+
+def check_mxfp8_variants(torch) -> None:
+    """The MXFP8 kernels' other dtypes, formats and shapes, each against
+    its plain version on the card."""
+    from transformerengine_tpu_torch.ops.quantize_kernels import (
+        mxfp8_norm_quantize_2x, mxfp8_quantize_2x, mxfp8_quantize_2x_plain)
+    from transformerengine_tpu_torch.quantize.quantizer import (
+        BlockScaleQuantizer, QuantizeLayout)
+    log("[3k] MXFP8 kernels' other variants at small shapes")
+    g = torch.Generator(device="cuda").manual_seed(11)
+    f32, bf16 = torch.float32, torch.bfloat16
+    e4m3, e5m2 = torch.float8_e4m3fn, torch.float8_e5m2
+    # Ragged shapes; f32 and e5m2; blocks below the E8M0 clip (amax under
+    # 2^-118: exponent -127, multiplier 2^127) with subnormal elements;
+    # all-zero blocks; gradient-sized values.
+    for m, n, xt, qt, mag in ((100, 37, bf16, e4m3, 3.0),
+                              (24, 40, f32, e5m2, 1.0),
+                              (33, 4097, f32, e4m3, 1e-37),
+                              (256, 384, bf16, e4m3, 1e-5),
+                              (96, 160, f32, e5m2, 2.0 ** 20)):
+        x = mxfp8_input(torch, g, m, n, f32, mag)
+        if mag < 1e-30:
+            x[:, :64] *= 2.0 ** -12           # subnormal elements
+        x[:32, :32] = 0.0
+        x = x.to(xt)
+        check_mxfp8_equal(torch, f"2x ({m}, {n}) {xt} -> {qt} magnitude "
+                          f"{mag:g}", mxfp8_quantize_2x(x, qt),
+                          mxfp8_quantize_2x_plain(x, qt))
+        if m == 100:
+            quant = BlockScaleQuantizer(qt, QuantizeLayout.ROWWISE_COLWISE)
+            for layout in (QuantizeLayout.ROWWISE, QuantizeLayout.COLWISE):
+                t = quant.quantize(x, layout=layout)
+                ref = quant._quantize_2d(x if layout is QuantizeLayout.ROWWISE
+                                         else x.t())
+                check_mxfp8_equal(torch, f"quantizer API {layout.name} "
+                                  f"({m}, {n})", (t.data, t.scale_inv),
+                                  ref[:2], ("data", "scale"))
+    # The fused norm: LayerNorm with beta and zero-centered gamma, an f32
+    # LayerNorm rowwise-only to e5m2, RMSNorm with zero-centered gamma.
+    for m, h, xt, norm, zcg, beta, qt, ro in (
+            (256, 384, bf16, "layernorm", True, True, e4m3, False),
+            (64, 96, f32, "layernorm", False, True, e5m2, True),
+            (512, 1024, bf16, "rmsnorm", True, False, e4m3, False)):
+        x = (torch.randn((m, h), generator=g, device="cuda") * 2 + 0.5).to(xt)
+        gamma = torch.randn((h,), generator=g, device="cuda") * 0.2 + \
+            (0.0 if zcg else 1.0)
+        bt = torch.randn((h,), generator=g, device="cuda") * 0.1 \
+            if beta else None
+        kw = dict(norm=norm, zero_centered_gamma=zcg, epsilon=1e-5,
+                  rowwise_only=ro)
+        check_mxfp8_norm_outs(
+            torch, f"{norm} ({m}, {h}) {xt} zcg={zcg} beta={beta} {qt} "
+            f"rowwise_only={ro}", mxfp8_norm_quantize_2x(x, gamma, bt, qt,
+                                                         **kw),
+            x, gamma, bt, kw)
+
+
 def shrink_embedding(model) -> None:
     """Scales the seeded embedding to stddev 0.02, Llama's own init. The
     reference draws it at stddev 1, and with tied input and output
@@ -1168,6 +1414,111 @@ def train(torch, results) -> None:
     del model
 
 
+def mxfp8_counts(layers: int, train: bool) -> dict:
+    """The launches of one MXFP8 training step or forward without a
+    gradient. Per layer and step: the fused norm + 2x quantize of the
+    attention's and the MLP's input; the 2x quantize of the QKV kernel,
+    the attention output and its kernel, the MLP's up kernel, its
+    activation and its down kernel in the forward, and of each GEMM's
+    gradient (four) in the backward; a flash forward and backward.
+    Without a gradient: the QKV GEMM's input after its unfused norm and
+    the attention output rowwise, the four kernels colwise and the MLP's
+    activation rowwise (seven 1x quantizes), the MLP's fused norm
+    rowwise-only, and a flash forward."""
+    if train:
+        return {"mxfp8_norm_quantize_2x": 2 * layers,
+                "mxfp8_quantize_2x": 10 * layers,
+                "flash_attention_fwd": layers,
+                "flash_attention_bwd_dq": layers,
+                "flash_attention_bwd_dkv": layers}
+    return {"mxfp8_norm_quantize_2x": layers, "mxfp8_quantize_1x": 7 * layers,
+            "flash_attention_fwd": layers}
+
+
+def train_mxfp8(torch, results) -> None:
+    from transformerengine_tpu_torch import MXFP8BlockScaling, _build, autocast
+    from transformerengine_tpu_torch.models.llama import LLAMA_8B, LlamaModel
+    cfg = dataclasses.replace(LLAMA_8B, num_layers=TRAIN_LAYERS)
+    b, s = TRAIN_B, TRAIN_S
+    recipe = MXFP8BlockScaling()
+    log(f"[8] MXFP8 training: LLAMA_8B width, {TRAIN_LAYERS} layers, B={b} "
+        f"S={s}, MXFP8BlockScaling() (E4M3, E8M0 scales per 32), "
+        f"{TRAIN_STEPS} SGD steps at lr {TRAIN_LR} on one batch, then the "
+        f"forward without a gradient")
+    torch.cuda.reset_peak_memory_stats()
+    model = LlamaModel(cfg, device=CARD, seed=0)
+    shrink_embedding(model)
+    tokens, targets = train_batch(torch, cfg.vocab_size, b, s, CARD)
+    expect = mxfp8_counts(TRAIN_LAYERS, True)
+    totals = collections.Counter()
+    losses, times = [], []
+    for step in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        loss = float(train_step(torch, model, tokens, targets, recipe))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts = dict(_build.LAUNCHES)
+        _build.LAUNCHES.clear()
+        totals.update(counts)
+        losses.append(loss)
+        if counts != expect:
+            raise AssertionError(f"step {step + 1} launched {counts}, "
+                                 f"expected {expect}")
+        if not math.isfinite(loss):
+            raise AssertionError(f"step {step + 1}: loss {loss}")
+    step_ms = statistics.median(times[1:]) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"  losses {[round(x, 5) for x in losses]} (all finite); launches "
+        f"per step {expect} in every step ok")
+    log(f"  step times {[round(t * 1e3, 2) for t in times]} ms; median of "
+        f"steps 2-{TRAIN_STEPS} {step_ms:.2f} ms/step, "
+        f"{b * s / (step_ms / 1e3):.0f} tok/s, peak {peak:.2f} GiB")
+    stats = dict(ms_per_step=step_ms, tok_per_s=b * s / (step_ms / 1e3),
+                 losses=losses, layers=TRAIN_LAYERS, peak_gib=peak)
+    delayed = results.get("_train", {}).get("ms_per_step")
+    if delayed:
+        log(f"  beside phase 6's DelayedScaling step: {delayed:.2f} ms/step "
+            f"({step_ms / delayed:.3f}x)")
+    busy, wall, kernels = device_profile(
+        torch, lambda: train_step(torch, model, tokens, targets, recipe), 1)
+    log_profile("mxfp8 step", stats, busy, wall, kernels, 1)
+
+    expect_fwd = mxfp8_counts(TRAIN_LAYERS, False)
+    fwd_times = []
+    with torch.no_grad(), autocast(recipe=recipe):
+        for _ in range(3):
+            torch.cuda.synchronize()
+            _build.LAUNCHES.clear()
+            t0 = time.perf_counter()
+            logits = model(tokens)
+            torch.cuda.synchronize()
+            fwd_times.append(time.perf_counter() - t0)
+            counts = dict(_build.LAUNCHES)
+            _build.LAUNCHES.clear()
+            if counts != expect_fwd:
+                raise AssertionError(f"forward without a gradient launched "
+                                     f"{counts}, expected {expect_fwd}")
+            totals.update(counts)
+    if logits.shape != (b, s, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError("the forward's logits are not finite")
+    fwd_ms = statistics.median(fwd_times) * 1e3
+    log(f"  forward without a gradient: launches {expect_fwd} in each of 3 "
+        f"runs ok, logits finite, {[round(t * 1e3, 2) for t in fwd_times]} "
+        f"ms (median {fwd_ms:.2f})")
+    stats["forward_ms"] = fwd_ms
+    for name in ("mxfp8_quantize_2x", "mxfp8_quantize_1x",
+                 "mxfp8_norm_quantize_2x", "flash_attention_fwd"):
+        add_launches(results, name, totals[name])
+    add_launches(results, "flash_attention_bwd",
+                 totals["flash_attention_bwd_dq"]
+                 + totals["flash_attention_bwd_dkv"])
+    results["_train_mxfp8"] = stats
+    del model, logits
+
+
 def quantizer_api_path(torch, model, tokens, recipe, results) -> None:
     """The quantizer API on the training step's own activations, counted
     as a path of its own: per layer, the attention block's input through
@@ -1269,12 +1620,19 @@ def quantizer_api_path(torch, model, tokens, recipe, results) -> None:
 # between the readings and the planted dK with little room on either
 # side, and the bf16 check is the sharp one for the kernels. The loss
 # limits cover the unfused attention's readings (up to 1.28e-2 under
-# DelayedScaling). The phase runs the planted faults every time; each
-# must fail the gradient-norm limit.
+# DelayedScaling). Under MXFP8BlockScaling (E4M3 both ways, flips of one
+# e4m3 step, 6-12 %) seeds 21-23 read gnorm 0.0986 to 0.101 (the CPU
+# against its own unfused attention 0.109 to 0.111), grad 0.087 to 0.122,
+# loss 3.1e-4 to 4.2e-3 (unfused 1.2e-3 to 8.0e-3); the planted dK 0.288
+# to 0.293, the planted colwise fault above 5e5 (an H100 80GB HBM3 at
+# 700 W; PERF.md, section 6). The MXFP8 gnorm limit sits 2x above the
+# readings and 1.4x below the planted dK. The phase runs the planted faults every
+# time; each must fail the gradient-norm limit.
 TRAIN_VS_CPU_SEED = 21
 TRAIN_VS_CPU_LIMITS = {
     "bf16": dict(loss=3e-3, gnorm=2 ** -5, grad=2 ** -5),
-    "delayed": dict(loss=2 ** -5, gnorm=0.25, grad=0.4, scale=2 ** -4)}
+    "delayed": dict(loss=2 ** -5, gnorm=0.25, grad=0.4, scale=2 ** -4),
+    "mxfp8": dict(loss=2 ** -6, gnorm=0.2, grad=0.25)}
 
 
 def step_readings(torch, model, tokens, targets, recipe, dev) -> tuple:
@@ -1318,11 +1676,17 @@ def differences(got, ref) -> dict:
 
 def planted_faults(torch, recipe) -> dict:
     """Faults the comparison must catch, each a context for one card step:
-    dK without the ln 2 of its epilogue, and under DelayedScaling the
-    gradients cast to e4m3 instead of e5m2."""
+    dK without the ln 2 of its epilogue; under DelayedScaling the
+    gradients cast to e4m3 instead of e5m2; under MXFP8 every colwise
+    usage taken as the transpose of the rowwise payload, each element
+    with the rowwise scale of its 32-row block's first row (a quantize
+    that reused the row scales)."""
     import contextlib
-    from transformerengine_tpu_torch.common.recipe import E4M3
+    from transformerengine_tpu_torch.common.recipe import (
+        E4M3, DelayedScaling, MXFP8BlockScaling)
     from transformerengine_tpu_torch.ops import flash_attention as fa
+    from transformerengine_tpu_torch.quantize.quantizer import (
+        BlockScaleQuantizer)
 
     @contextlib.contextmanager
     def dk_without_ln2():
@@ -1337,10 +1701,27 @@ def planted_faults(torch, recipe) -> dict:
         finally:
             fa.flash_bwd = real
 
+    @contextlib.contextmanager
+    def colwise_from_rowwise():
+        real = BlockScaleQuantizer._fused_2x
+
+        def faulty(self, x2d):
+            row, srow, _, _, amax = real(self, x2d)
+            m, n = row.shape
+            scol = srow[::32].t().repeat_interleave(32, dim=0)[:n]
+            return row, srow, row.t().contiguous(), scol.contiguous(), amax
+        BlockScaleQuantizer._fused_2x = faulty
+        try:
+            yield recipe
+        finally:
+            BlockScaleQuantizer._fused_2x = real
+
     faults = {"dK without ln 2": dk_without_ln2}
-    if recipe is not None:
+    if isinstance(recipe, DelayedScaling):
         faults["e4m3 gradients"] = lambda: contextlib.nullcontext(
             dataclasses.replace(recipe, fp8_format=E4M3))
+    if isinstance(recipe, MXFP8BlockScaling):
+        faults["colwise from the rowwise payload"] = colwise_from_rowwise
     return faults
 
 
@@ -1355,22 +1736,24 @@ def _fmt(d: dict) -> str:
 def train_card_vs_cpu(torch, seed: int = TRAIN_VS_CPU_SEED) -> list:
     """Phase 7 for one seed; returns what failed."""
     import os
-    from transformerengine_tpu_torch import DelayedScaling
+    from transformerengine_tpu_torch import DelayedScaling, MXFP8BlockScaling
     from transformerengine_tpu_torch.models.llama import LLAMA_8B, LlamaModel
     cfg = dataclasses.replace(LLAMA_8B, num_layers=2)
     b, s = 1, 256
     log(f"[7] training, card vs CPU: 2 layers at LLAMA_8B width, B={b} S={s},"
-        f" one step without a recipe and one under "
-        f"DelayedScaling(amax_history_len=16), seed {seed}")
+        f" one step without a recipe, one under "
+        f"DelayedScaling(amax_history_len=16) and one under "
+        f"MXFP8BlockScaling() (M = 256: the fused norm path), seed {seed}")
     tokens, targets = train_batch(torch, cfg.vocab_size, b, s, "cpu", seed)
     failures = []
     for rname, recipe in (("bf16", None),
-                          ("delayed", DelayedScaling(amax_history_len=16))):
+                          ("delayed", DelayedScaling(amax_history_len=16)),
+                          ("mxfp8", MXFP8BlockScaling())):
         t0 = time.perf_counter()
         limits = TRAIN_VS_CPU_LIMITS[rname]
         cpu = LlamaModel(cfg, device="cpu", seed=seed)
         shrink_embedding(cpu)
-        if recipe is not None:
+        if isinstance(recipe, DelayedScaling):
             # A warm-up step on the CPU sets the delayed state from real
             # amaxes (no SGD): at the initial scale 1 the gradients would
             # fall among e5m2's subnormals.
@@ -1422,7 +1805,7 @@ def train_card_vs_cpu(torch, seed: int = TRAIN_VS_CPU_SEED) -> list:
     return failures
 
 
-PHASES = ("3", "4", "5", "6", "7")
+PHASES = ("3", "4", "5", "6", "7", "8")
 
 
 def main() -> int:
@@ -1433,7 +1816,7 @@ def main() -> int:
     import argparse
     parser = argparse.ArgumentParser()
     parser.add_argument("--phases", default=",".join(PHASES),
-                        help="comma-separated subset of 3,4,5,6,7")
+                        help="comma-separated subset of 3,4,5,6,7,8")
     parser.add_argument("--train-seeds", default=str(TRAIN_VS_CPU_SEED),
                         help="comma-separated seeds of phase 7 (its limits "
                         "were set from the readings of 21,22,23)")
@@ -1484,9 +1867,13 @@ def main() -> int:
     run("3", check_casts, timer, results)
     run("3", check_norm_cast, timer, results)
     run("3", check_train_variants)
+    run("3", check_mxfp8_quantize, timer, results)
+    run("3", check_mxfp8_norm, timer, results)
+    run("3", check_mxfp8_variants)
     run("4", serve, results)
     run("5", card_vs_cpu)
     run("6", train, results)
+    run("8", train_mxfp8, results)
     failed = []
     for seed in map(int, args.train_seeds.split(",")):
         run("7", lambda torch, seed=seed: failed.extend(
@@ -1495,7 +1882,8 @@ def main() -> int:
         raise AssertionError(f"training step, card against CPU: {failed}")
     log(f"phase seconds: {', '.join(f'{p} {t:.1f}' for p, t in timings.items())}")
 
-    stats = {k: results.pop(k) for k in ("_serve", "_train") if k in results}
+    stats = {k: results.pop(k) for k in ("_serve", "_train", "_train_mxfp8")
+             if k in results}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(json.dumps({**stats, "card": smi,

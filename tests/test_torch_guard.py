@@ -19,7 +19,8 @@ from transformerengine_tpu_torch.ops import (
     quantize_kernels as qk)
 from transformerengine_tpu_torch.quantize import qmath
 from transformerengine_tpu_torch.quantize.quantizer import (
-    CurrentScaleQuantizer, DelayedScaleQuantizer, QuantizeLayout)
+    BlockScaleQuantizer, CurrentScaleQuantizer, DelayedScaleQuantizer,
+    QuantizeLayout)
 
 torch.set_num_threads(2)
 
@@ -113,6 +114,9 @@ def _calls():
                                      scale=cuda(1, dtype=f32),
                                      amax_history=cuda(16, dtype=f32))
 
+    def mxfp8():
+        return BlockScaleQuantizer(torch.float8_e4m3fn, both)
+
     return {
         "te_decode_tn_matvec": lambda: dm.decode_tn_matvec(
             cuda(8, 1024), cuda(2048, 1024, dtype=torch.float8_e4m3fn),
@@ -142,6 +146,23 @@ def _calls():
         "quantize_normed": lambda: delayed().quantize_normed(
             cuda(256, 128), cuda(128, dtype=f32), None, norm="rmsnorm",
             zero_centered_gamma=False, epsilon=1e-6),
+        "te_mxfp8_quantize_2x": lambda: qk.mxfp8_quantize_2x(
+            cuda(64, 128), torch.float8_e5m2),
+        "te_mxfp8_quantize_1x": lambda: qk.mxfp8_quantize_1x(
+            cuda(64, 128, dtype=f32), colwise=True),
+        "te_mxfp8_norm_quantize": lambda: qk.mxfp8_norm_quantize_2x(
+            cuda(256, 128), cuda(128, dtype=f32), cuda(128, dtype=f32),
+            norm="layernorm", rowwise_only=True),
+        # Every MXFP8 orientation of the quantizer API launches a kernel,
+        # ragged shapes included.
+        "mxfp8_quantize_2x": lambda: mxfp8().quantize(cuda(3, 10, 40)),
+        "mxfp8_rowwise": lambda: mxfp8().quantize(
+            cuda(100, 37), layout=QuantizeLayout.ROWWISE),
+        "mxfp8_colwise": lambda: mxfp8().quantize(
+            cuda(24, 40, dtype=f32), layout=QuantizeLayout.COLWISE),
+        "mxfp8_quantize_normed": lambda: mxfp8().quantize_normed(
+            cuda(256, 128), cuda(128, dtype=f32), None, norm="rmsnorm",
+            zero_centered_gamma=False, epsilon=1e-6),
     }
 
 
@@ -151,7 +172,11 @@ _LAUNCHED = {"te_flash_attention_bwd": ["te_flash_attention_bwd_dq",
                                         "te_flash_attention_bwd_dkv"],
              "delayed_quantize_2x": ["te_cast_transpose"],
              "current_quantize_2x": ["te_cast_transpose"],
-             "quantize_normed": ["te_norm_cast_transpose"]}
+             "quantize_normed": ["te_norm_cast_transpose"],
+             "mxfp8_quantize_2x": ["te_mxfp8_quantize_2x"],
+             "mxfp8_rowwise": ["te_mxfp8_quantize_1x"],
+             "mxfp8_colwise": ["te_mxfp8_quantize_1x"],
+             "mxfp8_quantize_normed": ["te_mxfp8_norm_quantize"]}
 
 
 @pytest.mark.parametrize("entry", ["te_decode_tn_matvec",
@@ -162,11 +187,17 @@ _LAUNCHED = {"te_flash_attention_bwd": ["te_flash_attention_bwd_dq",
                                    "te_norm_cast_transpose",
                                    "delayed_quantize_2x",
                                    "current_quantize_2x",
-                                   "quantize_normed"])
+                                   "quantize_normed",
+                                   "te_mxfp8_quantize_2x",
+                                   "te_mxfp8_quantize_1x",
+                                   "te_mxfp8_norm_quantize",
+                                   "mxfp8_quantize_2x", "mxfp8_rowwise",
+                                   "mxfp8_colwise", "mxfp8_quantize_normed"])
 def test_wrappers_on_the_card_launch_or_raise(entry, monkeypatch):
     """On a CUDA tensor a wrapper launches its kernel, and counts the
     launch, or raises; it never returns its plain version, and the
-    quantizers never quantize both orientations the unfused way."""
+    quantizers never quantize both orientations (nor, under MXFP8, any
+    orientation) the unfused way."""
     def plain(*args, **kwargs):
         raise AssertionError("the plain version ran for a CUDA tensor")
 
@@ -176,8 +207,12 @@ def test_wrappers_on_the_card_launch_or_raise(entry, monkeypatch):
     monkeypatch.setattr(fa, "flash_bwd_plain", plain)
     monkeypatch.setattr(qk, "cast_transpose_plain", plain)
     monkeypatch.setattr(qk, "norm_cast_transpose_plain", plain)
+    monkeypatch.setattr(qk, "mxfp8_quantize_2x_plain", plain)
+    monkeypatch.setattr(qk, "mxfp8_quantize_1x_plain", plain)
+    monkeypatch.setattr(qk, "mxfp8_norm_quantize_2x_plain", plain)
     monkeypatch.setattr(qmath, "tensor_scale_quantize", plain)
     monkeypatch.setattr(qmath, "current_scale_quantize", plain)
+    monkeypatch.setattr(qmath, "mxfp8_quantize", plain)
     monkeypatch.setattr(_build, "stream", lambda t: None)
     launched = []
     with warnings.catch_warnings(), FakeTensorMode():

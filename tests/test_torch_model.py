@@ -19,7 +19,7 @@ from transformerengine_tpu.models.llama import (
 from transformerengine_tpu.quantize.dtypes import float8_e4m3 as j_e4m3
 from transformerengine_tpu.quantize.prequant import (
     prequantize_kernels as j_prequantize)
-from transformerengine_tpu_torch import Float8CurrentScaling
+from transformerengine_tpu_torch import Float8CurrentScaling, autocast
 from transformerengine_tpu_torch.attention import SequenceDescriptor
 from transformerengine_tpu_torch.inference import (
     InferenceParams, KVCache, generate)
@@ -169,3 +169,26 @@ def test_generate_matches_jax(mode):
         diff = np.nonzero(tt[row] != jt[row])[0]
         upto = int(diff[0]) + 1 if diff.size else NEW
         np.testing.assert_array_equal(tt[row, :upto], picks[row, :upto])
+
+
+def test_prequantized_forward_under_autocast_matches_jax():
+    """A prequantized model's forward under autocast(Float8CurrentScaling):
+    each GEMM quantizes its activation with the recipe's x quantizer (a
+    both-orientation quantizer, of which the product takes the rowwise
+    usage) against the resident fp8 kernel, as the reference's
+    ``prequant_dot`` does."""
+    jm, variables, model = _models("bf16")
+    tok = _tokens()
+    variables = j_prequantize(variables, te.Float8CurrentScaling())
+    prequantize_kernels(model, Float8CurrentScaling())
+    with te.autocast(enabled=True, recipe=te.Float8CurrentScaling()):
+        lj = np.asarray(jm.apply(variables, jnp.asarray(tok)), np.float32)
+    with torch.no_grad(), autocast(recipe=Float8CurrentScaling()):
+        lt = model(torch.from_numpy(tok))
+    assert lt.shape == (B, S, 256) and bool(torch.isfinite(lt).all())
+    # Equal fp8 payloads of the kernels; the activations' payloads follow
+    # bf16 values that may round one ulp apart, as in the bf16 forward of
+    # test_forward_logits_match (one bf16 ulp of the largest logit).
+    # Readings 1.9e-7 of the largest logit.
+    np.testing.assert_allclose(lt.numpy(), lj, rtol=0,
+                               atol=2 ** -8 * np.abs(lj).max())

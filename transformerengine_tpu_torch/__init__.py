@@ -11,8 +11,8 @@ for ``device="cpu"``; on CPU tensors every kernel wrapper runs its plain
 PyTorch version.
 """
 from .common.recipe import (DelayedScaling, Float8CurrentScaling, Format,
-                            Recipe)
+                            MXFP8BlockScaling, Recipe)
 from .quantize.helper import autocast, get_quantize_config
 
-__all__ = ["DelayedScaling", "Float8CurrentScaling", "Format", "Recipe",
-           "autocast", "get_quantize_config"]
+__all__ = ["DelayedScaling", "Float8CurrentScaling", "Format",
+           "MXFP8BlockScaling", "Recipe", "autocast", "get_quantize_config"]

@@ -53,6 +53,10 @@ _SIGNATURES = {
     "te_cast_transpose": (_P, _I, _P, _I, _P, _P, _P, _I, _I, _P),
     "te_norm_cast_transpose": (_P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _F, _P),
+    "te_mxfp8_quantize_2x": (_P, _I, _I, _P, _P, _P, _P, _I, _I, _P),
+    "te_mxfp8_quantize_1x": (_P, _I, _I, _P, _P, _I, _I, _I, _P),
+    "te_mxfp8_norm_quantize": (_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _F, _P),
 }
 
 _lock = threading.Lock()

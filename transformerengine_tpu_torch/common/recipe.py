@@ -1,7 +1,8 @@
 """Quantization recipes (counterpart of transformerengine_tpu/common/
-recipe.py): the FP8 format pairs and the two per-tensor recipes,
-delayed scaling (an amax history carried across steps) and current
-scaling. The block-scaled recipes are not ported yet."""
+recipe.py): the FP8 format pairs, the two per-tensor recipes, delayed
+scaling (an amax history carried across steps) and current scaling, and
+MXFP8 block scaling. Float8BlockScaling and NVFP4BlockScaling are not
+ported yet."""
 from __future__ import annotations
 
 import dataclasses
@@ -26,6 +27,9 @@ HYBRID = Format("HYBRID", torch.float8_e4m3fn, torch.float8_e5m2)
 
 class Recipe:
     """Base class of the quantization recipes."""
+
+    def mxfp8(self) -> bool:
+        return isinstance(self, MXFP8BlockScaling)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,3 +60,14 @@ class Float8CurrentScaling(Recipe):
     def fp8_dtype(self) -> torch.dtype:
         """The dtype of forward tensors (weights and activations)."""
         return self.fp8_format.fwd_dtype
+
+
+@dataclasses.dataclass(frozen=True)
+class MXFP8BlockScaling(Recipe):
+    """OCP MX FP8: one E8M0 (power-of-two) scale per 32 elements along
+    the quantized axis, computed from the block's own amax. Stateless."""
+
+    margin: float = 0.0
+    fp8_format: Format = E4M3
+    fp8_dpa: bool = False
+    fp8_mha: bool = False

@@ -148,6 +148,40 @@ __device__ __forceinline__ void block_amax_to(float v, float* scratch,
   }
 }
 
+// Statistics of one row of H elements, reduced by one warp with 16-byte
+// loads (H a multiple of 16 / sizeof(T), the row 16-byte aligned): for
+// LayerNorm mean = sum(x) / H, else 0; var = sum((x - mean)^2) / H;
+// rs = 1 / sqrt(var + eps), correctly rounded. Every lane gets both.
+template <typename T>
+__device__ __forceinline__ void row_stats(const T* __restrict__ xr, int H,
+                                          int layernorm, float eps,
+                                          int lane, float& mean, float& rs) {
+  constexpr int kVec = 16 / sizeof(T);
+  mean = 0.f;
+  if (layernorm) {
+    float sum = 0.f;
+    for (int c = lane * kVec; c < H; c += 32 * kVec) {
+      float v[kVec];
+      load16(xr + c, v);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) sum = __fadd_rn(sum, v[e]);
+    }
+    mean = __fdiv_rn(warp_sum(sum), (float)H);
+  }
+  float sq = 0.f;
+  for (int c = lane * kVec; c < H; c += 32 * kVec) {
+    float v[kVec];
+    load16(xr + c, v);
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) {
+      const float d = __fsub_rn(v[e], mean);
+      sq = __fadd_rn(sq, __fmul_rn(d, d));
+    }
+  }
+  const float var = __fdiv_rn(warp_sum(sq), (float)H);
+  rs = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, eps)));
+}
+
 // Raises the dynamic shared memory limit of `kernel` when it needs more
 // than the 48 KB default.
 template <typename K>

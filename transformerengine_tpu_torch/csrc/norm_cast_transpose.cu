@@ -44,7 +44,6 @@ __global__ void __launch_bounds__(kThreads)
                                float* __restrict__ rsigma_out,
                                float* __restrict__ mu_out, int M, int H,
                                int layernorm, int zero_centered, float eps) {
-  constexpr int kVec = 16 / sizeof(T);
   __shared__ float s_mu[kRows];
   __shared__ float s_rs[kRows];
   __shared__ uint8_t tile[kRows][kChunk + 16];
@@ -54,30 +53,9 @@ __global__ void __launch_bounds__(kThreads)
   const int m0 = blockIdx.x * kRows;
 
   {
-    const T* xr = x + (size_t)(m0 + warp) * H;
-    float mean = 0.f;
-    if (layernorm) {
-      float sum = 0.f;
-      for (int c = lane * kVec; c < H; c += 32 * kVec) {
-        float v[kVec];
-        load16(xr + c, v);
-#pragma unroll
-        for (int e = 0; e < kVec; ++e) sum = __fadd_rn(sum, v[e]);
-      }
-      mean = __fdiv_rn(warp_sum(sum), (float)H);
-    }
-    float sq = 0.f;
-    for (int c = lane * kVec; c < H; c += 32 * kVec) {
-      float v[kVec];
-      load16(xr + c, v);
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) {
-        const float d = __fsub_rn(v[e], mean);
-        sq = __fadd_rn(sq, __fmul_rn(d, d));
-      }
-    }
-    const float var = __fdiv_rn(warp_sum(sq), (float)H);
-    const float rs = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, eps)));
+    float mean, rs;
+    row_stats<T>(x + (size_t)(m0 + warp) * H, H, layernorm, eps, lane, mean,
+                 rs);
     if (lane == 0) {
       s_mu[warp] = mean;
       s_rs[warp] = rs;

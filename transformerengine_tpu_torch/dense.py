@@ -2,14 +2,21 @@
 dense.py), and the GEMM forward and backward that the fused layers share.
 
 Each layer is a ``torch.autograd.Function`` mirroring the reference's
-``custom_vjp``, with two branches:
+``custom_vjp``, with the reference's branches:
 
 * no quantizer set: plain operands; the residuals are the operands;
 * every quantizer per-tensor scaled (current or delayed scaling): one
   orientation of each operand is quantized ("1x", rowwise), and the
   backward contracts the same payloads along the needed axis (dgrad
   ``q_dot(qg, qk, 1, 1)``, wgrad ``q_dot(qx, qg, 0, 0)``), as the scales
-  are scalars. Block-scaled sets are not ported yet and raise.
+  are scalars;
+* block scaling (MXFP8), training ("2x"): x, the kernel and the gradient
+  are each quantized in both orientations, and every GEMM contracts
+  along the stored last axis of both operands: forward
+  ``tn_dot(rowwise(qx), colwise(qk))``, dgrad ``tn_dot(rowwise(qg),
+  rowwise(qk))``, wgrad ``tn_dot(colwise(qx), colwise(qg))``;
+* block scaling, forward without a gradient (the reference's
+  ``inference=True`` primal): x rowwise and the kernel colwise only.
 
 Quantizer state: the reference returns the updated quantizer set as the
 set's cotangent ("overwrite with gradient"). Here the backward computes
@@ -25,7 +32,7 @@ Residuals go through ``ctx.save_for_backward``, so autograd's version
 check raises when a saved parameter is updated in place before the
 backward that reads it. When no input requires a gradient (serving under
 ``torch.no_grad``), the layers run their forward directly, without an
-autograd node.
+autograd node, and take the reference primal's branches.
 
 A :class:`~.quantize.prequant.PrequantizedKernel` serves the forward
 only; a backward through it raises.
@@ -40,13 +47,13 @@ from .ops.gemm import prequant_dot, q_dot, tn_dot
 from .quantize.prequant import PrequantizedKernel
 from .quantize.quantizer import (QuantizeLayout, QuantizerSet,
                                  noop_quantizer_set)
-from .quantize.tensor import ScaledTensor1x, get_rowwise
+from .quantize.tensor import ScaledTensor1x, get_colwise, get_rowwise
 
 
 def all_tensor_scaling(qset: QuantizerSet) -> bool:
     """True when every quantizer of the set is per-tensor scaled, so one
     quantized orientation serves the forward and the backward."""
-    return all(q is not None and q.is_tensor_scaling
+    return all(q is not None and q.scaling_mode.is_tensor_scaling
                for q in (qset.x, qset.kernel, qset.dgrad))
 
 
@@ -58,20 +65,25 @@ def needs_grad(*inputs) -> bool:
 
 def split_residuals(res):
     """(tensors, tag) of :func:`gemm_fwd`'s residuals: the tensors for
-    ``ctx.save_for_backward``, the tag (branch, dtypes) for ``ctx``."""
-    if res[0] == "1x":
-        qx, qk = res[1:]
-        return ((qx.data, qx.scale_inv, qx.amax, qk.data, qk.scale_inv,
-                 qk.amax), ("1x", qx.dq_dtype, qk.dq_dtype))
+    ``ctx.save_for_backward`` (a quantized residual's data, scales and
+    amax, which may be None), the tag (branch, and each quantized
+    residual's dtype, layout and scaling mode) for ``ctx``."""
+    if res[0] in ("1x", "2x"):
+        tensors, meta = [], []
+        for t in res[1:]:
+            tensors += [t.data, t.scale_inv, t.amax]
+            meta.append((t.dq_dtype, t.layout, t.scaling_mode))
+        return tuple(tensors), (res[0], *meta)
     return res[1:], res[:1]
 
 
 def join_residuals(tag, tensors):
     """The residuals that :func:`split_residuals` split."""
-    if tag[0] == "1x":
-        xd, xs, xa, kd, ks, ka = tensors
-        return ("1x", ScaledTensor1x(xd, xs, xa, tag[1]),
-                ScaledTensor1x(kd, ks, ka, tag[2]))
+    if tag[0] in ("1x", "2x"):
+        return (tag[0],) + tuple(
+            ScaledTensor1x(*tensors[3 * i:3 * i + 3], dq, layout=layout,
+                           scaling_mode=mode)
+            for i, (dq, layout, mode) in enumerate(tag[1:]))
     return tag + tuple(tensors)
 
 
@@ -80,21 +92,34 @@ def _amax_of(t) -> torch.Tensor:
     return a if a is not None else torch.zeros((), dtype=torch.float32)
 
 
-def gemm_fwd(x2d: torch.Tensor, kernel, qset: QuantizerSet):
+def gemm_fwd(x2d, kernel, qset: QuantizerSet, *, inference: bool = False,
+             qx=None):
     """``(M, N) f32 x2d (M, K) . kernel`` for a (K, ...) kernel or a
-    PrequantizedKernel, and the residuals its backward needs."""
+    PrequantizedKernel, and the residuals its backward needs.
+    ``inference``: the forward without a gradient (block scaling then
+    quantizes one orientation of each operand). ``qx``: x already
+    quantized (the fused norm's output), in place of ``x2d``."""
     if isinstance(kernel, PrequantizedKernel):
         return prequant_dot(x2d, kernel.colwise, qset.x), ("prequant",)
     k2d = kernel.reshape(kernel.shape[0], -1)
     if qset.x is None:
         return q_dot(x2d, k2d, 1, 0), ("plain", x2d, k2d)
-    if not all_tensor_scaling(qset):
-        raise NotImplementedError(
-            "quantizer sets that are not per-tensor scaled throughout "
-            "(block-scaled recipes) are not ported yet")
-    qx = qset.x.quantize(x2d, layout=QuantizeLayout.ROWWISE)
-    qk = qset.kernel.quantize(k2d, layout=QuantizeLayout.ROWWISE)
-    return q_dot(qx, qk, 1, 0), ("1x", qx, qk)
+    if all_tensor_scaling(qset):
+        qx = qset.x.quantize(x2d, layout=QuantizeLayout.ROWWISE)
+        qk = qset.kernel.quantize(k2d, layout=QuantizeLayout.ROWWISE)
+        return q_dot(qx, qk, 1, 0), ("1x", qx, qk)
+    if inference:
+        if qx is None:
+            qx = qset.x.quantize(x2d, layout=QuantizeLayout.ROWWISE)
+        qk = qset.kernel.quantize(k2d, layout=QuantizeLayout.COLWISE)
+        return tn_dot(get_rowwise(qx), get_colwise(qk)), ("inference",)
+    if qx is None:
+        qx = qset.x.quantize(x2d)
+    qk = qset.kernel.quantize(k2d)
+    # (M, K) x (N, K) -> (M, N); the backward keeps x's colwise usage and
+    # the kernel's rowwise one.
+    return (tn_dot(get_rowwise(qx), get_colwise(qk)),
+            ("2x", get_colwise(qx), get_rowwise(qk)))
 
 
 def gemm_bwd(g2d: torch.Tensor, res, qset: QuantizerSet, need_dw=True):
@@ -108,17 +133,24 @@ def gemm_bwd(g2d: torch.Tensor, res, qset: QuantizerSet, need_dw=True):
         _, x2d, k2d = res
         dw2d = q_dot(x2d, g2d, 0, 0) if need_dw else None
         return tn_dot(g2d, k2d), dw2d, None
-    _, qx, qk = res
-    qg = qset.dgrad.quantize(g2d, layout=QuantizeLayout.ROWWISE)
-    dx2d = q_dot(qg, qk, 1, 1)
-    dw2d = q_dot(qx, qg, 0, 0) if need_dw else None
+    if res[0] == "1x":
+        _, qx, qk = res
+        qg = qset.dgrad.quantize(g2d, layout=QuantizeLayout.ROWWISE)
+        dx2d = q_dot(qg, qk, 1, 1)
+        dw2d = q_dot(qx, qg, 0, 0) if need_dw else None
+    else:
+        _, qx, qk = res           # x colwise (K, M), kernel rowwise (K, N)
+        qg = qset.dgrad.quantize(g2d)
+        dx2d = tn_dot(get_rowwise(qg), qk)                 # -> (M, K)
+        dw2d = tn_dot(qx, get_colwise(qg)) if need_dw else None  # (K, N)
     new = qset.update(QuantizerSet(x=_amax_of(qx), kernel=_amax_of(qk),
                                    dgrad=_amax_of(qg)))
     return dx2d, dw2d, new
 
 
-def _dense_fwd(x, kernel, qset):
-    out2d, res = gemm_fwd(x.reshape(-1, kernel.shape[0]), kernel, qset)
+def _dense_fwd(x, kernel, qset, inference=False):
+    out2d, res = gemm_fwd(x.reshape(-1, kernel.shape[0]), kernel, qset,
+                          inference=inference)
     return out2d.reshape(*x.shape[:-1], *kernel.shape[1:]).to(x.dtype), res
 
 
@@ -157,4 +189,4 @@ def dense(x: torch.Tensor, kernel, *,
                          f"with x {tuple(x.shape)}")
     if needs_grad(x, kernel):
         return _Dense.apply(x, kernel, quantizer_set)
-    return _dense_fwd(x, kernel, quantizer_set)[0]
+    return _dense_fwd(x, kernel, quantizer_set, inference=True)[0]

@@ -4,7 +4,11 @@ forward; dgrad and wgrad, then the norm backward from the saved
 statistics. Branches and the quantizer-state update are those of
 ``dense.py``. Under per-tensor scaling the reference quantizes the norm's
 output in one orientation and never takes its fused norm + quantize
-kernel, and neither does the port."""
+kernel, and neither does the port. Under block scaling the training
+forward takes the quantizer's ``quantize_normed`` (the norm fused with
+the 2x quantize) where its shape rule holds; the forward without a
+gradient runs the norm and then the one-orientation quantize, as the
+reference excludes its ``inference`` primal from the fused path."""
 from __future__ import annotations
 
 import math
@@ -12,17 +16,48 @@ from typing import Optional
 
 import torch
 
-from .dense import (gemm_bwd, gemm_fwd, join_residuals, needs_grad,
-                    split_residuals)
+from .dense import (all_tensor_scaling, gemm_bwd, gemm_fwd, join_residuals,
+                    needs_grad, split_residuals)
 from .ops.normalization import norm_bwd, norm_fwd
-from .quantize.quantizer import QuantizerSet, noop_quantizer_set
+from .quantize.prequant import PrequantizedKernel
+from .quantize.quantizer import (QuantizeLayout, QuantizerSet,
+                                 noop_quantizer_set)
 
 
-def _ln_dense_fwd(x, kernel, gamma, beta, qset, norm_type, zcg, eps):
+def fused_norm_quantize(x, gamma, beta, kernel, qset, norm_type, zcg, eps,
+                        inference):
+    """(quantized norm output, mu, rsigma) from the x quantizer's
+    ``quantize_normed`` (one orientation for ``inference``), the
+    statistics shaped as ``x.shape[:-1]``; None where the reference runs
+    the unfused norm: a prequantized kernel, no or a per-tensor recipe,
+    or a shape the fused kernel does not take."""
+    if (isinstance(kernel, PrequantizedKernel) or qset.x is None
+            or all_tensor_scaling(qset)):
+        return None
+    out = qset.x.quantize_normed(
+        x.reshape(-1, x.shape[-1]), gamma, beta, norm=norm_type,
+        zero_centered_gamma=zcg, epsilon=eps,
+        layout=QuantizeLayout.ROWWISE if inference else None)
+    if out is None:
+        return None
+    qx, mu, rsigma = out
+    lead = x.shape[:-1]
+    return qx, None if mu is None else mu.reshape(lead), rsigma.reshape(lead)
+
+
+def _ln_dense_fwd(x, kernel, gamma, beta, qset, norm_type, zcg, eps,
+                  inference=False):
     """(out, the GEMM's residuals, mu, rsigma)."""
-    ln, mu, rsigma = norm_fwd(x, gamma, beta, norm_type,
-                              zero_centered_gamma=zcg, epsilon=eps)
-    out2d, res = gemm_fwd(ln.reshape(-1, x.shape[-1]), kernel, qset)
+    fused = None if inference else fused_norm_quantize(
+        x, gamma, beta, kernel, qset, norm_type, zcg, eps, False)
+    if fused is not None:
+        qx, mu, rsigma = fused
+        out2d, res = gemm_fwd(None, kernel, qset, qx=qx)
+    else:
+        ln, mu, rsigma = norm_fwd(x, gamma, beta, norm_type,
+                                  zero_centered_gamma=zcg, epsilon=eps)
+        out2d, res = gemm_fwd(ln.reshape(-1, x.shape[-1]), kernel, qset,
+                              inference=inference)
     out = out2d.reshape(*x.shape[:-1], *kernel.shape[1:]).to(x.dtype)
     return out, res, mu, rsigma
 
@@ -75,4 +110,4 @@ def layernorm_dense(x: torch.Tensor, kernel, gamma: torch.Tensor, *,
             zero_centered_gamma, float(epsilon))
     if needs_grad(x, kernel, gamma, beta):
         return _LayerNormDense.apply(*args)
-    return _ln_dense_fwd(*args)[0]
+    return _ln_dense_fwd(*args, inference=True)[0]

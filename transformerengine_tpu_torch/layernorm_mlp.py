@@ -2,7 +2,11 @@
 transformerengine_tpu/layernorm_mlp.py): norm -> GEMM1 -> (gated)
 activation -> GEMM2, and the mirrored chain back with ``dact_lu``.
 Branches and the quantizer-state update of both GEMMs are those of
-``dense.py``."""
+``dense.py``. Under block scaling GEMM1's input comes from the x
+quantizer's ``quantize_normed`` where its shape rule holds: both
+orientations in training, the rowwise one alone in the forward without a
+gradient (the reference takes the fused path in its ``inference`` primal
+too, unlike ``layernorm_dense``)."""
 from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple, Union
@@ -11,22 +15,32 @@ import torch
 
 from .dense import (gemm_bwd, gemm_fwd, join_residuals, needs_grad,
                     split_residuals)
+from .layernorm_dense import fused_norm_quantize
 from .ops.activation import act_lu, dact_lu, normalize_activation_type
 from .ops.normalization import norm_bwd, norm_fwd
 from .quantize.quantizer import QuantizerSet, noop_quantizer_set
 
 
 def _ln_mlp_fwd(x, gamma, beta, kernel1, kernel2, qset1, qset2, norm_type,
-                zcg, eps, acts):
+                zcg, eps, acts, inference=False):
     """(out, each GEMM's residuals, mu, rsigma, z2d)."""
     hidden = x.shape[-1]
     ffn = kernel1.shape[-1]
-    ln, mu, rsigma = norm_fwd(x, gamma, beta, norm_type,
-                              zero_centered_gamma=zcg, epsilon=eps)
-    z2d, res1 = gemm_fwd(ln.reshape(-1, hidden), kernel1, qset1)
+    fused = fused_norm_quantize(x, gamma, beta, kernel1, qset1, norm_type,
+                                zcg, eps, inference)
+    if fused is not None:
+        qx, mu, rsigma = fused
+        z2d, res1 = gemm_fwd(None, kernel1, qset1, inference=inference,
+                             qx=qx)
+    else:
+        ln, mu, rsigma = norm_fwd(x, gamma, beta, norm_type,
+                                  zero_centered_gamma=zcg, epsilon=eps)
+        z2d, res1 = gemm_fwd(ln.reshape(-1, hidden), kernel1, qset1,
+                             inference=inference)
     z2d = z2d.to(x.dtype)
     a2d = act_lu(z2d.reshape(-1, 2, ffn) if len(acts) == 2 else z2d, acts)
-    out2d, res2 = gemm_fwd(a2d.reshape(-1, ffn), kernel2, qset2)
+    out2d, res2 = gemm_fwd(a2d.reshape(-1, ffn), kernel2, qset2,
+                           inference=inference)
     return out2d.reshape(x.shape).to(x.dtype), res1, res2, mu, rsigma, z2d
 
 
@@ -101,4 +115,4 @@ def layernorm_mlp(x: torch.Tensor, gamma: torch.Tensor, kernel1, kernel2, *,
             zero_centered_gamma, float(epsilon), acts)
     if needs_grad(x, gamma, beta, kernel1, kernel2):
         return _LayerNormMLP.apply(*args)
-    return _ln_mlp_fwd(*args)[0]
+    return _ln_mlp_fwd(*args, inference=True)[0]

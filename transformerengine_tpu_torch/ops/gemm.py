@@ -1,17 +1,21 @@
 """Scaled matmuls (counterpart of transformerengine_tpu/ops/gemm.py), for
-per-tensor-scaled and plain operands.
+per-tensor-scaled, MXFP8 and plain operands.
 
 Every product accumulates in f32 and returns f32. Per-tensor scales are
 scalars, so any contraction axes are allowed and the scales apply to the
-f32 result. A resident weight times a small-M activation (decode) routes
-to the decode kernel (ops/decode_matmul.py); every other product is a
-plain GEMM: an fp8 payload is widened to bf16 (exactly) and multiplied
-with f32 accumulation, as XLA does for the reference."""
+f32 result. MXFP8 operands must contract along their stored last axis
+(their scales run along it); each is dequantized to bf16 first, the
+payload times its power-of-two block scale, exact in bf16, as the
+reference's ``_dq_block_to_bf16`` does. A resident weight times a
+small-M activation (decode) routes to the decode kernel
+(ops/decode_matmul.py); every other product is a plain GEMM: an fp8
+payload is widened to bf16 (exactly) and multiplied with f32
+accumulation, as XLA does for the reference."""
 from __future__ import annotations
 
 import torch
 
-from ..quantize.tensor import ScaledTensor1x
+from ..quantize.tensor import ScaledTensor1x, dequantize_blocks, get_rowwise
 from .decode_matmul import decode_tn_matvec, use_decode_matvec
 
 
@@ -30,9 +34,9 @@ def _is_scaled(t) -> bool:
 
 def q_dot(lhs, rhs, lhs_cdim: int, rhs_cdim: int) -> torch.Tensor:
     """2D matmul contracting ``lhs_cdim`` of lhs with ``rhs_cdim`` of rhs;
-    operands are plain tensors or per-tensor ScaledTensor1x."""
+    operands are plain tensors or ScaledTensor1x."""
     if (_is_scaled(rhs) and rhs.resident and rhs.data.dim() == 2
-            and rhs_cdim % 2 == 1):
+            and rhs_cdim % 2 == 1 and rhs.scaling_mode.is_tensor_scaling):
         lhs2d = lhs.data if _is_scaled(lhs) else lhs
         if (lhs2d.dim() == 2 and lhs_cdim % 2 == 1
                 and use_decode_matvec(lhs2d.shape[0], rhs.data.shape[0],
@@ -44,13 +48,19 @@ def q_dot(lhs, rhs, lhs_cdim: int, rhs_cdim: int) -> torch.Tensor:
 
     scales = []
 
-    def prep(t):
+    def prep(t, cdim):
         if not _is_scaled(t):
             return t
+        if not t.scaling_mode.is_tensor_scaling:
+            if cdim % 2 != 1:
+                raise ValueError("block-scaled operands must contract along "
+                                 "their stored last axis (scales run along "
+                                 "it)")
+            return dequantize_blocks(t, torch.bfloat16)
         scales.append(t.scale_inv.float().reshape(()))
         return t.data.to(torch.bfloat16)
 
-    a, b = prep(lhs), prep(rhs)
+    a, b = prep(lhs, lhs_cdim), prep(rhs, rhs_cdim)
     if lhs_cdim % 2 == 0:
         a = a.t()
     if rhs_cdim % 2 == 1:
@@ -73,7 +83,7 @@ def prequant_dot(x2d: torch.Tensor, colwise, x_quantizer=None
     ``x_quantizer`` the activation is quantized first and both payloads
     enter the product."""
     if x_quantizer is not None:
-        return tn_dot(x_quantizer.quantize(x2d), colwise)
+        return tn_dot(get_rowwise(x_quantizer.quantize(x2d)), colwise)
     return resident_dot(x2d, colwise)
 
 

@@ -1,7 +1,8 @@
-"""Fused per-tensor quantize kernels (counterpart of the tensor-scaling
-half of transformerengine_tpu/ops/quantize_kernels.py): one read of the
-input gives the rowwise FP8 payload, the colwise (transposed) payload and
-the amax.
+"""Fused quantize kernels (counterpart of transformerengine_tpu/ops/
+quantize_kernels.py): one read of the input gives the rowwise FP8
+payload, the colwise (transposed) payload and their scales.
+
+Per-tensor scaling:
 
 * :func:`cast_transpose` replaces ``cast_transpose``; kernel in
   ``csrc/cast_transpose.cu``.
@@ -9,11 +10,25 @@ the amax.
   LayerNorm fused with the same cast, which also returns rsigma and mu;
   kernel in ``csrc/norm_cast_transpose.cu``.
 
+MXFP8 (one E8M0 scale per 32 elements along the quantized axis, stored as
+uint8 biased exponents):
+
+* :func:`mxfp8_quantize_2x` replaces ``mxfp8_quantize_2x`` and
+  :func:`mxfp8_quantize_1x` replaces ``mxfp8_quantize_1x``; kernels in
+  ``csrc/mxfp8_quantize.cu``. The colwise usage of an (M, N) input is the
+  (N, M) transpose quantized along M (32 x 1 blocks of the input), not
+  the transpose of the rowwise payload.
+* :func:`mxfp8_norm_quantize_2x` replaces ``mxfp8_norm_quantize_2x``: the
+  norm fused with the MXFP8 quantize; kernel in
+  ``csrc/mxfp8_norm_quantize.cu``.
+
 On CUDA tensors each wrapper launches its kernel or raises; on CPU tensors
 it runs its plain version. Both are bit-exact to ``quantize/qmath.py``:
 ``clip(x * scale, -q_max, q_max)`` then a round-to-nearest-even cast, and
-the fused norm rounds the normalized value to the input dtype before the
-amax and the cast, as the unfused chain does.
+the fused norms round the normalized value to the input dtype before the
+amax and the cast, as the unfused chain does. The MXFP8 kernels take any
+shape: ragged edges are masked, with ceil(. / 32) scale columns and the
+last block's amax over the elements that exist.
 """
 from __future__ import annotations
 
@@ -22,6 +37,7 @@ from typing import Optional
 import torch
 
 from .. import _build
+from ..quantize import qmath
 from ..quantize.dtypes import dtype_max
 
 _X_DTYPES = (torch.float32, torch.bfloat16)
@@ -68,21 +84,43 @@ def cast_transpose(x2d: torch.Tensor, scale: torch.Tensor,
     return row, col, amax
 
 
-def norm_cast_transpose_plain(x2d, gamma, beta, scale, q_dtype, *, norm,
-                              zero_centered_gamma, epsilon):
+def normed_plain(x2d, gamma, beta, *, norm, zero_centered_gamma, epsilon,
+                 stats=None):
+    """(y, mu (M, 1) or None, rsigma (M, 1)) of the fused norms: the
+    normalized f32 values rounded to the input dtype, as the unfused
+    chain (``ops/normalization``) gives them. ``stats`` (mu, rsigma)
+    replaces the statistics (to hold a kernel's normalize and quantize to
+    its own statistics)."""
     x = x2d.float()
     g = gamma.float() + 1.0 if zero_centered_gamma else gamma.float()
     mu = None
     if norm == "layernorm":
-        mu = x.mean(dim=-1, keepdim=True)
+        mu = x.mean(dim=-1, keepdim=True) if stats is None else stats[0]
         xc = x - mu
     else:
         xc = x
-    rsigma = torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + epsilon)
+    rsigma = (torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + epsilon)
+              if stats is None else stats[1])
     y = xc * rsigma * g
     if beta is not None:
         y = y + beta.float()
-    y = y.to(x2d.dtype).float()
+    return y.to(x2d.dtype).float(), mu, rsigma
+
+
+def _check_norm_args(x2d, gamma, beta, norm):
+    if norm not in ("rmsnorm", "layernorm"):
+        raise ValueError(f"norm must be rmsnorm or layernorm, got {norm!r}")
+    if x2d.dim() != 2 or gamma.shape != (x2d.shape[1],) or \
+            (beta is not None and beta.shape != gamma.shape):
+        raise ValueError(f"expected x (M, H), gamma and beta (H,), got "
+                         f"{tuple(x2d.shape)}, {tuple(gamma.shape)}")
+
+
+def norm_cast_transpose_plain(x2d, gamma, beta, scale, q_dtype, *, norm,
+                              zero_centered_gamma, epsilon):
+    y, mu, rsigma = normed_plain(x2d, gamma, beta, norm=norm,
+                                 zero_centered_gamma=zero_centered_gamma,
+                                 epsilon=epsilon)
     amax = y.abs().amax().reshape(1)
     m = dtype_max(q_dtype)
     row = (y * scale.float().reshape(())).clamp(-m, m).to(q_dtype)
@@ -100,14 +138,10 @@ def norm_cast_transpose(x2d: torch.Tensor, gamma: torch.Tensor,
     """RMSNorm or LayerNorm of ``x2d`` (M, H) fused with the quantize of
     both orientations. Returns (row (M, H), col (H, M), amax (1,) of the
     normalized values, rsigma (M, 1)) and, for LayerNorm, mu (M, 1)."""
-    if norm not in ("rmsnorm", "layernorm"):
-        raise ValueError(f"norm must be rmsnorm or layernorm, got {norm!r}")
-    if x2d.dim() != 2 or gamma.shape != (x2d.shape[1],) or \
-            (beta is not None and beta.shape != gamma.shape) or \
-            scale.numel() != 1:
-        raise ValueError(f"expected x (M, H), gamma and beta (H,) and a "
-                         f"one-element scale, got {tuple(x2d.shape)}, "
-                         f"{tuple(gamma.shape)}")
+    _check_norm_args(x2d, gamma, beta, norm)
+    if scale.numel() != 1:
+        raise ValueError(f"expected a one-element scale, got "
+                         f"{tuple(scale.shape)}")
     _check_q_dtype(q_dtype)
     m, h = x2d.shape
     if m % 8 or h % 128:
@@ -140,6 +174,146 @@ def norm_cast_transpose(x2d: torch.Tensor, gamma: torch.Tensor,
                   _build.stream(x2d))
     _build.LAUNCHES["norm_cast_transpose"] += 1
     outs = [row, col, amax, rsigma]
+    if layernorm:
+        outs.append(mu)
+    return tuple(outs)
+
+
+# ---------------------------------------------------------------------------
+# MXFP8
+# ---------------------------------------------------------------------------
+
+def _scale_cols(n: int) -> int:
+    return -(-n // 32)
+
+
+def mxfp8_quantize_2x_plain(x2d: torch.Tensor, q_dtype: torch.dtype):
+    row, srow = qmath.mxfp8_quantize(x2d, q_dtype)
+    col, scol = qmath.mxfp8_quantize(x2d.t(), q_dtype)
+    return row, col, srow, scol
+
+
+def mxfp8_quantize_1x_plain(x2d: torch.Tensor, q_dtype: torch.dtype, *,
+                            colwise: bool):
+    return qmath.mxfp8_quantize(x2d.t() if colwise else x2d, q_dtype)
+
+
+def _check_mxfp8_input(x2d, q_dtype):
+    if x2d.dim() != 2 or x2d.numel() == 0:
+        raise ValueError(f"expected a non-empty (M, N) tensor, got "
+                         f"{tuple(x2d.shape)}")
+    _check_q_dtype(q_dtype)
+
+
+def mxfp8_quantize_2x(x2d: torch.Tensor,
+                      q_dtype: torch.dtype = torch.float8_e4m3fn):
+    """MXFP8 quantize of ``x2d`` (M, N) in both orientations from one
+    read: (row (M, N), col (N, M), srow (M, ceil(N/32)) uint8,
+    scol (N, ceil(M/32)) uint8), for any M and N."""
+    _check_mxfp8_input(x2d, q_dtype)
+    if _build.on_cpu(x2d):
+        return mxfp8_quantize_2x_plain(x2d, q_dtype)
+    m, n = x2d.shape
+    x_code = _build.dtype_code(x2d, _X_DTYPES)
+    x2d = x2d.contiguous()
+    dev = x2d.device
+    row = torch.empty((m, n), dtype=q_dtype, device=dev)
+    col = torch.empty((n, m), dtype=q_dtype, device=dev)
+    srow = torch.empty((m, _scale_cols(n)), dtype=torch.uint8, device=dev)
+    scol = torch.empty((n, _scale_cols(m)), dtype=torch.uint8, device=dev)
+    _build.launch("te_mxfp8_quantize_2x", _build.ptr(x2d), x_code,
+                  _build.DTYPE_CODES[q_dtype], _build.ptr(row),
+                  _build.ptr(col), _build.ptr(srow), _build.ptr(scol), m, n,
+                  _build.stream(x2d))
+    _build.LAUNCHES["mxfp8_quantize_2x"] += 1
+    return row, col, srow, scol
+
+
+def mxfp8_quantize_1x(x2d: torch.Tensor,
+                      q_dtype: torch.dtype = torch.float8_e4m3fn, *,
+                      colwise: bool = False):
+    """One orientation of :func:`mxfp8_quantize_2x`, from the untransposed
+    (M, N) input: (data, scale) with data (M, N) and scale (M, ceil(N/32))
+    rowwise, data (N, M) and scale (N, ceil(M/32)) colwise."""
+    _check_mxfp8_input(x2d, q_dtype)
+    if _build.on_cpu(x2d):
+        return mxfp8_quantize_1x_plain(x2d, q_dtype, colwise=colwise)
+    m, n = x2d.shape
+    x_code = _build.dtype_code(x2d, _X_DTYPES)
+    x2d = x2d.contiguous()
+    rows, cols = (n, m) if colwise else (m, n)
+    data = torch.empty((rows, cols), dtype=q_dtype, device=x2d.device)
+    scale = torch.empty((rows, _scale_cols(cols)), dtype=torch.uint8,
+                        device=x2d.device)
+    _build.launch("te_mxfp8_quantize_1x", _build.ptr(x2d), x_code,
+                  _build.DTYPE_CODES[q_dtype], _build.ptr(data),
+                  _build.ptr(scale), int(colwise), m, n, _build.stream(x2d))
+    _build.LAUNCHES["mxfp8_quantize_1x"] += 1
+    return data, scale
+
+
+def mxfp8_norm_quantize_2x_plain(x2d, gamma, beta, q_dtype, *, norm,
+                                 zero_centered_gamma, epsilon,
+                                 rowwise_only=False, stats=None):
+    y, mu, rsigma = normed_plain(x2d, gamma, beta, norm=norm,
+                                 zero_centered_gamma=zero_centered_gamma,
+                                 epsilon=epsilon, stats=stats)
+    row, srow = qmath.mxfp8_quantize(y, q_dtype)
+    col = scol = None
+    if not rowwise_only:
+        col, scol = qmath.mxfp8_quantize(y.t(), q_dtype)
+    outs = [row, col, srow, scol, rsigma]
+    if mu is not None:
+        outs.append(mu)
+    return tuple(outs)
+
+
+def mxfp8_norm_quantize_2x(x2d: torch.Tensor, gamma: torch.Tensor,
+                           beta: Optional[torch.Tensor],
+                           q_dtype: torch.dtype = torch.float8_e4m3fn, *,
+                           norm: str = "rmsnorm",
+                           zero_centered_gamma: bool = False,
+                           epsilon: float = 1e-6,
+                           rowwise_only: bool = False):
+    """RMSNorm or LayerNorm of ``x2d`` (M, H), M and H multiples of 32,
+    fused with the MXFP8 quantize. Returns (row (M, H), col (H, M) or
+    None, srow (M, H/32), scol (H, M/32) or None, rsigma (M, 1)) and, for
+    LayerNorm, mu (M, 1); ``rowwise_only`` skips the colwise usage."""
+    _check_norm_args(x2d, gamma, beta, norm)
+    _check_q_dtype(q_dtype)
+    m, h = x2d.shape
+    if m % 32 or h % 32 or m == 0:
+        raise ValueError(f"mxfp8_norm_quantize_2x takes M and H multiples "
+                         f"of 32, got {tuple(x2d.shape)}")
+    kw = dict(norm=norm, zero_centered_gamma=zero_centered_gamma,
+              epsilon=epsilon, rowwise_only=rowwise_only)
+    if _build.on_cpu(x2d, gamma, beta):
+        return mxfp8_norm_quantize_2x_plain(x2d, gamma, beta, q_dtype, **kw)
+    x_code = _build.dtype_code(x2d, _X_DTYPES)
+    x2d = x2d.contiguous()
+    gamma = gamma.float().contiguous()
+    beta = beta.float().contiguous() if beta is not None else None
+    _build.check_aligned(x2d, gamma, beta)
+    dev = x2d.device
+    row = torch.empty((m, h), dtype=q_dtype, device=dev)
+    srow = torch.empty((m, h // 32), dtype=torch.uint8, device=dev)
+    col = scol = None
+    if not rowwise_only:
+        col = torch.empty((h, m), dtype=q_dtype, device=dev)
+        scol = torch.empty((h, m // 32), dtype=torch.uint8, device=dev)
+    rsigma = torch.empty((m, 1), dtype=torch.float32, device=dev)
+    layernorm = norm == "layernorm"
+    mu = torch.empty((m, 1), dtype=torch.float32, device=dev) \
+        if layernorm else None
+    _build.launch("te_mxfp8_norm_quantize", _build.ptr(x2d), x_code,
+                  _build.ptr(gamma), _build.ptr(beta),
+                  _build.DTYPE_CODES[q_dtype], _build.ptr(row),
+                  _build.ptr(col), _build.ptr(srow), _build.ptr(scol),
+                  _build.ptr(rsigma), _build.ptr(mu), m, h, int(layernorm),
+                  int(zero_centered_gamma), float(epsilon),
+                  _build.stream(x2d))
+    _build.LAUNCHES["mxfp8_norm_quantize_2x"] += 1
+    outs = [row, col, srow, scol, rsigma]
     if layernorm:
         outs.append(mu)
     return tuple(outs)

@@ -12,10 +12,11 @@ from typing import Optional
 
 import torch
 
-from ..common.recipe import DelayedScaling, Float8CurrentScaling, Recipe
-from .quantizer import (CurrentScaleQuantizer, DelayedScaleQuantizer,
-                        Quantizer, QuantizeLayout, QuantizerSet,
-                        noop_quantizer_set)
+from ..common.recipe import (DelayedScaling, Float8CurrentScaling,
+                             MXFP8BlockScaling, Recipe)
+from .quantizer import (BlockScaleQuantizer, CurrentScaleQuantizer,
+                        DelayedScaleQuantizer, Quantizer, QuantizeLayout,
+                        QuantizerSet, noop_quantizer_set)
 
 
 @dataclasses.dataclass
@@ -60,15 +61,18 @@ class QuantizerFactory:
         """The quantizer of one tensor ``role`` ("x", "kernel" or
         "dgrad"); gradients take the format's backward dtype. A delayed
         quantizer starts at scale 1 with a zero history of the recipe's
-        length, on ``device``."""
+        length, on ``device``. MXFP8's margin is not read, as in the
+        reference."""
         if role not in ("x", "kernel", "dgrad"):
             raise ValueError(f"role must be x, kernel or dgrad, got {role!r}")
         if recipe is None:
             return None
-        if not isinstance(recipe, (DelayedScaling, Float8CurrentScaling)):
+        if not isinstance(recipe, (DelayedScaling, Float8CurrentScaling,
+                                   MXFP8BlockScaling)):
             raise NotImplementedError(
                 f"recipe {type(recipe).__name__} is not ported yet; ported: "
-                f"DelayedScaling and Float8CurrentScaling")
+                f"DelayedScaling, Float8CurrentScaling and "
+                f"MXFP8BlockScaling")
         fmt = recipe.fp8_format
         dtype = fmt.bwd_dtype if role == "dgrad" else fmt.fwd_dtype
         if isinstance(recipe, DelayedScaling):
@@ -79,6 +83,8 @@ class QuantizerFactory:
                                          dtype=torch.float32, device=device),
                 margin=recipe.margin,
                 amax_compute_algo=recipe.amax_compute_algo)
+        if isinstance(recipe, MXFP8BlockScaling):
+            return BlockScaleQuantizer(dtype, q_layout)
         return CurrentScaleQuantizer(dtype, q_layout)
 
     @staticmethod

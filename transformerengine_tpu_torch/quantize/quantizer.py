@@ -1,5 +1,5 @@
 """Quantizers (counterpart of transformerengine_tpu/quantize/quantizer.py),
-for the two per-tensor recipes: current scaling and delayed scaling.
+for current scaling, delayed scaling and MXFP8 block scaling.
 
 A quantizer is a frozen dataclass. Delayed scaling's state (``scale`` and
 ``amax_history``) is held in tensors; :meth:`DelayedScaleQuantizer.update`
@@ -8,11 +8,16 @@ returns a new quantizer with the rolled state, as the reference does, and
 the set it was computed from, in place. The layers call it once per
 backward pass, which is how the reference's "the quantizer set's
 cotangent is the updated state" reaches the buffers of an ``nn`` module.
+MXFP8 keeps no state.
 
 Both orientations at once (``QuantizeLayout.ROWWISE_COLWISE``) go through
-``ops/quantize_kernels.cast_transpose``, and ``quantize_normed`` through
-``norm_cast_transpose``: the kernels on CUDA tensors, their plain versions
-on CPU tensors.
+``ops/quantize_kernels.cast_transpose`` under tensor scaling and
+``mxfp8_quantize_2x`` under MXFP8; one MXFP8 orientation through
+``mxfp8_quantize_1x``; ``quantize_normed`` through
+``norm_cast_transpose`` or ``mxfp8_norm_quantize_2x``: the kernels on
+CUDA tensors, their plain versions on CPU tensors. Under MXFP8 the
+colwise usage is the transposed view quantized on its own (its blocks run
+down the input's columns), never the transpose of the rowwise payload.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ import torch
 
 from ..ops import quantize_kernels as qk
 from . import qmath
+from .scaling_modes import ScalingMode
 from .tensor import ScaledTensor1x, ScaledTensor2x
 
 
@@ -35,24 +41,37 @@ class QuantizeLayout(enum.Enum):
 
 @dataclasses.dataclass(frozen=True)
 class Quantizer:
-    """Base of the per-tensor quantizers. ROWWISE keeps the logical
-    layout; COLWISE stores the 2D view (leading dims folded) transposed,
-    so the quantized axis is again the last one (the (N, K) layout a TN
-    GEMM reads); ROWWISE_COLWISE returns both as a ScaledTensor2x."""
+    """Base of the quantizers. ROWWISE keeps the logical layout; COLWISE
+    stores the 2D view (leading dims folded) transposed, so the quantized
+    axis is again the last one (the (N, K) layout a TN GEMM reads);
+    ROWWISE_COLWISE returns both as a ScaledTensor2x. Each subclass fixes
+    its ``scaling_mode``."""
 
     q_dtype: torch.dtype
     q_layout: QuantizeLayout = QuantizeLayout.ROWWISE
 
-    is_tensor_scaling: ClassVar[bool] = True
+    scaling_mode: ClassVar[ScalingMode]
 
     def _quantize_2d(self, x2d):
-        """(data, scale_inv (1,), amax) of a 2D tensor."""
+        """(data, scale_inv, amax or None) of a 2D tensor quantized along
+        its last axis."""
         raise NotImplementedError
 
+    def _fused_1x(self, x2d, colwise: bool):
+        """One orientation from the UNTRANSPOSED 2D view (the colwise
+        form transposes in the kernel): (data in stored layout,
+        scale_inv, amax), or None to quantize the (transposed) view with
+        :meth:`_quantize_2d`."""
+        return None
+
     def _fused_2x(self, x2d):
-        """(row, scale_inv, col, amax) of both orientations from one pass
-        (``cast_transpose``)."""
+        """(row, row scale_inv, col, col scale_inv, amax) of both
+        orientations from one pass."""
         raise NotImplementedError
+
+    def _tensor(self, data, s_inv, amax, dq_dtype, layout):
+        return ScaledTensor1x(data, s_inv, amax, dq_dtype, layout=layout,
+                              scaling_mode=self.scaling_mode)
 
     def quantize(self, x: torch.Tensor, *, dq_dtype=None,
                  layout: Optional[QuantizeLayout] = None):
@@ -63,19 +82,21 @@ class Quantizer:
         x2d = x.reshape(-1, x.shape[-1])
         t_shape = (x.shape[-1],) + tuple(x.shape[:-1])
         if q_layout is QuantizeLayout.COLWISE:
-            data, s_inv, amax = self._quantize_2d(x2d.t())
-            return ScaledTensor1x(data.contiguous().reshape(t_shape), s_inv,
-                                  amax, dq_dtype, layout="T")
+            data, s_inv, amax = (self._fused_1x(x2d, True)
+                                 or self._quantize_2d(x2d.t()))
+            return self._tensor(data.contiguous().reshape(t_shape), s_inv,
+                                amax, dq_dtype, "T")
         if q_layout is QuantizeLayout.ROWWISE:
-            data, s_inv, amax = self._quantize_2d(x2d)
-            return ScaledTensor1x(data.reshape(x.shape), s_inv, amax,
-                                  dq_dtype, layout="N")
-        row, s_inv, col, amax = self._fused_2x(x2d)
+            data, s_inv, amax = (self._fused_1x(x2d, False)
+                                 or self._quantize_2d(x2d))
+            return self._tensor(data.reshape(x.shape), s_inv, amax,
+                                dq_dtype, "N")
+        row, s_row, col, s_col, amax = self._fused_2x(x2d)
         return ScaledTensor2x(
-            rowwise=ScaledTensor1x(row.reshape(x.shape), s_inv, amax,
-                                   dq_dtype, layout="N"),
-            colwise=ScaledTensor1x(col.reshape(t_shape), s_inv, amax,
-                                   dq_dtype, layout="T"))
+            rowwise=self._tensor(row.reshape(x.shape), s_row, amax,
+                                 dq_dtype, "N"),
+            colwise=self._tensor(col.reshape(t_shape), s_col, amax,
+                                 dq_dtype, "T"))
 
     def update(self, amax) -> "Quantizer":
         """End-of-step state update (the quantizer itself when it keeps
@@ -87,6 +108,8 @@ class Quantizer:
 class CurrentScaleQuantizer(Quantizer):
     """Per-tensor scaling from the current amax."""
 
+    scaling_mode: ClassVar[ScalingMode] = ScalingMode.CURRENT_TENSOR_SCALING
+
     def _quantize_2d(self, x2d):
         return qmath.current_scale_quantize(x2d, self.q_dtype)
 
@@ -94,7 +117,8 @@ class CurrentScaleQuantizer(Quantizer):
         amax = qmath.compute_amax(x2d)
         scale = qmath.compute_scale_from_amax(amax, self.q_dtype)
         row, col, _ = qk.cast_transpose(x2d, scale.reshape(1), self.q_dtype)
-        return row, (1.0 / scale).reshape(1), col, amax
+        s_inv = (1.0 / scale).reshape(1)
+        return row, s_inv, col, s_inv, amax
 
 
 def _ones_scale():
@@ -111,6 +135,8 @@ class DelayedScaleQuantizer(Quantizer):
     ``scale`` (1,) f32 quantizes this step; :meth:`update` records this
     step's amax, rolls the history and computes the next scale."""
 
+    scaling_mode: ClassVar[ScalingMode] = ScalingMode.DELAYED_TENSOR_SCALING
+
     scale: torch.Tensor = dataclasses.field(default_factory=_ones_scale)
     amax_history: torch.Tensor = dataclasses.field(
         default_factory=_zero_history)
@@ -124,7 +150,7 @@ class DelayedScaleQuantizer(Quantizer):
         row, col, amax = qk.cast_transpose(x2d, self.scale.reshape(1),
                                            self.q_dtype)
         s_inv = (1.0 / self.scale.float()).reshape(1)
-        return row, s_inv, col, amax.reshape(())
+        return row, s_inv, col, s_inv, amax.reshape(())
 
     def quantize_normed(self, x2d: torch.Tensor, gamma: torch.Tensor,
                         beta: Optional[torch.Tensor], *, norm: str,
@@ -147,10 +173,10 @@ class DelayedScaleQuantizer(Quantizer):
         mu = outs[4].reshape(m) if norm == "layernorm" else None
         dq_dtype = dq_dtype or x2d.dtype
         s_inv = (1.0 / self.scale.float()).reshape(1)
-        rw = ScaledTensor1x(row, s_inv, amax, dq_dtype, layout="N")
+        rw = self._tensor(row, s_inv, amax, dq_dtype, "N")
         if layout is QuantizeLayout.ROWWISE:
             return rw, mu, rsigma.reshape(m)
-        cw = ScaledTensor1x(col, s_inv, amax, dq_dtype, layout="T")
+        cw = self._tensor(col, s_inv, amax, dq_dtype, "T")
         return ScaledTensor2x(rowwise=rw, colwise=cw), mu, rsigma.reshape(m)
 
     def update(self, amax) -> "DelayedScaleQuantizer":
@@ -175,8 +201,62 @@ class DelayedScaleQuantizer(Quantizer):
 
 
 @dataclasses.dataclass(frozen=True)
+class BlockScaleQuantizer(Quantizer):
+    """MXFP8: one E8M0 scale per 32 elements along the quantized axis,
+    from the block's own amax (the reference's BlockScaleQuantizer in its
+    MXFP8_1D_SCALING mode; the FP8-block modes are not ported). Every
+    orientation, and the fused norm, goes through a kernel for any
+    shape; the tensors carry no amax."""
+
+    scaling_mode: ClassVar[ScalingMode] = ScalingMode.MXFP8_1D_SCALING
+
+    def _quantize_2d(self, x2d):
+        """The unfused ground truth (``qmath.mxfp8_quantize``), which
+        :meth:`_fused_1x` and :meth:`_fused_2x` equal bit for bit."""
+        data, scale = qmath.mxfp8_quantize(x2d, self.q_dtype)
+        return data, scale, None
+
+    def _fused_1x(self, x2d, colwise: bool):
+        data, scale = qk.mxfp8_quantize_1x(x2d, self.q_dtype,
+                                           colwise=colwise)
+        return data, scale, None
+
+    def _fused_2x(self, x2d):
+        row, col, srow, scol = qk.mxfp8_quantize_2x(x2d, self.q_dtype)
+        return row, srow, col, scol, None
+
+    def quantize_normed(self, x2d: torch.Tensor, gamma: torch.Tensor,
+                        beta: Optional[torch.Tensor], *, norm: str,
+                        zero_centered_gamma: bool, epsilon: float,
+                        dq_dtype=None, layout=None):
+        """Normalization fused with the MXFP8 quantize: (ScaledTensor2x,
+        mu or None, rsigma (M,)), bit-identical to ``ops/normalization``
+        followed by :meth:`quantize`; the rowwise ScaledTensor1x alone for
+        ``layout=ROWWISE``. None when the reference's shape rule
+        (M % 256 == 0, H % 128 == 0) does not hold."""
+        m, h = x2d.shape
+        if m % 256 or h % 128:
+            return None
+        rowwise_only = layout is QuantizeLayout.ROWWISE
+        outs = qk.mxfp8_norm_quantize_2x(
+            x2d, gamma, beta, self.q_dtype, norm=norm,
+            zero_centered_gamma=zero_centered_gamma, epsilon=epsilon,
+            rowwise_only=rowwise_only)
+        row, col, srow, scol, rsigma = outs[:5]
+        mu = outs[5].reshape(m) if norm == "layernorm" else None
+        dq_dtype = dq_dtype or x2d.dtype
+        rw = self._tensor(row, srow, None, dq_dtype, "N")
+        if rowwise_only:
+            return rw, mu, rsigma.reshape(m)
+        cw = self._tensor(col, scol, None, dq_dtype, "T")
+        return ScaledTensor2x(rowwise=rw, colwise=cw), mu, rsigma.reshape(m)
+
+
+@dataclasses.dataclass(frozen=True)
 class NoopQuantizer(Quantizer):
     """Pass-through quantizer for a tensor role left in high precision."""
+
+    scaling_mode: ClassVar[ScalingMode] = ScalingMode.NO_SCALING
 
     def quantize(self, x, *, dq_dtype=None, layout=None):
         return x

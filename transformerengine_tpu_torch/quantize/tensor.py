@@ -1,6 +1,6 @@
 """Quantized tensors (counterpart of transformerengine_tpu/quantize/
-tensor.py), per-tensor scaling only: one usage (``ScaledTensor1x``) or
-both (``ScaledTensor2x``)."""
+tensor.py): one usage (``ScaledTensor1x``) or both (``ScaledTensor2x``),
+per-tensor scaled or MXFP8."""
 from __future__ import annotations
 
 import dataclasses
@@ -8,16 +8,23 @@ from typing import Optional
 
 import torch
 
+from .scaling_modes import ScalingMode
+
 
 @dataclasses.dataclass(frozen=True)
 class ScaledTensor1x:
-    """One usage of a per-tensor-scaled tensor.
+    """One usage of a quantized tensor.
 
     ``data`` is stored as its consumer reads it: the logical shape for
     ``layout == "N"`` (rowwise), transposed for ``layout == "T"``
-    (colwise). ``scale_inv`` is the (1,) f32 dequantization multiplier.
-    ``resident`` marks tensors that live in device memory across steps
-    (prequantized weights): GEMMs read their payload directly."""
+    (colwise). ``scale_inv`` holds the dequantization multipliers: a (1,)
+    f32 tensor under tensor scaling; under MXFP8 a uint8 grid (rows,
+    ceil(cols / 32)) of E8M0 biased exponents along the stored last axis
+    of the 2D view: (leading dims, last dim) for "N", (first dim, the
+    others) for "T", the transpose of the input's 2D view that the
+    quantizer folds its leading dims into. ``resident`` marks tensors that
+    live in device memory across steps (prequantized weights): GEMMs read
+    their payload directly."""
 
     data: torch.Tensor
     scale_inv: torch.Tensor
@@ -25,6 +32,7 @@ class ScaledTensor1x:
     dq_dtype: torch.dtype
     layout: str = "N"
     resident: bool = False
+    scaling_mode: ScalingMode = ScalingMode.CURRENT_TENSOR_SCALING
 
     def __post_init__(self):
         if self.layout not in ("N", "T"):
@@ -34,20 +42,56 @@ class ScaledTensor1x:
     def shape(self):
         return self.data.shape
 
+    def view_2d(self) -> torch.Tensor:
+        """The payload as the 2D matrix its scales run along."""
+        if self.layout == "T":
+            return self.data.reshape(self.data.shape[0], -1)
+        return self.data.reshape(-1, self.data.shape[-1])
+
     def dequantize(self) -> torch.Tensor:
-        """The high-precision tensor, in stored orientation."""
-        return (self.data.float() * self.scale_inv.float().reshape(())
-                ).to(self.dq_dtype)
+        """The high-precision tensor, in stored orientation. An MXFP8
+        payload times its power-of-two scale is exact in bf16, so a bf16
+        result is multiplied in bf16 (as the reference does), anything
+        else in f32."""
+        if self.scaling_mode.is_tensor_scaling:
+            return (self.data.float() * self.scale_inv.float().reshape(())
+                    ).to(self.dq_dtype)
+        mul_t = (torch.bfloat16 if self.dq_dtype == torch.bfloat16
+                 else torch.float32)
+        return dequantize_blocks(self, mul_t).to(self.dq_dtype)
+
+
+def dequantize_blocks(t: ScaledTensor1x, mul_t: torch.dtype) -> torch.Tensor:
+    """An MXFP8 tensor's values, the payload times its block scales in
+    ``mul_t``, in stored shape."""
+    x = t.view_2d()
+    rows, cols = x.shape
+    s = t.scaling_mode.decode_scale_inv(t.scale_inv)
+    _, bc = t.scaling_mode.block_shape
+    gc = s.shape[1]
+    if gc * bc == cols:
+        out = x.to(mul_t).reshape(rows, gc, bc) * s.to(mul_t)[:, :, None]
+    else:
+        # Ragged last block: the scales are expanded to the full width.
+        sf = s.repeat_interleave(bc, dim=1)[:, :cols]
+        out = (x.float() * sf).to(mul_t)
+    return out.reshape(t.data.shape)
 
 
 @dataclasses.dataclass(frozen=True)
 class ScaledTensor2x:
     """Rowwise (layout "N") and colwise (layout "T") usages of one tensor.
     Under per-tensor scaling both share one scale, so the colwise payload
-    is the exact transpose of the rowwise one."""
+    is the exact transpose of the rowwise one; under MXFP8 the colwise
+    usage is the transposed tensor quantized along its own last axis, a
+    different quantization with its own scale grid."""
 
     rowwise: ScaledTensor1x
     colwise: ScaledTensor1x
+
+    @property
+    def scaling_mode(self) -> ScalingMode:
+        return self.rowwise.scaling_mode
 
     def dequantize(self) -> torch.Tensor:
         return self.rowwise.dequantize()
