@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases 3,4,5,6,7,8] [--train-seeds 21]
+    python3 chip_smoke.py [--phases 3,4,5,6,7,8,9,10] [--train-seeds 21]
 
 Phases, each of which raises (and so exits non-zero) on failure:
   1. the card's name and power limit (nvidia-smi);
@@ -14,7 +14,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
      small shapes. The fused quantize kernels are reached through the
      quantizer API (``DelayedScaleQuantizer.quantize`` in the 2x layout
      and ``quantize_normed``), the MXFP8 norm kernel through
-     ``BlockScaleQuantizer.quantize_normed``;
+     ``BlockScaleQuantizer.quantize_normed``. Paged decode attention at
+     phase 9's shape (fp8 pages, a shuffled table) and then bf16 and f32
+     pages, sinks and a length of 0; the KN decode GEMM at the four GEMMs
+     of an LLAMA_8B layer, then M = 1 and 32, f32 x and the packed form;
   4. FP8-resident serving at LLAMA_8B width (seeded random weights, FP8
      KV cache, B = 8, prompts of 512 and 384 tokens, 32 new tokens)
      through prefill and decode_steps, with TTFT, decode ms/step, tok/s
@@ -22,7 +25,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
   5. serving, the card against the CPU, for three seeds: two layers at
      LLAMA_8B width with the same weights, equal fp8 payload bytes, the
      prefill's and every decode step's logits within tolerance, and
-     near-equal greedy tokens;
+     near-equal greedy tokens; then one seed with MXFP8 (K, N)-resident
+     weights and the paged cache;
   6. FP8 training at LLAMA_8B width, 4 layers, B = 2, S = 2048, under
      DelayedScaling(amax_history_len=16): five SGD steps with finite
      losses, the delayed-scaling state rolled, and exact launch counts;
@@ -42,11 +46,20 @@ Phases, each of which raises (and so exits non-zero) on failure:
      launch counts of the three MXFP8 kernels and flash attention, ms/step,
      tokens/s, peak memory, the device's busy share and top kernels beside
      phase 6's DelayedScaling step; then the forward without a gradient
-     at the same shape, with its own exact launch counts.
+     at the same shape, with its own exact launch counts;
+  9. paged, MXFP8-resident serving at LLAMA_8B width (phase 4's shape,
+     pages of 128): ``prequantize_kernels(model, MXFP8BlockScaling(),
+     block_decode="quantized")``, then ``"bf16"``, each with TTFT, decode
+     ms/step, tok/s, resident GiB, the device's busy share and exact launch
+     counts (at load and per decode step);
+ 10. continuous batching at LLAMA_8B width: 8 slots, 16 seeded requests
+     of 64-512 tokens, 32 new tokens each, fp8 weights and cache:
+     requests/s, tok/s, admission ms, decode ms/step, exact launch counts,
+     and four requests against the card's own batch-1 generate.
 Then one ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 A kernel's ``launches`` is the sum of its counts over the runs of the
-paths (phases 4, 6 and 8), each counted from zero; comparisons with the
-plain versions do not count. ``--phases`` runs a subset (for iterating on
+paths (phases 4, 6, 8, 9 and 10, phase 9's load included), each counted
+from zero; comparisons with the plain versions do not count. ``--phases`` runs a subset (for iterating on
 one path); the default runs all. ``--train-seeds`` gives phase 7 other
 seeds (``21,22,23`` reads what its limits were set from).
 """
@@ -987,6 +1000,231 @@ def check_mxfp8_variants(torch) -> None:
             x, gamma, bt, kw)
 
 
+def paged_pool(torch, g, n_pages: int, page: int, hkv: int, d: int,
+               table, mag, dtype):
+    """(K, V) pools of ``n_pages`` random pages; the pages that ``table``
+    (B, max_pages) gives each slot take that slot's magnitude ``mag`` (B,),
+    and fp8 pools are quantized with each slot's calibrated scale. Returns
+    (k, v, dequant scales (B,) or None)."""
+    shape = (n_pages, page, hkv, d)
+    k = torch.randn(shape, generator=g, device="cuda")
+    v = torch.randn(shape, generator=g, device="cuda")
+    page_mag = torch.ones(n_pages, device="cuda")
+    idx = table.long().clamp_min(0)
+    page_mag[idx.flatten()] = mag[:, None].expand_as(idx).flatten()
+    k, v = k * page_mag[:, None, None, None], v * page_mag[:, None, None, None]
+    if dtype != torch.float8_e4m3fn:
+        return k.to(dtype), v.to(dtype), None
+    from transformerengine_tpu_torch.inference.kv_cache import (
+        calibrate_kv_scale, quantize_for_cache)
+    b = table.shape[0]
+    kv_scale = calibrate_kv_scale(k[idx].reshape(b, -1, hkv, d),
+                                  v[idx].reshape(b, -1, hkv, d),
+                                  per_slot=True)
+    page_scale = torch.ones(n_pages, device="cuda")
+    page_scale[idx.flatten()] = kv_scale[:, None].expand_as(idx).flatten()
+    return (quantize_for_cache(k, page_scale, dtype),
+            quantize_for_cache(v, page_scale, dtype), 1.0 / kv_scale)
+
+
+def check_paged_attention(torch, timer, results):
+    from transformerengine_tpu_torch.ops.paged_attention import (
+        paged_decode_attention, paged_decode_attention_plain)
+    b, hq, hkv, d, page = BATCH, 32, 8, 128, 128
+    mpps = -(-(max(PROMPT_LENS) + NEW_TOKENS) // page)
+    n_pages = b * mpps
+    lens = mixed_lengths(torch, b) + NEW_TOKENS // 2
+    log(f"[3l] paged_decode_attention: B={b} Hq={hq} Hkv={hkv} D={d}, fp8 "
+        f"pages of {page} ({n_pages} in the pool, a shuffled table of {mpps} "
+        f"a sequence) with per-slot scales, lengths "
+        f"{sorted(set(lens.tolist()))}")
+    g = torch.Generator(device="cuda").manual_seed(12)
+    q = torch.randn((b, 1, hq, d), generator=g, device="cuda").to(
+        torch.bfloat16)
+    table = torch.randperm(n_pages, generator=g, device="cuda").to(
+        torch.int32).reshape(b, mpps)
+    # Slot magnitudes 2^-4 to 2^3, as in [3c].
+    mag = 2.0 ** (torch.arange(b, device="cuda") - b // 2)
+    kc, vc, dq = paged_pool(torch, g, n_pages, page, hkv, d, table, mag,
+                            torch.float8_e4m3fn)
+
+    def kernel():
+        return paged_decode_attention(q, kc, vc, table, lens, kv_scale=dq)
+
+    def plain():
+        return paged_decode_attention_plain(
+            q, kc, vc, table, lens, kv_scale=dq, scale=d ** -0.5,
+            out_dtype=torch.bfloat16)
+
+    out = kernel()
+    torch.cuda.synchronize()
+    ref = plain()
+    # Both keep the softmax in f32 (the reference's Pallas form); the
+    # bf16 outputs round apart where the f32 sums' order moves them.
+    err = check("O", out, ref, row_tol(ref, BF16_ROW_RTOL))
+    ms, plain_ms = timer(kernel), timer(plain)
+    total_len = int(lens.sum())
+    nbytes = 2 * total_len * hkv * d + 2 * 2 * b * hq * d + 4 * b * mpps \
+        + 4 * b + 4 * b
+    flops = 4 * hq * d * total_len
+    b_ms, b_by = bound_ms(nbytes, flops)
+    log(f"  kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}); library: none (no PyTorch call reads an fp8 paged "
+        f"cache)")
+    results["paged_decode_attention"] = dict(
+        name="paged_decode_attention", route="cuda",
+        source="transformerengine_tpu_torch/csrc/paged_decode_attention.cu",
+        replaces="transformerengine_tpu/ops/paged_attention.py:87",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None,
+        shape=f"decode B={b} Hq={hq} Hkv={hkv} D={d} fp8 pages of {page}")
+
+
+def check_paged_variants(torch) -> None:
+    """The paged kernel's other page and query dtypes, head dims and
+    options at small shapes: a shuffled table with unallocated entries
+    past the lengths, a length of 0 (a zero row), a sequence that fills
+    its whole table, and the sink."""
+    from transformerengine_tpu_torch.ops.paged_attention import (
+        paged_decode_attention, paged_decode_attention_plain)
+    log("[3m] paged_decode_attention's other variants at small shapes")
+    g = torch.Generator(device="cuda").manual_seed(13)
+    f32, bf16, e4m3 = torch.float32, torch.bfloat16, torch.float8_e4m3fn
+    b, hkv, page, mpps = 4, 2, 16, 6
+    n_pages = b * mpps + 5
+    lens = torch.tensor([37, 0, page * mpps, 5], dtype=torch.int32,
+                        device="cuda")
+    for qt, ct, d, hq, sink in ((f32, f32, 64, 8, False),
+                                (f32, f32, 256, 4, True),
+                                (bf16, bf16, 128, 8, True),
+                                (f32, bf16, 64, 16, False),
+                                (bf16, e4m3, 64, 2, True)):
+        table = torch.randperm(n_pages, generator=g, device="cuda")[
+            :b * mpps].to(torch.int32).reshape(b, mpps)
+        table[0, 3:] = -1
+        table[3, 1:] = -1
+        mag = torch.rand(b, generator=g, device="cuda") * 2 + 0.5
+        kc, vc, dq = paged_pool(torch, g, n_pages, page, hkv, d, table, mag,
+                                ct)
+        if dq is None:
+            dq = torch.rand(b, generator=g, device="cuda") + 0.5
+        q = torch.randn((b, 1, hq, d), generator=g, device="cuda").to(qt)
+        sinks = torch.randn(hq, generator=g, device="cuda") if sink else None
+        out = paged_decode_attention(q, kc, vc, table, lens, kv_scale=dq,
+                                     softmax_sink=sinks)
+        ref = paged_decode_attention_plain(
+            q, kc, vc, table, lens, kv_scale=dq, scale=d ** -0.5,
+            out_dtype=qt, softmax_sink=sinks)
+        # f32 outputs: f32 sums in another order (1e-5 of the largest);
+        # bf16 outputs as in [3l].
+        tol = (1e-5 * float(ref.abs().max()) if qt == f32
+               else row_tol(ref, BF16_ROW_RTOL))
+        check(f"paged q {qt} pages {ct} D={d} G={hq // hkv} sink={sink}",
+              out, ref, tol)
+        if bool(out[1].abs().max() != 0):
+            raise AssertionError("a length of 0 must give a zero row")
+
+
+# The four GEMMs of one LLAMA_8B layer as (K, N).
+LAYER_KN = {"qkv": (4096, 6144), "out": (4096, 4096), "wi": (4096, 28672),
+            "wo": (14336, 4096)}
+
+
+def kn_operands(torch, g, m: int, k: int, n: int, packed: bool = False,
+                xt=None):
+    """x (M, K) and a block-scaled (K, N) weight: e4m3 codes with
+    E8M0-derived bf16 scales (block 32), or split-plane packed e2m1 codes
+    with e4m3-valued bf16 scales (block 16) and an out_scale."""
+    x = torch.randn((m, k), generator=g, device="cuda").to(
+        xt or torch.bfloat16)
+    if packed:
+        block = 16
+        payload = torch.randint(0, 256, (k // 2, n), generator=g,
+                                device="cuda", dtype=torch.uint8)
+        scale = (torch.rand((k // block, n), generator=g, device="cuda") * 4
+                 + 0.05).to(torch.float8_e4m3fn).to(torch.bfloat16)
+        out_scale = torch.tensor([0.37], device="cuda")
+    else:
+        block = 32
+        payload = torch.randn((k, n), generator=g, device="cuda").to(
+            torch.float8_e4m3fn)
+        exp = torch.randint(-12, -5, (k // block, n), generator=g,
+                            device="cuda")
+        scale = torch.ldexp(torch.ones_like(exp, dtype=torch.float32),
+                            exp).to(torch.bfloat16)
+        out_scale = None
+    return x, payload, scale, out_scale, block
+
+
+def check_kn_matvec(torch, timer, results):
+    from transformerengine_tpu_torch import _build
+    from transformerengine_tpu_torch.ops.decode_matmul import (
+        decode_kn_matvec, decode_kn_matvec_plain, dequantize_kn)
+    log("[3n] decode_kn_matvec: the four decode GEMMs of one LLAMA_8B layer "
+        "at M = 8 (x bf16, (K, N) e4m3 with E8M0-derived bf16 scales, f32 "
+        "out)")
+    g = torch.Generator(device="cuda").manual_seed(14)
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0.0, flops=0.0,
+               err=0.0)
+    for gemm, (k, n) in LAYER_KN.items():
+        x, p, s, _, block = kn_operands(torch, g, BATCH, k, n)
+
+        def kernel():
+            return decode_kn_matvec(x, p, s, block=block)
+
+        def plain():
+            return decode_kn_matvec_plain(x, p, s, block=block)
+
+        got = kernel()
+        torch.cuda.synchronize()
+        ref = plain()
+        # f32 sums over K in another order: 1e-4 of the largest output, as
+        # [3a].
+        err = check(f"{gemm} K={k} N={n}", got, ref,
+                    1e-4 * float(ref.abs().max()))
+        again = kernel()
+        if not torch.equal(again, got):
+            raise AssertionError("decode_kn_matvec is not deterministic")
+        tot["err"] = max(tot["err"], err)
+        tot["ms"] += timer(kernel)
+        tot["plain_ms"] += timer(plain)
+        w = dequantize_kn(p, s, block)
+        tot["library_ms"] += timer(
+            lambda: torch.mm(x, w, out_dtype=torch.float32))
+        del w
+        tot["nbytes"] += (k * n + (k // block) * n * 2 + BATCH * k * 2
+                          + BATCH * n * 4)
+        tot["flops"] += 2 * BATCH * n * k
+    b_ms, b_by = bound_ms(tot["nbytes"], tot["flops"])
+    log(f"  one layer (4 GEMMs): kernel {tot['ms']:.4f} ms, plain "
+        f"{tot['plain_ms']:.4f} ms, torch.mm on the dequantized bf16 (K, N) "
+        f"weight {tot['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+        f"{tot['nbytes'] / 1e6:.1f} MB); results equal from run to run")
+    results["decode_kn_matvec"] = dict(
+        name="decode_kn_matvec", route="cuda",
+        source="transformerengine_tpu_torch/csrc/decode_kn_matvec.cu",
+        replaces="transformerengine_tpu/ops/decode_matmul.py:178",
+        max_abs_err=tot["err"], ms=tot["ms"], plain_ms=tot["plain_ms"],
+        bound_ms=b_ms, bound_by=b_by, library_ms=tot["library_ms"],
+        shape="MXFP8 (K, N) e4m3 weights, the 4 GEMMs of one LLAMA_8B "
+              "layer, M=8")
+    # M = 1 and 32, f32 x, the packed form with an out_scale, and shapes
+    # off the tiles (N not a multiple of 128, K not of the 1024-row chunk).
+    for m, k, n, packed, xt in ((1, 4096, 4096, False, None),
+                                (32, 4096, 4096, False, None),
+                                (8, 4096, 4096, False, torch.float32),
+                                (8, 4096, 4096, True, None),
+                                (3, 1056, 1040, True, torch.float32),
+                                (17, 2080, 1552, False, None)):
+        x, p, s, o, block = kn_operands(torch, g, m, k, n, packed, xt)
+        ref = decode_kn_matvec_plain(x, p, s, o, block=block, packed=packed)
+        check(f"M={m} K={k} N={n} x {x.dtype} "
+              f"{'packed e2m1, out_scale' if packed else 'e4m3'}",
+              decode_kn_matvec(x, p, s, o, block=block, packed=packed), ref,
+              1e-4 * float(ref.abs().max()))
+    _build.LAUNCHES.clear()
+
+
 def shrink_embedding(model) -> None:
     """Scales the seeded embedding to stddev 0.02, Llama's own init. The
     reference draws it at stddev 1, and with tied input and output
@@ -1004,9 +1242,8 @@ def prompts(torch, b: int, s: int, vocab: int, lens, device, seed: int = 3):
 
 
 def serve(torch, results) -> None:
-    from transformerengine_tpu_torch import Float8CurrentScaling, _build
-    from transformerengine_tpu_torch.inference import (
-        InferenceParams, decode_steps, generate, prefill)
+    from transformerengine_tpu_torch import Float8CurrentScaling
+    from transformerengine_tpu_torch.inference import InferenceParams
     from transformerengine_tpu_torch.models.llama import LLAMA_8B, LlamaModel
     from transformerengine_tpu_torch.quantize.prequant import (
         prequantize_kernels)
@@ -1021,10 +1258,41 @@ def serve(torch, results) -> None:
     torch.cuda.synchronize()
     log(f"  init + prequantize: {time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
-    tokens, lengths = prompts(torch, BATCH, max(PROMPT_LENS), cfg.vocab_size,
-                              PROMPT_LENS, "cuda")
     ip = InferenceParams(BATCH, max(PROMPT_LENS) + NEW_TOKENS,
                          torch.float8_e4m3fn)
+    expect = {"flash_attention_fwd": layers,
+              "decode_attention": layers * (NEW_TOKENS - 1),
+              "decode_tn_matvec": 4 * layers * (NEW_TOKENS - 1)}
+    results["_serve"] = drive_serving(torch, model, ip, expect, results)
+    del model
+
+
+def hold_launches(counts: dict, expect: dict, results) -> None:
+    """Holds each kernel's launch count to ``expect`` (a kernel expected
+    0 times must not launch), and adds the counts to the results."""
+    for name, n in expect.items():
+        got = counts.get(name, 0)
+        log(f"  launches {name}: {got} (expected {n}) "
+            f"{'ok' if got == n else 'FAIL'}")
+        if got != n:
+            raise AssertionError(f"{name} launched {got} times, expected {n}")
+        if got:
+            add_launches(results, name, got)
+
+
+def drive_serving(torch, model, ip, expect: dict, results) -> dict:
+    """The serving path at B = BATCH: a warm-up generate, then, with every
+    launch count from zero, a prefill of the mixed-length prompts and
+    NEW_TOKENS - 1 one-step decodes, each synchronized. Checks the tokens,
+    the logits and the launch counts (``expect``); returns TTFT, decode
+    ms/step and tok/s, the host's calls per step and the device profile of
+    four more steps."""
+    from transformerengine_tpu_torch import _build
+    from transformerengine_tpu_torch.inference import (
+        decode_steps, generate, prefill)
+    vocab = model.config.vocab_size
+    tokens, lengths = prompts(torch, BATCH, max(PROMPT_LENS), vocab,
+                              PROMPT_LENS, "cuda")
     warm = generate(model, tokens, lengths, 2, inference_params=ip)
     torch.cuda.synchronize()
     del warm
@@ -1051,11 +1319,11 @@ def serve(torch, results) -> None:
 
     out = torch.cat([first_host[:, None], toks_host], dim=1)
     if out.shape != (BATCH, NEW_TOKENS) or int(out.min()) < 0 or \
-            int(out.max()) >= cfg.vocab_size:
+            int(out.max()) >= vocab:
         raise AssertionError(f"bad tokens {out.shape} {out.min()} {out.max()}")
     with torch.no_grad():
         logits = model(tokens[:, :16])
-    if logits.shape != (BATCH, 16, cfg.vocab_size) or \
+    if logits.shape != (BATCH, 16, vocab) or \
             not bool(torch.isfinite(logits).all()):
         raise AssertionError("the model's logits are not finite")
     step_ms = decode_s / (NEW_TOKENS - 1) * 1e3
@@ -1065,25 +1333,185 @@ def serve(torch, results) -> None:
         f"tokens), decode {step_ms:.3f} ms/step (median {median_ms:.3f}, "
         f"least {least_ms:.3f}), {BATCH / (step_ms / 1e3):.1f} tok/s, "
         f"peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
-    expect = {"flash_attention_fwd": layers,
-              "decode_attention": layers * (NEW_TOKENS - 1),
-              "decode_tn_matvec": 4 * layers * (NEW_TOKENS - 1)}
-    for name, n in expect.items():
-        got = counts.get(name, 0)
-        log(f"  launches {name}: {got} (expected {n}) "
-            f"{'ok' if got == n else 'FAIL'}")
-        if got != n:
-            raise AssertionError(f"{name} launched {got} times, expected {n}")
-        add_launches(results, name, got)
+    hold_launches(counts, expect, results)
     calls = host_calls_per_step(model, caches, toks[:, -1])
     log(f"  host: {calls} Python calls per decode step")
-    results["_serve"] = dict(ttft_ms=ttft * 1e3, decode_ms_per_step=step_ms,
-                             decode_median_ms=median_ms,
-                             decode_least_ms=least_ms,
-                             tok_per_s=BATCH / (step_ms / 1e3), layers=layers,
-                             host_calls_per_step=calls)
-    profile_decode(torch, model, caches, toks[:, -1], results["_serve"])
-    del model, caches
+    stats = dict(ttft_ms=ttft * 1e3, decode_ms_per_step=step_ms,
+                 decode_median_ms=median_ms, decode_least_ms=least_ms,
+                 tok_per_s=BATCH / (step_ms / 1e3),
+                 layers=len(model.layers), host_calls_per_step=calls)
+    profile_decode(torch, model, caches, toks[:, -1], stats)
+    return stats
+
+
+def resident_gib(model) -> float:
+    """GiB held by the resident kernels' buffers."""
+    from transformerengine_tpu_torch.quantize.prequant import (
+        PrequantizedKernel)
+    return sum(t.numel() * t.element_size() for m in model.modules()
+               if isinstance(m, PrequantizedKernel)
+               for t in m.buffers()) / 2 ** 30
+
+
+def serve_paged_mxfp8(torch, results) -> None:
+    from transformerengine_tpu_torch import MXFP8BlockScaling, _build
+    from transformerengine_tpu_torch.inference import InferenceParams
+    from transformerengine_tpu_torch.models.llama import LLAMA_8B, LlamaModel
+    from transformerengine_tpu_torch.quantize.prequant import (
+        prequantize_kernels)
+    cfg = LLAMA_8B
+    layers = cfg.num_layers
+    ip = InferenceParams(BATCH, max(PROMPT_LENS) + NEW_TOKENS,
+                         torch.float8_e4m3fn, is_paged=True, page_size=128)
+    stats = {}
+    for mode in ("quantized", "bf16"):
+        log(f"[9] paged, MXFP8-resident serve (block_decode={mode!r}): "
+            f"LLAMA_8B width, {layers} layers, B={BATCH}, prompts "
+            f"{PROMPT_LENS} mixed, {NEW_TOKENS} new tokens, fp8 pages of "
+            f"{ip.page_size}")
+        t0 = time.perf_counter()
+        model = LlamaModel(cfg, device="cuda", seed=0)
+        shrink_embedding(model)
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        prequantize_kernels(model, MXFP8BlockScaling(), block_decode=mode)
+        torch.cuda.synchronize()
+        load = dict(_build.LAUNCHES)
+        log(f"  init + prequantize: {time.perf_counter() - t0:.1f} s; "
+            f"resident kernels {resident_gib(model):.2f} GiB, "
+            f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+        hold_launches(load, {"mxfp8_quantize_1x": 4 * layers}, results)
+        steps = layers * (NEW_TOKENS - 1)
+        matvec = "decode_kn_matvec" if mode == "quantized" \
+            else "decode_tn_matvec"
+        other = "decode_tn_matvec" if mode == "quantized" \
+            else "decode_kn_matvec"
+        expect = {"flash_attention_fwd": layers,
+                  "paged_decode_attention": steps, matvec: 4 * steps,
+                  other: 0, "decode_attention": 0}
+        stats[mode] = drive_serving(torch, model, ip, expect, results)
+        stats[mode]["resident_gib"] = resident_gib(model)
+        del model
+        torch.cuda.empty_cache()
+    q, h = stats["quantized"], stats["bf16"]
+    log(f"  decode ms/step: quantized {q['decode_ms_per_step']:.3f}, bf16 "
+        f"{h['decode_ms_per_step']:.3f}; resident {q['resident_gib']:.2f} "
+        f"against {h['resident_gib']:.2f} GiB")
+    results["_serve_paged_mxfp8"] = stats
+
+
+BATCH_SLOTS, BATCH_REQUESTS, BATCH_CHECKED = 8, 16, 4
+
+
+def serve_batching(torch, results) -> None:
+    from transformerengine_tpu_torch import Float8CurrentScaling, _build
+    from transformerengine_tpu_torch.inference import (
+        ContinuousBatchingEngine, InferenceParams, generate)
+    from transformerengine_tpu_torch.models.llama import LLAMA_8B, LlamaModel
+    from transformerengine_tpu_torch.quantize.prequant import (
+        prequantize_kernels)
+    cfg = LLAMA_8B
+    layers = cfg.num_layers
+    plen = max(PROMPT_LENS)
+    g = torch.Generator(device="cpu").manual_seed(10)
+    lens = torch.randint(64, plen + 1, (BATCH_REQUESTS,), generator=g)
+    reqs = [torch.randint(1, cfg.vocab_size, (int(n),), generator=g).tolist()
+            for n in lens]
+    log(f"[10] continuous batching: LLAMA_8B width, {layers} layers, fp8 "
+        f"weights (Float8CurrentScaling), fp8 cache with per-slot scales, "
+        f"{BATCH_SLOTS} slots, prompt_len {plen}, {BATCH_REQUESTS} requests "
+        f"of {int(lens.min())}-{int(lens.max())} tokens (seeded), "
+        f"{NEW_TOKENS} new tokens each")
+    model = LlamaModel(cfg, device="cuda", seed=0)
+    shrink_embedding(model)
+    prequantize_kernels(model, Float8CurrentScaling())
+    kw = dict(max_batch_size=BATCH_SLOTS, max_sequence_length=plen
+              + NEW_TOKENS, prompt_len=plen, max_new_tokens=NEW_TOKENS,
+              kv_cache_dtype=torch.float8_e4m3fn)
+    warm = ContinuousBatchingEngine(model, **dict(kw, max_new_tokens=2))
+    warm.submit(reqs[0])
+    warm.run()
+    del warm
+    torch.cuda.synchronize()
+
+    eng = ContinuousBatchingEngine(model, **kw)
+    rids = [eng.submit(r) for r in reqs]
+    admit_s, decode_s, admitted = [], [], [0]
+    admit = eng._admit
+
+    def timed_admit():
+        n0 = len(eng.emitted)
+        t = time.perf_counter()
+        admit()
+        torch.cuda.synchronize()
+        if len(eng.emitted) > n0:
+            admit_s.append(time.perf_counter() - t)
+            admitted[0] += len(eng.emitted) - n0
+
+    eng._admit = timed_admit
+    _build.LAUNCHES.clear()
+    results_out = {}
+    t_all = time.perf_counter()
+    while eng.queue or eng.active:
+        t0 = time.perf_counter()
+        a0 = sum(admit_s)
+        results_out.update(eng.step())
+        torch.cuda.synchronize()
+        decode_s.append(time.perf_counter() - t0 - (sum(admit_s) - a0))
+    wall = time.perf_counter() - t_all
+    counts = dict(_build.LAUNCHES)
+    _build.LAUNCHES.clear()
+    eng._admit = admit
+    n_steps = len(decode_s)
+    if sorted(results_out) != sorted(rids) or any(
+            len(results_out[r]) != NEW_TOKENS or min(results_out[r]) < 0
+            or max(results_out[r]) >= cfg.vocab_size for r in rids):
+        raise AssertionError("the engine did not finish every request with "
+                             f"{NEW_TOKENS} tokens in the vocabulary")
+    n_tok = sum(len(t) for t in results_out.values())
+    step_ms = sum(decode_s) / n_steps * 1e3
+    log(f"  {BATCH_REQUESTS} requests in {wall:.2f} s: "
+        f"{BATCH_REQUESTS / wall:.2f} requests/s, {n_tok / wall:.1f} tok/s; "
+        f"admission {sum(admit_s) / admitted[0] * 1e3:.2f} ms a request "
+        f"({admitted[0]} admissions in {len(admit_s)} steps), decode "
+        f"{step_ms:.3f} ms/step over {n_steps} steps")
+    hold_launches(counts, {"flash_attention_fwd": layers * admitted[0],
+                           "decode_attention": layers * n_steps,
+                           "decode_tn_matvec": 4 * layers * n_steps,
+                           "paged_decode_attention": 0,
+                           "decode_kn_matvec": 0}, results)
+    # Requests against the card's own batch-1 generate of the same prompt.
+    ip1 = InferenceParams(1, plen + NEW_TOKENS, torch.float8_e4m3fn)
+    notes = []
+    for rid in rids[::BATCH_REQUESTS // BATCH_CHECKED]:
+        tokens = torch.zeros((1, plen), dtype=torch.int32)
+        tokens[0, :len(reqs[rid])] = torch.tensor(reqs[rid])
+        length = torch.tensor([len(reqs[rid])], dtype=torch.int32)
+        ref = generate(model, tokens, length, NEW_TOKENS,
+                       inference_params=ip1)[0].cpu()
+        got = torch.tensor(results_out[rid], dtype=torch.int32)
+        diff = torch.nonzero(got != ref).flatten()
+        if not diff.numel():
+            notes.append(f"request {rid} equal")
+            continue
+        t = int(diff[0])
+        lg = forced_logits(torch, model, tokens, length, ip1, ref[None],
+                           "cuda")[0, t]
+        top2 = lg.topk(2).values
+        gap = float(top2[0] - top2[1]) / float(lg.abs().max())
+        notes.append(f"request {rid} leaves its batch-1 run at step {t}, "
+                     f"where that run's top two logits lie {gap:.3e} of the "
+                     f"largest apart")
+        if gap > STEPS_RTOL:
+            raise AssertionError(f"request {rid} differs from its batch-1 "
+                                 f"run at step {t}, not at a near-tie")
+    log(f"  against batch-1 generate: {'; '.join(notes)}")
+    results["_batching"] = dict(
+        requests_per_s=BATCH_REQUESTS / wall, tok_per_s=n_tok / wall,
+        admission_ms=sum(admit_s) / admitted[0] * 1e3,
+        decode_ms_per_step=step_ms, decode_steps=n_steps,
+        admissions=admitted[0], wall_s=wall, agreement="; ".join(notes))
+    del model, eng
 
 
 def host_calls_per_step(model, caches, tok) -> int:
@@ -1116,10 +1544,8 @@ def forced_logits(torch, model, tokens, lengths, ip, forced, dev):
     earlier generated tokens are ``forced`` (B, NEW): the prompt's last
     position, then one decode step per forced token."""
     from transformerengine_tpu_torch.attention import SequenceDescriptor
-    from transformerengine_tpu_torch.inference import KVCache
-    caches = [KVCache.allocate(ip, layer.self_attention.num_kv_heads,
-                               layer.self_attention.head_dim, dev)
-              for layer in model.layers]
+    from transformerengine_tpu_torch.inference import allocate_caches
+    caches = allocate_caches(model, ip, dev)
     tokens, lengths, forced = (t.to(dev) for t in (tokens, lengths, forced))
     b, s = tokens.shape
     out = []
@@ -1146,6 +1572,7 @@ def forced_logits(torch, model, tokens, lengths, ip, forced, dev):
 PREFILL_RTOL = 2 ** -6
 STEPS_RTOL = 2 ** -5
 CARD_VS_CPU_SEEDS = (1, 2, 3)
+PAGED_VS_CPU_SEED = 4
 
 
 def greedy_agreement(torch, toks, card_logits) -> str:
@@ -1174,69 +1601,98 @@ def greedy_agreement(torch, toks, card_logits) -> str:
     return "; ".join(notes) or "greedy tokens equal"
 
 
+def same_resident_bytes(torch, cpu, card) -> int:
+    """Holds every buffer of the two models' resident kernels equal byte
+    for byte (fp8 payloads, scales, block-scaled (K, N) payloads); returns
+    the number of kernels."""
+    from transformerengine_tpu_torch.quantize.prequant import (
+        PrequantizedKernel)
+    pk_cpu = {n: m for n, m in cpu.named_modules()
+              if isinstance(m, PrequantizedKernel)}
+    pk_card = {n: m for n, m in card.named_modules()
+               if isinstance(m, PrequantizedKernel)}
+    if pk_cpu.keys() != pk_card.keys() or not pk_cpu:
+        raise AssertionError("prequantized kernels differ in name")
+    for n, m in pk_cpu.items():
+        bufs = dict(pk_card[n].named_buffers())
+        for bname, t in m.named_buffers():
+            other = bufs[bname].cpu()
+            if t.dtype != other.dtype or not torch.equal(
+                    t.contiguous().view(torch.uint8),
+                    other.contiguous().view(torch.uint8)):
+                raise AssertionError(f"{n}.{bname} differs card vs CPU")
+    return len(pk_cpu)
+
+
 def card_vs_cpu(torch) -> None:
-    from transformerengine_tpu_torch import Float8CurrentScaling
+    from transformerengine_tpu_torch import (Float8CurrentScaling,
+                                             MXFP8BlockScaling)
+    b, s, new = 2, 64, 8
+    log(f"[5] card vs CPU: 2 layers at LLAMA_8B width, same weights, B={b} "
+        f"prompt {s}, {new} new tokens, fp8 weights and cache, seeds "
+        f"{CARD_VS_CPU_SEEDS}; then seed {PAGED_VS_CPU_SEED} with MXFP8 "
+        f"(K, N)-resident weights (block_decode='quantized') and the paged "
+        f"cache (pages of 16)")
+    failures = []
+    for seed in CARD_VS_CPU_SEEDS:
+        if not card_vs_cpu_seed(torch, seed, Float8CurrentScaling(), {},
+                                {}, b, s, new):
+            failures.append(seed)
+    if not card_vs_cpu_seed(torch, PAGED_VS_CPU_SEED, MXFP8BlockScaling(),
+                            dict(block_decode="quantized"),
+                            dict(is_paged=True, page_size=16), b, s, new):
+        failures.append(PAGED_VS_CPU_SEED)
+    if failures:
+        raise AssertionError(f"card and CPU disagree for seeds {failures}")
+
+
+def card_vs_cpu_seed(torch, seed: int, recipe, prequant_kw: dict,
+                     ip_kw: dict, b: int, s: int, new: int) -> bool:
+    """One seed of phase 5: the same two-layer model on the CPU and the
+    card, prequantized on each, with equal resident bytes; the greedy
+    tokens of ``generate`` and the logits along the CPU's tokens."""
     from transformerengine_tpu_torch.inference import (
         InferenceParams, generate)
     from transformerengine_tpu_torch.models.llama import LLAMA_8B, LlamaModel
     from transformerengine_tpu_torch.quantize.prequant import (
-        PrequantizedKernel, prequantize_kernels)
+        prequantize_kernels)
     cfg = dataclasses.replace(LLAMA_8B, num_layers=2)
-    b, s, new = 2, 64, 8
-    log(f"[5] card vs CPU: 2 layers at LLAMA_8B width, same weights, B={b} "
-        f"prompt {s}, {new} new tokens, fp8 weights and cache, seeds "
-        f"{CARD_VS_CPU_SEEDS}")
-    failures = []
-    for seed in CARD_VS_CPU_SEEDS:
-        t0 = time.perf_counter()
-        cpu = LlamaModel(cfg, device="cpu", seed=seed)
-        shrink_embedding(cpu)
-        card = LlamaModel(cfg, device="cuda", seed=seed)
-        card.load_state_dict(cpu.state_dict())
-        for m in (cpu, card):
-            prequantize_kernels(m, Float8CurrentScaling())
-        pk_cpu = {n: m for n, m in cpu.named_modules()
-                  if isinstance(m, PrequantizedKernel)}
-        pk_card = {n: m for n, m in card.named_modules()
-                   if isinstance(m, PrequantizedKernel)}
-        if pk_cpu.keys() != pk_card.keys() or not pk_cpu:
-            raise AssertionError("prequantized kernels differ in name")
-        for n, m in pk_cpu.items():
-            same = torch.equal(m.data.view(torch.uint8),
-                               pk_card[n].data.cpu().view(torch.uint8)) and \
-                torch.equal(m.scale_inv, pk_card[n].scale_inv.cpu())
-            if not same:
-                raise AssertionError(f"fp8 payload of {n} differs card vs CPU")
-        tokens, lengths = prompts(torch, b, s, cfg.vocab_size, (s, s - 14),
-                                  "cpu", seed=seed)
-        ip = InferenceParams(b, s + new, torch.float8_e4m3fn)
-        toks = {name: generate(m, tokens, lengths, new, inference_params=ip,
-                               device=dev).cpu()
-                for name, m, dev in (("cpu", cpu, "cpu"),
-                                     ("card", card, "cuda"))}
-        # Both devices decode along the CPU's tokens, so every step's
-        # logits can be compared.
-        lg = {name: forced_logits(torch, m, tokens, lengths, ip, toks["cpu"],
-                                  dev)
-              for name, m, dev in (("cpu", cpu, "cpu"),
-                                   ("card", card, "cuda"))}
-        del cpu, card
-        top = float(lg["cpu"].abs().max())
-        diff = (lg["card"] - lg["cpu"]).abs() / top
-        first, steps = float(diff[:, 0].max()), float(diff.max())
-        ok = math.isfinite(steps) and first <= PREFILL_RTOL and \
-            steps <= STEPS_RTOL
-        log(f"  seed {seed}: fp8 payload bytes and scales equal for "
-            f"{len(pk_cpu)} kernels; logits' largest difference over the "
-            f"largest logit ({top:.3f}): last-token prefill {first:.3e} "
-            f"(tolerance {PREFILL_RTOL:.3e}), all {new} steps {steps:.3e} "
-            f"(tolerance {STEPS_RTOL:.3e}); {time.perf_counter() - t0:.1f} s "
-            f"{'ok' if ok else 'FAIL'}")
-        log(f"    {greedy_agreement(torch, toks, lg['card'])}")
-        if not ok:
-            failures.append(seed)
-    if failures:
-        raise AssertionError(f"card and CPU disagree for seeds {failures}")
+    t0 = time.perf_counter()
+    cpu = LlamaModel(cfg, device="cpu", seed=seed)
+    shrink_embedding(cpu)
+    card = LlamaModel(cfg, device="cuda", seed=seed)
+    card.load_state_dict(cpu.state_dict())
+    for m in (cpu, card):
+        prequantize_kernels(m, recipe, **prequant_kw)
+    n_kernels = same_resident_bytes(torch, cpu, card)
+    tokens, lengths = prompts(torch, b, s, cfg.vocab_size, (s, s - 14),
+                              "cpu", seed=seed)
+    ip = InferenceParams(b, s + new, torch.float8_e4m3fn, **ip_kw)
+    toks = {name: generate(m, tokens, lengths, new, inference_params=ip,
+                           device=dev).cpu()
+            for name, m, dev in (("cpu", cpu, "cpu"),
+                                 ("card", card, "cuda"))}
+    # Both devices decode along the CPU's tokens, so every step's logits
+    # can be compared.
+    lg = {name: forced_logits(torch, m, tokens, lengths, ip, toks["cpu"],
+                              dev)
+          for name, m, dev in (("cpu", cpu, "cpu"), ("card", card, "cuda"))}
+    del cpu, card
+    top = float(lg["cpu"].abs().max())
+    diff = (lg["card"] - lg["cpu"]).abs() / top
+    first, steps = float(diff[:, 0].max()), float(diff.max())
+    ok = math.isfinite(steps) and first <= PREFILL_RTOL and \
+        steps <= STEPS_RTOL
+    log(f"  seed {seed} ({type(recipe).__name__}"
+        f"{', ' + str(prequant_kw) if prequant_kw else ''}"
+        f"{', ' + str(ip_kw) if ip_kw else ''}): resident bytes equal for "
+        f"{n_kernels} kernels; logits' largest difference over the largest "
+        f"logit ({top:.3f}): last-token prefill {first:.3e} (tolerance "
+        f"{PREFILL_RTOL:.3e}), all {new} steps {steps:.3e} (tolerance "
+        f"{STEPS_RTOL:.3e}); {time.perf_counter() - t0:.1f} s "
+        f"{'ok' if ok else 'FAIL'}")
+    log(f"    {greedy_agreement(torch, toks, lg['card'])}")
+    return ok
 
 
 def add_launches(results, name: str, n: int) -> None:
@@ -1805,7 +2261,7 @@ def train_card_vs_cpu(torch, seed: int = TRAIN_VS_CPU_SEED) -> list:
     return failures
 
 
-PHASES = ("3", "4", "5", "6", "7", "8")
+PHASES = ("3", "4", "5", "6", "7", "8", "9", "10")
 
 
 def main() -> int:
@@ -1816,7 +2272,7 @@ def main() -> int:
     import argparse
     parser = argparse.ArgumentParser()
     parser.add_argument("--phases", default=",".join(PHASES),
-                        help="comma-separated subset of 3,4,5,6,7,8")
+                        help="comma-separated subset of 3-10")
     parser.add_argument("--train-seeds", default=str(TRAIN_VS_CPU_SEED),
                         help="comma-separated seeds of phase 7 (its limits "
                         "were set from the readings of 21,22,23)")
@@ -1870,7 +2326,12 @@ def main() -> int:
     run("3", check_mxfp8_quantize, timer, results)
     run("3", check_mxfp8_norm, timer, results)
     run("3", check_mxfp8_variants)
+    run("3", check_paged_attention, timer, results)
+    run("3", check_paged_variants)
+    run("3", check_kn_matvec, timer, results)
     run("4", serve, results)
+    run("9", serve_paged_mxfp8, results)
+    run("10", serve_batching, results)
     run("5", card_vs_cpu)
     run("6", train, results)
     run("8", train_mxfp8, results)
@@ -1882,7 +2343,8 @@ def main() -> int:
         raise AssertionError(f"training step, card against CPU: {failed}")
     log(f"phase seconds: {', '.join(f'{p} {t:.1f}' for p, t in timings.items())}")
 
-    stats = {k: results.pop(k) for k in ("_serve", "_train", "_train_mxfp8")
+    stats = {k: results.pop(k) for k in ("_serve", "_train", "_train_mxfp8",
+                                         "_serve_paged_mxfp8", "_batching")
              if k in results}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -12,11 +12,12 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from transformerengine_tpu_torch import _build
-from transformerengine_tpu_torch.inference import generate
+from transformerengine_tpu_torch.inference import (
+    ContinuousBatchingEngine, InferenceParams, generate, prefill)
 from transformerengine_tpu_torch.models.llama import LLAMA_TINY, LlamaModel
 from transformerengine_tpu_torch.ops import (
     decode_attention as da, decode_matmul as dm, flash_attention as fa,
-    quantize_kernels as qk)
+    paged_attention as pa, quantize_kernels as qk)
 from transformerengine_tpu_torch.quantize import qmath
 from transformerengine_tpu_torch.quantize.quantizer import (
     BlockScaleQuantizer, CurrentScaleQuantizer, DelayedScaleQuantizer,
@@ -90,12 +91,23 @@ def test_entry_points_without_a_device_need_the_card(monkeypatch):
         LlamaModel(LLAMA_TINY)
     model = LlamaModel(LLAMA_TINY, device="cpu")
     tokens = torch.ones((1, 4), dtype=torch.int32)
+    paged = InferenceParams(1, 8, is_paged=True, page_size=4)
+    batching = dict(max_batch_size=2, max_sequence_length=16, prompt_len=8,
+                    max_new_tokens=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         generate(model, tokens, torch.tensor([4]), 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        prefill(model, tokens, paged, torch.tensor([4]))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ContinuousBatchingEngine(model, **batching)
     # A model on the CPU given to an entry point bound for the card.
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     with pytest.raises(ValueError, match="expected cuda"):
         generate(model, tokens, torch.tensor([4]), 2)
+    with pytest.raises(ValueError, match="expected cuda"):
+        prefill(model, tokens, paged, torch.tensor([4]))
+    with pytest.raises(ValueError, match="expected cuda"):
+        ContinuousBatchingEngine(model, **batching)
 
 
 def _calls():
@@ -124,6 +136,17 @@ def _calls():
         "te_flash_attention_fwd": lambda: fa.flash_fwd(
             cuda(2, 64, 4, 32), cuda(2, 64, 2, 32), cuda(2, 64, 2, 32),
             scale=0.2, causal=True),
+        "te_paged_decode_attention": lambda: pa.paged_decode_attention(
+            cuda(2, 1, 4, 32), cuda(6, 8, 2, 32, dtype=torch.float8_e4m3fn),
+            cuda(6, 8, 2, 32, dtype=torch.float8_e4m3fn),
+            cuda(2, 3, dtype=torch.int32), cuda(2, dtype=torch.int32),
+            kv_scale=cuda(2, dtype=torch.float32)),
+        "te_decode_kn_matvec": lambda: dm.decode_kn_matvec(
+            cuda(8, 1024), cuda(1024, 2048, dtype=torch.float8_e4m3fn),
+            cuda(32, 2048), block=32),
+        "decode_kn_matvec_packed": lambda: dm.decode_kn_matvec(
+            cuda(8, 1024, dtype=f32), cuda(512, 2048, dtype=torch.uint8),
+            cuda(64, 2048), cuda(1, dtype=f32), block=16, packed=True),
         "te_decode_attention": lambda: da.decode_attention(
             cuda(2, 1, 4, 32), cuda(2, 128, 2, 32, dtype=torch.float8_e4m3fn),
             cuda(2, 128, 2, 32, dtype=torch.float8_e4m3fn),
@@ -176,12 +199,16 @@ _LAUNCHED = {"te_flash_attention_bwd": ["te_flash_attention_bwd_dq",
              "mxfp8_quantize_2x": ["te_mxfp8_quantize_2x"],
              "mxfp8_rowwise": ["te_mxfp8_quantize_1x"],
              "mxfp8_colwise": ["te_mxfp8_quantize_1x"],
-             "mxfp8_quantize_normed": ["te_mxfp8_norm_quantize"]}
+             "mxfp8_quantize_normed": ["te_mxfp8_norm_quantize"],
+             "decode_kn_matvec_packed": ["te_decode_kn_matvec"]}
 
 
 @pytest.mark.parametrize("entry", ["te_decode_tn_matvec",
                                    "te_flash_attention_fwd",
                                    "te_decode_attention",
+                                   "te_paged_decode_attention",
+                                   "te_decode_kn_matvec",
+                                   "decode_kn_matvec_packed",
                                    "te_flash_attention_bwd",
                                    "te_cast_transpose",
                                    "te_norm_cast_transpose",
@@ -204,6 +231,8 @@ def test_wrappers_on_the_card_launch_or_raise(entry, monkeypatch):
     monkeypatch.setattr(dm, "decode_tn_matvec_plain", plain)
     monkeypatch.setattr(fa, "flash_fwd_plain", plain)
     monkeypatch.setattr(da, "decode_attention_plain", plain)
+    monkeypatch.setattr(pa, "paged_decode_attention_plain", plain)
+    monkeypatch.setattr(dm, "decode_kn_matvec_plain", plain)
     monkeypatch.setattr(fa, "flash_bwd_plain", plain)
     monkeypatch.setattr(qk, "cast_transpose_plain", plain)
     monkeypatch.setattr(qk, "norm_cast_transpose_plain", plain)

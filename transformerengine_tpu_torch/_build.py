@@ -57,6 +57,10 @@ _SIGNATURES = {
     "te_mxfp8_quantize_1x": (_P, _I, _I, _P, _P, _I, _I, _I, _P),
     "te_mxfp8_norm_quantize": (_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _F, _P),
+    "te_paged_decode_attention": (_P, _I, _P, _P, _I, _P, _P, _P, _I, _P,
+                                  _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    "te_decode_kn_matvec": (_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _P),
 }
 
 _lock = threading.Lock()

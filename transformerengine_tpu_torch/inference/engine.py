@@ -1,8 +1,9 @@
 """Generation engine: prefill, then a decode loop over the KV cache
 (counterpart of transformerengine_tpu/inference/engine.py). The
 reference's ``lax.scan`` over decode steps is a Python loop here, and its
-functional cache collection is a list of per-layer
-:class:`~.kv_cache.KVCache` objects that the model updates in place.
+functional cache collection is a list of per-layer caches that the model
+updates in place: :class:`~.kv_cache.KVCache`, or
+:class:`~.kv_cache.PagedKVCache` when ``InferenceParams.is_paged``.
 Greedy decoding is exact; temperature, top-k and top-p sampling draw
 from an explicit ``torch.Generator``."""
 from __future__ import annotations
@@ -13,7 +14,7 @@ import torch
 
 from ..attention import SequenceDescriptor
 from ..device import check_on, resolve_device
-from .kv_cache import InferenceParams, KVCache
+from .kv_cache import InferenceParams, KVCache, PagedKVCache, check_pages
 
 
 def _sample(logits: torch.Tensor, generator: Optional[torch.Generator],
@@ -50,31 +51,41 @@ def _generator(generator, temperature, dev):
     return generator
 
 
+def allocate_caches(model, inference_params: InferenceParams, device
+                    ) -> List:
+    """One empty cache per layer of ``model``: paged when
+    ``inference_params.is_paged``, else contiguous."""
+    kind = PagedKVCache if inference_params.is_paged else KVCache
+    return [kind.allocate(inference_params, layer.self_attention.num_kv_heads,
+                          layer.self_attention.head_dim, device)
+            for layer in model.layers]
+
+
 @torch.no_grad()
 def prefill(model, tokens: torch.Tensor, inference_params: InferenceParams,
             prompt_lengths: torch.Tensor, *, temperature: float = 0.0,
             top_k: int = 0, top_p: float = 1.0,
             generator: Optional[torch.Generator] = None, device="cuda"
-            ) -> Tuple[torch.Tensor, List[KVCache]]:
+            ) -> Tuple[torch.Tensor, List]:
     """Runs the right-padded prompts (B, S) through ``model``, filling new
-    caches. Returns (first sampled token (B,), per-layer caches).
+    caches (paged when ``inference_params.is_paged``). Returns (first
+    sampled token (B,), per-layer caches).
 
     The caches' lengths advance by the padded width and are then rewound
     by each prompt's padding, so decode writes right after the last real
-    token (over the padded slots)."""
+    token (over the padded slots; a paged cache reuses the pages the
+    prompt filled)."""
     dev = resolve_device(device)
     check_on(dev, model=model.embedding)
     tokens = tokens.to(dev)
     lengths = prompt_lengths.to(device=dev, dtype=torch.int32)
-    caches = [KVCache.allocate(inference_params,
-                               layer.self_attention.num_kv_heads,
-                               layer.self_attention.head_dim, dev)
-              for layer in model.layers]
+    caches = allocate_caches(model, inference_params, dev)
     logits = model(tokens, SequenceDescriptor.from_seqlens(lengths),
                    kv_caches=caches)
     pad = tokens.shape[1] - lengths
     for cache in caches:
         cache.length -= pad
+    check_pages(caches)
     last = logits[torch.arange(tokens.shape[0], device=dev),
                   (lengths - 1).long()]
     tok = _sample(last, _generator(generator, temperature, dev), temperature,
@@ -83,14 +94,15 @@ def prefill(model, tokens: torch.Tensor, inference_params: InferenceParams,
 
 
 @torch.no_grad()
-def decode_steps(model, kv_caches: List[KVCache], first_token: torch.Tensor,
+def decode_steps(model, kv_caches: List, first_token: torch.Tensor,
                  num_steps: int, *, temperature: float = 0.0, top_k: int = 0,
                  top_p: float = 1.0,
                  generator: Optional[torch.Generator] = None, device="cuda"
                  ) -> torch.Tensor:
     """Decodes ``num_steps`` tokens after ``first_token`` (B,), one model
     call per step, updating ``kv_caches`` in place. Returns (B,
-    num_steps) int32."""
+    num_steps) int32. Raises after the steps if a paged cache ran out of
+    room."""
     dev = resolve_device(device)
     check_on(dev, model=model.embedding)
     generator = _generator(generator, temperature, dev)
@@ -100,6 +112,7 @@ def decode_steps(model, kv_caches: List[KVCache], first_token: torch.Tensor,
         logits = model(tok[:, None], kv_caches=kv_caches)
         tok = _sample(logits[:, -1], generator, temperature, top_k, top_p)
         out.append(tok)
+    check_pages(kv_caches)
     if not out:
         return torch.empty((tok.shape[0], 0), dtype=torch.int32, device=dev)
     return torch.stack(out, dim=1)

@@ -22,6 +22,7 @@ from ..inference.kv_cache import KVCache
 from ..nn.module import LayerNorm
 from ..nn.transformer import TransformerLayer
 from ..ops.gemm import matmul_f32
+from ..quantize.prequant import BlockResidentKernel, PrequantizedKernel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,16 +138,58 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
     return -ll.mean()
 
 
+_FP8_NUMPY = {"float8_e4m3fn": torch.float8_e4m3fn,
+              "float8_e5m2": torch.float8_e5m2}
+
+
+def _bytes(arr, dtype: torch.dtype, device) -> torch.Tensor:
+    """A numpy array's bytes as a tensor of a one-byte ``dtype``."""
+    raw = np.ascontiguousarray(np.asarray(arr)).view(np.uint8)
+    return torch.from_numpy(raw.copy()).view(dtype).to(device)
+
+
+def _resident_module(leaf, config: LlamaConfig, device) -> PrequantizedKernel:
+    """The port's module for one ``PrequantizedKernel`` leaf of the
+    reference's ``prequant`` collection (its arrays as numpy), with the
+    same payload bytes: a ``BlockResidentKernel`` colwise, a per-tensor
+    ``ScaledTensor1x`` one, or a plain (N, K) array."""
+    cw, shape = leaf.colwise, tuple(leaf.logical_shape)
+    if hasattr(cw, "payload"):
+        payload = _bytes(cw.payload, torch.uint8 if cw.packed
+                         else torch.float8_e4m3fn, device)
+        scale = torch.from_numpy(np.asarray(cw.scale, np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+        out_scale = None if cw.out_scale is None else torch.from_numpy(
+            np.asarray(cw.out_scale, np.float32).reshape(1)).to(device)
+        kn = BlockResidentKernel(payload, scale, out_scale, int(cw.block),
+                                 bool(cw.packed))
+        return PrequantizedKernel(None, None, shape, config.dtype, kn=kn)
+    if hasattr(cw, "scale_inv"):
+        data = _bytes(cw.data, _FP8_NUMPY[np.asarray(cw.data).dtype.name],
+                      device)
+        scale_inv = torch.from_numpy(
+            np.asarray(cw.scale_inv, np.float32).reshape(1)).to(device)
+        return PrequantizedKernel(data, scale_inv, shape, config.dtype)
+    data = torch.from_numpy(np.array(cw, dtype=np.float32)).to(
+        device=device, dtype=config.dtype)
+    return PrequantizedKernel(data, None, shape, config.dtype)
+
+
 def load_flax_params(params_np: Mapping, config: LlamaConfig,
                      device="cuda",
-                     quantize_meta: Optional[Mapping] = None) -> dict:
+                     quantize_meta: Optional[Mapping] = None,
+                     prequant: Optional[Mapping] = None) -> dict:
     """Maps the reference model's ``variables["params"]`` (nested dicts of
     numpy arrays, boxes removed) to a :class:`LlamaModel` ``state_dict`` on
     ``device``: ``layer_{i}`` becomes ``layers.{i}``, kernels take
     ``config.dtype`` and norm scales stay f32. ``quantize_meta``, the
     reference's collection of the same name, adds the delayed-scaling
     state (``{gemm}_{role}_scale`` and ``_amax_history``, f32) under the
-    same keys; ``load_state_dict`` creates those buffers."""
+    same keys; ``load_state_dict`` creates those buffers. ``prequant``, the
+    reference's collection of resident kernels (its ``PrequantizedKernel``
+    leaves with numpy arrays), adds under each kernel's key the port's
+    :class:`PrequantizedKernel` module with the same payload bytes;
+    :func:`load_flax_state` installs such a state."""
     dev = resolve_device(device)
     state = {}
 
@@ -157,13 +200,40 @@ def load_flax_params(params_np: Mapping, config: LlamaConfig,
             key = f"{prefix}{key}"
             if isinstance(sub, Mapping):
                 walk(sub, key + ".", param_dtype)
-                continue
-            dtype = param_dtype if param_dtype is not None else (
-                torch.float32 if name == "scale" else config.dtype)
-            arr = np.array(sub, dtype=np.float32)
-            state[key] = torch.from_numpy(arr).to(device=dev, dtype=dtype)
+            elif param_dtype == "prequant":
+                state[key] = _resident_module(sub, config, dev)
+            else:
+                dtype = param_dtype if param_dtype is not None else (
+                    torch.float32 if name == "scale" else config.dtype)
+                arr = np.array(sub, dtype=np.float32)
+                state[key] = torch.from_numpy(arr).to(device=dev, dtype=dtype)
 
     walk(params_np, "", None)
     if quantize_meta is not None:
         walk(quantize_meta, "", torch.float32)
+    if prequant is not None:
+        walk(prequant, "", "prequant")
     return state
+
+
+def load_flax_state(model: nn.Module, state: Mapping) -> nn.Module:
+    """Loads a :func:`load_flax_params` state into ``model``, in place:
+    each resident module replaces the kernel parameter it is keyed by,
+    and the tensors load as ``load_state_dict`` loads them. Returns
+    ``model``."""
+    tensors, resident = {}, set()
+    for key, value in state.items():
+        if not isinstance(value, nn.Module):
+            tensors[key] = value
+            continue
+        owner, name = key.rsplit(".", 1)
+        module = model.get_submodule(owner)
+        delattr(module, name)
+        setattr(module, name, value)
+        resident |= {f"{key}.{b}" for b, _ in value.named_buffers()}
+    missing, unexpected = model.load_state_dict(tensors, strict=False)
+    if set(missing) - resident or unexpected:
+        raise KeyError(f"state does not fit the model: missing "
+                       f"{sorted(set(missing) - resident)}, unexpected "
+                       f"{unexpected}")
+    return model

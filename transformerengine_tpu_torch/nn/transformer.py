@@ -1,20 +1,23 @@
 """Transformer blocks (counterpart of transformerengine_tpu/flax/
 transformer.py): causal self-attention with RMSNorm, RoPE, GQA and the
-contiguous KV cache, and a decoder-only TransformerLayer. Without a cache
-the forward is the training forward, differentiable end to end. Not ported
-yet: other masks and norms, MoE, cross-attention, relative position
-bias, dropout, sliding windows, softmax sinks and the paged cache."""
+contiguous or paged KV cache, and a decoder-only TransformerLayer.
+Without a cache the forward is the training forward, differentiable end
+to end. Not ported yet: other masks and norms, MoE, cross-attention,
+relative position bias, dropout, sliding windows and softmax sinks."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 from torch import nn
 
 from ..attention import AttnMaskType, SequenceDescriptor, fused_attn
-from ..inference.kv_cache import KVCache, cache_append, calibrate_kv_scale
+from ..inference.kv_cache import (KVCache, PagedKVCache, cache_append,
+                                  calibrate_kv_scale, paged_append_prompt,
+                                  paged_append_token)
 from ..ops.decode_attention import decode_attention
 from ..ops.flash_attention import flash_attention
+from ..ops.paged_attention import paged_decode_attention
 from ..ops.rope import apply_rope, rope_frequencies
 from .module import DenseGeneral, LayerNormDenseGeneral, LayerNormMLP
 
@@ -50,7 +53,8 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 sequence_descriptor: Optional[SequenceDescriptor] = None, *,
-                kv_cache: Optional[KVCache] = None) -> torch.Tensor:
+                kv_cache: Optional[Union[KVCache, PagedKVCache]] = None
+                ) -> torch.Tensor:
         """Causal attention, padding-causal where ``sequence_descriptor``
         gives the lengths; differentiable without a cache. ``kv_cache``:
         the layer's cache. A call with
@@ -64,8 +68,11 @@ class MultiHeadAttention(nn.Module):
         v = qkv[..., (hq + hkv) * d:].reshape(b, s, hkv, d)
         positions = None
         if kv_cache is not None:
-            positions = kv_cache.length[:, None] + torch.arange(
-                s, device=x.device)[None, :]
+            # Clamped into the table, as the reference's gather clamps: an
+            # idle continuous-batching slot's length keeps growing.
+            positions = (kv_cache.length[:, None] + torch.arange(
+                s, device=x.device)[None, :]).clamp(
+                    max=self.freqs.shape[0] - 1)
         q = apply_rope(q, self.freqs, positions=positions)
         k = apply_rope(k, self.freqs, positions=positions)
         if kv_cache is not None:
@@ -81,20 +88,32 @@ class MultiHeadAttention(nn.Module):
                                 else AttnMaskType.CAUSAL))
         return self.out(ctx.reshape(b, s, hq * d))
 
-    def _cached_attention(self, q, k, v, cache: KVCache,
-                          sequence_descriptor) -> torch.Tensor:
-        """Prefill: calibrate an FP8 cache's per-slot scales from the
-        whole padded prompt, append, and attend causally within the
-        prompt (the cache was empty). Decode: append the token and attend
-        over the cache."""
+    def _cached_attention(self, q, k, v, cache, sequence_descriptor
+                          ) -> torch.Tensor:
+        """Prefill: set an FP8 cache's per-slot scales (the cache's
+        ``fixed_kv_scale``, else calibrated from the whole padded prompt),
+        append, and attend causally within the prompt (the cache was
+        empty). Decode: append the token and attend over the cache, a
+        :class:`KVCache` through the decode kernel, a
+        :class:`PagedKVCache` through the paged one."""
         b = k.shape[0]
-        if b != cache.k.shape[0]:
+        if b != cache.length.shape[0]:
             raise ValueError(f"batch {b} != the cache's batch "
-                             f"{cache.k.shape[0]}")
+                             f"{cache.length.shape[0]}")
         is_prefill = k.shape[1] > 1
         if is_prefill and cache.is_fp8:
-            cache.kv_scale.copy_(calibrate_kv_scale(k, v, per_slot=True))
-        cache_append(cache, k, v, cache.kv_scale if cache.is_fp8 else None)
+            if cache.fixed_kv_scale is not None:
+                cache.kv_scale.fill_(cache.fixed_kv_scale)
+            else:
+                cache.kv_scale.copy_(calibrate_kv_scale(k, v, per_slot=True))
+        qscale = cache.kv_scale if cache.is_fp8 else None
+        paged = isinstance(cache, PagedKVCache)
+        if not paged:
+            cache_append(cache, k, v, qscale)
+        elif is_prefill:
+            paged_append_prompt(cache, k, v, qscale)
+        else:
+            paged_append_token(cache, k, v, qscale)
         if is_prefill:
             seqlens = (sequence_descriptor.q_seqlens
                        if sequence_descriptor is not None else None)
@@ -104,9 +123,13 @@ class MultiHeadAttention(nn.Module):
                 q, k, v, desc,
                 attn_mask_type=(AttnMaskType.PADDING_CAUSAL if desc is not None
                                 else AttnMaskType.CAUSAL))
-        return decode_attention(
-            q, cache.k, cache.v, cache.length,
-            kv_scale=(1.0 / cache.kv_scale) if cache.is_fp8 else None)
+        dq_scale = (1.0 / cache.kv_scale) if cache.is_fp8 else None
+        if paged:
+            return paged_decode_attention(
+                q, cache.pages_k, cache.pages_v, cache.page_table,
+                cache.length, kv_scale=dq_scale)
+        return decode_attention(q, cache.k, cache.v, cache.length,
+                                kv_scale=dq_scale)
 
 
 class TransformerLayer(nn.Module):
@@ -136,7 +159,8 @@ class TransformerLayer(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 sequence_descriptor: Optional[SequenceDescriptor] = None, *,
-                kv_cache: Optional[KVCache] = None) -> torch.Tensor:
+                kv_cache: Optional[Union[KVCache, PagedKVCache]] = None
+                ) -> torch.Tensor:
         x = x + self.self_attention(x, sequence_descriptor,
                                     kv_cache=kv_cache)
         return x + self.mlp(x)
