@@ -19,6 +19,8 @@ from transformerengine_tpu_torch.ops import (
     decode_attention as da, decode_matmul as dm, flash_attention as fa,
     paged_attention as pa, quantize_kernels as qk)
 from transformerengine_tpu_torch.quantize import qmath
+from transformerengine_tpu_torch import NVFP4BlockScaling
+from transformerengine_tpu_torch.quantize.helper import QuantizerFactory
 from transformerengine_tpu_torch.quantize.quantizer import (
     BlockScaleQuantizer, CurrentScaleQuantizer, DelayedScaleQuantizer,
     QuantizeLayout)
@@ -186,6 +188,17 @@ def _calls():
         "mxfp8_quantize_normed": lambda: mxfp8().quantize_normed(
             cuda(256, 128), cuda(128, dtype=f32), None, norm="rmsnorm",
             zero_centered_gamma=False, epsilon=1e-6),
+        "te_nvfp4_amax_2x": lambda: qk.nvfp4_amax_2x(cuda(64, 128), 0x1234),
+        "te_nvfp4_quantize_2x": lambda: qk.nvfp4_quantize_2x(
+            cuda(64, 128, dtype=f32), cuda(1, dtype=f32), cuda(1, dtype=f32),
+            7, seed=5),
+        # Both orientations of every NVFP4 role go through the two kernels.
+        "nvfp4_x_quantize_2x": lambda: QuantizerFactory.create(
+            NVFP4BlockScaling(), "x").quantize(cuda(2, 32, 64)),
+        "nvfp4_kernel_quantize_2x": lambda: QuantizerFactory.create(
+            NVFP4BlockScaling(), "kernel").quantize(cuda(64, 96, dtype=f32)),
+        "nvfp4_dgrad_quantize_2x": lambda: QuantizerFactory.create(
+            NVFP4BlockScaling(), "dgrad").quantize(cuda(48, 256)),
     }
 
 
@@ -200,7 +213,10 @@ _LAUNCHED = {"te_flash_attention_bwd": ["te_flash_attention_bwd_dq",
              "mxfp8_rowwise": ["te_mxfp8_quantize_1x"],
              "mxfp8_colwise": ["te_mxfp8_quantize_1x"],
              "mxfp8_quantize_normed": ["te_mxfp8_norm_quantize"],
-             "decode_kn_matvec_packed": ["te_decode_kn_matvec"]}
+             "decode_kn_matvec_packed": ["te_decode_kn_matvec"],
+             **{f"nvfp4_{role}_quantize_2x": ["te_nvfp4_amax_2x",
+                                              "te_nvfp4_quantize_2x"]
+                for role in ("x", "kernel", "dgrad")}}
 
 
 @pytest.mark.parametrize("entry", ["te_decode_tn_matvec",
@@ -219,7 +235,11 @@ _LAUNCHED = {"te_flash_attention_bwd": ["te_flash_attention_bwd_dq",
                                    "te_mxfp8_quantize_1x",
                                    "te_mxfp8_norm_quantize",
                                    "mxfp8_quantize_2x", "mxfp8_rowwise",
-                                   "mxfp8_colwise", "mxfp8_quantize_normed"])
+                                   "mxfp8_colwise", "mxfp8_quantize_normed",
+                                   "te_nvfp4_amax_2x", "te_nvfp4_quantize_2x",
+                                   "nvfp4_x_quantize_2x",
+                                   "nvfp4_kernel_quantize_2x",
+                                   "nvfp4_dgrad_quantize_2x"])
 def test_wrappers_on_the_card_launch_or_raise(entry, monkeypatch):
     """On a CUDA tensor a wrapper launches its kernel, and counts the
     launch, or raises; it never returns its plain version, and the
@@ -242,6 +262,9 @@ def test_wrappers_on_the_card_launch_or_raise(entry, monkeypatch):
     monkeypatch.setattr(qmath, "tensor_scale_quantize", plain)
     monkeypatch.setattr(qmath, "current_scale_quantize", plain)
     monkeypatch.setattr(qmath, "mxfp8_quantize", plain)
+    monkeypatch.setattr(qk, "nvfp4_amax_2x_plain", plain)
+    monkeypatch.setattr(qk, "nvfp4_quantize_2x_plain", plain)
+    monkeypatch.setattr(qmath, "nvfp4_quantize", plain)
     monkeypatch.setattr(_build, "stream", lambda t: None)
     launched = []
     with warnings.catch_warnings(), FakeTensorMode():

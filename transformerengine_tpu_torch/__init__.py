@@ -11,8 +11,10 @@ for ``device="cpu"``; on CPU tensors every kernel wrapper runs its plain
 PyTorch version.
 """
 from .common.recipe import (DelayedScaling, Float8CurrentScaling, Format,
-                            MXFP8BlockScaling, Recipe)
+                            MXFP8BlockScaling, NVFP4BlockScaling, QParams,
+                            Recipe)
 from .quantize.helper import autocast, get_quantize_config
 
 __all__ = ["DelayedScaling", "Float8CurrentScaling", "Format",
-           "MXFP8BlockScaling", "Recipe", "autocast", "get_quantize_config"]
+           "MXFP8BlockScaling", "NVFP4BlockScaling", "QParams", "Recipe",
+           "autocast", "get_quantize_config"]

@@ -39,6 +39,7 @@ LAUNCHES: collections.Counter = collections.Counter()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U = ctypes.c_uint
 # C entry points: name -> argument types (all return int).
 _SIGNATURES = {
     "te_decode_tn_matvec": (_P, _I, _P, _I, _P, _P, _I, _I, _I, _P),
@@ -61,6 +62,9 @@ _SIGNATURES = {
                                   _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "te_decode_kn_matvec": (_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
                             _P),
+    "te_nvfp4_amax_2x": (_P, _I, _I, _I, _P, _I, _I, _P),
+    "te_nvfp4_quantize_2x": (_P, _I, _P, _I, _I, _I, _U, _U, _P, _P, _P, _P,
+                             _I, _I, _P),
 }
 
 _lock = threading.Lock()

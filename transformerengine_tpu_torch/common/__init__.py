@@ -1,5 +1,7 @@
-from .recipe import (E4M3, E5M2, HYBRID, DelayedScaling, Float8CurrentScaling,
-                     Format, MXFP8BlockScaling, Recipe)
+from .recipe import (E2M1, E4M3, E5M2, HYBRID, DelayedScaling,
+                     Float8CurrentScaling, Format, MXFP8BlockScaling,
+                     NVFP4BlockScaling, QParams, Recipe)
 
-__all__ = ["E4M3", "E5M2", "HYBRID", "DelayedScaling", "Float8CurrentScaling",
-           "Format", "MXFP8BlockScaling", "Recipe"]
+__all__ = ["E2M1", "E4M3", "E5M2", "HYBRID", "DelayedScaling",
+           "Float8CurrentScaling", "Format", "MXFP8BlockScaling",
+           "NVFP4BlockScaling", "QParams", "Recipe"]

@@ -1,8 +1,8 @@
 """Quantization recipes (counterpart of transformerengine_tpu/common/
-recipe.py): the FP8 format pairs, the two per-tensor recipes, delayed
-scaling (an amax history carried across steps) and current scaling, and
-MXFP8 block scaling. Float8BlockScaling and NVFP4BlockScaling are not
-ported yet."""
+recipe.py): the FP8 and FP4 format pairs, the per-tensor knobs
+(``QParams``), the two per-tensor recipes, delayed scaling (an amax
+history carried across steps) and current scaling, MXFP8 block scaling
+and NVFP4 block scaling. Float8BlockScaling is not ported yet."""
 from __future__ import annotations
 
 import dataclasses
@@ -23,6 +23,21 @@ class Format:
 E4M3 = Format("E4M3", torch.float8_e4m3fn, torch.float8_e4m3fn)
 E5M2 = Format("E5M2", torch.float8_e5m2, torch.float8_e5m2)
 HYBRID = Format("HYBRID", torch.float8_e4m3fn, torch.float8_e5m2)
+# FP4's dtype names the format; NVFP4 payloads are stored as e4m3 bytes
+# holding e2m1 values (quantize/dtypes.py: FP4_STORAGE_DTYPE).
+E2M1 = Format("E2M1", torch.float4_e2m1fn_x2, torch.float4_e2m1fn_x2)
+
+
+@dataclasses.dataclass(frozen=True)
+class QParams:
+    """Per-tensor quantization knobs of NVFP4: the random Hadamard
+    transform of the colwise usage, stochastic rounding and (16, 16)
+    blocks (the reference's ``power_2_scale`` and ``amax_epsilon`` are
+    read by no ported recipe and not ported)."""
+
+    random_hadamard_transform: bool = False
+    stochastic_rounding: bool = False
+    fp4_2d_quantization: bool = False
 
 
 class Recipe:
@@ -30,6 +45,9 @@ class Recipe:
 
     def mxfp8(self) -> bool:
         return isinstance(self, MXFP8BlockScaling)
+
+    def nvfp4(self) -> bool:
+        return isinstance(self, NVFP4BlockScaling)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,3 +89,29 @@ class MXFP8BlockScaling(Recipe):
     fp8_format: Format = E4M3
     fp8_dpa: bool = False
     fp8_mha: bool = False
+
+
+_FOUR_OVER_SIX = ("none", "weights", "activations", "all")
+
+
+@dataclasses.dataclass(frozen=True)
+class NVFP4BlockScaling(Recipe):
+    """NVFP4: E2M1 values, one E4M3 scale per 16 elements along the
+    quantized axis and one f32 scale per tensor. The defaults are the
+    reference's: the random Hadamard transform on the input's and the
+    gradient's colwise usages (they meet in the wgrad GEMM, where the
+    rotations cancel), never on the weight; stochastic rounding on the
+    gradient when a generator is given. ``nvfp4_4over6`` picks the tensor
+    roles whose blocks may take the "four over six" scale."""
+
+    fp4_format: Format = E2M1
+    fp4_quant_fwd_inp: QParams = QParams(random_hadamard_transform=True)
+    fp4_quant_fwd_weight: QParams = QParams(fp4_2d_quantization=False)
+    fp4_quant_bwd_grad: QParams = QParams(random_hadamard_transform=True,
+                                          stochastic_rounding=True)
+    nvfp4_4over6: str = "none"
+
+    def __post_init__(self):
+        if self.nvfp4_4over6 not in _FOUR_OVER_SIX:
+            raise ValueError(f"nvfp4_4over6 must be one of {_FOUR_OVER_SIX}, "
+                             f"got {self.nvfp4_4over6!r}")

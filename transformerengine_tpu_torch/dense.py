@@ -10,9 +10,9 @@ Each layer is a ``torch.autograd.Function`` mirroring the reference's
   backward contracts the same payloads along the needed axis (dgrad
   ``q_dot(qg, qk, 1, 1)``, wgrad ``q_dot(qx, qg, 0, 0)``), as the scales
   are scalars;
-* block scaling (MXFP8), training ("2x"): x, the kernel and the gradient
-  are each quantized in both orientations, and every GEMM contracts
-  along the stored last axis of both operands: forward
+* block scaling (MXFP8, NVFP4), training ("2x"): x, the kernel and the
+  gradient are each quantized in both orientations, and every GEMM
+  contracts along the stored last axis of both operands: forward
   ``tn_dot(rowwise(qx), colwise(qk))``, dgrad ``tn_dot(rowwise(qg),
   rowwise(qk))``, wgrad ``tn_dot(colwise(qx), colwise(qg))``;
 * block scaling, forward without a gradient (the reference's
@@ -65,13 +65,14 @@ def needs_grad(*inputs) -> bool:
 
 def split_residuals(res):
     """(tensors, tag) of :func:`gemm_fwd`'s residuals: the tensors for
-    ``ctx.save_for_backward`` (a quantized residual's data, scales and
-    amax, which may be None), the tag (branch, and each quantized
-    residual's dtype, layout and scaling mode) for ``ctx``."""
+    ``ctx.save_for_backward`` (a quantized residual's data, scales, amax
+    and tensor scale, the last two None where the recipe has none), the
+    tag (branch, and each quantized residual's dtype, layout and scaling
+    mode) for ``ctx``."""
     if res[0] in ("1x", "2x"):
         tensors, meta = [], []
         for t in res[1:]:
-            tensors += [t.data, t.scale_inv, t.amax]
+            tensors += [t.data, t.scale_inv, t.amax, t.tensor_scale_inv]
             meta.append((t.dq_dtype, t.layout, t.scaling_mode))
         return tuple(tensors), (res[0], *meta)
     return res[1:], res[:1]
@@ -81,8 +82,9 @@ def join_residuals(tag, tensors):
     """The residuals that :func:`split_residuals` split."""
     if tag[0] in ("1x", "2x"):
         return (tag[0],) + tuple(
-            ScaledTensor1x(*tensors[3 * i:3 * i + 3], dq, layout=layout,
-                           scaling_mode=mode)
+            ScaledTensor1x(*tensors[4 * i:4 * i + 3], dq, layout=layout,
+                           scaling_mode=mode,
+                           tensor_scale_inv=tensors[4 * i + 3])
             for i, (dq, layout, mode) in enumerate(tag[1:]))
     return tag + tuple(tensors)
 

@@ -4,9 +4,10 @@ forward; dgrad and wgrad, then the norm backward from the saved
 statistics. Branches and the quantizer-state update are those of
 ``dense.py``. Under per-tensor scaling the reference quantizes the norm's
 output in one orientation and never takes its fused norm + quantize
-kernel, and neither does the port. Under block scaling the training
-forward takes the quantizer's ``quantize_normed`` (the norm fused with
-the 2x quantize) where its shape rule holds; the forward without a
+kernel, and neither does the port. Under MXFP8 the training forward
+takes the quantizer's ``quantize_normed`` (the norm fused with the 2x
+quantize) where its shape rule holds; NVFP4's quantizer has none, so
+its norm runs unfused and the GEMM quantizes; the forward without a
 gradient runs the norm and then the one-orientation quantize, as the
 reference excludes its ``inference`` primal from the fused path."""
 from __future__ import annotations
@@ -29,10 +30,12 @@ def fused_norm_quantize(x, gamma, beta, kernel, qset, norm_type, zcg, eps,
     """(quantized norm output, mu, rsigma) from the x quantizer's
     ``quantize_normed`` (one orientation for ``inference``), the
     statistics shaped as ``x.shape[:-1]``; None where the reference runs
-    the unfused norm: a prequantized kernel, no or a per-tensor recipe,
-    or a shape the fused kernel does not take."""
+    the unfused norm: a prequantized kernel, no or a per-tensor recipe, a
+    quantizer without a fused norm (NVFP4), or a shape the fused kernel
+    does not take."""
     if (isinstance(kernel, PrequantizedKernel) or qset.x is None
-            or all_tensor_scaling(qset)):
+            or all_tensor_scaling(qset)
+            or not hasattr(qset.x, "quantize_normed")):
         return None
     out = qset.x.quantize_normed(
         x.reshape(-1, x.shape[-1]), gamma, beta, norm=norm_type,

@@ -133,7 +133,9 @@ def decode_kn_matvec(x: torch.Tensor, payload: torch.Tensor,
     first); ``payload`` is the (K, N) e4m3 block-scaled weight, or with
     ``packed`` its (K/2, N) uint8 split-plane e2m1 codes; ``scale`` the
     (K / block, N) bf16 block scales; ``out_scale`` an optional
-    one-element f32 second-level scale."""
+    one-element f32 second-level scale. A launch counts under
+    ``decode_kn_matvec``, or ``decode_kn_matvec_packed`` for the packed
+    branch."""
     if x.dim() != 2 or payload.dim() != 2 or scale.dim() != 2:
         raise ValueError(f"expected x (M, K), payload (K, N) and scale "
                          f"(K / block, N), got {tuple(x.shape)}, "
@@ -171,5 +173,6 @@ def decode_kn_matvec(x: torch.Tensor, payload: torch.Tensor,
                   _build.ptr(payload), int(packed), _build.ptr(scale),
                   _build.ptr(out_scale), _build.ptr(ws), _build.ptr(out), m,
                   n, k, block, _build.stream(x))
-    _build.LAUNCHES["decode_kn_matvec"] += 1
+    _build.LAUNCHES["decode_kn_matvec_packed" if packed
+                    else "decode_kn_matvec"] += 1
     return out

@@ -1,12 +1,14 @@
 """Scaled matmuls (counterpart of transformerengine_tpu/ops/gemm.py), for
-per-tensor-scaled, MXFP8 and plain operands.
+per-tensor-scaled, block-scaled (MXFP8, NVFP4) and plain operands.
 
 Every product accumulates in f32 and returns f32. Per-tensor scales are
 scalars, so any contraction axes are allowed and the scales apply to the
-f32 result. MXFP8 operands must contract along their stored last axis
-(their scales run along it); each is dequantized to bf16 first, the
-payload times its power-of-two block scale, exact in bf16, as the
-reference's ``_dq_block_to_bf16`` does. A resident weight times a
+f32 result. Block-scaled operands must contract along their stored last
+axis (their scales run along it); each is dequantized to bf16 first, the
+payload times its block scale (a power of two, or an e4m3 value times an
+e2m1 one), exact in bf16, as the reference's ``_dq_block_to_bf16`` does;
+an NVFP4 operand's second-level tensor scale then multiplies the f32
+result, as the per-tensor scales do. A resident weight times a
 small-M activation (decode) routes to a decode kernel
 (ops/decode_matmul.py): the (N, K) kernel for per-tensor-scaled and bf16
 weights, the (K, N) kernel for block-scaled ones
@@ -17,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from ..quantize.quantizer import QuantizeLayout
 from ..quantize.tensor import ScaledTensor1x, dequantize_blocks, get_rowwise
 from .decode_matmul import (decode_kn_matvec, decode_tn_matvec,
                             use_decode_matvec)
@@ -59,6 +62,8 @@ def q_dot(lhs, rhs, lhs_cdim: int, rhs_cdim: int) -> torch.Tensor:
                 raise ValueError("block-scaled operands must contract along "
                                  "their stored last axis (scales run along "
                                  "it)")
+            if t.tensor_scale_inv is not None:
+                scales.append(t.tensor_scale_inv.float().reshape(()))
             return dequantize_blocks(t, torch.bfloat16)
         scales.append(t.scale_inv.float().reshape(()))
         return t.data.to(torch.bfloat16)
@@ -104,16 +109,24 @@ def block_resident_dot(x2d: torch.Tensor, kern) -> torch.Tensor:
 def prequant_dot(x2d: torch.Tensor, colwise, x_quantizer=None
                  ) -> torch.Tensor:
     """Forward GEMM against a prequantized kernel's storage. With
-    ``x_quantizer`` the activation is quantized first: both payloads enter
-    an (N, K) product; a (K, N) block-resident weight takes the
-    activation's dequantized bf16 values."""
+    ``x_quantizer`` the activation is quantized first, in the quantizer's
+    own layout, and its rowwise usage taken, as the reference does: both
+    payloads enter an (N, K) product; a (K, N) block-resident weight takes
+    the activation's dequantized bf16 values. An NVFP4 quantizer with the
+    RHT cannot rotate the colwise usage along M unless 16 divides M, where
+    the reference fails; there (a decode batch) it quantizes the rowwise
+    usage alone, the same values."""
+    if x_quantizer is not None:
+        rowwise_only = (getattr(x_quantizer, "with_rht", False)
+                        and x2d.shape[0] % 16 != 0)
+        qx = get_rowwise(x_quantizer.quantize(
+            x2d, layout=QuantizeLayout.ROWWISE if rowwise_only else None))
     if _is_block_resident(colwise):
         if x_quantizer is not None:
-            qx = get_rowwise(x_quantizer.quantize(x2d))
             x2d = qx.dequantize().to(torch.bfloat16)
         return block_resident_dot(x2d, colwise)
     if x_quantizer is not None:
-        return tn_dot(get_rowwise(x_quantizer.quantize(x2d)), colwise)
+        return tn_dot(qx, colwise)
     return resident_dot(x2d, colwise)
 
 

@@ -22,6 +22,16 @@ uint8 biased exponents):
   norm fused with the MXFP8 quantize; kernel in
   ``csrc/mxfp8_norm_quantize.cu``.
 
+NVFP4 (e2m1 values in e4m3 bytes, an e4m3 scale per 16 elements along the
+quantized axis under an f32 scale per tensor):
+
+* :func:`nvfp4_amax_2x` replaces ``nvfp4_amax_2x`` (the two amaxes of the
+  per-tensor scales) and :func:`nvfp4_quantize_2x` replaces
+  ``nvfp4_quantize_2x`` (both orientations, the colwise one after the
+  random Hadamard transform when asked); kernels in
+  ``csrc/nvfp4_quantize.cu``. They take M and N multiples of 16; the RHT
+  is given by its sign mask, and stochastic rounding by a seed.
+
 On CUDA tensors each wrapper launches its kernel or raises; on CPU tensors
 it runs its plain version. Both are bit-exact to ``quantize/qmath.py``:
 ``clip(x * scale, -q_max, q_max)`` then a round-to-nearest-even cast, and
@@ -38,7 +48,8 @@ import torch
 
 from .. import _build
 from ..quantize import qmath
-from ..quantize.dtypes import dtype_max
+from ..quantize.dtypes import FP4_STORAGE_DTYPE, dtype_max
+from ..quantize.hadamard import rht_matrix, rotate
 
 _X_DTYPES = (torch.float32, torch.bfloat16)
 _Q_DTYPES = (torch.float8_e4m3fn, torch.float8_e5m2)
@@ -317,3 +328,103 @@ def mxfp8_norm_quantize_2x(x2d: torch.Tensor, gamma: torch.Tensor,
     if layernorm:
         outs.append(mu)
     return tuple(outs)
+
+
+# ---------------------------------------------------------------------------
+# NVFP4
+# ---------------------------------------------------------------------------
+
+def _check_nvfp4_input(x2d):
+    if x2d.dim() != 2 or x2d.numel() == 0 or x2d.shape[0] % 16 or \
+            x2d.shape[1] % 16:
+        raise ValueError(f"the NVFP4 kernels take (M, N) with M and N "
+                         f"multiples of 16, got {tuple(x2d.shape)}")
+    if x2d.numel() >= 2 ** 32:
+        raise ValueError(f"the NVFP4 kernels index elements with 32 bits, "
+                         f"got {tuple(x2d.shape)}")
+
+
+def _rotated_t(x2d, rht_mask):
+    """x^T, rotated along its last axis when ``rht_mask`` is not None."""
+    xt = x2d.t().float()
+    return xt if rht_mask is None else rotate(xt, rht_matrix(rht_mask,
+                                                             x2d.device))
+
+
+def nvfp4_amax_2x_plain(x2d: torch.Tensor, rht_mask: Optional[int] = None):
+    arow = qmath.compute_amax(x2d)
+    if rht_mask is None:
+        return arow, arow
+    return arow, _rotated_t(x2d, rht_mask).abs().amax()
+
+
+def nvfp4_amax_2x(x2d: torch.Tensor, rht_mask: Optional[int] = None):
+    """(amax(|x|), amax(|RHT(x^T)|)), two 0-d f32 tensors, of ``x2d``
+    (M, N) from one read; without ``rht_mask`` the second equals the
+    first. ``rht_mask`` is the RHT's sign mask
+    (``quantize/hadamard.py``)."""
+    _check_nvfp4_input(x2d)
+    if _build.on_cpu(x2d):
+        return nvfp4_amax_2x_plain(x2d, rht_mask)
+    m, n = x2d.shape
+    x_code = _build.dtype_code(x2d, _X_DTYPES)
+    x2d = x2d.contiguous()
+    _build.check_aligned(x2d)
+    out = torch.zeros((2,), dtype=torch.float32, device=x2d.device)
+    _build.launch("te_nvfp4_amax_2x", _build.ptr(x2d), x_code,
+                  int(rht_mask is not None), rht_mask or 0, _build.ptr(out),
+                  m, n, _build.stream(x2d))
+    _build.LAUNCHES["nvfp4_amax_2x"] += 1
+    return out.unbind()
+
+
+def nvfp4_quantize_2x_plain(x2d: torch.Tensor, ts_row: torch.Tensor,
+                            ts_col: torch.Tensor,
+                            rht_mask: Optional[int] = None,
+                            seed: Optional[int] = None):
+    m, n = x2d.shape
+    ubits = [None, None] if seed is None else [
+        qmath.sr_bits(seed, stream, shape, x2d.device)
+        for stream, shape in ((0, (m, n)), (1, (n, m)))]
+    row, srow = qmath.nvfp4_encode(x2d, ts_row, (1, 16), ubits[0])
+    col, scol = qmath.nvfp4_encode(_rotated_t(x2d, rht_mask), ts_col,
+                                   (1, 16), ubits[1])
+    return row, srow, col, scol
+
+
+def nvfp4_quantize_2x(x2d: torch.Tensor, ts_row: torch.Tensor,
+                      ts_col: torch.Tensor, rht_mask: Optional[int] = None,
+                      seed: Optional[int] = None):
+    """NVFP4 quantize of ``x2d`` (M, N), M and N multiples of 16, in both
+    orientations from one read, under the one-element f32 tensor scales
+    ``ts_row`` and ``ts_col``: (row (M, N), srow (M, N/16), col (N, M),
+    scol (N, M/16)), payloads and scales in e4m3 bytes. The colwise usage
+    is x^T, rotated along M in runs of 16 when ``rht_mask`` is given.
+    ``seed`` (0 <= seed < 2^32) rounds stochastically with the bits of
+    ``qmath.sr_bits``; without it, to nearest."""
+    _check_nvfp4_input(x2d)
+    if ts_row.numel() != 1 or ts_col.numel() != 1:
+        raise ValueError("ts_row and ts_col must hold one value each")
+    if seed is not None and not 0 <= seed < 2 ** 32:
+        raise ValueError(f"seed must lie in [0, 2^32), got {seed}")
+    if _build.on_cpu(x2d, ts_row, ts_col):
+        return nvfp4_quantize_2x_plain(x2d, ts_row, ts_col, rht_mask, seed)
+    m, n = x2d.shape
+    x_code = _build.dtype_code(x2d, _X_DTYPES)
+    x2d = x2d.contiguous()
+    ts = torch.stack([ts_row.reshape(()), ts_col.reshape(())]).float()
+    _build.check_aligned(x2d, ts)
+    dev = x2d.device
+    row = torch.empty((m, n), dtype=FP4_STORAGE_DTYPE, device=dev)
+    col = torch.empty((n, m), dtype=FP4_STORAGE_DTYPE, device=dev)
+    srow = torch.empty((m, n // 16), dtype=torch.float8_e4m3fn, device=dev)
+    scol = torch.empty((n, m // 16), dtype=torch.float8_e4m3fn, device=dev)
+    keys = (0, 0) if seed is None else (qmath.sr_key(seed, 0),
+                                        qmath.sr_key(seed, 1))
+    _build.launch("te_nvfp4_quantize_2x", _build.ptr(x2d), x_code,
+                  _build.ptr(ts), int(rht_mask is not None), rht_mask or 0,
+                  int(seed is not None), *keys, _build.ptr(row),
+                  _build.ptr(srow), _build.ptr(col), _build.ptr(scol), m, n,
+                  _build.stream(x2d))
+    _build.LAUNCHES["nvfp4_quantize_2x"] += 1
+    return row, srow, col, scol

@@ -1,7 +1,11 @@
 """Low-precision dtype tables (counterpart of transformerengine_tpu/
-quantize/dtypes.py, in torch dtypes), and the E8M0 scale encoding of
-MXFP8: a scale 2^k is stored as the byte k + 127, its biased exponent, in
-a uint8 tensor, as the reference stores it."""
+quantize/dtypes.py, in torch dtypes), the E8M0 scale encoding of MXFP8
+(a scale 2^k is stored as the byte k + 127, its biased exponent, in a
+uint8 tensor, as the reference stores it) and NVFP4's storage: e2m1
+values kept one to a byte as the e4m3 bytes of the same values, as the
+reference keeps them (exact: every e2m1 value is an e4m3 value). Real
+nibble packing happens only in resident prequantized weights
+(``quantize/prequant.py``)."""
 from __future__ import annotations
 
 import torch
@@ -15,6 +19,12 @@ DTYPE_MAX = {
 }
 
 E8M0_BIAS = 127
+
+# NVFP4 payloads: e2m1 grid values in e4m3 bytes.
+FP4_STORAGE_DTYPE = float8_e4m3
+# The 8 non-negative values of FP4 E2M1, and the largest.
+FP4_GRID = (0.0, 0.5, 1.0, 1.5, 2.0, 3.0, 4.0, 6.0)
+FP4_MAX = 6.0
 
 
 def dtype_max(dtype: torch.dtype) -> float:

@@ -13,10 +13,11 @@ from typing import Optional
 import torch
 
 from ..common.recipe import (DelayedScaling, Float8CurrentScaling,
-                             MXFP8BlockScaling, Recipe)
+                             MXFP8BlockScaling, NVFP4BlockScaling, Recipe)
 from .quantizer import (BlockScaleQuantizer, CurrentScaleQuantizer,
-                        DelayedScaleQuantizer, Quantizer, QuantizeLayout,
-                        QuantizerSet, noop_quantizer_set)
+                        DelayedScaleQuantizer, NVFP4Quantizer, Quantizer,
+                        QuantizeLayout, QuantizerSet, noop_quantizer_set)
+from .scaling_modes import ScalingMode
 
 
 @dataclasses.dataclass
@@ -51,6 +52,23 @@ def autocast(enabled: bool = True, recipe: Optional[Recipe] = None):
         _state.stack.pop()
 
 
+def _nvfp4_quantizer(recipe: NVFP4BlockScaling, role: str,
+                     q_layout: QuantizeLayout) -> NVFP4Quantizer:
+    qp = {"x": recipe.fp4_quant_fwd_inp,
+          "kernel": recipe.fp4_quant_fwd_weight,
+          "dgrad": recipe.fp4_quant_bwd_grad}[role]
+    fos = recipe.nvfp4_4over6
+    fmt = recipe.fp4_format
+    return NVFP4Quantizer(
+        fmt.bwd_dtype if role == "dgrad" else fmt.fwd_dtype, q_layout,
+        scaling_mode=(ScalingMode.NVFP4_2D_SCALING if qp.fp4_2d_quantization
+                      else ScalingMode.NVFP4_1D_SCALING),
+        with_rht=qp.random_hadamard_transform,
+        stochastic_rounding=qp.stochastic_rounding,
+        four_over_six=(fos == "all" or (fos == "weights" and role == "kernel")
+                       or (fos == "activations" and role == "x")))
+
+
 class QuantizerFactory:
     """Quantizers and quantizer sets from a recipe."""
 
@@ -62,17 +80,21 @@ class QuantizerFactory:
         "dgrad"); gradients take the format's backward dtype. A delayed
         quantizer starts at scale 1 with a zero history of the recipe's
         length, on ``device``. MXFP8's margin is not read, as in the
-        reference."""
+        reference. Under NVFP4 each role takes its ``QParams`` (the RHT,
+        stochastic rounding, 2D blocks) and "four over six" where
+        ``nvfp4_4over6`` names its class of tensor."""
         if role not in ("x", "kernel", "dgrad"):
             raise ValueError(f"role must be x, kernel or dgrad, got {role!r}")
         if recipe is None:
             return None
+        if isinstance(recipe, NVFP4BlockScaling):
+            return _nvfp4_quantizer(recipe, role, q_layout)
         if not isinstance(recipe, (DelayedScaling, Float8CurrentScaling,
                                    MXFP8BlockScaling)):
             raise NotImplementedError(
                 f"recipe {type(recipe).__name__} is not ported yet; ported: "
-                f"DelayedScaling, Float8CurrentScaling and "
-                f"MXFP8BlockScaling")
+                f"DelayedScaling, Float8CurrentScaling, MXFP8BlockScaling "
+                f"and NVFP4BlockScaling")
         fmt = recipe.fp8_format
         dtype = fmt.bwd_dtype if role == "dgrad" else fmt.fwd_dtype
         if isinstance(recipe, DelayedScaling):

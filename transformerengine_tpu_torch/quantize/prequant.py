@@ -5,14 +5,18 @@ transformerengine_tpu/quantize/prequant.py).
 in place, with a :class:`PrequantizedKernel`: a module whose buffers
 hold only the forward GEMM's usage of the (K, ...) kernel, so decode
 never re-quantizes. Under ``Float8CurrentScaling`` that is the (N, K)
-e4m3 payload and its scale. Under ``MXFP8BlockScaling`` the kernel is
-quantized once along K (the colwise usage) and then kept in one of the
+e4m3 payload and its scale. Under ``MXFP8BlockScaling`` and
+``NVFP4BlockScaling`` the kernel is quantized once along K (the colwise
+usage, with the recipe's weight quantizer) and then kept in one of the
 reference's two forms, chosen by ``block_decode`` (the reference's
 ``TE_TPU_BLOCK_DECODE``):
 - ``"bf16"``: dequantized once at load into a plain (N, K) bf16 weight;
-- ``"quantized"``: a :class:`BlockResidentKernel`, the (K, N) e4m3
-  payload with (K/32, N) bf16 block scales, which the KN decode kernel
-  dequantizes in flight (one byte a weight instead of two).
+- ``"quantized"``: a :class:`BlockResidentKernel`, the (K, N) payload
+  with (K / block, N) bf16 block scales, which the KN decode kernel
+  dequantizes in flight: e4m3 bytes under MXFP8 (one byte a weight
+  instead of two); under NVFP4 the e2m1 codes two to a byte, split-plane,
+  where K is a multiple of 32 (else e4m3 bytes), with the tensor scale as
+  ``out_scale``.
 Embedding and norm parameters stay in high precision.
 """
 from __future__ import annotations
@@ -22,10 +26,11 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..common.recipe import Float8CurrentScaling, MXFP8BlockScaling, Recipe
+from ..common.recipe import (Float8CurrentScaling, MXFP8BlockScaling,
+                             NVFP4BlockScaling, Recipe)
 from ..ops.decode_matmul import dequantize_kn
-from .quantizer import BlockScaleQuantizer, CurrentScaleQuantizer, \
-    QuantizeLayout
+from .helper import QuantizerFactory
+from .quantizer import CurrentScaleQuantizer, QuantizeLayout
 from .tensor import ScaledTensor1x
 
 _KERNEL_NAMES = ("kernel", "wi_kernel", "wo_kernel")
@@ -40,7 +45,7 @@ class BlockResidentKernel(nn.Module):
     and code row r + K/2 in its high one); ``scale`` (K/block, N) bf16
     block scales, decoded once at load (exact: E8M0 and e4m3 scales are
     bf16 values); ``out_scale`` an optional (1,) f32 second-level scale
-    (None for MXFP8)."""
+    (None for MXFP8, NVFP4's tensor scale)."""
 
     def __init__(self, payload: torch.Tensor, scale: torch.Tensor,
                  out_scale: Optional[torch.Tensor], block: int,
@@ -72,9 +77,10 @@ class PrequantizedKernel(nn.Module):
     """A kernel stored only as its forward GEMM's usage.
 
     The buffers are ``data`` (the (N, K) e4m3 payload, or for
-    ``recipe=None`` and MXFP8's ``"bf16"`` form the (N, K) high-precision
-    kernel) and ``scale_inv`` ((1,) f32, None for a high-precision
-    ``data``); for MXFP8's ``"quantized"`` form both are None and the
+    ``recipe=None`` and the block recipes' ``"bf16"`` form the (N, K)
+    high-precision kernel) and ``scale_inv`` ((1,) f32, None for a
+    high-precision ``data``); for the ``"quantized"`` form both are None
+    and the
     submodule ``kn`` (a :class:`BlockResidentKernel`) holds the weight.
     ``logical_shape`` is the original kernel's shape, contracting dim
     first."""
@@ -114,15 +120,30 @@ class PrequantizedKernel(nn.Module):
 _BLOCK_DECODE = ("bf16", "quantized")
 
 
+def _e4m3_bits_to_e2m1_code(byte: torch.Tensor) -> torch.Tensor:
+    """e4m3 bytes holding e2m1 values -> their 4-bit codes (int32), the
+    inverse of ``ops/decode_matmul._e2m1_code_to_e4m3_bits``."""
+    b = byte.to(torch.int32)
+    m7 = b & 0x7F
+    mag = torch.where(m7 == 0, 0, torch.where(m7 == 48, 1, (m7 - 48) >> 2))
+    return ((b >> 7) << 3) | mag
+
+
 def _block_resident(t: ScaledTensor1x) -> BlockResidentKernel:
     """A colwise block-scaled ScaledTensor1x (stored (N, K), scales along
-    K) -> the contraction-major (K, N) form."""
+    K) -> the contraction-major (K, N) form; NVFP4 codes are packed two to
+    a byte where K is a multiple of twice the block."""
     n, k = t.data.shape
     bc = t.scaling_mode.block_shape[1]
     s = t.scaling_mode.decode_scale_inv(t.scale_inv)[:n, :k // bc]
-    return BlockResidentKernel(t.data.t().contiguous(),
-                               s.t().to(torch.bfloat16).contiguous(), None,
-                               bc)
+    scale = s.t().to(torch.bfloat16).contiguous()
+    if t.scaling_mode.is_nvfp4 and k % (2 * bc) == 0:
+        codes = _e4m3_bits_to_e2m1_code(t.data.view(torch.uint8)).t()
+        packed = (codes[:k // 2] | (codes[k // 2:] << 4)).to(torch.uint8)
+        return BlockResidentKernel(packed.contiguous(), scale,
+                                   t.tensor_scale_inv, bc, packed=True)
+    return BlockResidentKernel(t.data.t().contiguous(), scale,
+                               t.tensor_scale_inv, bc)
 
 
 def prequantize_kernel_array(kernel: torch.Tensor, recipe: Optional[Recipe],
@@ -130,7 +151,8 @@ def prequantize_kernel_array(kernel: torch.Tensor, recipe: Optional[Recipe],
                              ) -> PrequantizedKernel:
     """Quantizes one kernel (contracting dim first) to its forward GEMM's
     usage. ``recipe=None`` keeps the dtype and only stores it (N, K);
-    ``block_decode`` picks MXFP8's resident form (module docstring)."""
+    ``block_decode`` picks the block-scaled resident form (module
+    docstring)."""
     k2d = kernel.detach().reshape(kernel.shape[0], -1)
     if recipe is None:
         return PrequantizedKernel(k2d.t().contiguous(), None, kernel.shape,
@@ -140,24 +162,29 @@ def prequantize_kernel_array(kernel: torch.Tensor, recipe: Optional[Recipe],
         t = q.quantize(k2d, dq_dtype=kernel.dtype)
         return PrequantizedKernel(t.data, t.scale_inv, kernel.shape,
                                   kernel.dtype)
-    if isinstance(recipe, MXFP8BlockScaling):
+    if isinstance(recipe, (MXFP8BlockScaling, NVFP4BlockScaling)):
         if block_decode not in _BLOCK_DECODE:
             raise ValueError(f"block_decode must be one of {_BLOCK_DECODE}, "
                              f"got {block_decode!r}")
-        q = BlockScaleQuantizer(recipe.fp8_format.fwd_dtype,
-                                QuantizeLayout.COLWISE)
+        q = QuantizerFactory.create(recipe, "kernel", QuantizeLayout.COLWISE)
         t = q.quantize(k2d, dq_dtype=kernel.dtype)
         if block_decode == "bf16":
             return PrequantizedKernel(t.dequantize().to(torch.bfloat16),
                                       None, kernel.shape, kernel.dtype)
-        if k2d.shape[0] % t.scaling_mode.block_shape[1]:
+        br, bc = t.scaling_mode.block_shape
+        if k2d.shape[0] % bc:
             raise ValueError(f"block_decode='quantized' needs K a multiple "
                              f"of the block, got K={k2d.shape[0]}")
+        if br != 1:
+            raise NotImplementedError(
+                f"block_decode='quantized' with {br} x {bc} weight blocks "
+                f"is not ported yet")
         return PrequantizedKernel(None, None, kernel.shape, kernel.dtype,
                                   kn=_block_resident(t))
     raise NotImplementedError(
         f"prequantization with {type(recipe).__name__} is not ported yet; "
-        f"ported: Float8CurrentScaling, MXFP8BlockScaling and recipe=None")
+        f"ported: Float8CurrentScaling, MXFP8BlockScaling, "
+        f"NVFP4BlockScaling and recipe=None")
 
 
 def prequantize_kernels(model: nn.Module, recipe: Optional[Recipe], *,

@@ -1,5 +1,5 @@
 """Quantizers (counterpart of transformerengine_tpu/quantize/quantizer.py),
-for current scaling, delayed scaling and MXFP8 block scaling.
+for current scaling, delayed scaling, MXFP8 and NVFP4 block scaling.
 
 A quantizer is a frozen dataclass. Delayed scaling's state (``scale`` and
 ``amax_history``) is held in tensors; :meth:`DelayedScaleQuantizer.update`
@@ -8,16 +8,27 @@ returns a new quantizer with the rolled state, as the reference does, and
 the set it was computed from, in place. The layers call it once per
 backward pass, which is how the reference's "the quantizer set's
 cotangent is the updated state" reaches the buffers of an ``nn`` module.
-MXFP8 keeps no state.
+MXFP8 and NVFP4 keep no state.
 
 Both orientations at once (``QuantizeLayout.ROWWISE_COLWISE``) go through
-``ops/quantize_kernels.cast_transpose`` under tensor scaling and
-``mxfp8_quantize_2x`` under MXFP8; one MXFP8 orientation through
+``ops/quantize_kernels.cast_transpose`` under tensor scaling,
+``mxfp8_quantize_2x`` under MXFP8 and ``nvfp4_amax_2x`` then
+``nvfp4_quantize_2x`` under NVFP4 (1D blocks, without "four over six",
+M and N multiples of 16; other NVFP4 cases take the two generic passes,
+as the reference does); one MXFP8 orientation through
 ``mxfp8_quantize_1x``; ``quantize_normed`` through
 ``norm_cast_transpose`` or ``mxfp8_norm_quantize_2x``: the kernels on
-CUDA tensors, their plain versions on CPU tensors. Under MXFP8 the
-colwise usage is the transposed view quantized on its own (its blocks run
-down the input's columns), never the transpose of the rowwise payload.
+CUDA tensors, their plain versions on CPU tensors. Under block scaling
+the colwise usage is the transposed view quantized on its own (its blocks
+run down the input's columns), never the transpose of the rowwise
+payload; under NVFP4 it may be rotated first (the RHT) and has its own
+tensor scale and amax. One NVFP4 orientation has no kernel in the
+reference and is plain PyTorch here too.
+
+Stochastic rounding (NVFP4's gradients) needs a ``torch.Generator``
+passed to :meth:`Quantizer.quantize`, where the reference takes a key;
+one seed is drawn from it per call. Without one, rounding is to nearest,
+as in the reference's layers, which pass no key.
 """
 from __future__ import annotations
 
@@ -29,6 +40,7 @@ import torch
 
 from ..ops import quantize_kernels as qk
 from . import qmath
+from .hadamard import apply_rht
 from .scaling_modes import ScalingMode
 from .tensor import ScaledTensor1x, ScaledTensor2x
 
@@ -45,58 +57,78 @@ class Quantizer:
     stores the 2D view (leading dims folded) transposed, so the quantized
     axis is again the last one (the (N, K) layout a TN GEMM reads);
     ROWWISE_COLWISE returns both as a ScaledTensor2x. Each subclass fixes
-    its ``scaling_mode``."""
+    its ``scaling_mode`` (NVFP4 per instance).
+
+    The hooks return one orientation as a tuple (data in stored layout,
+    scale_inv, tensor_scale_inv or None, amax or None)."""
 
     q_dtype: torch.dtype
     q_layout: QuantizeLayout = QuantizeLayout.ROWWISE
 
     scaling_mode: ClassVar[ScalingMode]
 
-    def _quantize_2d(self, x2d):
-        """(data, scale_inv, amax or None) of a 2D tensor quantized along
-        its last axis."""
+    def _quantize_2d(self, x2d, colwise: bool = False, seed=None):
+        """One orientation of a 2D tensor quantized along its last axis;
+        ``colwise`` says that ``x2d`` is the transposed view."""
         raise NotImplementedError
 
     def _fused_1x(self, x2d, colwise: bool):
         """One orientation from the UNTRANSPOSED 2D view (the colwise
-        form transposes in the kernel): (data in stored layout,
-        scale_inv, amax), or None to quantize the (transposed) view with
-        :meth:`_quantize_2d`."""
+        form transposes in the kernel), or None to quantize the
+        (transposed) view with :meth:`_quantize_2d`."""
         return None
 
-    def _fused_2x(self, x2d):
-        """(row, row scale_inv, col, col scale_inv, amax) of both
-        orientations from one pass."""
-        raise NotImplementedError
+    def _fused_2x(self, x2d, seed=None):
+        """(rowwise, colwise) of both orientations from one pass, or None
+        for the two generic passes."""
+        return None
 
-    def _tensor(self, data, s_inv, amax, dq_dtype, layout):
+    def _seed(self, generator: Optional[torch.Generator]):
+        """The seed of this call's stochastic rounding, or None."""
+        return None
+
+    def _tensor(self, parts, dq_dtype, layout):
+        data, s_inv, ts_inv, amax = parts
         return ScaledTensor1x(data, s_inv, amax, dq_dtype, layout=layout,
-                              scaling_mode=self.scaling_mode)
+                              scaling_mode=self.scaling_mode,
+                              tensor_scale_inv=ts_inv)
 
     def quantize(self, x: torch.Tensor, *, dq_dtype=None,
-                 layout: Optional[QuantizeLayout] = None):
+                 layout: Optional[QuantizeLayout] = None,
+                 generator: Optional[torch.Generator] = None):
         """Quantizes ``x`` (any rank; its 2D view folds the leading dims).
-        ``layout`` overrides the quantizer's own ``q_layout``."""
+        ``layout`` overrides the quantizer's own ``q_layout``;
+        ``generator`` feeds stochastic rounding where the quantizer asks
+        for it."""
         q_layout = layout if layout is not None else self.q_layout
         dq_dtype = dq_dtype or x.dtype
         x2d = x.reshape(-1, x.shape[-1])
         t_shape = (x.shape[-1],) + tuple(x.shape[:-1])
+        seed = self._seed(generator)
+
+        def colwise():
+            data, *rest = (self._fused_1x(x2d, True)
+                           or self._quantize_2d(x2d.t(), True, seed))
+            return (data.contiguous().reshape(t_shape), *rest)
+
+        def rowwise():
+            data, *rest = (self._fused_1x(x2d, False)
+                           or self._quantize_2d(x2d, False, seed))
+            return (data.reshape(x.shape), *rest)
+
         if q_layout is QuantizeLayout.COLWISE:
-            data, s_inv, amax = (self._fused_1x(x2d, True)
-                                 or self._quantize_2d(x2d.t()))
-            return self._tensor(data.contiguous().reshape(t_shape), s_inv,
-                                amax, dq_dtype, "T")
+            return self._tensor(colwise(), dq_dtype, "T")
         if q_layout is QuantizeLayout.ROWWISE:
-            data, s_inv, amax = (self._fused_1x(x2d, False)
-                                 or self._quantize_2d(x2d))
-            return self._tensor(data.reshape(x.shape), s_inv, amax,
-                                dq_dtype, "N")
-        row, s_row, col, s_col, amax = self._fused_2x(x2d)
-        return ScaledTensor2x(
-            rowwise=self._tensor(row.reshape(x.shape), s_row, amax,
-                                 dq_dtype, "N"),
-            colwise=self._tensor(col.reshape(t_shape), s_col, amax,
-                                 dq_dtype, "T"))
+            return self._tensor(rowwise(), dq_dtype, "N")
+        fused = self._fused_2x(x2d, seed)
+        if fused is not None:
+            (row, *row_rest), (col, *col_rest) = fused
+            row_parts = (row.reshape(x.shape), *row_rest)
+            col_parts = (col.reshape(t_shape), *col_rest)
+        else:
+            row_parts, col_parts = rowwise(), colwise()
+        return ScaledTensor2x(rowwise=self._tensor(row_parts, dq_dtype, "N"),
+                              colwise=self._tensor(col_parts, dq_dtype, "T"))
 
     def update(self, amax) -> "Quantizer":
         """End-of-step state update (the quantizer itself when it keeps
@@ -110,15 +142,16 @@ class CurrentScaleQuantizer(Quantizer):
 
     scaling_mode: ClassVar[ScalingMode] = ScalingMode.CURRENT_TENSOR_SCALING
 
-    def _quantize_2d(self, x2d):
-        return qmath.current_scale_quantize(x2d, self.q_dtype)
+    def _quantize_2d(self, x2d, colwise=False, seed=None):
+        data, s_inv, amax = qmath.current_scale_quantize(x2d, self.q_dtype)
+        return data, s_inv, None, amax
 
-    def _fused_2x(self, x2d):
+    def _fused_2x(self, x2d, seed=None):
         amax = qmath.compute_amax(x2d)
         scale = qmath.compute_scale_from_amax(amax, self.q_dtype)
         row, col, _ = qk.cast_transpose(x2d, scale.reshape(1), self.q_dtype)
         s_inv = (1.0 / scale).reshape(1)
-        return row, s_inv, col, s_inv, amax
+        return (row, s_inv, None, amax), (col, s_inv, None, amax)
 
 
 def _ones_scale():
@@ -143,14 +176,17 @@ class DelayedScaleQuantizer(Quantizer):
     margin: float = 0.0
     amax_compute_algo: str = "max"
 
-    def _quantize_2d(self, x2d):
-        return qmath.tensor_scale_quantize(x2d, self.q_dtype, self.scale)
+    def _quantize_2d(self, x2d, colwise=False, seed=None):
+        data, s_inv, amax = qmath.tensor_scale_quantize(x2d, self.q_dtype,
+                                                        self.scale)
+        return data, s_inv, None, amax
 
-    def _fused_2x(self, x2d):
+    def _fused_2x(self, x2d, seed=None):
         row, col, amax = qk.cast_transpose(x2d, self.scale.reshape(1),
                                            self.q_dtype)
         s_inv = (1.0 / self.scale.float()).reshape(1)
-        return row, s_inv, col, s_inv, amax.reshape(())
+        amax = amax.reshape(())
+        return (row, s_inv, None, amax), (col, s_inv, None, amax)
 
     def quantize_normed(self, x2d: torch.Tensor, gamma: torch.Tensor,
                         beta: Optional[torch.Tensor], *, norm: str,
@@ -173,10 +209,10 @@ class DelayedScaleQuantizer(Quantizer):
         mu = outs[4].reshape(m) if norm == "layernorm" else None
         dq_dtype = dq_dtype or x2d.dtype
         s_inv = (1.0 / self.scale.float()).reshape(1)
-        rw = self._tensor(row, s_inv, amax, dq_dtype, "N")
+        rw = self._tensor((row, s_inv, None, amax), dq_dtype, "N")
         if layout is QuantizeLayout.ROWWISE:
             return rw, mu, rsigma.reshape(m)
-        cw = self._tensor(col, s_inv, amax, dq_dtype, "T")
+        cw = self._tensor((col, s_inv, None, amax), dq_dtype, "T")
         return ScaledTensor2x(rowwise=rw, colwise=cw), mu, rsigma.reshape(m)
 
     def update(self, amax) -> "DelayedScaleQuantizer":
@@ -210,20 +246,20 @@ class BlockScaleQuantizer(Quantizer):
 
     scaling_mode: ClassVar[ScalingMode] = ScalingMode.MXFP8_1D_SCALING
 
-    def _quantize_2d(self, x2d):
+    def _quantize_2d(self, x2d, colwise=False, seed=None):
         """The unfused ground truth (``qmath.mxfp8_quantize``), which
         :meth:`_fused_1x` and :meth:`_fused_2x` equal bit for bit."""
         data, scale = qmath.mxfp8_quantize(x2d, self.q_dtype)
-        return data, scale, None
+        return data, scale, None, None
 
     def _fused_1x(self, x2d, colwise: bool):
         data, scale = qk.mxfp8_quantize_1x(x2d, self.q_dtype,
                                            colwise=colwise)
-        return data, scale, None
+        return data, scale, None, None
 
-    def _fused_2x(self, x2d):
+    def _fused_2x(self, x2d, seed=None):
         row, col, srow, scol = qk.mxfp8_quantize_2x(x2d, self.q_dtype)
-        return row, srow, col, scol, None
+        return (row, srow, None, None), (col, scol, None, None)
 
     def quantize_normed(self, x2d: torch.Tensor, gamma: torch.Tensor,
                         beta: Optional[torch.Tensor], *, norm: str,
@@ -245,11 +281,68 @@ class BlockScaleQuantizer(Quantizer):
         row, col, srow, scol, rsigma = outs[:5]
         mu = outs[5].reshape(m) if norm == "layernorm" else None
         dq_dtype = dq_dtype or x2d.dtype
-        rw = self._tensor(row, srow, None, dq_dtype, "N")
+        rw = self._tensor((row, srow, None, None), dq_dtype, "N")
         if rowwise_only:
             return rw, mu, rsigma.reshape(m)
-        cw = self._tensor(col, scol, None, dq_dtype, "T")
+        cw = self._tensor((col, scol, None, None), dq_dtype, "T")
         return ScaledTensor2x(rowwise=rw, colwise=cw), mu, rsigma.reshape(m)
+
+
+@dataclasses.dataclass(frozen=True)
+class NVFP4Quantizer(Quantizer):
+    """NVFP4: e2m1 values with an e4m3 scale per block (``scaling_mode``:
+    (1, 16), or (16, 16) for 2D weights) under an f32 scale per tensor,
+    optionally with the random Hadamard transform of the colwise usage
+    (sign mask ``rht_sign_mask``), stochastic rounding (with a generator)
+    and "four over six" block scales. Stateless; the tensors carry their
+    amax and tensor scale.
+
+    The RHT applies to the colwise usage only: the two colwise operands
+    meet in the wgrad GEMM, which contracts over tokens, where the
+    rotations cancel (H H^T = I); the rowwise usages meet unrotated
+    partners."""
+
+    scaling_mode: ScalingMode = ScalingMode.NVFP4_1D_SCALING
+    with_rht: bool = False
+    rht_sign_mask: int = 0
+    stochastic_rounding: bool = False
+    four_over_six: bool = False
+
+    def __post_init__(self):
+        if not self.scaling_mode.is_nvfp4:
+            raise ValueError(f"NVFP4Quantizer takes an NVFP4 scaling mode, "
+                             f"got {self.scaling_mode}")
+
+    def _seed(self, generator):
+        if not self.stochastic_rounding or generator is None:
+            return None
+        return int(torch.randint(0, 2 ** 32, (), generator=generator,
+                                 device=generator.device))
+
+    def _quantize_2d(self, x2d, colwise=False, seed=None):
+        if self.with_rht and colwise:
+            x2d = apply_rht(x2d, self.rht_sign_mask)
+        data, block_scale, ts_inv, amax = qmath.nvfp4_quantize(
+            x2d, seed, int(colwise), block_shape=self.scaling_mode.block_shape,
+            four_over_six=self.four_over_six)
+        return data, block_scale, ts_inv, amax
+
+    def _fused_2x(self, x2d, seed=None):
+        """``nvfp4_amax_2x`` then ``nvfp4_quantize_2x``: (1, 16) blocks
+        without "four over six", M and N multiples of 16 (the reference
+        also declines its fused pass for the first two)."""
+        m, n = x2d.shape
+        if (self.scaling_mode is not ScalingMode.NVFP4_1D_SCALING
+                or self.four_over_six or m % 16 or n % 16 or m * n == 0):
+            return None
+        mask = self.rht_sign_mask if self.with_rht else None
+        arow, acol = qk.nvfp4_amax_2x(x2d, mask)
+        ts_row = qmath.nvfp4_tensor_scale(arow)
+        ts_col = qmath.nvfp4_tensor_scale(acol)
+        row, srow, col, scol = qk.nvfp4_quantize_2x(x2d, ts_row, ts_col, mask,
+                                                    seed)
+        return ((row, srow, ts_row.reshape(1), arow),
+                (col, scol, ts_col.reshape(1), acol))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -258,7 +351,7 @@ class NoopQuantizer(Quantizer):
 
     scaling_mode: ClassVar[ScalingMode] = ScalingMode.NO_SCALING
 
-    def quantize(self, x, *, dq_dtype=None, layout=None):
+    def quantize(self, x, *, dq_dtype=None, layout=None, generator=None):
         return x
 
 

@@ -1,8 +1,8 @@
 """Scaling modes of quantized tensors (counterpart of
 transformerengine_tpu/quantize/scaling_modes.py), for the ported recipes:
-the two per-tensor modes and MXFP8. Each mode knows its block shape and
-the shape of its scale grid, and decodes its stored scales to f32
-dequantization multipliers."""
+the two per-tensor modes, MXFP8 and NVFP4 (1D and 2D blocks). Each mode
+knows its block shape and the shape of its scale grid, and decodes its
+stored scales to f32 dequantization multipliers."""
 from __future__ import annotations
 
 import enum
@@ -27,16 +27,27 @@ class ScalingMode(enum.Enum):
     # quantized (stored last) axis, stored as its biased exponent in a
     # uint8 grid.
     MXFP8_1D_SCALING = 3
+    # Two levels: one E4M3 scale per 16 contiguous elements along the
+    # quantized axis, and one f32 scale for the tensor.
+    NVFP4_1D_SCALING = 6
+    # The same with (16, 16) blocks (the reference's fp4_2d_quantization
+    # weight mode).
+    NVFP4_2D_SCALING = 7
 
     @property
     def is_tensor_scaling(self) -> bool:
-        return self is not ScalingMode.MXFP8_1D_SCALING
+        return self in _TENSOR_SCALING
+
+    @property
+    def is_nvfp4(self) -> bool:
+        return self in (ScalingMode.NVFP4_1D_SCALING,
+                        ScalingMode.NVFP4_2D_SCALING)
 
     @property
     def block_shape(self) -> Tuple[int, int]:
         """(rows, cols) covered by one scale of a tensor quantized along
         its last axis."""
-        return (1, 32) if self is ScalingMode.MXFP8_1D_SCALING else (1, 1)
+        return _BLOCK_SHAPES.get(self, (1, 1))
 
     def scale_shape(self, data_shape: Tuple[int, ...]) -> Tuple[int, ...]:
         """Shape of the scale grid of a payload of ``data_shape`` (its
@@ -50,7 +61,16 @@ class ScalingMode(enum.Enum):
         return (-(-rows // br), -(-data_shape[-1] // bc))
 
     def decode_scale_inv(self, scale_inv: torch.Tensor) -> torch.Tensor:
-        """Stored scales -> f32 dequantization multipliers."""
+        """Stored scales -> f32 dequantization multipliers (E8M0 bytes for
+        MXFP8, e4m3 values for NVFP4, f32 otherwise)."""
         if self is ScalingMode.MXFP8_1D_SCALING:
             return decode_e8m0(scale_inv)
         return scale_inv.float()
+
+
+_TENSOR_SCALING = frozenset((ScalingMode.NO_SCALING,
+                             ScalingMode.DELAYED_TENSOR_SCALING,
+                             ScalingMode.CURRENT_TENSOR_SCALING))
+_BLOCK_SHAPES = {ScalingMode.MXFP8_1D_SCALING: (1, 32),
+                 ScalingMode.NVFP4_1D_SCALING: (1, 16),
+                 ScalingMode.NVFP4_2D_SCALING: (16, 16)}

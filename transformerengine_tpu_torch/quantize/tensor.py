@@ -1,6 +1,6 @@
 """Quantized tensors (counterpart of transformerengine_tpu/quantize/
 tensor.py): one usage (``ScaledTensor1x``) or both (``ScaledTensor2x``),
-per-tensor scaled or MXFP8."""
+per-tensor scaled, MXFP8 or NVFP4."""
 from __future__ import annotations
 
 import dataclasses
@@ -22,9 +22,11 @@ class ScaledTensor1x:
     ceil(cols / 32)) of E8M0 biased exponents along the stored last axis
     of the 2D view: (leading dims, last dim) for "N", (first dim, the
     others) for "T", the transpose of the input's 2D view that the
-    quantizer folds its leading dims into. ``resident`` marks tensors that
-    live in device memory across steps (prequantized weights): GEMMs read
-    their payload directly."""
+    quantizer folds its leading dims into. Under NVFP4 ``data`` holds e2m1
+    values in e4m3 bytes, ``scale_inv`` the e4m3 block scales (rows / br,
+    cols / 16) and ``tensor_scale_inv`` the (1,) f32 second-level scale.
+    ``resident`` marks tensors that live in device memory across steps
+    (prequantized weights): GEMMs read their payload directly."""
 
     data: torch.Tensor
     scale_inv: torch.Tensor
@@ -33,6 +35,7 @@ class ScaledTensor1x:
     layout: str = "N"
     resident: bool = False
     scaling_mode: ScalingMode = ScalingMode.CURRENT_TENSOR_SCALING
+    tensor_scale_inv: Optional[torch.Tensor] = None
 
     def __post_init__(self):
         if self.layout not in ("N", "T"):
@@ -49,25 +52,32 @@ class ScaledTensor1x:
         return self.data.reshape(-1, self.data.shape[-1])
 
     def dequantize(self) -> torch.Tensor:
-        """The high-precision tensor, in stored orientation. An MXFP8
-        payload times its power-of-two scale is exact in bf16, so a bf16
-        result is multiplied in bf16 (as the reference does), anything
-        else in f32."""
+        """The high-precision tensor, in stored orientation. An MXFP8 or
+        NVFP4 payload times its block scale is exact in bf16, so without a
+        second-level scale a bf16 result is multiplied in bf16 (as the
+        reference does), anything else in f32; the tensor scale then
+        multiplies in f32."""
         if self.scaling_mode.is_tensor_scaling:
             return (self.data.float() * self.scale_inv.float().reshape(())
                     ).to(self.dq_dtype)
-        mul_t = (torch.bfloat16 if self.dq_dtype == torch.bfloat16
-                 else torch.float32)
-        return dequantize_blocks(self, mul_t).to(self.dq_dtype)
+        exact_bf16 = (self.dq_dtype == torch.bfloat16
+                      and self.tensor_scale_inv is None)
+        out = dequantize_blocks(
+            self, torch.bfloat16 if exact_bf16 else torch.float32)
+        if self.tensor_scale_inv is not None:
+            out = out.float() * self.tensor_scale_inv.float().reshape(())
+        return out.to(self.dq_dtype)
 
 
 def dequantize_blocks(t: ScaledTensor1x, mul_t: torch.dtype) -> torch.Tensor:
-    """An MXFP8 tensor's values, the payload times its block scales in
-    ``mul_t``, in stored shape."""
+    """A block-scaled tensor's values, the payload times its block scales
+    in ``mul_t`` (the tensor scale left out), in stored shape."""
     x = t.view_2d()
     rows, cols = x.shape
     s = t.scaling_mode.decode_scale_inv(t.scale_inv)
-    _, bc = t.scaling_mode.block_shape
+    br, bc = t.scaling_mode.block_shape
+    if br > 1:
+        s = s.repeat_interleave(br, dim=0)[:rows]
     gc = s.shape[1]
     if gc * bc == cols:
         out = x.to(mul_t).reshape(rows, gc, bc) * s.to(mul_t)[:, :, None]
@@ -82,9 +92,10 @@ def dequantize_blocks(t: ScaledTensor1x, mul_t: torch.dtype) -> torch.Tensor:
 class ScaledTensor2x:
     """Rowwise (layout "N") and colwise (layout "T") usages of one tensor.
     Under per-tensor scaling both share one scale, so the colwise payload
-    is the exact transpose of the rowwise one; under MXFP8 the colwise
-    usage is the transposed tensor quantized along its own last axis, a
-    different quantization with its own scale grid."""
+    is the exact transpose of the rowwise one; under block scaling the
+    colwise usage is the transposed tensor quantized along its own last
+    axis, a different quantization with its own scale grid (under NVFP4
+    its own tensor scale and amax, and optionally the RHT)."""
 
     rowwise: ScaledTensor1x
     colwise: ScaledTensor1x
