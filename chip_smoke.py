@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases 3,4,5,6,7,8,9,10,11,12] [--train-seeds 21]
+    python3 chip_smoke.py [--phases 3,4,5,...,15] [--train-seeds 21]
+                          [--moe-seeds 31]
 
 Phases, each of which raises (and so exits non-zero) on failure:
   1. the card's name and power limit (nvidia-smi);
@@ -22,7 +23,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
      the two NVFP4 kernels at the training path's x and gradient shapes,
      with and without the RHT (amaxes, payloads and scales equal), then
      f32, a zero tensor, -0 codes, subnormal scales, other sign masks and
-     stochastic rounding (neighbours, repeatability, bias);
+     stochastic rounding (neighbours, repeatability, bias); the grouped
+     MXFP8 QDQ of the MoE's expert kernels at MIXTRAL_8X7B's two stacks,
+     then f32, e5m2, zero blocks and an unaligned shape (the chain);
   4. FP8-resident serving at LLAMA_8B width (seeded random weights, FP8
      KV cache, B = 8, prompts of 512 and 384 tokens, 32 new tokens)
      through prefill and decode_steps, with TTFT, decode ms/step, tok/s
@@ -71,14 +74,32 @@ Phases, each of which raises (and so exits non-zero) on failure:
  12. paged, NVFP4-resident serving as phase 9, under
      ``autocast(NVFP4BlockScaling())``: the packed (K/2, N) form, then
      ``"bf16"``; the prefill's activations through the two NVFP4 kernels,
-     the decode batch's rowwise alone.
+     the decode batch's rowwise alone;
+ 13. Mixtral training at MIXTRAL_8X7B width (8 experts, top-2), 4 layers,
+     B = 2, S = 2048, ``mixtral_loss``: five SGD steps without a recipe,
+     five under MXFP8BlockScaling() (two grouped QDQ launches a layer in
+     the forward, none in the backward), then three MXFP8 forwards
+     without a gradient, each call with exact launch counts; ms/step,
+     tok/s, the ratio of the two steps, peak memory, the busy share and
+     the top kernels;
+ 14. Mixtral bf16 serving at MIXTRAL_8X7B width, 8 layers, phase 4's
+     batch, prompts and fp8 cache: TTFT, decode ms/step, busy share and
+     exact launch counts; then two sequences' cached tokens (the
+     reference test's bf16 cache) against the card's own full-recompute
+     greedy decoding, near-ties of the logits or the router excused;
+ 15. Mixtral training, the card against the CPU: one step of 2 layers at
+     a reduced width (hidden 1024, FFN 3584, 8 experts), B = 1, S = 256,
+     without a recipe and under MXFP8, the MoE held op by op (the card's
+     MoE layers take the CPU's inputs and routing, their own routing
+     differing only at near-ties): loss, gradients and the local
+     difference, with planted faults that must be caught.
 Then one ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 A kernel's ``launches`` is the sum of its counts over the runs of the
-paths (phases 4, 6, 8, 9, 10, 11 and 12, phase 9's load included), each
-counted from zero; comparisons with the plain versions do not count.
+paths (phases 4, 6, 8, 9, 10, 11, 12, 13 and 14, phase 9's load included),
+each counted from zero; comparisons with the plain versions do not count.
 ``--phases`` runs a subset (for iterating on one path); the default runs
 all. ``--train-seeds`` gives phase 7 other seeds (``21,22,23`` reads
-what its limits were set from).
+what its limits were set from), ``--moe-seeds`` phase 15 (``31,32,33``).
 """
 from __future__ import annotations
 
@@ -1016,6 +1037,84 @@ def check_mxfp8_variants(torch) -> None:
                                                          **kw),
             x, gamma, bt, kw)
 
+
+# The grouped QDQ's shapes on the MoE path at MIXTRAL_8X7B width: the
+# stacked up-projections (E, H, 2F) and down-projections (E, F, H).
+QDQ_SHAPES = ((8, 4096, 28672), (8, 14336, 4096))
+
+
+def check_mxfp8_qdq_grouped(torch, timer, results):
+    """mxfp8_qdq_2x_grouped at the MoE path's shapes, byte for byte
+    against its plain version (the reference's chain), timed; then f32,
+    e5m2, zero blocks and signed zeros at a small shape, and an unaligned
+    shape, which the wrapper declines (None) and the grouped layer takes
+    through the chain. Runs before any model is resident: the plain
+    version's f32 temporaries at (8, 4096, 28672) are 3.8 GB each."""
+    from transformerengine_tpu_torch.grouped_dense import _qdq_kernel
+    from transformerengine_tpu_torch.ops.quantize_kernels import (
+        mxfp8_qdq_2x_grouped, mxfp8_qdq_2x_grouped_plain)
+    from transformerengine_tpu_torch.quantize.quantizer import (
+        BlockScaleQuantizer)
+    e4m3, e5m2 = torch.float8_e4m3fn, torch.float8_e5m2
+    log(f"[3q] mxfp8_qdq_2x_grouped: {QDQ_SHAPES} bf16 expert kernels -> "
+        f"MXFP8 along K -> bf16 nn and tn, columns of two magnitudes 2^8 "
+        f"apart")
+    g = torch.Generator(device="cuda").manual_seed(17)
+    times = {}
+    for shape in QDQ_SHAPES:
+        x = torch.randn(shape, generator=g, device="cuda") * 3.0
+        x[:, :, shape[2] // 2:] *= 256.0
+        x[0, :32, :32] = 0.0
+        x = x.to(torch.bfloat16)
+        got = mxfp8_qdq_2x_grouped(x)
+        torch.cuda.synchronize()
+        check_bytes_equal(torch, f"{shape}", got,
+                          mxfp8_qdq_2x_grouped_plain(x, e4m3), ("nn", "tn"))
+        del got
+        ms = timer(lambda: mxfp8_qdq_2x_grouped(x))
+        plain = timer(lambda: mxfp8_qdq_2x_grouped_plain(x, e4m3))
+        torch.cuda.empty_cache()
+        # Read the kernels once (2 bytes an element), write nn and tn (2
+        # each); about six f32 operations an element (abs, max, multiply,
+        # clip, multiply, round).
+        el = x.numel()
+        bound, by = bound_ms(6 * el, 6 * el, F32_FLOPS)
+        log(f"  {shape}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+            f"{bound:.4f} ms ({by}), {bound / ms:.1%} of the bound")
+        times[shape] = (ms, plain, bound, by)
+        del x
+    ms, plain, bound, by = times[QDQ_SHAPES[0]]
+    ms2, plain2, bound2, _ = times[QDQ_SHAPES[1]]
+    results["mxfp8_qdq_2x_grouped"] = dict(
+        name="mxfp8_qdq_2x_grouped", route="cuda",
+        source="transformerengine_tpu_torch/csrc/mxfp8_qdq_grouped.cu",
+        replaces="transformerengine_tpu/ops/quantize_kernels.py:704",
+        max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+        library_ms=None,
+        shape=f"{QDQ_SHAPES[0]} bf16 -> MXFP8 -> bf16 nn and tn; at "
+              f"{QDQ_SHAPES[1]} {ms2:.4f} ms, plain {plain2:.4f} ms, bound "
+              f"{bound2:.4f} ms")
+    for shape, xt, qt in (((2, 64, 128), torch.float32, e5m2),
+                          ((3, 96, 256), torch.bfloat16, e4m3),
+                          ((2, 64, 384), torch.float32, e4m3)):
+        x = torch.randn(shape, generator=g, device="cuda") * 3.0
+        x[:, :, shape[2] // 2:] *= 256.0
+        x[0, :32, :32] = 0.0
+        x[1, :32, 5] = -0.0
+        x[-1, :32, 6] = 2.0 ** -130
+        x = x.to(xt)
+        check_bytes_equal(torch, f"{shape} {xt} -> {qt}",
+                          mxfp8_qdq_2x_grouped(x, qt),
+                          mxfp8_qdq_2x_grouped_plain(x, qt), ("nn", "tn"))
+    x = torch.randn((2, 48, 96), generator=g, device="cuda",
+                    dtype=torch.bfloat16)
+    if mxfp8_qdq_2x_grouped(x) is not None:
+        raise AssertionError("the wrapper took an unaligned shape")
+    qdq = _qdq_kernel(BlockScaleQuantizer(e4m3), x)
+    check_bytes_equal(torch, "(2, 48, 96) through the grouped layer's chain",
+                      (qdq.nn.contiguous(), qdq.tn),
+                      mxfp8_qdq_2x_grouped_plain(x, e4m3),
+                      ("nn", "tn"))
 
 # The x and gradient shapes of the training path's GEMMs: M = B * S tokens
 # against the layer's widths (hidden, QKV, FFN, and the gated FFN's two
@@ -2031,16 +2130,19 @@ def train_batch(torch, vocab: int, b: int, s: int, device, seed: int = 11):
     return tokens.to(device), targets.to(device)
 
 
-def train_step(torch, model, tokens, targets, recipe, lr: float = TRAIN_LR):
-    """One step as the reference trains: the loss, its backward (which
-    also rolls the delayed-scaling state in the modules' buffers) and
-    ``p -= lr * g`` in the parameter dtype (none when ``lr`` is 0).
-    Returns the loss."""
+def train_step(torch, model, tokens, targets, recipe, lr: float = TRAIN_LR,
+               loss_fn=None):
+    """One step as the reference trains: the loss (``loss_fn(model,
+    tokens, targets)``, by default the cross entropy of the model's
+    logits), its backward (which also rolls the delayed-scaling state in
+    the modules' buffers) and ``p -= lr * g`` in the parameter dtype (none
+    when ``lr`` is 0). Returns the loss."""
     from transformerengine_tpu_torch import autocast
     from transformerengine_tpu_torch.models.llama import cross_entropy_loss
     model.zero_grad(set_to_none=True)
     with autocast(enabled=recipe is not None, recipe=recipe):
-        loss = cross_entropy_loss(model(tokens), targets)
+        loss = loss_fn(model, tokens, targets) if loss_fn is not None \
+            else cross_entropy_loss(model(tokens), targets)
     loss.backward()
     if lr:
         with torch.no_grad():
@@ -2231,6 +2333,29 @@ def nvfp4_counts(layers: int, train: bool) -> dict:
     return {"flash_attention_fwd": layers}
 
 
+def timed_steps(torch, fn, expect: dict, n: int, what: str):
+    """``n`` synchronized calls of ``fn``, each with exactly the launches
+    ``expect``: (their outputs as floats, seconds each, summed counts)."""
+    from transformerengine_tpu_torch import _build
+    totals = collections.Counter()
+    outs, times = [], []
+    for i in range(n):
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts = dict(_build.LAUNCHES)
+        _build.LAUNCHES.clear()
+        totals.update(counts)
+        if counts != expect:
+            raise AssertionError(f"{what} {i + 1} launched {counts}, "
+                                 f"expected {expect}")
+        outs.append(out)
+    return outs, times, totals
+
+
 def train_block(torch, results, phase: str, recipe, about: str, counts,
                 key: str, beside) -> None:
     """A block-scaled recipe's training phase at LLAMA_8B width: five SGD
@@ -2238,7 +2363,7 @@ def train_block(torch, results, phase: str, recipe, about: str, counts,
     tok/s, peak memory and the profiled busy share, beside the earlier
     steps named in ``beside`` ({results key: label}); then three forwards
     without a gradient with their own exact counts."""
-    from transformerengine_tpu_torch import _build, autocast
+    from transformerengine_tpu_torch import autocast
     from transformerengine_tpu_torch.models.llama import LLAMA_8B, LlamaModel
     cfg = dataclasses.replace(LLAMA_8B, num_layers=TRAIN_LAYERS)
     b, s = TRAIN_B, TRAIN_S
@@ -2251,24 +2376,11 @@ def train_block(torch, results, phase: str, recipe, about: str, counts,
     shrink_embedding(model)
     tokens, targets = train_batch(torch, cfg.vocab_size, b, s, CARD)
     expect = counts(TRAIN_LAYERS, True)
-    totals = collections.Counter()
-    losses, times = [], []
-    for step in range(TRAIN_STEPS):
-        torch.cuda.synchronize()
-        _build.LAUNCHES.clear()
-        t0 = time.perf_counter()
-        loss = float(train_step(torch, model, tokens, targets, recipe))
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        step_counts = dict(_build.LAUNCHES)
-        _build.LAUNCHES.clear()
-        totals.update(step_counts)
-        losses.append(loss)
-        if step_counts != expect:
-            raise AssertionError(f"step {step + 1} launched {step_counts}, "
-                                 f"expected {expect}")
-        if not math.isfinite(loss):
-            raise AssertionError(f"step {step + 1}: loss {loss}")
+    losses, times, totals = timed_steps(
+        torch, lambda: float(train_step(torch, model, tokens, targets,
+                                        recipe)), expect, TRAIN_STEPS, "step")
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"losses {losses}")
     step_ms = statistics.median(times[1:]) * 1e3
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"  losses {[round(x, 5) for x in losses]} (all finite); launches "
@@ -2288,21 +2400,12 @@ def train_block(torch, results, phase: str, recipe, about: str, counts,
     log_profile(f"{about} step", stats, busy, wall, kernels, 1)
 
     expect_fwd = counts(TRAIN_LAYERS, False)
-    fwd_times = []
     with torch.no_grad(), autocast(recipe=recipe):
-        for _ in range(3):
-            torch.cuda.synchronize()
-            _build.LAUNCHES.clear()
-            t0 = time.perf_counter()
-            logits = model(tokens)
-            torch.cuda.synchronize()
-            fwd_times.append(time.perf_counter() - t0)
-            fwd_counts = dict(_build.LAUNCHES)
-            _build.LAUNCHES.clear()
-            if fwd_counts != expect_fwd:
-                raise AssertionError(f"forward without a gradient launched "
-                                     f"{fwd_counts}, expected {expect_fwd}")
-            totals.update(fwd_counts)
+        outs, fwd_times, fwd_counts = timed_steps(
+            torch, lambda: model(tokens), expect_fwd, 3,
+            "forward without a gradient")
+    totals.update(fwd_counts)
+    logits = outs[-1]
     if logits.shape != (b, s, cfg.vocab_size) or \
             not bool(torch.isfinite(logits).all()):
         raise AssertionError("the forward's logits are not finite")
@@ -2315,7 +2418,7 @@ def train_block(torch, results, phase: str, recipe, about: str, counts,
         add_launches(results, "flash_attention_bwd" if kernel.startswith(
             "flash_attention_bwd") else kernel, n)
     results[key] = stats
-    del model, logits
+    del model, logits, outs
 
 
 def train_mxfp8(torch, results) -> None:
@@ -2514,15 +2617,19 @@ def nvfp4_inputs(torch, record=None, force=None, local=None):
     return ctx()
 
 
-def step_readings(torch, model, tokens, targets, recipe, dev) -> tuple:
+def step_readings(torch, model, tokens, targets, recipe, dev,
+                  loss_fn=None) -> tuple:
     """(loss, [residual stream after each layer], {name: grad}, {delayed
-    state}) of one step of ``model`` without SGD, all on the CPU."""
+    state}) of one step of ``model`` without SGD, all on the CPU. A MoE
+    layer returns (stream, aux loss)."""
     acts = []
     hooks = [layer.register_forward_hook(
-        lambda mod, args, out: acts.append(out.detach().float().cpu()))
+        lambda mod, args, out: acts.append(
+            (out[0] if isinstance(out, tuple) else out).detach().float()
+            .cpu()))
         for layer in model.layers]
     loss = train_step(torch, model, tokens.to(dev), targets.to(dev), recipe,
-                      lr=0)
+                      lr=0, loss_fn=loss_fn)
     for h in hooks:
         h.remove()
     grads = {n: p.grad.float().cpu() for n, p in model.named_parameters()}
@@ -2743,7 +2850,476 @@ def train_card_vs_cpu(torch, seed: int = TRAIN_VS_CPU_SEED) -> list:
     return failures
 
 
-PHASES = ("3", "4", "5", "6", "7", "8", "9", "10", "11", "12")
+# The Mixtral phases: MIXTRAL_8X7B width with the depth cut (32 layers of
+# bf16 experts hold 93 GB): 4 layers train at the training phases' B and
+# S, 8 serve at phase 4's batch and prompts.
+MOE_TRAIN_LAYERS = 4
+MOE_SERVE_LAYERS = 8
+
+
+def mixtral_counts(layers: int, recipe: str) -> dict:
+    """The launches of one Mixtral training step ("bf16", "mxfp8") or one
+    MXFP8 forward without a gradient ("mxfp8_forward"). Per layer: a flash
+    forward and, in a step, a backward. Under MXFP8, the attention's fused
+    norm + 2x quantize; the 2x quantize of the QKV kernel, the attention
+    output and the output kernel in the forward and of two gradients in
+    the backward; the MoE's x rowwise before each grouped GEMM and its
+    gradient rowwise in the backward (mxfp8_quantize_1x), and each expert
+    stack through the grouped QDQ in the forward only (the backward reads
+    the tn saved by the forward). Without a gradient the attention
+    quantizes its two inputs rowwise and its two kernels colwise, after an
+    unfused norm."""
+    counts = {"flash_attention_fwd": layers}
+    if recipe != "mxfp8_forward":
+        counts.update(flash_attention_bwd_dq=layers,
+                      flash_attention_bwd_dkv=layers)
+    if recipe == "mxfp8":
+        counts.update(mxfp8_norm_quantize_2x=layers,
+                      mxfp8_quantize_2x=5 * layers,
+                      mxfp8_quantize_1x=4 * layers,
+                      mxfp8_qdq_2x_grouped=2 * layers)
+    elif recipe == "mxfp8_forward":
+        counts.update(mxfp8_quantize_1x=6 * layers,
+                      mxfp8_qdq_2x_grouped=2 * layers)
+    return counts
+
+
+def train_mixtral(torch, results) -> None:
+    """Phase 13: the Mixtral training step at MIXTRAL_8X7B width, 4 layers,
+    without a recipe and under MXFP8BlockScaling, then three MXFP8 forwards
+    without a gradient, each call with exact launch counts."""
+    from transformerengine_tpu_torch import MXFP8BlockScaling, autocast
+    from transformerengine_tpu_torch.models.mixtral import (
+        MIXTRAL_8X7B, MixtralModel, mixtral_loss)
+    layers = MOE_TRAIN_LAYERS
+    cfg = dataclasses.replace(MIXTRAL_8X7B, num_layers=layers)
+    b, s = TRAIN_B, TRAIN_S
+    log(f"[13] Mixtral training: MIXTRAL_8X7B width (8 experts of FFN "
+        f"14336, top-2), {layers} layers, B={b} S={s}, mixtral_loss, "
+        f"{TRAIN_STEPS} SGD steps at lr {TRAIN_LR} on one batch without a "
+        f"recipe, then {TRAIN_STEPS} under MXFP8BlockScaling(), then the "
+        f"MXFP8 forward without a gradient")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = MixtralModel(cfg, device=CARD, seed=0)
+    shrink_embedding(model)
+    tokens, targets = train_batch(torch, cfg.vocab_size, b, s, CARD)
+    torch.cuda.synchronize()
+    log(f"  init: {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    stats = dict(layers=layers)
+    totals = collections.Counter()
+    for name, recipe in (("bf16", None), ("mxfp8", MXFP8BlockScaling())):
+        torch.cuda.reset_peak_memory_stats()
+        losses, times, counts = timed_steps(
+            torch, lambda: float(train_step(torch, model, tokens, targets,
+                                            recipe, loss_fn=mixtral_loss)),
+            mixtral_counts(layers, name), TRAIN_STEPS, f"{name} step")
+        totals.update(counts)
+        if not all(map(math.isfinite, losses)):
+            raise AssertionError(f"{name} losses {losses}")
+        step_ms = statistics.median(times[1:]) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"  {name}: losses {[round(x, 5) for x in losses]} (all finite); "
+            f"launches per step {mixtral_counts(layers, name)} in every step "
+            f"ok")
+        log(f"  {name}: step times {[round(t * 1e3, 2) for t in times]} ms; "
+            f"median of steps 2-{TRAIN_STEPS} {step_ms:.2f} ms/step, "
+            f"{b * s / (step_ms / 1e3):.0f} tok/s, peak {peak:.2f} GiB")
+        stats[name] = dict(ms_per_step=step_ms,
+                           tok_per_s=b * s / (step_ms / 1e3), losses=losses,
+                           peak_gib=peak)
+    ratio = stats["mxfp8"]["ms_per_step"] / stats["bf16"]["ms_per_step"]
+    log(f"  MXFP8 step / bf16 step: {ratio:.3f}")
+    stats["mxfp8_over_bf16"] = ratio
+    busy, wall, kernels = device_profile(
+        torch, lambda: train_step(torch, model, tokens, targets,
+                                  MXFP8BlockScaling(), loss_fn=mixtral_loss),
+        1)
+    log_profile("MXFP8 step", stats["mxfp8"], busy, wall, kernels, 1)
+    with torch.no_grad(), autocast(recipe=MXFP8BlockScaling()):
+        logits, fwd_times, counts = timed_steps(
+            torch, lambda: model(tokens), mixtral_counts(layers,
+                                                         "mxfp8_forward"),
+            3, "forward without a gradient")
+    totals.update(counts)
+    if logits[-1].shape != (b, s, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits[-1]).all()):
+        raise AssertionError("the forward's logits are not finite")
+    fwd_ms = statistics.median(fwd_times) * 1e3
+    log(f"  forward without a gradient: launches "
+        f"{mixtral_counts(layers, 'mxfp8_forward')} in each of 3 runs ok, "
+        f"logits finite, {[round(t * 1e3, 2) for t in fwd_times]} ms "
+        f"(median {fwd_ms:.2f})")
+    stats["forward_ms"] = fwd_ms
+    for kernel, n in totals.items():
+        add_launches(results, "flash_attention_bwd" if kernel.startswith(
+            "flash_attention_bwd") else kernel, n)
+    results["_train_mixtral"] = stats
+    del model, logits
+
+
+def serve_mixtral(torch, results) -> None:
+    """Phase 14: greedy bf16 serving of MixtralModel at MIXTRAL_8X7B width,
+    8 layers, phase 4's batch, prompts and fp8 KV cache: TTFT, decode
+    ms/step and tok/s, busy share and exact launch counts through the
+    engine's prefill and decode steps; then the cached tokens of two
+    sequences against the card's own full-recompute greedy decoding
+    (:func:`cached_vs_recompute`)."""
+    from transformerengine_tpu_torch.inference import InferenceParams
+    from transformerengine_tpu_torch.models.mixtral import (
+        MIXTRAL_8X7B, MixtralModel)
+    layers = MOE_SERVE_LAYERS
+    cfg = dataclasses.replace(MIXTRAL_8X7B, num_layers=layers)
+    log(f"[14] Mixtral bf16 serve: MIXTRAL_8X7B width, {layers} layers, "
+        f"B={BATCH}, prompts {PROMPT_LENS} mixed, {NEW_TOKENS} new tokens, "
+        f"fp8 cache; the MoE in plain PyTorch")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = MixtralModel(cfg, device="cuda", seed=0)
+    shrink_embedding(model)
+    torch.cuda.synchronize()
+    log(f"  init: {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    ip = InferenceParams(BATCH, max(PROMPT_LENS) + NEW_TOKENS,
+                         torch.float8_e4m3fn)
+    # bf16 weights: the decode GEMMs are cuBLAS products, not the resident
+    # matvec, and no recipe runs the grouped QDQ.
+    expect = {"flash_attention_fwd": layers,
+              "decode_attention": layers * (NEW_TOKENS - 1),
+              "decode_tn_matvec": 0, "mxfp8_qdq_2x_grouped": 0}
+    stats = drive_serving(torch, model, ip, expect, results)
+    stats["agreement"] = cached_vs_recompute(torch, model)
+    results["_serve_mixtral"] = stats
+    del model
+
+
+MOE_RECOMPUTE_ROWS = (0, 1)
+# The cached step and the recompute round their bf16 activations at other
+# places (other GEMM shapes, decode attention against flash), so a
+# token's router logits differ between them by up to 5.9e-2 at 8 layers
+# before any choice differs (phase 14 prints the reading; an H100 80GB
+# HBM3 at 700 W, PERF.md section 6). A token whose 2nd and 3rd expert lie
+# within twice that layer's difference may swap them, and its logits then
+# move by far more than a logit near-tie allows. Such a swap is excused
+# where the layer's difference stays within this limit, about twice the
+# largest reading: a fault of the cached path moves the router logits by
+# more.
+MOE_ROUTE_DIFF = 2 ** -3
+
+
+def router_logits(torch, out: list):
+    """A context appending each MoE layer's router logits (f32 copies)."""
+    import contextlib
+    from transformerengine_tpu_torch import moe as moe_mod
+
+    @contextlib.contextmanager
+    def ctx():
+        real = moe_mod.compute_routing
+
+        def routing(logits, topk, **kwargs):
+            out.append(logits.detach().float().clone())
+            return real(logits, topk, **kwargs)
+        moe_mod.compute_routing = routing
+        try:
+            yield
+        finally:
+            moe_mod.compute_routing = real
+    return ctx()
+
+
+def route_swap(own, cached) -> str:
+    """Where a token's top-2 experts first differ between the recompute's
+    router logits ``own`` and the cached step's ``cached`` (one (E,)
+    vector a layer): "a swap ..." when the recompute's 2nd and 3rd logits
+    there lie within twice the layer's largest difference and that
+    difference within MOE_ROUTE_DIFF (a near-tie), else why not."""
+    for layer, (a, c) in enumerate(zip(own, cached)):
+        top_a = set(a.topk(2).indices.tolist())
+        if top_a == set(c.topk(2).indices.tolist()):
+            continue
+        v = a.sort(descending=True).values
+        gap, diff = float(v[1] - v[2]), float((a - c).abs().max())
+        kind = "a swap" if gap <= 2 * diff and diff <= MOE_ROUTE_DIFF \
+            else "not a near-tie: a change"
+        return (f"{kind} of experts at layer {layer}, router gap "
+                f"{gap:.3e}, router logits {diff:.3e} apart")
+    return "the same experts in every layer"
+
+
+def cached_vs_recompute(torch, model) -> str:
+    """The reference test's check (``tests/test_mixtral.py``): greedy
+    tokens through the cache (the engine's prefill and one-step decodes
+    at B = BATCH over phase 4's prompts, with the reference's default bf16
+    cache) against greedy decoding that recomputes the whole sequence at
+    every step, for two sequences, with each step's router logits beside
+    the cached step's. A sequence may leave the recompute's tokens only at
+    a near-tie: the recompute's top two logits within STEPS_RTOL of the
+    largest, or a swap of experts at a router near-tie
+    (:func:`route_swap`); the rest of it is not compared."""
+    from transformerengine_tpu_torch.inference import (
+        InferenceParams, decode_steps, prefill)
+    vocab = model.config.vocab_size
+    tokens, lengths = prompts(torch, BATCH, max(PROMPT_LENS), vocab,
+                              PROMPT_LENS, "cuda")
+    s = tokens.shape[1]
+    ip = InferenceParams(BATCH, s + NEW_TOKENS)
+    routes = []
+    with router_logits(torch, routes):
+        first, caches = prefill(model, tokens, ip, lengths)
+        cached, step_routes = [first], [routes[:]]
+        for _ in range(NEW_TOKENS - 1):
+            routes.clear()
+            cached.append(decode_steps(model, caches, cached[-1], 1)[:, 0])
+            step_routes.append(routes[:])
+    cached = torch.stack(cached, dim=1).cpu()
+    notes, largest = [], 0.0
+    with torch.no_grad():
+        for row in MOE_RECOMPUTE_ROWS:
+            n = int(lengths[row])
+            seq = tokens[row, :n]
+            for t in range(NEW_TOKENS):
+                routes = []
+                with router_logits(torch, routes):
+                    lg = model(seq[None])[0, -1].float()
+                at = row * s + n - 1 if t == 0 else row
+                own = [r[-1] for r in routes]
+                diff = max(float((a - c[at]).abs().max())
+                           for a, c in zip(own, step_routes[t]))
+                tok = int(lg.argmax())
+                if tok != int(cached[row, t]):
+                    top2 = lg.topk(2).values
+                    gap = float(top2[0] - top2[1]) / float(lg.abs().max())
+                    why = route_swap(own, [c[at] for c in step_routes[t]])
+                    notes.append(f"row {row} leaves the recompute at step "
+                                 f"{t}, where its top two logits lie "
+                                 f"{gap:.3e} of the largest apart; {why}")
+                    if gap > STEPS_RTOL and not why.startswith("a swap"):
+                        raise AssertionError(
+                            f"row {row}: cached token {int(cached[row, t])} "
+                            f"!= recomputed {tok} at step {t}, not at a "
+                            f"near-tie ({why})")
+                    break
+                largest = max(largest, diff)
+                seq = torch.cat([seq, torch.tensor([tok], device=seq.device,
+                                                   dtype=seq.dtype)])
+            else:
+                notes.append(f"row {row} equal over {NEW_TOKENS} tokens")
+    note = (f"{'; '.join(notes)}; router logits of equal steps at most "
+            f"{largest:.3e} apart")
+    log(f"  cached (bf16 cache) against full-recompute greedy: {note}")
+    return note
+
+
+# Phase 15: one Mixtral training step, card against CPU, at a reduced
+# width (hidden 1024, per-expert FFN 3584, 8 experts, top-2, 8 query and
+# 2 KV heads of 128, the vocabulary of 32000), 2 layers, B = 1, S = 256:
+# the CPU's step at MIXTRAL_8X7B width would take minutes.
+MOE_VS_CPU_SEED = 31
+MOE_VS_CPU_CONFIG = dict(hidden_size=1024, intermediate_size=3584,
+                         num_attention_heads=8, num_kv_heads=2, head_dim=128,
+                         num_layers=2)
+# Routing is discontinuous, so phase 15 holds the MoE op by op: the CPU's
+# step records each MoE layer's input and routing, and the card's step
+# feeds each MoE layer the CPU's input in place of its own ("local": the
+# largest difference of its own over the largest |CPU|, the attention and
+# residual path's share) and routes by the CPU's map. The card's own map
+# from the same input may differ only where the CPU's 2nd and 3rd router
+# logits lie within MOE_NEAR_TIE of each other (the f32 router GEMM sums
+# in another order). Seeds 31-33 read (an H100 80GB HBM3 at 700 W;
+# PERF.md, section 6): without a recipe loss 1.6e-5 to 9.6e-5, gnorm
+# 8.3e-3 to 8.7e-3, grad 8.6e-3 to 1.05e-2, local 6.0e-3 to 6.5e-3; under
+# MXFP8 (e4m3 codes a step apart after one-ulp differences upstream, as
+# in phase 7) loss 2.4e-4 to 6.5e-4, gnorm 6.7e-2 to 6.9e-2, grad 6.8e-2
+# to 7.5e-2, local 6.1e-3 to 7.9e-3; no routing choice differed. The
+# combine without the second expert read gnorm 0.80 to 0.91 and local
+# 0.27 to 0.35, the up projection's dgrad from nn gnorm 1.33 to 1.40. The
+# limits sit 1.7x to 3x above the readings, the gnorm limits 6x and more
+# below the faults, the local limit 17x.
+MOE_NEAR_TIE = 1e-4
+MOE_VS_CPU_LIMITS = {
+    "bf16": dict(loss=2 ** -12, gnorm=2 ** -6, grad=2 ** -5, local=2 ** -6),
+    "mxfp8": dict(loss=2 ** -9, gnorm=2 ** -3, grad=2 ** -3, local=2 ** -6)}
+
+
+def moe_ops(torch, record=None, force=None, local=None, excused=None):
+    """A context in which each MoE layer's input and router logits and map
+    are appended to ``record`` (on the CPU), or in which each MoE layer
+    takes the next input of ``force`` in place of its own (appending to
+    ``local`` how far its own was) and routes by the recorded map
+    (appending to ``excused`` how many of its own choices differed at a
+    near-tie; a difference elsewhere raises)."""
+    import contextlib
+    from transformerengine_tpu_torch import moe as moe_mod
+    from transformerengine_tpu_torch.nn.moe import MoELayerNormMLP
+    from transformerengine_tpu_torch.ops.router import fused_moe_aux_loss
+
+    def pre_hook(module, args):
+        x = args[0]
+        if record is not None:
+            record.append(x.detach().cpu().clone())
+        if force is None:
+            return None
+        ref = force.pop(0).to(device=x.device, dtype=x.dtype)
+        top = float(ref.float().abs().max())
+        local.append(float((x.detach().float() - ref.float()).abs().max())
+                     / top)
+        return (x + (ref - x).detach(),)
+
+    @contextlib.contextmanager
+    def ctx():
+        real = moe_mod.compute_routing
+
+        def routing(logits, topk, **kwargs):
+            probs, rmap, aux = real(logits, topk, **kwargs)
+            if record is not None:
+                record.append((logits.detach().cpu().clone(), rmap.cpu()))
+            if force is None:
+                return probs, rmap, aux
+            ref_logits, ref_map = force.pop(0)
+            s = ref_logits.sort(dim=-1, descending=True).values
+            tie = (s[:, topk - 1] - s[:, topk]) < MOE_NEAR_TIE
+            differ = (rmap.cpu() != ref_map).any(dim=-1)
+            if (differ & ~tie).any():
+                raise AssertionError(
+                    f"{int((differ & ~tie).sum())} tokens route otherwise "
+                    f"on the card than on the CPU, not at a near-tie")
+            excused.append(int(differ.sum()))
+            ref_map = ref_map.to(logits.device)
+            lf = logits.float()
+            probs = torch.where(ref_map, torch.softmax(torch.where(
+                ref_map, lf, float("-inf")), dim=-1), 0.0)
+            aux = fused_moe_aux_loss(torch.softmax(lf, dim=-1), ref_map,
+                                     topk=topk,
+                                     coeff=kwargs.get("aux_loss_coeff", 1e-2))
+            return probs, ref_map, aux
+
+        moe_mod.compute_routing = routing
+        handle = torch.nn.modules.module.register_module_forward_pre_hook(
+            lambda mod, args: pre_hook(mod, args)
+            if isinstance(mod, MoELayerNormMLP) else None)
+        try:
+            yield
+        finally:
+            moe_mod.compute_routing = real
+            handle.remove()
+    return ctx()
+
+
+def moe_planted_faults(torch, recipe) -> dict:
+    """Faults phase 15 must catch, each a context for one card step: a
+    combine that drops each token's second expert; under MXFP8 the up
+    projection's dgrad read from nn (reinterpreted as tn's shape) in place
+    of tn."""
+    import contextlib
+    from transformerengine_tpu_torch import grouped_dense as gd
+    from transformerengine_tpu_torch import moe as moe_mod
+    from transformerengine_tpu_torch.quantize.microbatch import (
+        GroupedQDQKernel)
+
+    @contextlib.contextmanager
+    def patched(module, name, make):
+        real = getattr(module, name)
+        setattr(module, name, make(real))
+        try:
+            yield
+        finally:
+            setattr(module, name, real)
+
+    def drop_second(real):
+        def combine(expert_out, probs, aux):
+            second = probs.topk(2, dim=-1).indices[:, 1:]
+            return real(expert_out, probs.scatter(1, second, 0.0), aux)
+        return combine
+
+    def wi_from_nn(real):
+        hidden = MOE_VS_CPU_CONFIG["hidden_size"]
+
+        def qdq(quantizer, kernel):
+            out = real(quantizer, kernel)
+            if kernel.shape[1] != hidden:
+                return out
+            return GroupedQDQKernel(nn=out.nn,
+                                    tn=out.nn.reshape(out.tn.shape))
+        return qdq
+
+    faults = {"combine without the second expert":
+              lambda: patched(moe_mod, "token_combine", drop_second)}
+    if recipe is not None:
+        faults["the up projection's dgrad from nn in place of tn"] = \
+            lambda: patched(gd, "_qdq_kernel", wi_from_nn)
+    return faults
+
+
+def mixtral_card_vs_cpu(torch, seed: int = MOE_VS_CPU_SEED) -> list:
+    """Phase 15; returns what failed."""
+    from transformerengine_tpu_torch import MXFP8BlockScaling
+    from transformerengine_tpu_torch.models.mixtral import (
+        MIXTRAL_8X7B, MixtralModel, mixtral_loss)
+    cfg = dataclasses.replace(MIXTRAL_8X7B, **MOE_VS_CPU_CONFIG)
+    b, s = 1, 256
+    log(f"[15] Mixtral training, card vs CPU: 2 layers, hidden "
+        f"{cfg.hidden_size}, 8 experts of FFN {cfg.intermediate_size}, "
+        f"top-2, {cfg.num_attention_heads}/{cfg.num_kv_heads} heads of 128, "
+        f"vocabulary {cfg.vocab_size}, B={b} S={s}, one step without a "
+        f"recipe and one under MXFP8BlockScaling(), the MoE held op by op, "
+        f"seed {seed}")
+    tokens, targets = train_batch(torch, cfg.vocab_size, b, s, "cpu", seed)
+    failures = []
+    for rname, recipe in (("bf16", None), ("mxfp8", MXFP8BlockScaling())):
+        t0 = time.perf_counter()
+        limits = MOE_VS_CPU_LIMITS[rname]
+        cpu = MixtralModel(cfg, device="cpu", seed=seed)
+        shrink_embedding(cpu)
+        start = {n: t.clone() for n, t in cpu.state_dict().items()}
+        recorded = []
+        with moe_ops(torch, record=recorded):
+            ref = step_readings(torch, cpu, tokens, targets, recipe, "cpu",
+                                loss_fn=mixtral_loss)
+        del cpu
+        card = MixtralModel(cfg, device=CARD, seed=seed)
+
+        def forced_step(rec_fault=None):
+            card.load_state_dict(start)
+            local, excused = [], []
+            with moe_ops(torch, force=list(recorded), local=local,
+                         excused=excused):
+                got = step_readings(torch, card, tokens, targets, recipe,
+                                    CARD, loss_fn=mixtral_loss)
+            out = differences(got, ref, local)
+            out["excused"] = sum(excused)
+            return out
+
+        got = forced_step()
+        planted = {}
+        for fname, fault in moe_planted_faults(torch, recipe).items():
+            with fault():
+                planted[fname] = forced_step()
+        del card
+        ok = all(got[k] <= limits[k] for k in limits)
+        log(f"  {rname} ({time.perf_counter() - t0:.1f} s), limits "
+            + ", ".join(f"{k} {v:.3e}" for k, v in limits.items()))
+        log("    residual stream after each layer, largest difference over "
+            "the largest |CPU|: " + ", ".join(f"{e:.3e}"
+                                             for e in got["stream"]))
+        log(f"    card against CPU: {_fmt(got)}; {got['excused']} routing "
+            f"choices differed at a near-tie {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"mixtral {rname} seed {seed}")
+        for fname, d in planted.items():
+            caught = [k for k in ("loss", "gnorm", "local")
+                      if not d[k] <= limits[k]]
+            log(f"    planted fault '{fname}': {_fmt(d)}: "
+                + (f"caught by {', '.join(caught)}" if caught
+                   else "NOT CAUGHT"))
+            if not caught:
+                failures.append(f"mixtral {rname} seed {seed}: '{fname}' "
+                                f"not caught")
+    return failures
+
+
+PHASES = ("3", "4", "5", "6", "7", "8", "9", "10", "11", "12", "13", "14",
+          "15")
 
 
 def main() -> int:
@@ -2754,10 +3330,13 @@ def main() -> int:
     import argparse
     parser = argparse.ArgumentParser()
     parser.add_argument("--phases", default=",".join(PHASES),
-                        help="comma-separated subset of 3-12")
+                        help="comma-separated subset of 3-15")
     parser.add_argument("--train-seeds", default=str(TRAIN_VS_CPU_SEED),
                         help="comma-separated seeds of phase 7 (its limits "
                         "were set from the readings of 21,22,23)")
+    parser.add_argument("--moe-seeds", default=str(MOE_VS_CPU_SEED),
+                        help="comma-separated seeds of phase 15 (its limits "
+                        "were set from the readings of 31,32,33)")
     args = parser.parse_args()
     phases = set(args.phases.split(","))
     if not phases <= set(PHASES):
@@ -2808,6 +3387,7 @@ def main() -> int:
     run("3", check_mxfp8_quantize, timer, results)
     run("3", check_mxfp8_norm, timer, results)
     run("3", check_mxfp8_variants)
+    run("3", check_mxfp8_qdq_grouped, timer, results)
     run("3", check_paged_attention, timer, results)
     run("3", check_paged_variants)
     run("3", check_kn_matvec, timer, results)
@@ -2821,17 +3401,23 @@ def main() -> int:
     run("6", train, results)
     run("8", train_mxfp8, results)
     run("11", train_nvfp4, results)
+    run("13", train_mixtral, results)
+    run("14", serve_mixtral, results)
     failed = []
     for seed in map(int, args.train_seeds.split(",")):
         run("7", lambda torch, seed=seed: failed.extend(
             train_card_vs_cpu(torch, seed)))
+    for seed in map(int, args.moe_seeds.split(",")):
+        run("15", lambda torch, seed=seed: failed.extend(
+            mixtral_card_vs_cpu(torch, seed)))
     if failed:
         raise AssertionError(f"training step, card against CPU: {failed}")
     log(f"phase seconds: {', '.join(f'{p} {t:.1f}' for p, t in timings.items())}")
 
     stats = {k: results.pop(k) for k in ("_serve", "_train", "_train_mxfp8",
                                          "_train_nvfp4", "_serve_paged_mxfp8",
-                                         "_serve_paged_nvfp4", "_batching")
+                                         "_serve_paged_nvfp4", "_batching",
+                                         "_train_mixtral", "_serve_mixtral")
              if k in results}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -1,6 +1,7 @@
 """Guards of the port: it imports nothing of JAX or of the JAX package, its
-entry points never fall back to the CPU on their own, and its kernel
-wrappers never return the plain version for a tensor on the card."""
+entry points never fall back to the CPU on their own, no ``try`` wraps a
+kernel launch, and its kernel wrappers never return the plain version for
+a tensor on the card."""
 import ast
 import subprocess
 import sys
@@ -15,6 +16,8 @@ from transformerengine_tpu_torch import _build
 from transformerengine_tpu_torch.inference import (
     ContinuousBatchingEngine, InferenceParams, generate, prefill)
 from transformerengine_tpu_torch.models.llama import LLAMA_TINY, LlamaModel
+from transformerengine_tpu_torch.models.mixtral import (
+    MIXTRAL_TINY, MixtralModel)
 from transformerengine_tpu_torch.ops import (
     decode_attention as da, decode_matmul as dm, flash_attention as fa,
     paged_attention as pa, quantize_kernels as qk)
@@ -82,15 +85,52 @@ def _imported_roots(path: Path):
 def test_source_scan_finds_no_jax_import():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) >= 20
+    # The MoE slice's modules are among them.
+    for name in ("moe.py", "permutation.py", "grouped_dense.py",
+                 "ops/router.py", "ops/grouped_gemm.py", "nn/moe.py",
+                 "models/mixtral.py", "quantize/microbatch.py"):
+        assert PORT / name in files, name
     for path in files:
         bad = set(_imported_roots(path)) & set(FORBIDDEN)
         assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def _calls_named(node, name: str) -> bool:
+    for sub in ast.walk(node):
+        if isinstance(sub, ast.Call):
+            fn = sub.func
+            called = fn.attr if isinstance(fn, ast.Attribute) else getattr(
+                fn, "id", None)
+            if called == name:
+                return True
+    return False
+
+
+def test_no_try_wraps_a_kernel_launch():
+    """A failed launch raises to the caller: no module of the port, and
+    not chip_smoke.py, catches around a call that launches a kernel."""
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    launching = 0
+    for path in files:
+        tree = ast.parse(path.read_text(), str(path))
+        launching += _calls_named(tree, "launch")
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Try) and node.handlers:
+                assert not any(_calls_named(stmt, "launch")
+                               for stmt in node.body), \
+                    f"{path.relative_to(ROOT)}:{node.lineno}"
+    assert launching >= 5
 
 
 def test_entry_points_without_a_device_need_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         LlamaModel(LLAMA_TINY)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MixtralModel(MIXTRAL_TINY)
+    from transformerengine_tpu_torch.models.mixtral import load_flax_params
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_flax_params({}, MIXTRAL_TINY)
     model = LlamaModel(LLAMA_TINY, device="cpu")
     tokens = torch.ones((1, 4), dtype=torch.int32)
     paged = InferenceParams(1, 8, is_paged=True, page_size=4)
@@ -188,6 +228,10 @@ def _calls():
         "mxfp8_quantize_normed": lambda: mxfp8().quantize_normed(
             cuda(256, 128), cuda(128, dtype=f32), None, norm="rmsnorm",
             zero_centered_gamma=False, epsilon=1e-6),
+        "te_mxfp8_qdq_2x_grouped": lambda: qk.mxfp8_qdq_2x_grouped(
+            cuda(2, 64, 128)),
+        "mxfp8_qdq_2x_grouped_e5m2_f32": lambda: qk.mxfp8_qdq_2x_grouped(
+            cuda(3, 96, 256, dtype=f32), torch.float8_e5m2),
         "te_nvfp4_amax_2x": lambda: qk.nvfp4_amax_2x(cuda(64, 128), 0x1234),
         "te_nvfp4_quantize_2x": lambda: qk.nvfp4_quantize_2x(
             cuda(64, 128, dtype=f32), cuda(1, dtype=f32), cuda(1, dtype=f32),
@@ -214,6 +258,7 @@ _LAUNCHED = {"te_flash_attention_bwd": ["te_flash_attention_bwd_dq",
              "mxfp8_colwise": ["te_mxfp8_quantize_1x"],
              "mxfp8_quantize_normed": ["te_mxfp8_norm_quantize"],
              "decode_kn_matvec_packed": ["te_decode_kn_matvec"],
+             "mxfp8_qdq_2x_grouped_e5m2_f32": ["te_mxfp8_qdq_2x_grouped"],
              **{f"nvfp4_{role}_quantize_2x": ["te_nvfp4_amax_2x",
                                               "te_nvfp4_quantize_2x"]
                 for role in ("x", "kernel", "dgrad")}}
@@ -236,6 +281,8 @@ _LAUNCHED = {"te_flash_attention_bwd": ["te_flash_attention_bwd_dq",
                                    "te_mxfp8_norm_quantize",
                                    "mxfp8_quantize_2x", "mxfp8_rowwise",
                                    "mxfp8_colwise", "mxfp8_quantize_normed",
+                                   "te_mxfp8_qdq_2x_grouped",
+                                   "mxfp8_qdq_2x_grouped_e5m2_f32",
                                    "te_nvfp4_amax_2x", "te_nvfp4_quantize_2x",
                                    "nvfp4_x_quantize_2x",
                                    "nvfp4_kernel_quantize_2x",
@@ -259,6 +306,7 @@ def test_wrappers_on_the_card_launch_or_raise(entry, monkeypatch):
     monkeypatch.setattr(qk, "mxfp8_quantize_2x_plain", plain)
     monkeypatch.setattr(qk, "mxfp8_quantize_1x_plain", plain)
     monkeypatch.setattr(qk, "mxfp8_norm_quantize_2x_plain", plain)
+    monkeypatch.setattr(qk, "mxfp8_qdq_2x_grouped_plain", plain)
     monkeypatch.setattr(qmath, "tensor_scale_quantize", plain)
     monkeypatch.setattr(qmath, "current_scale_quantize", plain)
     monkeypatch.setattr(qmath, "mxfp8_quantize", plain)

@@ -14,7 +14,9 @@ from .common.recipe import (DelayedScaling, Float8CurrentScaling, Format,
                             MXFP8BlockScaling, NVFP4BlockScaling, QParams,
                             Recipe)
 from .quantize.helper import autocast, get_quantize_config
+from .models.mixtral import MIXTRAL_8X7B, MIXTRAL_TINY, MixtralModel
 
 __all__ = ["DelayedScaling", "Float8CurrentScaling", "Format",
-           "MXFP8BlockScaling", "NVFP4BlockScaling", "QParams", "Recipe",
+           "MIXTRAL_8X7B", "MIXTRAL_TINY", "MXFP8BlockScaling",
+           "MixtralModel", "NVFP4BlockScaling", "QParams", "Recipe",
            "autocast", "get_quantize_config"]

@@ -62,6 +62,7 @@ _SIGNATURES = {
                                   _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "te_decode_kn_matvec": (_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
                             _P),
+    "te_mxfp8_qdq_2x_grouped": (_P, _I, _I, _P, _P, _I, _I, _I, _P),
     "te_nvfp4_amax_2x": (_P, _I, _I, _I, _P, _I, _I, _P),
     "te_nvfp4_quantize_2x": (_P, _I, _P, _I, _I, _I, _U, _U, _P, _P, _P, _P,
                              _I, _I, _P),

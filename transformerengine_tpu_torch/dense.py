@@ -64,29 +64,37 @@ def needs_grad(*inputs) -> bool:
 
 
 def split_residuals(res):
-    """(tensors, tag) of :func:`gemm_fwd`'s residuals: the tensors for
+    """(tensors, tag) of a GEMM's residuals, a branch name followed by
+    tensors and quantized tensors: the tensors for
     ``ctx.save_for_backward`` (a quantized residual's data, scales, amax
     and tensor scale, the last two None where the recipe has none), the
-    tag (branch, and each quantized residual's dtype, layout and scaling
-    mode) for ``ctx``."""
-    if res[0] in ("1x", "2x"):
-        tensors, meta = [], []
-        for t in res[1:]:
+    tag (the branch, and each quantized residual's dtype, layout and
+    scaling mode, None for a plain tensor) for ``ctx``."""
+    tensors, tag = [], [res[0]]
+    for t in res[1:]:
+        if isinstance(t, ScaledTensor1x):
             tensors += [t.data, t.scale_inv, t.amax, t.tensor_scale_inv]
-            meta.append((t.dq_dtype, t.layout, t.scaling_mode))
-        return tuple(tensors), (res[0], *meta)
-    return res[1:], res[:1]
+            tag.append((t.dq_dtype, t.layout, t.scaling_mode))
+        else:
+            tensors.append(t)
+            tag.append(None)
+    return tuple(tensors), tuple(tag)
 
 
 def join_residuals(tag, tensors):
     """The residuals that :func:`split_residuals` split."""
-    if tag[0] in ("1x", "2x"):
-        return (tag[0],) + tuple(
-            ScaledTensor1x(*tensors[4 * i:4 * i + 3], dq, layout=layout,
-                           scaling_mode=mode,
-                           tensor_scale_inv=tensors[4 * i + 3])
-            for i, (dq, layout, mode) in enumerate(tag[1:]))
-    return tag + tuple(tensors)
+    out, i = [tag[0]], 0
+    for meta in tag[1:]:
+        if meta is None:
+            out.append(tensors[i])
+            i += 1
+            continue
+        dq, layout, mode = meta
+        out.append(ScaledTensor1x(*tensors[i:i + 3], dq, layout=layout,
+                                  scaling_mode=mode,
+                                  tensor_scale_inv=tensors[i + 3]))
+        i += 4
+    return tuple(out)
 
 
 def _amax_of(t) -> torch.Tensor:

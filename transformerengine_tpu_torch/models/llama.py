@@ -92,14 +92,19 @@ class LlamaModel(nn.Module):
         for i, layer in enumerate(self.layers):
             x = layer(x, sequence_descriptor,
                       kv_cache=kv_caches[i] if kv_caches is not None else None)
-        x = self.final_norm(x)
-        b, s, h = x.shape
-        x2d = x.reshape(b * s, h)
-        if needs_grad(x2d, self.embedding):
-            logits = _Logits.apply(x2d, self.embedding)
-        else:
-            logits = matmul_f32(x2d, self.embedding.t())
-        return logits.reshape(b, s, -1)
+        return tied_logits(self.final_norm(x), self.embedding)
+
+
+def tied_logits(x: torch.Tensor, embedding: torch.Tensor) -> torch.Tensor:
+    """(B, S, H) activations -> (B, S, vocab) f32 logits against the tied
+    embedding."""
+    b, s, h = x.shape
+    x2d = x.reshape(b * s, h)
+    if needs_grad(x2d, embedding):
+        logits = _Logits.apply(x2d, embedding)
+    else:
+        logits = matmul_f32(x2d, embedding.t())
+    return logits.reshape(b, s, -1)
 
 
 class _Logits(torch.autograd.Function):
@@ -137,6 +142,10 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
         return -(ll * mask).sum() / mask.sum().clamp_min(1.0)
     return -ll.mean()
 
+
+# Parameters kept in f32 whatever the model's dtype: norm scales and a
+# MoE layer's router kernel.
+F32_PARAMS = ("scale", "router_kernel")
 
 _FP8_NUMPY = {"float8_e4m3fn": torch.float8_e4m3fn,
               "float8_e5m2": torch.float8_e5m2}
@@ -182,7 +191,8 @@ def load_flax_params(params_np: Mapping, config: LlamaConfig,
     """Maps the reference model's ``variables["params"]`` (nested dicts of
     numpy arrays, boxes removed) to a :class:`LlamaModel` ``state_dict`` on
     ``device``: ``layer_{i}`` becomes ``layers.{i}``, kernels take
-    ``config.dtype`` and norm scales stay f32. ``quantize_meta``, the
+    ``config.dtype``, and norm scales and router kernels stay f32
+    (``F32_PARAMS``). ``quantize_meta``, the
     reference's collection of the same name, adds the delayed-scaling
     state (``{gemm}_{role}_scale`` and ``_amax_history``, f32) under the
     same keys; ``load_state_dict`` creates those buffers. ``prequant``, the
@@ -204,7 +214,7 @@ def load_flax_params(params_np: Mapping, config: LlamaConfig,
                 state[key] = _resident_module(sub, config, dev)
             else:
                 dtype = param_dtype if param_dtype is not None else (
-                    torch.float32 if name == "scale" else config.dtype)
+                    torch.float32 if name in F32_PARAMS else config.dtype)
                 arr = np.array(sub, dtype=np.float32)
                 state[key] = torch.from_numpy(arr).to(device=dev, dtype=dtype)
 

@@ -1,2 +1,3 @@
 from .module import DenseGeneral, LayerNorm, LayerNormDenseGeneral, LayerNormMLP
+from .moe import MoELayerNormMLP
 from .transformer import MultiHeadAttention, TransformerLayer

@@ -1,9 +1,11 @@
 """Transformer blocks (counterpart of transformerengine_tpu/flax/
 transformer.py): causal self-attention with RMSNorm, RoPE, GQA and the
-contiguous or paged KV cache, and a decoder-only TransformerLayer.
-Without a cache the forward is the training forward, differentiable end
-to end. Not ported yet: other masks and norms, MoE, cross-attention,
-relative position bias, dropout, sliding windows and softmax sinks."""
+contiguous or paged KV cache, and a decoder-only TransformerLayer whose
+MLP is dense or, with ``num_moe_experts`` > 0, a top-k routed mixture of
+experts (single device). Without a cache the forward is the training
+forward, differentiable end to end. Not ported yet: other masks and
+norms, expert parallelism, cross-attention, relative position bias,
+dropout, sliding windows and softmax sinks."""
 from __future__ import annotations
 
 from typing import Optional, Union
@@ -20,6 +22,7 @@ from ..ops.flash_attention import flash_attention
 from ..ops.paged_attention import paged_decode_attention
 from ..ops.rope import apply_rope, rope_frequencies
 from .module import DenseGeneral, LayerNormDenseGeneral, LayerNormMLP
+from .moe import MoELayerNormMLP
 
 
 class MultiHeadAttention(nn.Module):
@@ -134,14 +137,18 @@ class MultiHeadAttention(nn.Module):
 
 class TransformerLayer(nn.Module):
     """Decoder-only pre-norm layer: ``x + attn(x)``, then ``x + mlp(x)``,
-    with submodules ``self_attention`` and ``mlp``."""
+    with submodules ``self_attention`` and ``mlp``. With
+    ``num_moe_experts`` > 0 the MLP is a :class:`MoELayerNormMLP` and the
+    forward returns (x, the router's aux loss)."""
 
     def __init__(self, hidden_size: int, mlp_hidden_size: int,
                  num_attention_heads: int, *, head_dim: Optional[int] = None,
                  num_gqa_groups: Optional[int] = None,
                  layernorm_epsilon: float = 1e-6, mlp_activations="swiglu",
                  rotary_pos_emb_base: float = 10000.0,
-                 max_seq_len: int = 8192,
+                 max_seq_len: int = 8192, num_moe_experts: int = 0,
+                 moe_topk: int = 2, moe_score_function: str = "softmax",
+                 moe_aux_loss_coeff: float = 1e-2,
                  dtype: torch.dtype = torch.bfloat16, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -152,15 +159,27 @@ class TransformerLayer(nn.Module):
             rotary_pos_emb_base=rotary_pos_emb_base,
             max_seq_len=max_seq_len, dtype=dtype, device=device,
             generator=generator)
-        self.mlp = LayerNormMLP(
-            hidden_size, mlp_hidden_size, epsilon=layernorm_epsilon,
-            activations=mlp_activations, dtype=dtype, device=device,
-            generator=generator)
+        self.is_moe = num_moe_experts > 0
+        if self.is_moe:
+            self.mlp = MoELayerNormMLP(
+                hidden_size, mlp_hidden_size, num_experts=num_moe_experts,
+                topk=moe_topk, epsilon=layernorm_epsilon,
+                activations=mlp_activations,
+                score_function=moe_score_function,
+                aux_loss_coeff=moe_aux_loss_coeff, dtype=dtype,
+                device=device, generator=generator)
+        else:
+            self.mlp = LayerNormMLP(
+                hidden_size, mlp_hidden_size, epsilon=layernorm_epsilon,
+                activations=mlp_activations, dtype=dtype, device=device,
+                generator=generator)
 
     def forward(self, x: torch.Tensor,
                 sequence_descriptor: Optional[SequenceDescriptor] = None, *,
-                kv_cache: Optional[Union[KVCache, PagedKVCache]] = None
-                ) -> torch.Tensor:
+                kv_cache: Optional[Union[KVCache, PagedKVCache]] = None):
         x = x + self.self_attention(x, sequence_descriptor,
                                     kv_cache=kv_cache)
+        if self.is_moe:
+            out, aux_loss = self.mlp(x)
+            return x + out, aux_loss
         return x + self.mlp(x)

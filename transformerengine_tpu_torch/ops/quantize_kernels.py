@@ -21,6 +21,12 @@ uint8 biased exponents):
 * :func:`mxfp8_norm_quantize_2x` replaces ``mxfp8_norm_quantize_2x``: the
   norm fused with the MXFP8 quantize; kernel in
   ``csrc/mxfp8_norm_quantize.cu``.
+* :func:`mxfp8_qdq_2x_grouped` replaces ``mxfp8_qdq_2x_grouped``: stacked
+  (E, K, M) expert kernels quantized along K and dequantized to bf16, in
+  both orientations (E, K, M) and (E, M, K); kernel in
+  ``csrc/mxfp8_qdq_grouped.cu``. Like the reference it returns None for
+  the shapes its kernel does not take (K % 32 or M % 128 not 0), whose
+  caller then runs the chain of quantize, dequantize and transpose.
 
 NVFP4 (e2m1 values in e4m3 bytes, an e4m3 scale per 16 elements along the
 quantized axis under an f32 scale per tensor):
@@ -48,7 +54,7 @@ import torch
 
 from .. import _build
 from ..quantize import qmath
-from ..quantize.dtypes import FP4_STORAGE_DTYPE, dtype_max
+from ..quantize.dtypes import FP4_STORAGE_DTYPE, decode_e8m0, dtype_max
 from ..quantize.hadamard import rht_matrix, rotate
 
 _X_DTYPES = (torch.float32, torch.bfloat16)
@@ -328,6 +334,47 @@ def mxfp8_norm_quantize_2x(x2d: torch.Tensor, gamma: torch.Tensor,
     if layernorm:
         outs.append(mu)
     return tuple(outs)
+
+
+def mxfp8_qdq_2x_grouped_plain(kernel_ekm: torch.Tensor,
+                               q_dtype: torch.dtype = torch.float8_e4m3fn):
+    """The reference's chain for any shape: the (E, M, K) view quantized
+    along K (``qmath.mxfp8_quantize``), dequantized in bf16 (payload times
+    its power-of-two scale, both exact in bf16), and transposed back."""
+    e, k, m = kernel_ekm.shape
+    swapped = kernel_ekm.transpose(1, 2).reshape(e * m, k)
+    data, scale = qmath.mxfp8_quantize(swapped, q_dtype)
+    mult = decode_e8m0(scale).to(torch.bfloat16).repeat_interleave(
+        32, dim=1)[:, :k]
+    tn = (data.to(torch.bfloat16) * mult).reshape(e, m, k)
+    return tn.transpose(1, 2).contiguous(), tn
+
+
+def mxfp8_qdq_2x_grouped(kernel_ekm: torch.Tensor,
+                         q_dtype: torch.dtype = torch.float8_e4m3fn):
+    """(nn (E, K, M), tn (E, M, K)), both bf16: the (E, K, M) expert
+    kernels quantized to MXFP8 along K (E8M0 scales per 32, emax 8 for
+    both element types) and dequantized, from one read. None where the
+    reference's kernel returns None (K % 32 or M % 128 not 0)."""
+    if kernel_ekm.dim() != 3 or kernel_ekm.numel() == 0:
+        raise ValueError(f"expected a non-empty (E, K, M) tensor, got "
+                         f"{tuple(kernel_ekm.shape)}")
+    _check_q_dtype(q_dtype)
+    e, k, m = kernel_ekm.shape
+    if k % 32 or m % 128:
+        return None
+    if _build.on_cpu(kernel_ekm):
+        return mxfp8_qdq_2x_grouped_plain(kernel_ekm, q_dtype)
+    x_code = _build.dtype_code(kernel_ekm, _X_DTYPES)
+    x = kernel_ekm.contiguous()
+    _build.check_aligned(x)
+    nn = torch.empty((e, k, m), dtype=torch.bfloat16, device=x.device)
+    tn = torch.empty((e, m, k), dtype=torch.bfloat16, device=x.device)
+    _build.launch("te_mxfp8_qdq_2x_grouped", _build.ptr(x), x_code,
+                  _build.DTYPE_CODES[q_dtype], _build.ptr(nn), _build.ptr(tn),
+                  e, k, m, _build.stream(x))
+    _build.LAUNCHES["mxfp8_qdq_2x_grouped"] += 1
+    return nn, tn
 
 
 # ---------------------------------------------------------------------------
