@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases 3,4,5,...,15] [--train-seeds 21]
-                          [--moe-seeds 31]
+    python3 chip_smoke.py [--phases 3,4,5,...,18] [--train-seeds 21]
+                          [--moe-seeds 31] [--gptoss-seeds 51]
 
 Phases, each of which raises (and so exits non-zero) on failure:
   1. the card's name and power limit (nvidia-smi);
@@ -25,7 +25,14 @@ Phases, each of which raises (and so exits non-zero) on failure:
      f32, a zero tensor, -0 codes, subnormal scales, other sign masks and
      stochastic rounding (neighbours, repeatability, bias); the grouped
      MXFP8 QDQ of the MoE's expert kernels at MIXTRAL_8X7B's two stacks,
-     then f32, e5m2, zero blocks and an unaligned shape (the chain);
+     then f32, e5m2, zero blocks and an unaligned shape (the chain); flash
+     attention's window and sink branches: the banded forward with a
+     learnable sink at phase 17's prefill shape and the banded backward at
+     phase 16's training shape, each timed beside SDPA with the band as a
+     boolean mask, then left, right and two-sided bands, the off-by-one
+     sink, a sink with padded rows, the bottom-right offset, f32, D 128
+     and 256 at small shapes, and decode attention at GPT-OSS's decode
+     shape with its window and sink;
   4. FP8-resident serving at LLAMA_8B width (seeded random weights, FP8
      KV cache, B = 8, prompts of 512 and 384 tokens, 32 new tokens)
      through prefill and decode_steps, with TTFT, decode ms/step, tok/s
@@ -92,14 +99,35 @@ Phases, each of which raises (and so exits non-zero) on failure:
      without a recipe and under MXFP8, the MoE held op by op (the card's
      MoE layers take the CPU's inputs and routing, their own routing
      differing only at near-ties): loss, gradients and the local
-     difference, with planted faults that must be caught.
+     difference, with planted faults that must be caught;
+ 16. GPT-OSS training at GPTOSS_20B width (64/8 heads of 64, 32 experts of
+     FFN 2880, top-4, clamped SwiGLU, biased projections, a band of 128 on
+     even layers, a learnable sink in every layer), 4 layers, B = 2,
+     S = 2048, ``gptoss_loss``: five bf16 SGD steps with a sink gradient
+     on every layer, then three forwards without a gradient, with exact
+     launch counts of the window and sink branch (no plain flash launch);
+     ms/step, tok/s, peak memory, busy share and top kernels;
+ 17. GPT-OSS bf16 serving at GPTOSS_20B, all 24 layers, phase 4's batch,
+     prompts and fp8 cache: TTFT, decode ms/step, busy share, Python calls
+     per step and exact launch counts (a banded-and-sink flash forward per
+     layer per prefill, a decode launch with the layer's window and sink
+     per layer per step); then two sequences' cached tokens against the
+     card's own full-recompute greedy decoding, as in phase 14;
+ 18. GPT-OSS training, the card against the CPU: one bf16 step of 2
+     layers (one banded, one full, sinks on both) with the attention at
+     GPTOSS_20B's shape and the rest reduced (hidden 1024, 8 experts of
+     FFN 1024, top-4), B = 1, S = 384, the MoE held op by op as in phase
+     15; planted faults (the kernels ignoring the band, the sink dropped
+     from the forward, dsink zeroed) must be caught.
 Then one ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 A kernel's ``launches`` is the sum of its counts over the runs of the
-paths (phases 4, 6, 8, 9, 10, 11, 12, 13 and 14, phase 9's load included),
-each counted from zero; comparisons with the plain versions do not count.
+paths (phases 4, 6, 8, 9, 10, 11, 12, 13, 14, 16 and 17, phase 9's load
+included), each counted from zero; comparisons with the plain versions do
+not count.
 ``--phases`` runs a subset (for iterating on one path); the default runs
 all. ``--train-seeds`` gives phase 7 other seeds (``21,22,23`` reads
-what its limits were set from), ``--moe-seeds`` phase 15 (``31,32,33``).
+what its limits were set from), ``--moe-seeds`` phase 15 (``31,32,33``),
+``--gptoss-seeds`` phase 18 (``51,52,53``).
 """
 from __future__ import annotations
 
@@ -3028,18 +3056,20 @@ def router_logits(torch, out: list):
     return ctx()
 
 
-def route_swap(own, cached) -> str:
-    """Where a token's top-2 experts first differ between the recompute's
-    router logits ``own`` and the cached step's ``cached`` (one (E,)
-    vector a layer): "a swap ..." when the recompute's 2nd and 3rd logits
-    there lie within twice the layer's largest difference and that
-    difference within MOE_ROUTE_DIFF (a near-tie), else why not."""
+def route_swap(own, cached, topk: int = 2) -> str:
+    """Where a token's top-``topk`` experts first differ between the
+    recompute's router logits ``own`` and the cached step's ``cached``
+    (one (E,) vector a layer): "a swap ..." when the recompute's k-th and
+    (k+1)-th logits there lie within twice the layer's largest difference
+    and that difference within MOE_ROUTE_DIFF (a near-tie), else why
+    not."""
     for layer, (a, c) in enumerate(zip(own, cached)):
-        top_a = set(a.topk(2).indices.tolist())
-        if top_a == set(c.topk(2).indices.tolist()):
+        top_a = set(a.topk(topk).indices.tolist())
+        if top_a == set(c.topk(topk).indices.tolist()):
             continue
         v = a.sort(descending=True).values
-        gap, diff = float(v[1] - v[2]), float((a - c).abs().max())
+        gap = float(v[topk - 1] - v[topk])
+        diff = float((a - c).abs().max())
         kind = "a swap" if gap <= 2 * diff and diff <= MOE_ROUTE_DIFF \
             else "not a near-tie: a change"
         return (f"{kind} of experts at layer {layer}, router gap "
@@ -3090,7 +3120,8 @@ def cached_vs_recompute(torch, model) -> str:
                 if tok != int(cached[row, t]):
                     top2 = lg.topk(2).values
                     gap = float(top2[0] - top2[1]) / float(lg.abs().max())
-                    why = route_swap(own, [c[at] for c in step_routes[t]])
+                    why = route_swap(own, [c[at] for c in step_routes[t]],
+                                     model.config.topk)
                     notes.append(f"row {row} leaves the recompute at step "
                                  f"{t}, where its top two logits lie "
                                  f"{gap:.3e} of the largest apart; {why}")
@@ -3164,7 +3195,9 @@ def moe_ops(torch, record=None, force=None, local=None, excused=None):
         top = float(ref.float().abs().max())
         local.append(float((x.detach().float() - ref.float()).abs().max())
                      / top)
-        return (x + (ref - x).detach(),)
+        # ref's values exactly (x - x is an exact zero), x's gradient path:
+        # x + (ref - x) would round where x lies far from ref.
+        return (ref + (x - x.detach()),)
 
     @contextlib.contextmanager
     def ctx():
@@ -3318,8 +3351,513 @@ def mixtral_card_vs_cpu(torch, seed: int = MOE_VS_CPU_SEED) -> list:
     return failures
 
 
+# ---------------------------------------------------------------------------
+# GPT-OSS: flash attention's window and sink (phase 3), the training step
+# (16), serving (17) and the step card against CPU (18)
+# ---------------------------------------------------------------------------
+
+GPTOSS_HEADS = (64, 8, 64)       # Hq, Hkv, D at GPTOSS_20B width
+GPTOSS_BAND = 128
+
+
+def band_rows(n: int, left: int) -> int:
+    """Visible (query, key) pairs of one causal sequence of ``n`` tokens
+    under a band of ``left`` earlier keys: query i sees min(i, left) + 1."""
+    full = min(n, left + 1)
+    return full * (full + 1) // 2 + (n - full) * (left + 1)
+
+
+def band_mask(torch, s: int, left: int, lens=None):
+    """Boolean (B or 1, 1, S, S) mask, True where a query sees a key:
+    causal, within ``left`` earlier keys and, with ``lens``, both inside
+    the sequence; the one PyTorch call that computes the band (SDPA with
+    an explicit mask) takes it."""
+    pos = torch.arange(s, device="cuda")
+    mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :]
+                                             <= left)
+    mask = mask[None]
+    if lens is not None:
+        mask = (mask & (pos[None, :, None] < lens[:, None, None])
+                & (pos[None, None, :] < lens[:, None, None]))
+    return mask[:, None]
+
+
+def check_flash_sw(torch, timer, results):
+    """[3r] the banded forward with a learnable sink at phase 17's prefill
+    shape, against its plain version; timed with its plain version, SDPA
+    with the band and padding as a boolean mask (the window alone: no
+    PyTorch call takes the sink) and its bound."""
+    import torch.nn.functional as F
+    from transformerengine_tpu_torch.ops.flash_attention import (
+        LOG2E, flash_fwd, flash_fwd_plain)
+    b, s = BATCH, max(PROMPT_LENS)
+    hq, hkv, d = GPTOSS_HEADS
+    window = (GPTOSS_BAND, 0)
+    log(f"[3r] flash_attention fwd, window and sink: prefill B={b} S={s} "
+        f"Hq={hq} Hkv={hkv} D={d} bf16, padding-causal, lengths "
+        f"{PROMPT_LENS} mixed, band {window}, a learnable sink")
+    g = torch.Generator(device="cuda").manual_seed(21)
+    q = torch.randn((b, s, hq, d), generator=g, device="cuda").to(
+        torch.bfloat16)
+    k = torch.randn((b, s, hkv, d), generator=g, device="cuda").to(
+        torch.bfloat16)
+    v = torch.randn((b, s, hkv, d), generator=g, device="cuda").to(
+        torch.bfloat16)
+    sink = torch.randn((hq,), generator=g, device="cuda") * 2
+    lens = mixed_lengths(torch, b, PROMPT_LENS)
+    scale = d ** -0.5
+    kw = dict(scale=scale, causal=True, window=window, softmax_sink=sink)
+    o, lse = flash_fwd(q, k, v, lens, lens, **kw)
+    torch.cuda.synchronize()
+    qs = (q.float() * (scale * LOG2E)).to(q.dtype)
+    pkw = dict(causal=True, window=window, softmax_sink=sink)
+    o_ref, lse_ref = flash_fwd_plain(qs, k, v, lens, lens, **pkw)
+    err = check("O", o, o_ref, row_tol(o_ref, BF16_ROW_RTOL))
+    check("LSE", lse, lse_ref, LSE_ATOL)
+    pad = lens < s
+    if float(o[pad][:, int(lens.min()):].abs().max()) != 0.0:
+        raise AssertionError("padded rows must write O = 0")
+    ms = timer(lambda: flash_fwd(q, k, v, lens, lens, **kw))
+    plain_ms = timer(lambda: flash_fwd_plain(qs, k, v, lens, lens, **pkw))
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    mask = band_mask(torch, s, GPTOSS_BAND, lens)
+    library_ms = timer(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, scale=scale, enable_gqa=True))
+    pairs = sum(band_rows(int(n), GPTOSS_BAND) for n in lens.tolist()) * hq
+    flops = 4 * d * pairs
+    rows = int(lens.sum())
+    nbytes = 2 * (rows * hq * d + 2 * rows * hkv * d) + 2 * b * s * hq * d \
+        + 4 * b * hq * s + 4 * hq
+    b_ms, b_by = bound_ms(nbytes, flops)
+    log(f"  kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA with the band "
+        f"as a mask (no sink) {library_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}, {flops / 1e9:.3f} GFLOP over the band's pairs, "
+        f"{nbytes / 1e6:.1f} MB)")
+    results["flash_attention_fwd_sw"] = dict(
+        name="flash_attention_fwd_sw", route="cuda",
+        source="transformerengine_tpu_torch/csrc/flash_attention.cu",
+        replaces="transformerengine_tpu/ops/flash_attention.py:2057",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=library_ms,
+        shape=f"prefill B={b} S={s} Hq={hq} Hkv={hkv} D={d} bf16, band "
+              f"{GPTOSS_BAND}, learnable sink")
+
+
+def check_flash_bwd_sw(torch, timer, results):
+    """[3s] the banded backward at phase 16's training shape, from a
+    forward with a sink, against its plain version; timed with its plain
+    version, SDPA's backward with the band as a boolean mask and its
+    bound."""
+    import torch.nn.functional as F
+    from transformerengine_tpu_torch.ops.flash_attention import (
+        LOG2E, flash_bwd, flash_bwd_plain, flash_fwd)
+    b, s = TRAIN_B, TRAIN_S
+    hq, hkv, d = GPTOSS_HEADS
+    window = (GPTOSS_BAND, 0)
+    log(f"[3s] flash_attention bwd, window (dQ and dK/dV kernels): training "
+        f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} bf16, causal, band {window}")
+    g = torch.Generator(device="cuda").manual_seed(22)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(
+            torch.bfloat16)
+
+    q, k, v, do = randn(b, s, hq, d), randn(b, s, hkv, d), \
+        randn(b, s, hkv, d), randn(b, s, hq, d)
+    sink = torch.randn((hq,), generator=g, device="cuda")
+    scale = d ** -0.5
+    o, lse = flash_fwd(q, k, v, scale=scale, causal=True, window=window,
+                       softmax_sink=sink)
+    kw = dict(scale=scale, causal=True, window=window)
+    got = flash_bwd(q, k, v, o, lse, do, softmax_sink=sink, **kw)
+    torch.cuda.synchronize()
+    qs = (q.float() * (scale * LOG2E)).to(q.dtype)
+    delta = (do.float() * o.float()).sum(dim=-1)
+    ref = flash_bwd_plain(qs, k, v, do, lse, delta, **kw)
+    err = 0.0
+    for name, a, r in zip(("dQ", "dK", "dV"), got, ref):
+        differ = int((a != r).sum())
+        err = max(err, check(
+            f"{name} ({differ} of {r.numel()} elements differ)", a, r,
+            BWD_RTOL * float(r.float().abs().max())))
+    del got, ref
+    ms = timer(lambda: flash_bwd(q, k, v, o, lse, do, softmax_sink=sink,
+                                 **kw))
+    plain_ms = timer(lambda: flash_bwd_plain(qs, k, v, do, lse, delta, **kw),
+                     reps=5)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    out = F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=band_mask(torch, s, GPTOSS_BAND), scale=scale,
+        enable_gqa=True)
+    dot = do.transpose(1, 2).contiguous()
+    library_ms = timer.events(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True))
+    del out
+    pairs = b * hq * band_rows(s, GPTOSS_BAND)
+    flops = 5 * 2 * d * pairs
+    q_el, kv_el = b * s * hq * d, b * s * hkv * d
+    nbytes = 2 * (3 * q_el + 2 * kv_el) + 4 * b * hq * s \
+        + 2 * (q_el + 2 * kv_el)
+    b_ms, b_by = bound_ms(nbytes, flops)
+    log(f"  kernels {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA backward with "
+        f"the band as a mask {library_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}, {flops / 1e9:.1f} GFLOP over the band's pairs, "
+        f"{nbytes / 1e6:.1f} MB)")
+    results["flash_attention_bwd_sw"] = dict(
+        name="flash_attention_bwd_sw", route="cuda",
+        source="transformerengine_tpu_torch/csrc/flash_attention_bwd.cu",
+        replaces="transformerengine_tpu/ops/flash_attention.py:1477",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=library_ms,
+        shape=f"training B={b} S={s} Hq={hq} Hkv={hkv} D={d} bf16 causal, "
+              f"band {GPTOSS_BAND}")
+
+
+def check_sw_variants(torch, timer) -> None:
+    """[3t] the window and sink branches at small shapes, forward (O and
+    LSE) and backward (dQ, dK, dV from the kernel's own O and LSE), each
+    against its plain version: left only, right only, both sides, the
+    off-by-one sink, a learnable sink with padded rows, the bottom-right
+    offset with a band, f32, D 128 and 256 and a group of 8; then
+    decode_attention at GPT-OSS's decode shape with its window and
+    sink."""
+    from transformerengine_tpu_torch.inference.kv_cache import (
+        calibrate_kv_scale, quantize_for_cache)
+    from transformerengine_tpu_torch.ops.decode_attention import (
+        decode_attention, decode_attention_plain)
+    from transformerengine_tpu_torch.ops.flash_attention import (
+        LOG2E, flash_bwd, flash_bwd_plain, flash_fwd, flash_fwd_plain)
+    log("[3t] flash attention's window and sink at small shapes, forward "
+        "and backward")
+    g = torch.Generator(device="cuda").manual_seed(23)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def randn(*shape, dtype=f32):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    # (dtype, Sq, Skv, D, Hq, Hkv, causal, window, sink, lengths)
+    cases = ((f32, 70, 70, 64, 4, 2, False, (10, -1), None, None),
+             (bf16, 96, 96, 64, 4, 2, False, (-1, 7), None, None),
+             (bf16, 100, 100, 128, 4, 2, False, (20, 9), "off_by_one", None),
+             (f32, 70, 70, 128, 4, 2, True, (16, 0), "learnable", (70, 33)),
+             (bf16, 40, 100, 256, 4, 2, True, (24, 0), "learnable", None),
+             (bf16, 150, 150, 64, 16, 2, True, (32, 0), "learnable",
+              (150, 77)))
+    for dt, sq, skv, d, hq, hkv, causal, window, sink, lens in cases:
+        q, do = randn(2, sq, hq, d, dtype=dt), randn(2, sq, hq, d, dtype=dt)
+        k, v = randn(2, skv, hkv, d, dtype=dt), randn(2, skv, hkv, d,
+                                                      dtype=dt)
+        s0 = (None if sink is None else torch.zeros(hq, device="cuda")
+              if sink == "off_by_one" else randn(hq) * 2)
+        ln = (torch.tensor(lens, dtype=torch.int32, device="cuda")
+              if lens else None)
+        offset = skv - sq if causal else 0
+        scale = d ** -0.5
+        kw = dict(causal=causal, offset=offset, window=window)
+        o, lse = flash_fwd(q, k, v, ln, ln, scale=scale, softmax_sink=s0,
+                           **kw)
+        qs = (q.float() * (scale * LOG2E)).to(dt)
+        o_ref, lse_ref = flash_fwd_plain(qs, k, v, ln, ln, softmax_sink=s0,
+                                         **kw)
+        name = (f"{dt} Sq={sq} Skv={skv} D={d} G={hq // hkv} causal={causal}"
+                f" window={window} sink={sink} lengths={lens}")
+        tol = 1e-4 if dt == f32 else row_tol(o_ref, BF16_ROW_RTOL)
+        check(f"fwd {name} O", o, o_ref, tol)
+        check(f"fwd {name} LSE", lse, lse_ref, LSE_ATOL)
+        if lens:
+            pad = o[1, lens[1]:]
+            if float(pad.abs().max()) != 0.0:
+                raise AssertionError("padded rows must write O = 0")
+            want = s0[:, None].expand(hq, sq - lens[1])
+            check(f"fwd {name} padded rows' LSE = sink", lse[1, :, lens[1]:],
+                  want, 1e-5)
+        delta = (do.float() * o.float()).sum(dim=-1)
+        got = flash_bwd(q, k, v, o, lse, do, ln, ln, scale=scale,
+                        softmax_sink=s0, **kw)
+        ref = flash_bwd_plain(qs, k, v, do, lse, delta, ln, ln, scale=scale,
+                              **kw)
+        for gname, a, r in zip(("dQ", "dK", "dV"), got, ref):
+            rel = 1e-4 if dt == f32 else BWD_RTOL
+            check(f"bwd {name} {gname}", a, r,
+                  rel * float(r.float().abs().max()))
+    b, hq, hkv, d = BATCH, *GPTOSS_HEADS
+    s_alloc = -(-(max(PROMPT_LENS) + NEW_TOKENS) // 128) * 128
+    lens = mixed_lengths(torch, b, PROMPT_LENS) + NEW_TOKENS // 2
+    qd = randn(b, 1, hq, d, dtype=bf16)
+    kf, vf = randn(b, s_alloc, hkv, d), randn(b, s_alloc, hkv, d)
+    kv_scale = calibrate_kv_scale(kf, vf, per_slot=True)
+    kc = quantize_for_cache(kf, kv_scale, torch.float8_e4m3fn)
+    vc = quantize_for_cache(vf, kv_scale, torch.float8_e4m3fn)
+    sinks = randn(hq) * 2
+    kw = dict(kv_scale=1.0 / kv_scale, window_left=GPTOSS_BAND,
+              softmax_sink=sinks)
+    out = decode_attention(qd, kc, vc, lens, **kw)
+    ref = decode_attention_plain(qd, kc, vc, lens, scale=d ** -0.5,
+                                 out_dtype=bf16, **kw)
+    check(f"decode_attention B={b} Hq={hq} Hkv={hkv} D={d} fp8 cache, "
+          f"window {GPTOSS_BAND}, sink", out, ref,
+          row_tol(ref, BF16_ROW_RTOL))
+    ms = timer(lambda: decode_attention(qd, kc, vc, lens, **kw))
+    nbytes = 2 * b * (GPTOSS_BAND + 1) * hkv * d + 2 * 2 * b * hq * d
+    b_ms, b_by = bound_ms(nbytes, 4 * hq * d * b * (GPTOSS_BAND + 1))
+    log(f"  decode_attention at GPT-OSS's decode shape: kernel {ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}, the band's keys)")
+
+
+GPTOSS_TRAIN_LAYERS = 4
+
+
+def gptoss_counts(layers: int, train: bool) -> dict:
+    """Launches of one GPT-OSS step (``train``) or forward without a
+    gradient: every layer's attention is banded or has a sink, so each
+    flash launch takes the window and sink branch, and none the plain
+    one."""
+    counts = {"flash_attention_fwd_sw": layers}
+    if train:
+        counts.update(flash_attention_bwd_dq_sw=layers,
+                      flash_attention_bwd_dkv_sw=layers)
+    return counts
+
+
+def train_gptoss(torch, results) -> None:
+    """Phase 16: the GPT-OSS training step at GPTOSS_20B width, 4 layers
+    (two banded, two full, a learnable sink in each), B = 2, S = 2048,
+    ``gptoss_loss``: five bf16 SGD steps with finite losses, a sink
+    gradient on every layer and exact launch counts, then three forwards
+    without a gradient."""
+    from transformerengine_tpu_torch.models.gptoss import (
+        GPTOSS_20B, GptOssModel, gptoss_loss)
+    layers = GPTOSS_TRAIN_LAYERS
+    cfg = dataclasses.replace(GPTOSS_20B, num_layers=layers)
+    b, s = TRAIN_B, TRAIN_S
+    log(f"[16] GPT-OSS training: GPTOSS_20B width (hidden 2880, 64/8 heads "
+        f"of 64, 32 experts of FFN 2880, top-4, vocabulary 201088), {layers} "
+        f"layers (bands of {cfg.sliding_window} on the even ones, a sink in "
+        f"each), B={b} S={s}, gptoss_loss, {TRAIN_STEPS} bf16 SGD steps at "
+        f"lr {TRAIN_LR}, then the forward without a gradient")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = GptOssModel(cfg, device=CARD, seed=0)
+    shrink_embedding(model)
+    tokens, targets = train_batch(torch, cfg.vocab_size, b, s, CARD)
+    torch.cuda.synchronize()
+    log(f"  init: {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    torch.cuda.reset_peak_memory_stats()
+    expect = gptoss_counts(layers, True)
+    losses, times, totals = timed_steps(
+        torch, lambda: float(train_step(torch, model, tokens, targets, None,
+                                        loss_fn=gptoss_loss)),
+        expect, TRAIN_STEPS, "step")
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"losses {losses}")
+    sinks = [float(layer.self_attention.softmax_offset.grad.abs().max())
+             for layer in model.layers]
+    if not all(x > 0 and math.isfinite(x) for x in sinks):
+        raise AssertionError(f"sink gradients {sinks}")
+    step_ms = statistics.median(times[1:]) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    stats = dict(layers=layers, ms_per_step=step_ms,
+                 tok_per_s=b * s / (step_ms / 1e3), losses=losses,
+                 peak_gib=peak, sink_grad_max=sinks)
+    log(f"  losses {[round(x, 5) for x in losses]} (all finite); launches "
+        f"per step {expect} in every step ok; the sink's largest gradient "
+        f"per layer {[f'{x:.3e}' for x in sinks]}")
+    log(f"  step times {[round(t * 1e3, 2) for t in times]} ms; median of "
+        f"steps 2-{TRAIN_STEPS} {step_ms:.2f} ms/step, "
+        f"{b * s / (step_ms / 1e3):.0f} tok/s, peak {peak:.2f} GiB")
+    busy, wall, kernels = device_profile(
+        torch, lambda: train_step(torch, model, tokens, targets, None,
+                                  loss_fn=gptoss_loss), 1)
+    log_profile("step", stats, busy, wall, kernels, 1)
+    with torch.no_grad():
+        logits, fwd_times, counts = timed_steps(
+            torch, lambda: model(tokens), gptoss_counts(layers, False), 3,
+            "forward without a gradient")
+    totals.update(counts)
+    if logits[-1].shape != (b, s, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits[-1]).all()):
+        raise AssertionError("the forward's logits are not finite")
+    stats["forward_ms"] = statistics.median(fwd_times) * 1e3
+    log(f"  forward without a gradient: launches "
+        f"{gptoss_counts(layers, False)} in each of 3 runs ok, logits "
+        f"finite, {[round(t * 1e3, 2) for t in fwd_times]} ms")
+    for kernel, n in totals.items():
+        add_launches(results, "flash_attention_bwd_sw" if kernel.startswith(
+            "flash_attention_bwd") else kernel, n)
+    results["_train_gptoss"] = stats
+    del model, logits
+
+
+def serve_gptoss(torch, results) -> None:
+    """Phase 17: greedy bf16 serving of GptOssModel at GPTOSS_20B width and
+    full depth (24 layers), phase 4's batch, prompts and fp8 cache: TTFT,
+    decode ms/step, busy share, Python calls per step and exact launch
+    counts (the prefill's banded-and-sink flash, the decode kernel with
+    each layer's window and sink); then two sequences' cached tokens
+    against the card's own full-recompute greedy decoding."""
+    from transformerengine_tpu_torch.inference import InferenceParams
+    from transformerengine_tpu_torch.models.gptoss import (
+        GPTOSS_20B, GptOssModel)
+    cfg = GPTOSS_20B
+    layers = cfg.num_layers
+    log(f"[17] GPT-OSS bf16 serve: GPTOSS_20B, {layers} layers, B={BATCH}, "
+        f"prompts {PROMPT_LENS} mixed, {NEW_TOKENS} new tokens, fp8 cache, "
+        f"bands of {cfg.sliding_window} on the even layers, sinks on all")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = GptOssModel(cfg, device="cuda", seed=0)
+    shrink_embedding(model)
+    torch.cuda.synchronize()
+    log(f"  init: {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    ip = InferenceParams(BATCH, max(PROMPT_LENS) + NEW_TOKENS,
+                         torch.float8_e4m3fn)
+    expect = {"flash_attention_fwd_sw": layers, "flash_attention_fwd": 0,
+              "decode_attention": layers * (NEW_TOKENS - 1),
+              "decode_tn_matvec": 0}
+    stats = drive_serving(torch, model, ip, expect, results)
+    stats["agreement"] = cached_vs_recompute(torch, model)
+    results["_serve_gptoss"] = stats
+    del model
+
+
+# Phase 18: one GPT-OSS training step, card against CPU: the attention at
+# GPTOSS_20B's shape (64/8 heads of 64, a band of 128 on layer 0, a sink
+# in both layers), the rest reduced as phase 15 reduces Mixtral (hidden
+# 1024, 8 experts of FFN 1024, top-4, the vocabulary of 32000), 2 layers,
+# B = 1, S = 384 (longer than the band): the CPU's step at full width
+# would take minutes. The MoE is held op by op, as in phase 15.
+GPTOSS_VS_CPU_SEED = 51
+GPTOSS_VS_CPU_CONFIG = dict(hidden_size=1024, intermediate_size=1024,
+                            num_experts=8, vocab_size=32000, num_layers=2)
+GPTOSS_VS_CPU_S = 384
+# Seeds 51-53 read (an H100 80GB HBM3 at 700 W; PERF.md, section 6): loss
+# 1.2e-5 to 3.01e-4, gnorm 8.8e-3 to 1.03e-2, grad 1.02e-2 to 1.54e-2,
+# local 8.0e-3 to 1.17e-2 over three runs of each seed; no routing choice
+# differed. The card's side moves from run to run (seed 51's loss 2.07e-4
+# to 3.01e-4, seed 52's grad 1.02e-2 to 1.54e-2), so the limits sit 3x to
+# 4x above the largest readings. The kernels ignoring the band read loss
+# 1.1e-3 to 3.8e-3, gnorm 0.47 to 0.48 and local 0.20 to 0.25; the sink
+# dropped from the forward gnorm 6.1 to 9.0 and local 0.70 to 0.91; dsink
+# zeroed gnorm 1.0 (the sinks' own gradients alone).
+GPTOSS_VS_CPU_LIMITS = dict(loss=2 ** -10, gnorm=2 ** -5, grad=2 ** -4,
+                            local=2 ** -5)
+
+
+def gptoss_planted_faults(torch) -> dict:
+    """Faults phase 18 must catch, each a context for one card step: the
+    kernels ignoring the band, the sink dropped from the forward's
+    epilogue, and the sink's gradient zeroed."""
+    import contextlib
+    from transformerengine_tpu_torch.ops import flash_attention as fa
+
+    @contextlib.contextmanager
+    def patched(name, make):
+        real = getattr(fa, name)
+        setattr(fa, name, make(real))
+        try:
+            yield
+        finally:
+            setattr(fa, name, real)
+
+    def no_band(real):
+        return lambda window: fa.NO_WINDOW
+
+    def no_sink(real):
+        def fwd(*args, softmax_sink=None, **kwargs):
+            return real(*args, **kwargs)
+        return fwd
+
+    def zero_dsink(real):
+        return lambda sink, o, lse, do: torch.zeros_like(sink)
+
+    return {"the kernels ignore the band": lambda: patched("_window", no_band),
+            "the sink dropped from the forward": lambda: patched(
+                "flash_fwd", no_sink),
+            "dsink zeroed": lambda: patched("sink_grad", zero_dsink)}
+
+
+def gptoss_card_vs_cpu(torch, seed: int = GPTOSS_VS_CPU_SEED) -> list:
+    """Phase 18; returns what failed."""
+    from transformerengine_tpu_torch.models.gptoss import (
+        GPTOSS_20B, GptOssModel, gptoss_loss)
+    cfg = dataclasses.replace(GPTOSS_20B, **GPTOSS_VS_CPU_CONFIG)
+    b, s = 1, GPTOSS_VS_CPU_S
+    log(f"[18] GPT-OSS training, card vs CPU: 2 layers (a band of "
+        f"{cfg.sliding_window} on layer 0, sinks on both), "
+        f"{cfg.num_attention_heads}/{cfg.num_kv_heads} heads of "
+        f"{cfg.head_dim}, hidden {cfg.hidden_size}, {cfg.num_experts} experts "
+        f"of FFN {cfg.intermediate_size}, top-{cfg.topk}, vocabulary "
+        f"{cfg.vocab_size}, B={b} S={s}, one bf16 step, the MoE held op by "
+        f"op, seed {seed}")
+    t0 = time.perf_counter()
+    tokens, targets = train_batch(torch, cfg.vocab_size, b, s, "cpu", seed)
+    limits = GPTOSS_VS_CPU_LIMITS
+
+    def seeded(device):
+        """The model of ``seed`` with its sinks and biases drawn (the
+        reference initializes them at zero, where they would hide their
+        faults)."""
+        model = GptOssModel(cfg, device=device, seed=seed)
+        shrink_embedding(model)
+        gen = torch.Generator(device="cpu").manual_seed(seed + 1000)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if name.endswith(("softmax_offset", "bias")):
+                    std = 1.0 if name.endswith("softmax_offset") else 0.1
+                    p.copy_(torch.randn(p.shape, generator=gen) * std)
+        return model
+
+    cpu = seeded("cpu")
+    start = {n: t.clone() for n, t in cpu.state_dict().items()}
+    recorded = []
+    with moe_ops(torch, record=recorded):
+        ref = step_readings(torch, cpu, tokens, targets, None, "cpu",
+                            loss_fn=gptoss_loss)
+    del cpu
+    card = GptOssModel(cfg, device=CARD, seed=seed)
+
+    def forced_step():
+        card.load_state_dict(start)
+        local, excused = [], []
+        with moe_ops(torch, force=list(recorded), local=local,
+                     excused=excused):
+            got = step_readings(torch, card, tokens, targets, None, CARD,
+                                loss_fn=gptoss_loss)
+        out = differences(got, ref, local)
+        out["excused"] = sum(excused)
+        return out
+
+    got = forced_step()
+    planted = {}
+    for fname, fault in gptoss_planted_faults(torch).items():
+        with fault():
+            planted[fname] = forced_step()
+    del card
+    failures = []
+    ok = all(got[k] <= limits[k] for k in limits)
+    log(f"  ({time.perf_counter() - t0:.1f} s), limits "
+        + ", ".join(f"{k} {v:.3e}" for k, v in limits.items()))
+    log("    residual stream after each layer, largest difference over the "
+        "largest |CPU|: " + ", ".join(f"{e:.3e}" for e in got["stream"]))
+    log(f"    card against CPU: {_fmt(got)}; {got['excused']} routing "
+        f"choices differed at a near-tie {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"gptoss seed {seed}")
+    for fname, d in planted.items():
+        caught = [k for k in ("loss", "gnorm", "local")
+                  if not d[k] <= limits[k]]
+        log(f"    planted fault '{fname}': {_fmt(d)}: "
+            + (f"caught by {', '.join(caught)}" if caught else "NOT CAUGHT"))
+        if not caught:
+            failures.append(f"gptoss seed {seed}: '{fname}' not caught")
+    return failures
+
+
 PHASES = ("3", "4", "5", "6", "7", "8", "9", "10", "11", "12", "13", "14",
-          "15")
+          "15", "16", "17", "18")
 
 
 def main() -> int:
@@ -3330,13 +3868,16 @@ def main() -> int:
     import argparse
     parser = argparse.ArgumentParser()
     parser.add_argument("--phases", default=",".join(PHASES),
-                        help="comma-separated subset of 3-15")
+                        help="comma-separated subset of 3-18")
     parser.add_argument("--train-seeds", default=str(TRAIN_VS_CPU_SEED),
                         help="comma-separated seeds of phase 7 (its limits "
                         "were set from the readings of 21,22,23)")
     parser.add_argument("--moe-seeds", default=str(MOE_VS_CPU_SEED),
                         help="comma-separated seeds of phase 15 (its limits "
                         "were set from the readings of 31,32,33)")
+    parser.add_argument("--gptoss-seeds", default=str(GPTOSS_VS_CPU_SEED),
+                        help="comma-separated seeds of phase 18 (its limits "
+                        "were set from the readings of 51,52,53)")
     args = parser.parse_args()
     phases = set(args.phases.split(","))
     if not phases <= set(PHASES):
@@ -3393,6 +3934,9 @@ def main() -> int:
     run("3", check_kn_matvec, timer, results)
     run("3", check_nvfp4_quantize, timer, results)
     run("3", check_nvfp4_variants)
+    run("3", check_flash_sw, timer, results)
+    run("3", check_flash_bwd_sw, timer, results)
+    run("3", check_sw_variants, timer)
     run("4", serve, results)
     run("9", serve_paged_mxfp8, results)
     run("12", serve_paged_nvfp4, results)
@@ -3403,6 +3947,8 @@ def main() -> int:
     run("11", train_nvfp4, results)
     run("13", train_mixtral, results)
     run("14", serve_mixtral, results)
+    run("16", train_gptoss, results)
+    run("17", serve_gptoss, results)
     failed = []
     for seed in map(int, args.train_seeds.split(",")):
         run("7", lambda torch, seed=seed: failed.extend(
@@ -3410,6 +3956,9 @@ def main() -> int:
     for seed in map(int, args.moe_seeds.split(",")):
         run("15", lambda torch, seed=seed: failed.extend(
             mixtral_card_vs_cpu(torch, seed)))
+    for seed in map(int, args.gptoss_seeds.split(",")):
+        run("18", lambda torch, seed=seed: failed.extend(
+            gptoss_card_vs_cpu(torch, seed)))
     if failed:
         raise AssertionError(f"training step, card against CPU: {failed}")
     log(f"phase seconds: {', '.join(f'{p} {t:.1f}' for p, t in timings.items())}")
@@ -3417,7 +3966,8 @@ def main() -> int:
     stats = {k: results.pop(k) for k in ("_serve", "_train", "_train_mxfp8",
                                          "_train_nvfp4", "_serve_paged_mxfp8",
                                          "_serve_paged_nvfp4", "_batching",
-                                         "_train_mixtral", "_serve_mixtral")
+                                         "_train_mixtral", "_serve_mixtral",
+                                         "_train_gptoss", "_serve_gptoss")
              if k in results}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

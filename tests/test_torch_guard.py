@@ -178,6 +178,15 @@ def _calls():
         "te_flash_attention_fwd": lambda: fa.flash_fwd(
             cuda(2, 64, 4, 32), cuda(2, 64, 2, 32), cuda(2, 64, 2, 32),
             scale=0.2, causal=True),
+        # The window and sink branch counts under its own names.
+        "flash_fwd_sw": lambda: fa.flash_fwd(
+            cuda(2, 64, 4, 32), cuda(2, 64, 2, 32), cuda(2, 64, 2, 32),
+            scale=0.2, causal=True, window=(16, 0),
+            softmax_sink=cuda(4, dtype=f32)),
+        "flash_bwd_sw": lambda: fa.flash_bwd(
+            cuda(2, 64, 4, 32), cuda(2, 64, 2, 32), cuda(2, 64, 2, 32),
+            cuda(2, 64, 4, 32), cuda(2, 4, 64, dtype=torch.float32),
+            cuda(2, 64, 4, 32), scale=0.2, causal=True, window=(16, 0)),
         "te_paged_decode_attention": lambda: pa.paged_decode_attention(
             cuda(2, 1, 4, 32), cuda(6, 8, 2, 32, dtype=torch.float8_e4m3fn),
             cuda(6, 8, 2, 32, dtype=torch.float8_e4m3fn),
@@ -250,6 +259,9 @@ def _calls():
 # case is named after: the flash backward runs a dQ and a dK/dV kernel.
 _LAUNCHED = {"te_flash_attention_bwd": ["te_flash_attention_bwd_dq",
                                         "te_flash_attention_bwd_dkv"],
+             "flash_fwd_sw": ["te_flash_attention_fwd"],
+             "flash_bwd_sw": ["te_flash_attention_bwd_dq",
+                              "te_flash_attention_bwd_dkv"],
              "delayed_quantize_2x": ["te_cast_transpose"],
              "current_quantize_2x": ["te_cast_transpose"],
              "quantize_normed": ["te_norm_cast_transpose"],
@@ -266,6 +278,7 @@ _LAUNCHED = {"te_flash_attention_bwd": ["te_flash_attention_bwd_dq",
 
 @pytest.mark.parametrize("entry", ["te_decode_tn_matvec",
                                    "te_flash_attention_fwd",
+                                   "flash_fwd_sw", "flash_bwd_sw",
                                    "te_decode_attention",
                                    "te_paged_decode_attention",
                                    "te_decode_kn_matvec",
@@ -331,6 +344,8 @@ def test_wrappers_on_the_card_launch_or_raise(entry, monkeypatch):
     assert launched == expected
     grown = _build.LAUNCHES - before
     assert sum(grown.values()) == len(expected)
+    if entry.endswith("_sw"):
+        assert all(name.endswith("_sw") for name in grown), grown
 
 
 def test_wrappers_refuse_mixed_devices():

@@ -14,9 +14,11 @@ from .common.recipe import (DelayedScaling, Float8CurrentScaling, Format,
                             MXFP8BlockScaling, NVFP4BlockScaling, QParams,
                             Recipe)
 from .quantize.helper import autocast, get_quantize_config
+from .models.gptoss import GPTOSS_20B, GPTOSS_TINY, GptOssModel
 from .models.mixtral import MIXTRAL_8X7B, MIXTRAL_TINY, MixtralModel
 
 __all__ = ["DelayedScaling", "Float8CurrentScaling", "Format",
-           "MIXTRAL_8X7B", "MIXTRAL_TINY", "MXFP8BlockScaling",
-           "MixtralModel", "NVFP4BlockScaling", "QParams", "Recipe",
-           "autocast", "get_quantize_config"]
+           "GPTOSS_20B", "GPTOSS_TINY", "GptOssModel", "MIXTRAL_8X7B",
+           "MIXTRAL_TINY", "MXFP8BlockScaling", "MixtralModel",
+           "NVFP4BlockScaling", "QParams", "Recipe", "autocast",
+           "get_quantize_config"]

@@ -6,15 +6,16 @@ two backends:
 * ``UNFUSED``: plain PyTorch with materialized scores, differentiated by
   autograd; the yardstick of the tests.
 
-Segment ids (packed batches), biases, dropout, sliding windows and
-softmax sinks are not ported yet and raise.
+Both backends take a static sliding window and the softmax sink types.
+Segment ids (packed batches), biases and dropout are not ported yet and
+raise.
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
 import os
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -38,6 +39,18 @@ class AttnMaskType(enum.Enum):
     @property
     def is_bottom_right(self) -> bool:
         return self.value.endswith("bottom_right")
+
+
+class SoftmaxType(enum.Enum):
+    """Softmax variants: vanilla, off-by-one (a sink of logit 0) and
+    learnable (a per-head sink logit)."""
+    VANILLA = "vanilla"
+    OFF_BY_ONE = "off_by_one"
+    LEARNABLE = "learnable"
+
+
+# The reference's other name for it.
+AttnSoftmaxType = SoftmaxType
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,8 +95,14 @@ def get_attention_backend(*, attn_mask_type: AttnMaskType =
 
 def make_attention_mask(seq_desc: Optional[SequenceDescriptor],
                         attn_mask_type: AttnMaskType, q_len: int, kv_len: int,
-                        batch: int, device=None) -> torch.Tensor:
-    """Boolean mask (B, 1, Sq, Skv), True where a query may attend."""
+                        batch: int,
+                        window_size: Optional[Tuple[int, int]] = None,
+                        device=None) -> torch.Tensor:
+    """Boolean mask (B, 1, Sq, Skv), True where a query may attend.
+    ``window_size`` (left, right) keeps the keys j with ``i - left <= j <=
+    i + right`` for query i, each side where it is >= 0; as in the
+    reference, the window takes no bottom-right offset here (the flash
+    kernels shift it with the causal diagonal)."""
     rows = torch.arange(q_len, device=device)[:, None]
     cols = torch.arange(kv_len, device=device)[None, :]
     mask = torch.ones((batch, 1, q_len, kv_len), dtype=torch.bool,
@@ -96,12 +115,24 @@ def make_attention_mask(seq_desc: Optional[SequenceDescriptor],
     if attn_mask_type.is_causal:
         offset = kv_len - q_len if attn_mask_type.is_bottom_right else 0
         mask = mask & (rows + offset >= cols)
+    if window_size is not None and tuple(window_size) != (-1, -1):
+        left, right = window_size
+        diff = rows - cols
+        if left >= 0:
+            mask = mask & (diff <= left)
+        if right >= 0:
+            mask = mask & (diff >= -right)
     return mask
 
 
-def _unfused_attn(q, k, v, mask, *, scaling_factor: float) -> torch.Tensor:
+def _unfused_attn(q, k, v, mask, *, scaling_factor: float,
+                  softmax_type: SoftmaxType = SoftmaxType.VANILLA,
+                  softmax_offset: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
     """Softmax attention with the scores in f32: masked logits at -1e30,
-    and rows with no visible key set to 0."""
+    and rows with no visible key set to 0. A sink type appends one logit
+    column (0, or the per-head ``softmax_offset``) that takes its share of
+    the softmax and is dropped after it."""
     group = q.shape[2] // k.shape[2]
     kf = k.float().repeat_interleave(group, dim=2)
     vf = v.float().repeat_interleave(group, dim=2)
@@ -109,7 +140,15 @@ def _unfused_attn(q, k, v, mask, *, scaling_factor: float) -> torch.Tensor:
     if mask is not None:
         logits = torch.where(mask, logits, torch.full((), -1e30,
                                                       device=q.device))
-    probs = torch.softmax(logits, dim=-1)
+    if softmax_type is not SoftmaxType.VANILLA:
+        col = torch.zeros((*logits.shape[:3], 1), dtype=torch.float32,
+                          device=q.device)
+        if softmax_type is SoftmaxType.LEARNABLE:
+            col = col + softmax_offset.float().reshape(1, -1, 1, 1)
+        probs = torch.softmax(torch.cat([logits, col], dim=-1),
+                              dim=-1)[..., :-1]
+    else:
+        probs = torch.softmax(logits, dim=-1)
     if mask is not None:
         probs = torch.where(mask.any(dim=-1, keepdim=True), probs,
                             torch.zeros((), device=q.device))
@@ -120,11 +159,17 @@ def fused_attn(qkv: Sequence[torch.Tensor],
                sequence_descriptor: Optional[SequenceDescriptor] = None, *,
                attn_mask_type: AttnMaskType = AttnMaskType.NO_MASK,
                scaling_factor: Optional[float] = None,
+               window_size: Optional[Tuple[int, int]] = None,
                mask: Optional[torch.Tensor] = None,
+               softmax_type: SoftmaxType = SoftmaxType.VANILLA,
+               softmax_offset: Optional[torch.Tensor] = None,
                backend: AttnBackend = AttnBackend.AUTO) -> torch.Tensor:
     """Scaled dot-product attention over BSHD (q, k, v); returns (B, Sq,
     Hq, D). ``mask`` (bool, broadcastable to (B, H, Sq, Skv), True =
-    attend) is an explicit mask, which only the unfused backend takes."""
+    attend) is an explicit mask, which only the unfused backend takes.
+    ``window_size`` (left, right) is a static sliding window;
+    ``softmax_type`` a sink type, LEARNABLE with the (Hq,) logits
+    ``softmax_offset``."""
     q, k, v = qkv
     if scaling_factor is None:
         scaling_factor = 1.0 / (q.shape[-1] ** 0.5)
@@ -142,13 +187,20 @@ def fused_attn(qkv: Sequence[torch.Tensor],
         if mask is not None:
             raise ValueError("the flash backend takes no explicit mask")
         from .ops.flash_attention import flash_attention
-        return flash_attention(q, k, v, sequence_descriptor,
-                               attn_mask_type=attn_mask_type,
-                               scaling_factor=scaling_factor)
+        return flash_attention(
+            q, k, v, sequence_descriptor, attn_mask_type=attn_mask_type,
+            scaling_factor=scaling_factor, window_size=window_size,
+            softmax_type=(softmax_type
+                          if softmax_type is not SoftmaxType.VANILLA
+                          else None),
+            softmax_offset=softmax_offset)
     full_mask = mask
     if full_mask is None and (attn_mask_type is not AttnMaskType.NO_MASK
-                              or sequence_descriptor is not None):
+                              or sequence_descriptor is not None
+                              or window_size is not None):
         full_mask = make_attention_mask(
             sequence_descriptor, attn_mask_type, q.shape[1], k.shape[1],
-            q.shape[0], device=q.device)
-    return _unfused_attn(q, k, v, full_mask, scaling_factor=scaling_factor)
+            q.shape[0], window_size, device=q.device)
+    return _unfused_attn(q, k, v, full_mask, scaling_factor=scaling_factor,
+                         softmax_type=softmax_type,
+                         softmax_offset=softmax_offset)

@@ -5,8 +5,11 @@
 // (the Pallas `_bwd_dq_kernel[_steps]` and `_bwd_dkv_kernel[_steps]`,
 // bodies `_bwd_dq_block_body` and `_bwd_dkv_block_body`). Scope: exactly
 // the forward kernel's (no mask, causal with a bottom-right offset, the
-// padding mask from per-sequence lengths; GQA with Hq % Hkv == 0; bf16 or
-// f32; D <= 256 with D % 16 == 0).
+// padding mask from per-sequence lengths, a static sliding window; GQA
+// with Hq % Hkv == 0; bf16 or f32; D <= 256 with D % 16 == 0). A softmax
+// sink needs nothing here: it enters through the forward's LSE, and its
+// own gradient is computed from the LSE outside the kernels, as the
+// reference does (`_flash_core_bwd`).
 //
 // Numerics follow the reference: the caller passes q pre-scaled by
 // scale * log2(e) in q's dtype, LSE moved into the log2 domain
@@ -26,19 +29,24 @@
 // 168 MB, 0.05 ms. This design runs its products as f32 FMAs on the CUDA
 // cores (and recomputes s and dp in both kernels: seven products), so
 // the FMA rate, not the bound, is its real limit; tensor cores come later.
+// GPT-OSS's banded layers (B 2, S 2048, Hq 64, Hkv 8, D 64, band 128)
+// need 21 GFLOP over the band's pairs (0.021 ms) and move about 152 MB
+// (0.045 ms): bytes. With the band's tile ranges each block visits at
+// most 3 tiles of the other side instead of up to 32.
 //
 // Design (simple and right first): two kernels, no atomics, so the result
 // is deterministic.
 // - dQ: one block per (q tile, q head, batch), the forward kernel's
 //   layout: Q and dO tiles stay in shared memory as f32 while the block
-//   walks the K/V tiles up to the causal diagonal and the sequence's
-//   length. Each of the 256 threads holds a (BQ/16) x (BK/16) block of s
+//   walks the K/V tiles from the window's left edge up to the causal
+//   diagonal, the window's right edge and the sequence's length. Each of the 256 threads holds a (BQ/16) x (BK/16) block of s
 //   and dp (rows 16-apart lanes share), writes ds to shared memory, and
 //   accumulates BQ/16 rows x D/16 columns of dQ.
 // - dK/dV: one block per (k tile, kv head, batch). It walks the q tiles
 //   of every query head of its GQA group (so the group's sum stays inside
-//   one block), starting at the first tile the causal mask lets see its
-//   keys. Threads hold s and dp transposed (keys x queries), write p and
+//   one block), from the first tile the causal mask and the window's
+//   right edge let see its keys to the last tile its left edge reaches
+//   (the reference's `_enumerate_steps`, order "kq"). Threads hold s and dp transposed (keys x queries), write p and
 //   ds to shared memory, and accumulate BK/16 keys x D/16 columns of dK
 //   and of dV.
 // Tiles are 64 x 64 for D <= 128 and 32 x 32 for D = 256, which keeps
@@ -53,7 +61,7 @@ constexpr int kThreads = 256;
 constexpr float kLn2 = 0.6931471805599453f;
 
 struct Shape {
-  int Sq, Skv, Hq, Hkv, D, causal, offset;
+  int Sq, Skv, Hq, Hkv, D, causal, offset, left, right;
 };
 
 // Copies rows [r0, r0 + R) of one head of a BSHD tensor into a shared
@@ -83,6 +91,8 @@ __device__ __forceinline__ bool visible(const Shape& sh, int qi, int kj,
                                         int qlen, int klen) {
   bool ok = qi < sh.Sq && kj < sh.Skv && qi < qlen && kj < klen;
   if (sh.causal) ok = ok && kj <= qi + sh.offset;
+  if (sh.left >= 0) ok = ok && kj >= qi + sh.offset - sh.left;
+  if (sh.right >= 0) ok = ok && kj <= qi + sh.offset + sh.right;
   return ok;
 }
 
@@ -123,7 +133,10 @@ __global__ void __launch_bounds__(kThreads)
   const int klen = klens != nullptr ? klens[b] : sh.Skv;
   int kend = min(sh.Skv, klen);
   if (sh.causal) kend = min(kend, q0 + kB + sh.offset);
+  if (sh.right >= 0) kend = min(kend, q0 + kB + sh.offset + sh.right);
   if (q0 >= qlen) kend = 0;
+  const int kbeg =
+      sh.left >= 0 ? max(0, q0 + sh.offset - sh.left) / kB * kB : 0;
 
   load_tile<T, kB>(q, b, q0, sh.Sq, sh.Hq, h, D, Qs, ld);
   load_tile<T, kB>(dout, b, q0, sh.Sq, sh.Hq, h, D, dOs, ld);
@@ -141,7 +154,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int c = 0; c < kCols; ++c) acc[r][c] = 0.f;
 
-  for (int k0 = 0; k0 < kend; k0 += kB) {
+  for (int k0 = kbeg; k0 < kend; k0 += kB) {
     __syncthreads();  // Q/dO loaded; the previous K/V/dS no longer read
     load_tile<T, kB>(k, b, k0, sh.Skv, sh.Hkv, hk, D, Ks, ld);
     load_tile<T, kB>(v, b, k0, sh.Skv, sh.Hkv, hk, D, Vs, ld);
@@ -243,8 +256,13 @@ __global__ void __launch_bounds__(kThreads)
   const int ty = threadIdx.x >> 4;
   const int qlen = qlens != nullptr ? qlens[b] : sh.Sq;
   const int klen = klens != nullptr ? klens[b] : sh.Skv;
-  const int qend = min(sh.Sq, qlen);
+  // Queries past qend see none of this tile's keys: padded rows, and rows
+  // whose window's left edge lies past the tile's last key.
+  int qend = min(sh.Sq, qlen);
+  if (sh.left >= 0) qend = min(qend, k0 + kB + sh.left - sh.offset);
+  // Queries before qbeg see none of them either (causal, right edge).
   int qbeg = sh.causal ? max(0, k0 - sh.offset) : 0;
+  if (sh.right >= 0) qbeg = max(qbeg, k0 - sh.offset - sh.right);
   qbeg = (qbeg / kB) * kB;
   const bool live = k0 < min(sh.Skv, klen);
 
@@ -403,9 +421,11 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-bool bad_shape(int B, int Sq, int Skv, int Hq, int Hkv, int D) {
+bool bad_shape(int B, int Sq, int Skv, int Hq, int Hkv, int D, int left,
+               int right) {
   return B < 1 || Sq < 1 || Skv < 1 || Hkv < 1 || Hq % Hkv != 0 || D < 16 ||
-         D > 256 || D % 16 != 0 || B > 65535 || Hq > 65535;
+         D > 256 || D % 16 != 0 || B > 65535 || Hq > 65535 || left < -1 ||
+         right < -1;
 }
 
 }  // namespace
@@ -414,9 +434,10 @@ extern "C" int te_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, int dtype, const void* dout,
     const float* lse2, const float* delta, void* dq, const int* qlens,
     const int* klens, int B, int Sq, int Skv, int Hq, int Hkv, int D,
-    int causal, int offset, float scale, void* stream) {
-  if (bad_shape(B, Sq, Skv, Hq, Hkv, D)) return cudaErrorInvalidValue;
-  const Shape sh{Sq, Skv, Hq, Hkv, D, causal, offset};
+    int causal, int offset, int left, int right, float scale, void* stream) {
+  if (bad_shape(B, Sq, Skv, Hq, Hkv, D, left, right))
+    return cudaErrorInvalidValue;
+  const Shape sh{Sq, Skv, Hq, Hkv, D, causal, offset, left, right};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define TE_DQ(T, DM) \
   launch_dq<T, DM>(q, k, v, dout, lse2, delta, dq, qlens, klens, B, sh, scale, s)
@@ -439,9 +460,11 @@ extern "C" int te_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, int dtype, const void* dout,
     const float* lse2, const float* delta, void* dk, void* dv,
     const int* qlens, const int* klens, int B, int Sq, int Skv, int Hq,
-    int Hkv, int D, int causal, int offset, void* stream) {
-  if (bad_shape(B, Sq, Skv, Hq, Hkv, D)) return cudaErrorInvalidValue;
-  const Shape sh{Sq, Skv, Hq, Hkv, D, causal, offset};
+    int Hkv, int D, int causal, int offset, int left, int right,
+    void* stream) {
+  if (bad_shape(B, Sq, Skv, Hq, Hkv, D, left, right))
+    return cudaErrorInvalidValue;
+  const Shape sh{Sq, Skv, Hq, Hkv, D, causal, offset, left, right};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define TE_DKV(T, DM)                                                       \
   launch_dkv<T, DM>(q, k, v, dout, lse2, delta, dk, dv, qlens, klens, B, sh, \

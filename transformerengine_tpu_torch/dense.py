@@ -36,10 +36,15 @@ autograd node, and take the reference primal's branches.
 
 A :class:`~.quantize.prequant.PrequantizedKernel` serves the forward
 only; a backward through it raises.
+
+A bias is added in f32 to the f32 product before its one rounding to the
+output's dtype, as the reference adds it; its gradient is the sum of the
+output gradient over the rows, in the bias's dtype.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -158,21 +163,44 @@ def gemm_bwd(g2d: torch.Tensor, res, qset: QuantizerSet, need_dw=True):
     return dx2d, dw2d, new
 
 
-def _dense_fwd(x, kernel, qset, inference=False):
+def add_bias(out2d: torch.Tensor, bias) -> torch.Tensor:
+    """The f32 GEMM output plus the bias in f32 (None: unchanged)."""
+    if bias is None:
+        return out2d
+    return out2d + bias.reshape(1, -1).float()
+
+
+def bias_meta(bias):
+    """(shape, dtype) of a bias, for its gradient; None without one."""
+    return None if bias is None else (tuple(bias.shape), bias.dtype)
+
+
+def bias_grad(g2d: torch.Tensor, meta):
+    """The bias's gradient: the output gradient summed over the rows, in
+    the bias's dtype (``meta`` from :func:`bias_meta`)."""
+    if meta is None:
+        return None
+    shape, dtype = meta
+    return g2d.float().sum(dim=0).reshape(shape).to(dtype)
+
+
+def _dense_fwd(x, kernel, bias, qset, inference=False):
     out2d, res = gemm_fwd(x.reshape(-1, kernel.shape[0]), kernel, qset,
                           inference=inference)
+    out2d = add_bias(out2d, bias)
     return out2d.reshape(*x.shape[:-1], *kernel.shape[1:]).to(x.dtype), res
 
 
 class _Dense(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, kernel, qset):
-        out, res = _dense_fwd(x, kernel, qset)
+    def forward(ctx, x, kernel, bias, qset):
+        out, res = _dense_fwd(x, kernel, bias, qset)
         tensors, ctx.tag = split_residuals(res)
         ctx.save_for_backward(*tensors)
         ctx.qset = qset
         ctx.shapes = (x.shape, x.dtype, tuple(kernel.shape), kernel.dtype)
+        ctx.bias = bias_meta(bias)
         return out
 
     @staticmethod
@@ -185,18 +213,27 @@ class _Dense(torch.autograd.Function):
         if new is not None:
             ctx.qset.write_back(new)
         dw = dw2d.reshape(k_shape).to(k_dtype) if dw2d is not None else None
-        return dx2d.reshape(x_shape).to(x_dtype), dw, None
+        return (dx2d.reshape(x_shape).to(x_dtype), dw,
+                bias_grad(g.reshape(-1, n), ctx.bias), None)
 
 
-def dense(x: torch.Tensor, kernel, *,
+def check_bias(bias, kernel) -> None:
+    if bias is not None and tuple(bias.shape) != tuple(kernel.shape[1:]):
+        raise ValueError(f"bias {tuple(bias.shape)} does not match the "
+                         f"kernel's features {tuple(kernel.shape[1:])}")
+
+
+def dense(x: torch.Tensor, kernel, bias: Optional[torch.Tensor] = None, *,
           quantizer_set: QuantizerSet = noop_quantizer_set) -> torch.Tensor:
-    """``out = x . kernel``, contracting the last dim of ``x`` with the
-    first of ``kernel``; the result takes ``x``'s dtype. Differentiable
-    in ``x`` and ``kernel``; the quantizer set's state is updated by the
+    """``out = x . kernel + bias``, contracting the last dim of ``x`` with
+    the first of ``kernel``; the result takes ``x``'s dtype. ``bias`` has
+    the kernel's feature shape, or is None. Differentiable in ``x``,
+    ``kernel`` and ``bias``; the quantizer set's state is updated by the
     backward (module docstring)."""
     if kernel.shape[0] != x.shape[-1]:
         raise ValueError(f"kernel {tuple(kernel.shape)} does not contract "
                          f"with x {tuple(x.shape)}")
-    if needs_grad(x, kernel):
-        return _Dense.apply(x, kernel, quantizer_set)
-    return _dense_fwd(x, kernel, quantizer_set, inference=True)[0]
+    check_bias(bias, kernel)
+    if needs_grad(x, kernel, bias):
+        return _Dense.apply(x, kernel, bias, quantizer_set)
+    return _dense_fwd(x, kernel, bias, quantizer_set, inference=True)[0]

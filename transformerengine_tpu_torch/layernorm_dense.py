@@ -9,7 +9,8 @@ takes the quantizer's ``quantize_normed`` (the norm fused with the 2x
 quantize) where its shape rule holds; NVFP4's quantizer has none, so
 its norm runs unfused and the GEMM quantizes; the forward without a
 gradient runs the norm and then the one-orientation quantize, as the
-reference excludes its ``inference`` primal from the fused path."""
+reference excludes its ``inference`` primal from the fused path. A bias
+is added and differentiated as in ``dense.py``."""
 from __future__ import annotations
 
 import math
@@ -17,7 +18,8 @@ from typing import Optional
 
 import torch
 
-from .dense import (all_tensor_scaling, gemm_bwd, gemm_fwd, join_residuals,
+from .dense import (add_bias, all_tensor_scaling, bias_grad, bias_meta,
+                    check_bias, gemm_bwd, gemm_fwd, join_residuals,
                     needs_grad, split_residuals)
 from .ops.normalization import norm_bwd, norm_fwd
 from .quantize.prequant import PrequantizedKernel
@@ -48,7 +50,7 @@ def fused_norm_quantize(x, gamma, beta, kernel, qset, norm_type, zcg, eps,
     return qx, None if mu is None else mu.reshape(lead), rsigma.reshape(lead)
 
 
-def _ln_dense_fwd(x, kernel, gamma, beta, qset, norm_type, zcg, eps,
+def _ln_dense_fwd(x, kernel, gamma, beta, bias, qset, norm_type, zcg, eps,
                   inference=False):
     """(out, the GEMM's residuals, mu, rsigma)."""
     fused = None if inference else fused_norm_quantize(
@@ -61,6 +63,7 @@ def _ln_dense_fwd(x, kernel, gamma, beta, qset, norm_type, zcg, eps,
                                   zero_centered_gamma=zcg, epsilon=eps)
         out2d, res = gemm_fwd(ln.reshape(-1, x.shape[-1]), kernel, qset,
                               inference=inference)
+    out2d = add_bias(out2d, bias)
     out = out2d.reshape(*x.shape[:-1], *kernel.shape[1:]).to(x.dtype)
     return out, res, mu, rsigma
 
@@ -68,21 +71,23 @@ def _ln_dense_fwd(x, kernel, gamma, beta, qset, norm_type, zcg, eps,
 class _LayerNormDense(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, kernel, gamma, beta, qset, norm_type, zcg, eps):
-        out, res, mu, rsigma = _ln_dense_fwd(x, kernel, gamma, beta, qset,
-                                             norm_type, zcg, eps)
+    def forward(ctx, x, kernel, gamma, beta, bias, qset, norm_type, zcg,
+                eps):
+        out, res, mu, rsigma = _ln_dense_fwd(x, kernel, gamma, beta, bias,
+                                             qset, norm_type, zcg, eps)
         tensors, ctx.tag = split_residuals(res)
         ctx.save_for_backward(x, mu, rsigma, gamma, *tensors)
         ctx.qset, ctx.norm = qset, (norm_type, zcg)
         ctx.k_meta = (tuple(kernel.shape), kernel.dtype)
+        ctx.bias = bias_meta(bias)
         return out
 
     @staticmethod
     def backward(ctx, g):
         x, mu, rsigma, gamma, *tensors = ctx.saved_tensors
         k_shape, k_dtype = ctx.k_meta
-        dln2d, dw2d, new = gemm_bwd(g.reshape(-1, math.prod(k_shape[1:])),
-                                    join_residuals(ctx.tag, tensors),
+        g2d = g.reshape(-1, math.prod(k_shape[1:]))
+        dln2d, dw2d, new = gemm_bwd(g2d, join_residuals(ctx.tag, tensors),
                                     ctx.qset,
                                     need_dw=ctx.needs_input_grad[1])
         if new is not None:
@@ -92,25 +97,29 @@ class _LayerNormDense(torch.autograd.Function):
                                      mu, rsigma, gamma, norm_type,
                                      zero_centered_gamma=zcg)
         dw = dw2d.reshape(k_shape).to(k_dtype) if dw2d is not None else None
-        return dx, dw, dgamma, dbeta, None, None, None, None
+        return (dx, dw, dgamma, dbeta, bias_grad(g2d, ctx.bias), None, None,
+                None, None)
 
 
 def layernorm_dense(x: torch.Tensor, kernel, gamma: torch.Tensor, *,
                     beta: Optional[torch.Tensor] = None,
+                    bias: Optional[torch.Tensor] = None,
                     norm_type: str = "rmsnorm",
                     zero_centered_gamma: bool = False, epsilon: float = 1e-6,
                     quantizer_set: QuantizerSet = noop_quantizer_set
                     ) -> torch.Tensor:
-    """``out = norm(x) . kernel`` in ``x``'s dtype; ``beta`` is the
-    LayerNorm bias (``norm_type="layernorm"`` only)."""
+    """``out = norm(x) . kernel + bias`` in ``x``'s dtype; ``beta`` is the
+    LayerNorm bias (``norm_type="layernorm"`` only), ``bias`` the GEMM's
+    (the kernel's feature shape, or None)."""
     if kernel.shape[0] != x.shape[-1]:
         raise ValueError(f"kernel {tuple(kernel.shape)} does not contract "
                          f"with x {tuple(x.shape)}")
     if (beta is not None) != (norm_type == "layernorm"):
         raise ValueError("beta goes with norm_type='layernorm' and only "
                          "with it")
-    args = (x, kernel, gamma, beta, quantizer_set, norm_type,
+    check_bias(bias, kernel)
+    args = (x, kernel, gamma, beta, bias, quantizer_set, norm_type,
             zero_centered_gamma, float(epsilon))
-    if needs_grad(x, kernel, gamma, beta):
+    if needs_grad(x, kernel, gamma, beta, bias):
         return _LayerNormDense.apply(*args)
     return _ln_dense_fwd(*args, inference=True)[0]

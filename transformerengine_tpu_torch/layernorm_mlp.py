@@ -16,7 +16,8 @@ import torch
 from .dense import (gemm_bwd, gemm_fwd, join_residuals, needs_grad,
                     split_residuals)
 from .layernorm_dense import fused_norm_quantize
-from .ops.activation import act_lu, dact_lu, normalize_activation_type
+from .ops.activation import (act_lu, dact_lu, normalize_activation_type,
+                             num_halves)
 from .ops.normalization import norm_bwd, norm_fwd
 from .quantize.quantizer import QuantizerSet, noop_quantizer_set
 
@@ -38,7 +39,8 @@ def _ln_mlp_fwd(x, gamma, beta, kernel1, kernel2, qset1, qset2, norm_type,
         z2d, res1 = gemm_fwd(ln.reshape(-1, hidden), kernel1, qset1,
                              inference=inference)
     z2d = z2d.to(x.dtype)
-    a2d = act_lu(z2d.reshape(-1, 2, ffn) if len(acts) == 2 else z2d, acts)
+    a2d = act_lu(z2d.reshape(-1, 2, ffn) if num_halves(acts) == 2 else z2d,
+                 acts)
     out2d, res2 = gemm_fwd(a2d.reshape(-1, ffn), kernel2, qset2,
                            inference=inference)
     return out2d.reshape(x.shape).to(x.dtype), res1, res2, mu, rsigma, z2d
@@ -70,7 +72,7 @@ class _LayerNormMLP(torch.autograd.Function):
         qset1, qset2 = ctx.qsets
         (k1_shape, k1_dtype), (k2_shape, k2_dtype) = ctx.k_meta
         m, hidden = z2d.shape[0], x.shape[-1]
-        n_act, ffn = len(ctx.acts), k1_shape[-1]
+        n_act, ffn = num_halves(ctx.acts), k1_shape[-1]
         da2d, dw2, new2 = gemm_bwd(g.reshape(m, hidden), res2, qset2,
                                    need_dw=ctx.needs_input_grad[4])
         da = da2d.to(x.dtype)
@@ -104,9 +106,9 @@ def layernorm_mlp(x: torch.Tensor, gamma: torch.Tensor, kernel1, kernel2, *,
     with n_act = 2 for gated activations; ``kernel2`` is (ffn, hidden);
     ``beta`` is the LayerNorm bias (``norm_type="layernorm"`` only)."""
     acts = normalize_activation_type(activation_type)
-    if len(kernel1.shape) == 3 and kernel1.shape[1] != len(acts):
+    if len(kernel1.shape) == 3 and kernel1.shape[1] != num_halves(acts):
         raise ValueError(f"kernel1 n_act dim {kernel1.shape[1]} != "
-                         f"{len(acts)} activations")
+                         f"{num_halves(acts)} for {acts}")
     if (beta is not None) != (norm_type == "layernorm"):
         raise ValueError("beta goes with norm_type='layernorm' and only "
                          "with it")

@@ -143,9 +143,9 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
     return -ll.mean()
 
 
-# Parameters kept in f32 whatever the model's dtype: norm scales and a
-# MoE layer's router kernel.
-F32_PARAMS = ("scale", "router_kernel")
+# Parameters kept in f32 whatever the model's dtype: norm scales, a MoE
+# layer's router kernel and an attention's learnable sink.
+F32_PARAMS = ("scale", "router_kernel", "softmax_offset")
 
 _FP8_NUMPY = {"float8_e4m3fn": torch.float8_e4m3fn,
               "float8_e5m2": torch.float8_e5m2}

@@ -8,7 +8,8 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 
 from .grouped_dense import grouped_dense
-from .ops.activation import _ACT, normalize_activation_type
+from .ops.activation import (_ACT, CLAMPED, clamped_swiglu,
+                             normalize_activation_type)
 from .ops.gemm import matmul_f32
 from .ops.grouped_gemm import host_sizes
 from .ops.router import compute_routing
@@ -18,10 +19,12 @@ from .quantize.quantizer import QuantizerSet, noop_quantizer_set
 
 def _expert_mlp(h, w_up, w_down, group_sizes, acts, qset1, qset2):
     """The grouped MLP over expert-contiguous rows: w_up (E, H, n_act*F),
-    w_down (E, F, H)."""
+    w_down (E, F, H); GPT-OSS's clamped SwiGLU takes two FFN halves."""
     ffn = w_down.shape[1]
     z = grouped_dense(h, w_up, group_sizes, quantizer_set=qset1)
-    if len(acts) == 2:
+    if acts == CLAMPED:
+        a = clamped_swiglu(z.reshape(*z.shape[:-1], 2, ffn))
+    elif len(acts) == 2:
         z = z.reshape(*z.shape[:-1], 2, ffn)
         a = _ACT[acts[0]](z[..., 0, :]) * _ACT[acts[1]](z[..., 1, :])
     else:

@@ -31,7 +31,7 @@ from ..dense import dense
 from ..layernorm import layernorm
 from ..layernorm_dense import layernorm_dense
 from ..layernorm_mlp import layernorm_mlp
-from ..ops.activation import normalize_activation_type
+from ..ops.activation import normalize_activation_type, num_halves
 from ..quantize.helper import QuantizerFactory, get_quantize_config
 from ..quantize.quantizer import (DelayedScaleQuantizer, QuantizerSet,
                                   noop_quantizer_set)
@@ -120,36 +120,49 @@ class LayerNorm(nn.Module):
                          epsilon=self.epsilon)
 
 
+def _bias(use_bias: bool, features: int, dtype: torch.dtype, device):
+    """The reference's ``bias`` parameter: (features,) zeros in the
+    kernel's dtype, or None."""
+    if not use_bias:
+        return None
+    return nn.Parameter(torch.zeros(features, dtype=dtype, device=device))
+
+
 class DenseGeneral(TransformerEngineBase):
-    """``x . kernel`` with a (in_features, features) kernel; quantizer
-    set "dense"."""
+    """``x . kernel (+ bias)`` with a (in_features, features) kernel and,
+    with ``use_bias``, a (features,) ``bias``; quantizer set "dense".
+    The port's models pass ``use_bias`` as the reference's attention does
+    (off unless the model asks), so the default is off."""
 
     def __init__(self, in_features: int, features: int, *,
-                 dtype: torch.dtype = torch.bfloat16, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 use_bias: bool = False, dtype: torch.dtype = torch.bfloat16,
+                 device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
         self.kernel = init_kernel((in_features, features), in_features,
                                   dtype, device, generator)
+        self.bias = _bias(use_bias, features, dtype, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return dense(x, self.kernel,
+        return dense(x, self.kernel, self.bias,
                      quantizer_set=self.quantizer_set("dense"))
 
 
 class LayerNormDenseGeneral(TransformerEngineBase):
-    """``rmsnorm(x) . kernel``; quantizer set "ln_dense"."""
+    """``rmsnorm(x) . kernel (+ bias)``; quantizer set "ln_dense"."""
 
     def __init__(self, in_features: int, features: int, *,
-                 epsilon: float = 1e-6, dtype: torch.dtype = torch.bfloat16,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 epsilon: float = 1e-6, use_bias: bool = False,
+                 dtype: torch.dtype = torch.bfloat16, device=None,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         self.epsilon = epsilon
         self.scale = _ones(in_features, device)
         self.kernel = init_kernel((in_features, features), in_features,
                                   dtype, device, generator)
+        self.bias = _bias(use_bias, features, dtype, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return layernorm_dense(x, self.kernel, self.scale,
+        return layernorm_dense(x, self.kernel, self.scale, bias=self.bias,
                                epsilon=self.epsilon,
                                quantizer_set=self.quantizer_set("ln_dense"))
 
@@ -167,7 +180,7 @@ class LayerNormMLP(TransformerEngineBase):
         super().__init__()
         self.epsilon = epsilon
         self.activations = normalize_activation_type(activations)
-        n_act = len(self.activations)
+        n_act = num_halves(self.activations)
         self.scale = _ones(hidden, device)
         self.wi_kernel = init_kernel((hidden, n_act, intermediate_dim),
                                      hidden, dtype, device, generator)

@@ -10,7 +10,7 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 
 from ..moe import moe
-from ..ops.activation import normalize_activation_type
+from ..ops.activation import normalize_activation_type, num_halves
 from .module import LayerNorm, TransformerEngineBase, init_kernel
 
 
@@ -32,7 +32,7 @@ class MoELayerNormMLP(TransformerEngineBase):
         self.score_function = score_function
         self.aux_loss_coeff = aux_loss_coeff
         self.activations = normalize_activation_type(activations)
-        n_act = len(self.activations)
+        n_act = num_halves(self.activations)
         e, f = num_experts, intermediate_dim
         self.ln = LayerNorm(hidden, epsilon=epsilon, device=device)
         self.router_kernel = init_kernel((hidden, e), hidden, torch.float32,

@@ -3,17 +3,20 @@ transformer.py): causal self-attention with RMSNorm, RoPE, GQA and the
 contiguous or paged KV cache, and a decoder-only TransformerLayer whose
 MLP is dense or, with ``num_moe_experts`` > 0, a top-k routed mixture of
 experts (single device). Without a cache the forward is the training
-forward, differentiable end to end. Not ported yet: other masks and
-norms, expert parallelism, cross-attention, relative position bias,
-dropout, sliding windows and softmax sinks."""
+forward, differentiable end to end. Attention takes biased projections,
+a static sliding window and the softmax sink types; a learnable sink is
+the attention's f32 ``softmax_offset``, which training and the caches
+share. Not ported yet: other masks and norms, expert parallelism,
+cross-attention, relative position bias and dropout."""
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 from torch import nn
 
-from ..attention import AttnMaskType, SequenceDescriptor, fused_attn
+from ..attention import (AttnMaskType, SequenceDescriptor, SoftmaxType,
+                         fused_attn)
 from ..inference.kv_cache import (KVCache, PagedKVCache, cache_append,
                                   calibrate_kv_scale, paged_append_prompt,
                                   paged_append_token)
@@ -28,12 +31,17 @@ from .moe import MoELayerNormMLP
 class MultiHeadAttention(nn.Module):
     """norm -> fused QKV projection -> RoPE -> attention -> output
     projection. Submodules ``qkv`` and ``out`` carry the reference's
-    parameter names."""
+    parameter names (each with a ``bias`` under ``use_bias``).
+    ``window_size`` (left, right) bands the attention; ``softmax_type``
+    LEARNABLE owns an f32 ``softmax_offset`` (Hq,), zeros at init."""
 
     def __init__(self, hidden_size: int, num_attention_heads: int, *,
                  head_dim: Optional[int] = None,
                  num_gqa_groups: Optional[int] = None,
                  layernorm_epsilon: float = 1e-6,
+                 use_bias: bool = False,
+                 window_size: Optional[Tuple[int, int]] = None,
+                 softmax_type: Optional[SoftmaxType] = None,
                  rotary_pos_emb_base: float = 10000.0,
                  max_seq_len: int = 8192,
                  dtype: torch.dtype = torch.bfloat16, device=None,
@@ -42,12 +50,20 @@ class MultiHeadAttention(nn.Module):
         self.head_dim = head_dim or hidden_size // num_attention_heads
         self.num_heads = num_attention_heads
         self.num_kv_heads = num_gqa_groups or num_attention_heads
+        self.window_size = (tuple(window_size) if window_size is not None
+                            else None)
+        self.softmax_type = softmax_type or SoftmaxType.VANILLA
         d, hq, hkv = self.head_dim, self.num_heads, self.num_kv_heads
+        self.softmax_offset = (
+            nn.Parameter(torch.zeros(hq, dtype=torch.float32, device=device))
+            if self.softmax_type is SoftmaxType.LEARNABLE else None)
         self.qkv = LayerNormDenseGeneral(
             hidden_size, (hq + 2 * hkv) * d, epsilon=layernorm_epsilon,
-            dtype=dtype, device=device, generator=generator)
-        self.out = DenseGeneral(hq * d, hidden_size, dtype=dtype,
-                                device=device, generator=generator)
+            use_bias=use_bias, dtype=dtype, device=device,
+            generator=generator)
+        self.out = DenseGeneral(hq * d, hidden_size, use_bias=use_bias,
+                                dtype=dtype, device=device,
+                                generator=generator)
         self.register_buffer(
             "freqs", rope_frequencies(d, max_seq_len,
                                       base=rotary_pos_emb_base,
@@ -88,8 +104,17 @@ class MultiHeadAttention(nn.Module):
                 (q, k, v), sequence_descriptor,
                 attn_mask_type=(AttnMaskType.PADDING_CAUSAL
                                 if sequence_descriptor is not None
-                                else AttnMaskType.CAUSAL))
+                                else AttnMaskType.CAUSAL),
+                window_size=self.window_size, softmax_type=self.softmax_type,
+                softmax_offset=self.softmax_offset)
         return self.out(ctx.reshape(b, s, hq * d))
+
+    def _sink(self, device) -> Optional[torch.Tensor]:
+        """The (Hq,) f32 sink logits the caches' kernels take, or None."""
+        if self.softmax_type is SoftmaxType.OFF_BY_ONE:
+            return torch.zeros(self.num_heads, dtype=torch.float32,
+                               device=device)
+        return self.softmax_offset
 
     def _cached_attention(self, q, k, v, cache, sequence_descriptor
                           ) -> torch.Tensor:
@@ -98,7 +123,9 @@ class MultiHeadAttention(nn.Module):
         append, and attend causally within the prompt (the cache was
         empty). Decode: append the token and attend over the cache, a
         :class:`KVCache` through the decode kernel, a
-        :class:`PagedKVCache` through the paged one."""
+        :class:`PagedKVCache` through the paged one. A windowed layer
+        refuses the paged cache: the reference's paged path drops the
+        window (ROADMAP.md, Queue 3), and the port does not copy that."""
         b = k.shape[0]
         if b != cache.length.shape[0]:
             raise ValueError(f"batch {b} != the cache's batch "
@@ -111,6 +138,11 @@ class MultiHeadAttention(nn.Module):
                 cache.kv_scale.copy_(calibrate_kv_scale(k, v, per_slot=True))
         qscale = cache.kv_scale if cache.is_fp8 else None
         paged = isinstance(cache, PagedKVCache)
+        window = self.window_size
+        if paged and window is not None and tuple(window) != (-1, -1):
+            raise NotImplementedError(
+                "a sliding-window layer on the paged cache is not ported")
+        sink = self._sink(q.device)
         if not paged:
             cache_append(cache, k, v, qscale)
         elif is_prefill:
@@ -125,26 +157,37 @@ class MultiHeadAttention(nn.Module):
             return flash_attention(
                 q, k, v, desc,
                 attn_mask_type=(AttnMaskType.PADDING_CAUSAL if desc is not None
-                                else AttnMaskType.CAUSAL))
+                                else AttnMaskType.CAUSAL),
+                window_size=window,
+                softmax_type=(None if self.softmax_type is SoftmaxType.VANILLA
+                              else self.softmax_type),
+                softmax_offset=self.softmax_offset)
         dq_scale = (1.0 / cache.kv_scale) if cache.is_fp8 else None
         if paged:
             return paged_decode_attention(
                 q, cache.pages_k, cache.pages_v, cache.page_table,
-                cache.length, kv_scale=dq_scale)
-        return decode_attention(q, cache.k, cache.v, cache.length,
-                                kv_scale=dq_scale)
+                cache.length, kv_scale=dq_scale, softmax_sink=sink)
+        return decode_attention(
+            q, cache.k, cache.v, cache.length, kv_scale=dq_scale,
+            window_left=window[0] if window is not None else -1,
+            softmax_sink=sink)
 
 
 class TransformerLayer(nn.Module):
     """Decoder-only pre-norm layer: ``x + attn(x)``, then ``x + mlp(x)``,
     with submodules ``self_attention`` and ``mlp``. With
     ``num_moe_experts`` > 0 the MLP is a :class:`MoELayerNormMLP` and the
-    forward returns (x, the router's aux loss)."""
+    forward returns (x, the router's aux loss). ``use_bias``,
+    ``window_size`` and ``softmax_type`` go to the attention, as the
+    reference routes them (the MoE's experts take no bias)."""
 
     def __init__(self, hidden_size: int, mlp_hidden_size: int,
                  num_attention_heads: int, *, head_dim: Optional[int] = None,
                  num_gqa_groups: Optional[int] = None,
                  layernorm_epsilon: float = 1e-6, mlp_activations="swiglu",
+                 use_bias: bool = False,
+                 window_size: Optional[Tuple[int, int]] = None,
+                 softmax_type: Optional[SoftmaxType] = None,
                  rotary_pos_emb_base: float = 10000.0,
                  max_seq_len: int = 8192, num_moe_experts: int = 0,
                  moe_topk: int = 2, moe_score_function: str = "softmax",
@@ -155,7 +198,8 @@ class TransformerLayer(nn.Module):
         self.self_attention = MultiHeadAttention(
             hidden_size, num_attention_heads, head_dim=head_dim,
             num_gqa_groups=num_gqa_groups,
-            layernorm_epsilon=layernorm_epsilon,
+            layernorm_epsilon=layernorm_epsilon, use_bias=use_bias,
+            window_size=window_size, softmax_type=softmax_type,
             rotary_pos_emb_base=rotary_pos_emb_base,
             max_seq_len=max_seq_len, dtype=dtype, device=device,
             generator=generator)
@@ -169,6 +213,9 @@ class TransformerLayer(nn.Module):
                 aux_loss_coeff=moe_aux_loss_coeff, dtype=dtype,
                 device=device, generator=generator)
         else:
+            if use_bias:
+                raise NotImplementedError(
+                    "the dense MLP's biases are not ported yet")
             self.mlp = LayerNormMLP(
                 hidden_size, mlp_hidden_size, epsilon=layernorm_epsilon,
                 activations=mlp_activations, dtype=dtype, device=device,

@@ -4,7 +4,12 @@ f32; results take the input's dtype.
 
 Gated activations take ``[..., 2, H]``: ``act(x[..., 0, :]) *
 x[..., 1, :]``, so SwiGLU applies SiLU to the first half of the
-up-projection and the second half is the linear gate."""
+up-projection and the second half is the linear gate. GPT-OSS's clamped
+SwiGLU is gated too, but its gate is clipped and offset, so it stays the
+one-name sentinel ``("clamped_swiglu",)``, applied by
+:func:`clamped_swiglu`, an autograd function whose backward gives half
+the gradient at an exact tie with a clip bound, as JAX's ``minimum`` and
+``clip`` do (``lax.min``'s balanced JVP)."""
 from __future__ import annotations
 
 from typing import Sequence, Tuple, Union
@@ -23,10 +28,76 @@ def linear(x: torch.Tensor) -> torch.Tensor:
 
 _ACT = {"silu": silu, "swish": silu, "linear": linear}
 GATED_ALIASES = {"swiglu": ("silu", "linear")}
+CLAMPED = ("clamped_swiglu",)
+
+# GPT-OSS's clamp (the reference's ClampedSwiGLUParam defaults).
+CLAMP_LIMIT, CLAMP_ALPHA, CLAMP_OFFSET = 7.0, 1.702, 1.0
+
+
+def _tie_grad(inside: torch.Tensor, tie: torch.Tensor) -> torch.Tensor:
+    """1 inside a clip, 0.5 at an exact tie with its bound, 0 past it."""
+    return torch.where(inside, 1.0, torch.where(tie, 0.5, 0.0))
+
+
+class _ClampedSwiGLU(torch.autograd.Function):
+    """``clamped_silu(x0) * (clip(x1, -limit, limit) + offset)`` over
+    [..., 2, H] in f32, the result in x's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, limit, alpha, offset):
+        ctx.save_for_backward(x)
+        ctx.cfg = (limit, alpha, offset)
+        gate = torch.clamp(x[..., 1, :].float(), -limit, limit) + offset
+        return (clamped_silu(x[..., 0, :], limit, alpha) * gate).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dz):
+        (x,) = ctx.saved_tensors
+        limit, alpha, offset = ctx.cfg
+        return dclamped_swiglu(dz, x, limit, alpha, offset), None, None, None
+
+
+def clamped_silu(x: torch.Tensor, limit: float = CLAMP_LIMIT,
+                 alpha: float = CLAMP_ALPHA) -> torch.Tensor:
+    """``v * sigmoid(alpha * v)`` with ``v = min(x, limit)``, in f32."""
+    v = torch.clamp(x.float(), max=limit)
+    return v * torch.sigmoid(alpha * v)
+
+
+def clamped_swiglu(x: torch.Tensor, limit: float = CLAMP_LIMIT,
+                   alpha: float = CLAMP_ALPHA,
+                   linear_offset: float = CLAMP_OFFSET) -> torch.Tensor:
+    """GPT-OSS's gated activation over [..., 2, H]: ``clamped_silu(x0) *
+    (clip(x1, -limit, limit) + linear_offset)``, computed in f32, in x's
+    dtype; differentiable (:func:`dclamped_swiglu`)."""
+    if x.shape[-2] != 2:
+        raise ValueError(f"clamped_swiglu needs [..., 2, H], got "
+                         f"{tuple(x.shape)}")
+    return _ClampedSwiGLU.apply(x, float(limit), float(alpha),
+                                float(linear_offset))
+
+
+def dclamped_swiglu(dz: torch.Tensor, x: torch.Tensor,
+                    limit: float = CLAMP_LIMIT, alpha: float = CLAMP_ALPHA,
+                    linear_offset: float = CLAMP_OFFSET) -> torch.Tensor:
+    """The VJP of :func:`clamped_swiglu` at ``x`` [..., 2, H] for ``dz``,
+    in x's dtype, in the order JAX's autodiff takes it."""
+    dzf = dz.float()
+    x0, x1 = x[..., 0, :].float(), x[..., 1, :].float()
+    v = torch.clamp(x0, max=limit)
+    s = torch.sigmoid(alpha * v)
+    gate = torch.clamp(x1, -limit, limit) + linear_offset
+    d_act, d_gate = dzf * gate, dzf * (v * s)
+    dv = d_act * s + ((d_act * v) * (s * (1.0 - s))) * alpha
+    dx0 = dv * _tie_grad(x0 < limit, x0 == limit)
+    dx1 = d_gate * _tie_grad(x1.abs() < limit, x1.abs() == limit)
+    return torch.stack([dx0, dx1], dim=-2).to(x.dtype)
 
 
 def normalize_activation_type(
         activation_type: Union[str, Sequence[str]]) -> Tuple[str, ...]:
+    if activation_type in ("clamped_swiglu", CLAMPED):
+        return CLAMPED
     if isinstance(activation_type, str):
         acts = GATED_ALIASES.get(activation_type, (activation_type,))
     else:
@@ -39,10 +110,23 @@ def normalize_activation_type(
     return acts
 
 
+def is_gated(activation_type: Union[str, Sequence[str]]) -> bool:
+    """True for an act(x0) * gate(x1) pair over [..., 2, H]."""
+    acts = normalize_activation_type(activation_type)
+    return len(acts) == 2 or acts == CLAMPED
+
+
+def num_halves(activation_type: Union[str, Sequence[str]]) -> int:
+    """The up projection's n_act: 2 for a gated activation, else 1."""
+    return 2 if is_gated(activation_type) else 1
+
+
 def act_lu(x: torch.Tensor,
            activation_type: Union[str, Sequence[str]] = "swiglu"):
     """Optionally gated activation, in ``x``'s dtype."""
     acts = normalize_activation_type(activation_type)
+    if acts == CLAMPED:
+        return clamped_swiglu(x)
     if len(acts) == 2:
         if x.shape[-2] != 2:
             raise ValueError(f"gated activation needs [..., 2, H], got "
@@ -72,6 +156,8 @@ def dact_lu(dz: torch.Tensor, x: torch.Tensor,
     """The VJP of :func:`act_lu` at ``x`` for the output gradient ``dz``,
     in ``x``'s dtype. Gated: ``x`` is [..., 2, H] and so is the result."""
     acts = normalize_activation_type(activation_type)
+    if acts == CLAMPED:
+        return dclamped_swiglu(dz, x)
     dzf = dz.float()
     if len(acts) == 2:
         x0, x1 = x[..., 0, :].float(), x[..., 1, :].float()
