@@ -261,8 +261,7 @@ def test_wrapper_arguments():
     assert AttnSoftmaxType is SoftmaxType
     for name, value in (("q_position_offset", 3), ("bias", q),
                         ("dropout_probability", 0.1), ("score_mod", abs),
-                        ("qkv_quantizers", (None,) * 3),
-                        ("mha_proj", (None, None)), ("block_q", 64)):
+                        ("block_q", 64)):
         with pytest.raises(NotImplementedError, match="not ported"):
             flash_attention(q, k, v, **{name: value})
     with pytest.raises(NotImplementedError, match="dynamic"):

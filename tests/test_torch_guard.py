@@ -158,6 +158,7 @@ def _calls():
     tensors (shapes, dtypes and a device, no storage), so no card is
     needed to build them."""
     bf16, f32 = torch.bfloat16, torch.float32
+    e4m3 = torch.float8_e4m3fn
     both = QuantizeLayout.ROWWISE_COLWISE
 
     def cuda(*shape, dtype=bf16):
@@ -187,6 +188,29 @@ def _calls():
             cuda(2, 64, 4, 32), cuda(2, 64, 2, 32), cuda(2, 64, 2, 32),
             cuda(2, 64, 4, 32), cuda(2, 4, 64, dtype=torch.float32),
             cuda(2, 64, 4, 32), scale=0.2, causal=True, window=(16, 0)),
+        # The FP8 branches (fp8_dpa, and fp8_mha's fp8 O and dO) count
+        # under their own names too.
+        "flash_fwd_fp8": lambda: fa.flash_fwd(
+            cuda(2, 64, 4, 32, dtype=e4m3), cuda(2, 64, 2, 32, dtype=e4m3),
+            cuda(2, 64, 2, 32, dtype=e4m3), scale=0.2, causal=True,
+            scale_invs=cuda(3, dtype=f32)),
+        "flash_fwd_fp8_mha": lambda: fa.flash_fwd(
+            cuda(2, 64, 4, 32, dtype=e4m3), cuda(2, 64, 2, 32, dtype=e4m3),
+            cuda(2, 64, 2, 32, dtype=e4m3), scale=0.2, causal=True,
+            window=(16, 0), scale_invs=cuda(3, dtype=f32),
+            out_scale=cuda(1, dtype=f32)),
+        "flash_bwd_fp8": lambda: fa.flash_bwd(
+            cuda(2, 64, 4, 32, dtype=e4m3), cuda(2, 64, 2, 32, dtype=e4m3),
+            cuda(2, 64, 2, 32, dtype=e4m3), cuda(2, 64, 4, 32),
+            cuda(2, 4, 64, dtype=f32), cuda(2, 64, 4, 32), scale=0.2,
+            causal=True, scale_invs=cuda(3, dtype=f32)),
+        "flash_bwd_fp8_mha": lambda: fa.flash_bwd(
+            cuda(2, 64, 4, 32, dtype=e4m3), cuda(2, 64, 2, 32, dtype=e4m3),
+            cuda(2, 64, 2, 32, dtype=e4m3), cuda(2, 64, 4, 32, dtype=e4m3),
+            cuda(2, 4, 64, dtype=f32),
+            cuda(2, 64, 4, 32, dtype=torch.float8_e5m2), scale=0.2,
+            causal=True, scale_invs=cuda(3, dtype=f32),
+            o_scale_inv=cuda(1, dtype=f32), do_scale_inv=cuda(1, dtype=f32)),
         "te_paged_decode_attention": lambda: pa.paged_decode_attention(
             cuda(2, 1, 4, 32), cuda(6, 8, 2, 32, dtype=torch.float8_e4m3fn),
             cuda(6, 8, 2, 32, dtype=torch.float8_e4m3fn),
@@ -262,6 +286,12 @@ _LAUNCHED = {"te_flash_attention_bwd": ["te_flash_attention_bwd_dq",
              "flash_fwd_sw": ["te_flash_attention_fwd"],
              "flash_bwd_sw": ["te_flash_attention_bwd_dq",
                               "te_flash_attention_bwd_dkv"],
+             "flash_fwd_fp8": ["te_flash_attention_fwd"],
+             "flash_fwd_fp8_mha": ["te_flash_attention_fwd"],
+             "flash_bwd_fp8": ["te_flash_attention_bwd_dq",
+                               "te_flash_attention_bwd_dkv"],
+             "flash_bwd_fp8_mha": ["te_flash_attention_bwd_dq",
+                                   "te_flash_attention_bwd_dkv"],
              "delayed_quantize_2x": ["te_cast_transpose"],
              "current_quantize_2x": ["te_cast_transpose"],
              "quantize_normed": ["te_norm_cast_transpose"],
@@ -279,6 +309,8 @@ _LAUNCHED = {"te_flash_attention_bwd": ["te_flash_attention_bwd_dq",
 @pytest.mark.parametrize("entry", ["te_decode_tn_matvec",
                                    "te_flash_attention_fwd",
                                    "flash_fwd_sw", "flash_bwd_sw",
+                                   "flash_fwd_fp8", "flash_fwd_fp8_mha",
+                                   "flash_bwd_fp8", "flash_bwd_fp8_mha",
                                    "te_decode_attention",
                                    "te_paged_decode_attention",
                                    "te_decode_kn_matvec",
@@ -337,8 +369,12 @@ def test_wrappers_on_the_card_launch_or_raise(entry, monkeypatch):
             call()
         assert not isinstance(err.value, AssertionError)
         before = _build.LAUNCHES.copy()
-        monkeypatch.setattr(_build, "launch",
-                            lambda name, *args: launched.append(name))
+        def launch(name, *args):
+            # As many arguments as the C entry point takes.
+            assert len(args) == len(_build._SIGNATURES[name]), name
+            launched.append(name)
+
+        monkeypatch.setattr(_build, "launch", launch)
         call()
     expected = _LAUNCHED.get(entry, [entry])
     assert launched == expected
@@ -346,6 +382,11 @@ def test_wrappers_on_the_card_launch_or_raise(entry, monkeypatch):
     assert sum(grown.values()) == len(expected)
     if entry.endswith("_sw"):
         assert all(name.endswith("_sw") for name in grown), grown
+    if "_fp8" in entry:
+        branch = "_fp8_mha" if entry.endswith("_mha") else "_fp8"
+        assert all(branch in name for name in grown), grown
+        if entry == "flash_fwd_fp8_mha":     # with its window: "_sw" last
+            assert all(name.endswith("_fp8_mha_sw") for name in grown), grown
 
 
 def test_wrappers_refuse_mixed_devices():

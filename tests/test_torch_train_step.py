@@ -4,8 +4,9 @@ the same tokens and targets, then the loss, every parameter's gradient,
 the updated delayed-scaling state (the reference's quantize_meta
 cotangent; the port's module buffers after ``loss.backward()``) and the
 loss after one SGD step at 1e-3 in the parameter dtype, as
-``__graft_entry__.dryrun_multichip`` trains. Without a recipe (bf16) and
-under DelayedScaling(amax_history_len=16)."""
+``__graft_entry__.dryrun_multichip`` trains. Without a recipe (bf16),
+under DelayedScaling(amax_history_len=16) and under
+Float8CurrentScaling()."""
 import functools
 
 import jax
@@ -20,14 +21,15 @@ from transformerengine_tpu.flax.module import QUANTIZE_META
 from transformerengine_tpu.models.llama import (
     LLAMA_TINY as J_TINY, LlamaModel as JLlama,
     cross_entropy_loss as j_cross_entropy)
-from transformerengine_tpu_torch import DelayedScaling, autocast
+from transformerengine_tpu_torch import (DelayedScaling, Float8CurrentScaling,
+                                         autocast)
 from transformerengine_tpu_torch.models.llama import (
     LLAMA_TINY, LlamaModel, cross_entropy_loss, load_flax_params)
 
 torch.set_num_threads(2)
 
 B, S, LR = 2, 32, 1e-3
-RECIPES = ["bf16", "delayed"]
+RECIPES = ["bf16", "delayed", "current"]
 
 
 def _tokens():
@@ -40,6 +42,8 @@ def _tokens():
 def _autocast_j(recipe):
     if recipe == "bf16":
         return te.autocast(enabled=False)
+    if recipe == "current":
+        return te.autocast(enabled=True, recipe=te.Float8CurrentScaling())
     return te.autocast(enabled=True,
                        recipe=te.DelayedScaling(amax_history_len=16))
 
@@ -47,6 +51,8 @@ def _autocast_j(recipe):
 def _autocast_t(recipe):
     if recipe == "bf16":
         return autocast(enabled=False)
+    if recipe == "current":
+        return autocast(recipe=Float8CurrentScaling())
     return autocast(recipe=DelayedScaling(amax_history_len=16))
 
 
@@ -141,6 +147,17 @@ GRAD_RTOL = 2 ** -5
 # Delayed-scaling state: amaxes of bf16 tensors that may round one ulp
 # apart, and the scales computed from them.
 STATE_RTOL = 2 ** -7
+# Float8CurrentScaling: XLA's CPU mean and rsqrt differ from torch's by
+# an f32 ulp in a third of the RMSNorm rows, and at this seed one of
+# layer 1's normalized bf16 values rounds the other way and moves its
+# e4m3 code; every current-scaled quantize after it (each scale follows
+# its tensor's own amax) carries the step. Readings: loss 5.9e-5, second
+# loss 1.8e-3, gradients 1.2e-1 largest (the embedding; layer 0 8e-2 to
+# 1.2e-1, layer 1 4e-2 to 6e-2, the final norm 5.5e-3).
+# test_torch_fp8_attention_step.py holds the same recipe to 6.9e-4 from
+# weights where no code moves.
+CURRENT_GRAD_RTOL = 2 ** -2
+CURRENT_SECOND_LOSS_ATOL = 5e-3
 
 
 @pytest.mark.parametrize("recipe", RECIPES)
@@ -155,7 +172,8 @@ def test_train_step_loss_and_grads_match(recipe):
         ref = grads_j[name]
         assert p.grad is not None and p.grad.dtype == p.dtype, name
         err = np.abs(p.grad.float().numpy() - ref).max() / np.abs(ref).max()
-        assert err <= GRAD_RTOL, (name, err)
+        assert err <= (CURRENT_GRAD_RTOL if recipe == "current"
+                       else GRAD_RTOL), (name, err)
 
 
 def test_train_step_updates_quantize_meta():
@@ -182,4 +200,5 @@ def test_second_sgd_step_loss_matches(recipe):
         for p in model.parameters():
             p -= LR * p.grad.to(p.dtype)
     loss = _step(model, recipe)
-    assert abs(float(loss) - second_loss_j) <= LOSS_ATOL
+    assert abs(float(loss) - second_loss_j) <= (
+        CURRENT_SECOND_LOSS_ATOL if recipe == "current" else LOSS_ATOL)

@@ -6,7 +6,8 @@ two backends:
 * ``UNFUSED``: plain PyTorch with materialized scores, differentiated by
   autograd; the yardstick of the tests.
 
-Both backends take a static sliding window and the softmax sink types.
+Both backends take a static sliding window and the softmax sink types;
+the flash backend also takes FP8 Q/K/V quantizers (``fp8_dpa``).
 Segment ids (packed batches), biases and dropout are not ported yet and
 raise.
 """
@@ -163,13 +164,16 @@ def fused_attn(qkv: Sequence[torch.Tensor],
                mask: Optional[torch.Tensor] = None,
                softmax_type: SoftmaxType = SoftmaxType.VANILLA,
                softmax_offset: Optional[torch.Tensor] = None,
+               qkv_quantizers=None,
                backend: AttnBackend = AttnBackend.AUTO) -> torch.Tensor:
     """Scaled dot-product attention over BSHD (q, k, v); returns (B, Sq,
     Hq, D). ``mask`` (bool, broadcastable to (B, H, Sq, Skv), True =
     attend) is an explicit mask, which only the unfused backend takes.
     ``window_size`` (left, right) is a static sliding window;
     ``softmax_type`` a sink type, LEARNABLE with the (Hq,) logits
-    ``softmax_offset``."""
+    ``softmax_offset``. ``qkv_quantizers`` (per-tensor quantizers of q, k
+    and v) run the flash backend's FP8 branch; the unfused backend
+    ignores them, as the reference's does."""
     q, k, v = qkv
     if scaling_factor is None:
         scaling_factor = 1.0 / (q.shape[-1] ** 0.5)
@@ -193,7 +197,9 @@ def fused_attn(qkv: Sequence[torch.Tensor],
             softmax_type=(softmax_type
                           if softmax_type is not SoftmaxType.VANILLA
                           else None),
-            softmax_offset=softmax_offset)
+            softmax_offset=softmax_offset,
+            qkv_quantizers=(tuple(qkv_quantizers)
+                            if qkv_quantizers is not None else None))
     full_mask = mask
     if full_mask is None and (attn_mask_type is not AttnMaskType.NO_MASK
                               or sequence_descriptor is not None

@@ -2,7 +2,14 @@
 recipe.py): the FP8 and FP4 format pairs, the per-tensor knobs
 (``QParams``), the two per-tensor recipes, delayed scaling (an amax
 history carried across steps) and current scaling, MXFP8 block scaling
-and NVFP4 block scaling. Float8BlockScaling is not ported yet."""
+and NVFP4 block scaling. Float8BlockScaling is not ported yet.
+
+The FP8 recipes carry the reference's attention flags: ``fp8_dpa`` runs
+the attention on FP8 Q/K/V (per-tensor current-scaling e4m3 payloads,
+under any FP8 recipe), and ``fp8_mha``, with ``fp8_dpa`` under a
+per-tensor recipe, also hands an FP8 O to the output projection and
+streams an FP8 dO through the attention's backward
+(``nn/transformer.py``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -61,6 +68,8 @@ class DelayedScaling(Recipe):
     fp8_format: Format = HYBRID
     amax_history_len: int = 1024
     amax_compute_algo: str = "max"
+    fp8_dpa: bool = False
+    fp8_mha: bool = False
 
     def __post_init__(self):
         if self.amax_compute_algo not in ("max", "most_recent"):
@@ -73,6 +82,8 @@ class Float8CurrentScaling(Recipe):
     """Per-tensor scaling from the current amax."""
 
     fp8_format: Format = HYBRID
+    fp8_dpa: bool = False
+    fp8_mha: bool = False
 
     @property
     def fp8_dtype(self) -> torch.dtype:

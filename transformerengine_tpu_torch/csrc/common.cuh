@@ -8,6 +8,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 // Dtype codes; keep in step with DTYPE_CODES in _build.py.
 enum DTypeCode { kFloat32 = 0, kBFloat16 = 1, kFloat8E4M3 = 2, kFloat8E5M2 = 3 };
 
@@ -21,6 +23,9 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 __device__ __forceinline__ float to_float(__nv_fp8_e4m3 v) {
+  return static_cast<float>(v);
+}
+__device__ __forceinline__ float to_float(__nv_fp8_e5m2 v) {
   return static_cast<float>(v);
 }
 
@@ -63,6 +68,21 @@ __device__ __forceinline__ void widen16<__nv_fp8_e4m3>(const uint4& raw,
   for (int i = 0; i < 8; ++i) {
     const float2 f =
         __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(pairs[i], __NV_E4M3)));
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
+// e5m2 pairs likewise (every e5m2 value is an f16 value).
+template <>
+__device__ __forceinline__ void widen16<__nv_fp8_e5m2>(const uint4& raw,
+                                                       float* out) {
+  const __nv_fp8x2_storage_t* pairs =
+      reinterpret_cast<const __nv_fp8x2_storage_t*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float2 f =
+        __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(pairs[i], __NV_E5M2)));
     out[2 * i] = f.x;
     out[2 * i + 1] = f.y;
   }
@@ -131,6 +151,32 @@ struct Fp8Cast {
     return __nv_cvt_float_to_fp8(y, __NV_SATFINITE, kind);
   }
 };
+
+// Stores v as element i of a tensor of dtype `code` (a DTypeCode): f32,
+// bf16 rounded to nearest even, or fp8 through Fp8Cast (clip, then round
+// to nearest even).
+__device__ __forceinline__ void store_as(void* p, int code, size_t i,
+                                         float v) {
+  switch (code) {
+    case kFloat32:
+      static_cast<float*>(p)[i] = v;
+      break;
+    case kBFloat16:
+      static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16(v);
+      break;
+    default:
+      static_cast<uint8_t*>(p)[i] = Fp8Cast(code == kFloat8E5M2)(v);
+      break;
+  }
+}
+
+// The FP8 attention branch: Q/K/V arrive as e4m3 payloads, and the softmax
+// weights and score gradients round to bf16 (not to the payloads' type)
+// before their products.
+template <typename T>
+constexpr bool kIsFp8 = std::is_same<T, __nv_fp8_e4m3>::value;
+template <typename T>
+using RoundT = typename std::conditional<kIsFp8<T>, __nv_bfloat16, T>::type;
 
 // Block-wide max of a non-negative value per thread into *out (which
 // the caller zeroed): an atomicMax on the f32 bit pattern, exact because

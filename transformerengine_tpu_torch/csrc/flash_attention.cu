@@ -8,7 +8,8 @@
 // per-sequence lengths, a static sliding window (`_mask_scores`: key j is
 // visible to query i when i + offset - left <= j <= i + offset + right,
 // each side where it is >= 0) and a per-head softmax sink; GQA with
-// Hq % Hkv == 0; bf16 or f32; D <= 256.
+// Hq % Hkv == 0; bf16 or f32, or e4m3 payloads (the FP8 branch below);
+// D <= 256.
 //
 // Numerics follow the reference: the caller folds scale * log2(e) into q
 // in q's dtype, scores run in the exp2 domain, masked scores are -2e30
@@ -21,6 +22,22 @@
 // 2^(s0 - m2), O = acc * 2^(m - m2) / l2, LSE = m2 * ln(2) + ln(l2); a row
 // with no visible key then writes O = 0 and LSE = sink. The decode kernel
 // (decode_attention.cu) applies the same epilogue in the exp domain.
+//
+// FP8 branch (the reference's `fp8` and `fp8_out`, `_fwd_block_body` and
+// `_fwd_write_out` with `scales_ref`): Q, K and V arrive as e4m3 payloads
+// of per-tensor-scaled tensors, with a device vector `scales` = [smult,
+// sv_inv, out_scale] (smult = sq_inv * sk_inv * scale * log2(e)), read on
+// the card, so the host never waits for a scale. q is not pre-scaled: the
+// f32 score sums are multiplied by smult before the mask; the softmax
+// weights round to bf16 (not to V's type) before the PV product; the
+// accumulator takes sv_inv at write-out. O is written in bf16 or f32, or
+// (fp8_mha under delayed scaling, `o_amax` given) as the fp8 cast of
+// O * out_scale, clipped to the format's range and rounded to nearest
+// even, with the amax of O before the cast reduced into *o_amax: one
+// atomicMax on the f32 bits per block, exact for non-negative values, and
+// a row with no visible key adds 0. Every product is exact in f32 (e4m3 x
+// e4m3 and bf16 x e4m3), so the branch differs from its plain version in
+// summation order alone. A window and a sink compose with it.
 //
 // Bound on an H100: bytes. The serving path's prefill (B = 8, padded to
 // S = 512, lengths 512 and 384 mixed, Hq = 32, Hkv = 8, D = 128) reads Q,
@@ -46,7 +63,12 @@
 // tid % 16 + 16 * c), the online softmax reduces over the 16 lanes that
 // share a row, and the same threads own 4 rows x D / 16 columns of the
 // output accumulator. K rows are padded to D + 1 floats so that the 16
-// lanes reading 16 keys hit distinct banks.
+// lanes reading 16 keys hit distinct banks. The FP8 branch keeps this
+// design: its payloads are widened to f32 as they are loaded (16 e4m3
+// values per 16-byte load), and the fp8 tensor-core products come with the
+// kernel's redesign; its bound at the training shape (B 2, S 2048, Hq 32,
+// Hkv 8, D 128, causal) is the bytes (about 29 MB with an fp8 O, 9 us),
+// against 4.3 us for its 8.6 GFLOP at the 1,979 TFLOP/s fp8 peak.
 #include "common.cuh"
 
 namespace {
@@ -65,13 +87,17 @@ size_t smem_bytes(int D) {
 template <typename T, int DMAX>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse, const int* __restrict__ qlens,
+                     const T* __restrict__ v, void* __restrict__ o,
+                     int out_code, float* __restrict__ lse,
+                     const int* __restrict__ qlens,
                      const int* __restrict__ klens,
-                     const float* __restrict__ sink, int Sq, int Skv, int Hq,
+                     const float* __restrict__ sink,
+                     const float* __restrict__ scales,
+                     float* __restrict__ o_amax, int Sq, int Skv, int Hq,
                      int Hkv, int D, int causal, int offset, int left,
                      int right) {
   constexpr int kCols = DMAX / 16;
+  constexpr bool kFp8 = kIsFp8<T>;
   extern __shared__ float smem[];
   const int ld = D + 1;
   float* Qs = smem;              // [kBQ][D + 1]
@@ -86,6 +112,7 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int ty = tid >> 4;
+  const float smult = kFp8 ? scales[0] : 1.f;
 
   const int qlen = qlens != nullptr ? qlens[b] : Sq;
   const int klen = klens != nullptr ? klens[b] : Skv;
@@ -176,6 +203,7 @@ __global__ void __launch_bounds__(kThreads)
         if (left >= 0) visible = visible && kj >= qi + offset - left;
         if (right >= 0) visible = visible && kj <= qi + offset + right;
         if (qlens != nullptr) visible = visible && qi < qlen && kj < klen;
+        if (kFp8) s[r][c] *= smult;
         if (!visible) s[r][c] = kMasked;
         mx = fmaxf(mx, s[r][c]);
       }
@@ -186,7 +214,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int c = 0; c < 4; ++c) {
         const float p = exp2f(s[r][c] - m_new);
         rs += p;
-        Ps[(ty * 4 + r) * (kBK + 1) + tx + 16 * c] = round_to<T>(p);
+        Ps[(ty * 4 + r) * (kBK + 1) + tx + 16 * c] = round_to<RoundT<T>>(p);
       }
       l[r] = l[r] * alpha + half_warp_sum(rs);
       m[r] = m_new;
@@ -211,34 +239,43 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   const float s0 = sink != nullptr ? sink[h] * kLog2e : 0.f;
+  const float sv_inv = kFp8 ? scales[1] : 1.f;
+  const float o_scale = o_amax != nullptr ? scales[2] : 1.f;
+  float o_max = 0.f;
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int qi = q0 + ty * 4 + r;
     if (qi >= Sq) continue;
     const size_t row = ((size_t)b * Sq + qi) * Hq + h;
-    float lse_r;
+    // O = acc * mult / div, in the reference's order: V's sv_inv first.
+    float mult, div, lse_r;
     if (sink != nullptr) {
       // 2^(m - m2) is 0 for a row with no visible key (m at the floor),
       // and l2 >= 2^(s0 - m2) > 0.
       const float m2 = fmaxf(m[r], s0);
-      const float alpha = exp2f(m[r] - m2);
-      const float l2 = l[r] * alpha + exp2f(s0 - m2);
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        if (c * 16 < D)
-          o[row * D + tx + 16 * c] = from_float<T>(acc[r][c] * alpha / l2);
-      }
-      lse_r = m2 * kLn2 + logf(l2);
+      mult = exp2f(m[r] - m2);
+      div = l[r] * mult + exp2f(s0 - m2);
+      lse_r = m2 * kLn2 + logf(div);
     } else {
-      const float l_safe = l[r] > 0.f ? l[r] : 1.f;
+      mult = 1.f;
+      div = l[r] > 0.f ? l[r] : 1.f;
+      lse_r = l[r] > 0.f ? m[r] * kLn2 + logf(div) : kNegInf;
+    }
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        if (c * 16 < D)
-          o[row * D + tx + 16 * c] = from_float<T>(acc[r][c] / l_safe);
+    for (int c = 0; c < kCols; ++c) {
+      if (c * 16 < D) {
+        float a = kFp8 ? acc[r][c] * sv_inv : acc[r][c];
+        if (sink != nullptr) a *= mult;
+        const float o_true = a / div;
+        o_max = fmaxf(o_max, fabsf(o_true));
+        store_as(o, out_code, row * D + tx + 16 * c, o_true * o_scale);
       }
-      lse_r = l[r] > 0.f ? m[r] * kLn2 + logf(l_safe) : kNegInf;
     }
     if (tx == 0) lse[((size_t)b * Hq + h) * Sq + qi] = lse_r;
+  }
+  if (o_amax != nullptr) {
+    __syncthreads();  // every thread is past its last read of Ps
+    block_amax_to(o_max, Ps, o_amax);
   }
 }
 
@@ -248,8 +285,9 @@ struct Mask {
 
 template <typename T, int DMAX>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   float* lse, const int* qlens, const int* klens,
-                   const float* sink, int B, int Sq, int Skv, int Hq, int Hkv,
+                   int out_code, float* lse, const int* qlens,
+                   const int* klens, const float* sink, const float* scales,
+                   float* o_amax, int B, int Sq, int Skv, int Hq, int Hkv,
                    int D, const Mask& mk, cudaStream_t stream) {
   auto kernel = flash_fwd_kernel<T, DMAX>;
   const size_t smem = smem_bytes(D);
@@ -258,47 +296,62 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, qlens, klens, sink,
-      Sq, Skv, Hq, Hkv, D, mk.causal, mk.offset, mk.left, mk.right);
+      static_cast<const T*>(v), o, out_code, lse, qlens, klens, sink, scales,
+      o_amax, Sq, Skv, Hq, Hkv, D, mk.causal, mk.offset, mk.left, mk.right);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
-                     float* lse, const int* qlens, const int* klens,
-                     const float* sink, int B, int Sq, int Skv, int Hq,
-                     int Hkv, int D, const Mask& mk, cudaStream_t stream) {
-  if (D <= 64)
-    return launch<T, 64>(q, k, v, o, lse, qlens, klens, sink, B, Sq, Skv, Hq,
-                         Hkv, D, mk, stream);
-  if (D <= 128)
-    return launch<T, 128>(q, k, v, o, lse, qlens, klens, sink, B, Sq, Skv, Hq,
-                          Hkv, D, mk, stream);
-  return launch<T, 256>(q, k, v, o, lse, qlens, klens, sink, B, Sq, Skv, Hq,
-                        Hkv, D, mk, stream);
+                     int out_code, float* lse, const int* qlens,
+                     const int* klens, const float* sink,
+                     const float* scales, float* o_amax, int B, int Sq,
+                     int Skv, int Hq, int Hkv, int D, const Mask& mk,
+                     cudaStream_t stream) {
+#define TE_FWD(DM)                                                          \
+  launch<T, DM>(q, k, v, o, out_code, lse, qlens, klens, sink, scales,      \
+                o_amax, B, Sq, Skv, Hq, Hkv, D, mk, stream)
+  return D <= 64 ? TE_FWD(64) : D <= 128 ? TE_FWD(128) : TE_FWD(256);
+#undef TE_FWD
 }
 
 }  // namespace
 
+// `dtype` is Q/K/V's (f32, bf16, or e4m3 payloads with `scales`), O's is
+// `out_dtype`: Q's outside the FP8 branch; bf16, f32, or an fp8 type with
+// `o_amax` (zeroed by the caller) in it.
 extern "C" int te_flash_attention_fwd(const void* q, const void* k,
                                       const void* v, int dtype, void* o,
-                                      float* lse, const int* qlens,
-                                      const int* klens, const float* sink,
-                                      int B, int Sq, int Skv, int Hq, int Hkv,
-                                      int D, int causal, int offset, int left,
-                                      int right, void* stream) {
+                                      int out_dtype, float* lse,
+                                      const int* qlens, const int* klens,
+                                      const float* sink, const float* scales,
+                                      float* o_amax, int B, int Sq, int Skv,
+                                      int Hq, int Hkv, int D, int causal,
+                                      int offset, int left, int right,
+                                      void* stream) {
   if (B < 1 || Sq < 1 || Skv < 1 || Hkv < 1 || Hq % Hkv != 0 || D < 16 ||
       D > 256 || D % 16 != 0 || left < -1 || right < -1)
+    return cudaErrorInvalidValue;
+  const bool fp8 = dtype == kFloat8E4M3;
+  const bool fp8_out = out_dtype == kFloat8E4M3 || out_dtype == kFloat8E5M2;
+  if (fp8 != (scales != nullptr) || fp8_out != (o_amax != nullptr) ||
+      (fp8_out && !fp8) || (!fp8 && out_dtype != dtype) || out_dtype < 0 ||
+      out_dtype > kFloat8E5M2)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Mask mk{causal, offset, left, right};
   switch (dtype) {
     case kBFloat16:
-      return launch_d<__nv_bfloat16>(q, k, v, o, lse, qlens, klens, sink, B,
-                                     Sq, Skv, Hq, Hkv, D, mk, s);
+      return launch_d<__nv_bfloat16>(q, k, v, o, out_dtype, lse, qlens, klens,
+                                     sink, scales, o_amax, B, Sq, Skv, Hq,
+                                     Hkv, D, mk, s);
     case kFloat32:
-      return launch_d<float>(q, k, v, o, lse, qlens, klens, sink, B, Sq, Skv,
-                             Hq, Hkv, D, mk, s);
+      return launch_d<float>(q, k, v, o, out_dtype, lse, qlens, klens, sink,
+                             scales, o_amax, B, Sq, Skv, Hq, Hkv, D, mk, s);
+    case kFloat8E4M3:
+      return launch_d<__nv_fp8_e4m3>(q, k, v, o, out_dtype, lse, qlens, klens,
+                                     sink, scales, o_amax, B, Sq, Skv, Hq,
+                                     Hkv, D, mk, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -22,6 +22,21 @@
 // Epilogues: dQ = scale * sum(ds k); dK = ln(2) * sum(ds q_scaled) (q
 // carries scale * log2(e)); dV = sum(p dO).
 //
+// FP8 branch (the reference's `fp8` with `scales_ref`, and NVTE_FP8_DPA_BWD
+// for fp8_mha): q, k and v are the forward's e4m3 payloads (q not
+// pre-scaled) and `scales` a device vector [smult, sv_inv * sdo,
+// scale * sk_inv, scale * sq_inv, sdo] (sdo: dO's dequant scale, 1 for a
+// high-precision dO). dO is bf16 or f32 (fp8_dpa) or an e5m2 or e4m3
+// payload (fp8_mha; the caller then computes delta on the O and dO
+// payloads times so * sdo). s = (q . k) * smult before the mask, dp =
+// (dO . v) * (sv_inv * sdo); p and ds round to bf16 before their products
+// with the payloads; the epilogues multiply dQ by scale * sk_inv, dK by
+// scale * sq_inv and dV by sdo; the gradients are written in bf16 or f32
+// (`grad_dtype`). Every product is exact in f32 (e4m3 x e4m3, bf16 x e4m3,
+// bf16 x e5m2), so the branch differs from its plain version in summation
+// order alone. dO and the gradients take their dtype at run time (a
+// switch around each tile load and each store), Q/K/V as a template.
+//
 // Bound on an H100: operations. At the training shape (B 2, S 2048,
 // Hq 32, Hkv 8, D 128, bf16, causal) the five products over half the S^2
 // pairs are 1.72e11 FLOP, 0.17 ms at the 989 TFLOP/s bf16 tensor-core
@@ -52,7 +67,10 @@
 // Tiles are 64 x 64 for D <= 128 and 32 x 32 for D = 256, which keeps
 // the f32 tiles within the 227 KB of shared memory a block may use; rows
 // are padded to D + 1 floats so that lanes reading 16 rows hit distinct
-// banks.
+// banks. The FP8 branch widens its payloads as it loads them (16 values a
+// 16-byte load) and keeps this design; at the training shape its bound is
+// the operations at the fp8 peak (1.72e11 FLOP, 0.087 ms) against about
+// 92 MB of bytes with fp8 O and dO (0.027 ms).
 #include "common.cuh"
 
 namespace {
@@ -87,6 +105,32 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ src, int b,
   }
 }
 
+// load_tile for a tensor whose dtype is known at run time (a DTypeCode).
+template <int R>
+__device__ __forceinline__ void load_tile_as(const void* src, int code,
+                                             int b, int r0, int S, int H,
+                                             int h, int D, float* dst,
+                                             int ld) {
+  switch (code) {
+    case kFloat32:
+      load_tile<float, R>(static_cast<const float*>(src), b, r0, S, H, h, D,
+                          dst, ld);
+      break;
+    case kBFloat16:
+      load_tile<__nv_bfloat16, R>(static_cast<const __nv_bfloat16*>(src), b,
+                                  r0, S, H, h, D, dst, ld);
+      break;
+    case kFloat8E4M3:
+      load_tile<__nv_fp8_e4m3, R>(static_cast<const __nv_fp8_e4m3*>(src), b,
+                                  r0, S, H, h, D, dst, ld);
+      break;
+    default:
+      load_tile<__nv_fp8_e5m2, R>(static_cast<const __nv_fp8_e5m2*>(src), b,
+                                  r0, S, H, h, D, dst, ld);
+      break;
+  }
+}
+
 __device__ __forceinline__ bool visible(const Shape& sh, int qi, int kj,
                                         int qlen, int klen) {
   bool ok = qi < sh.Sq && kj < sh.Skv && qi < qlen && kj < klen;
@@ -106,13 +150,20 @@ struct Tiles {
 template <typename T, int DMAX>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ dout,
+                        const T* __restrict__ v,
+                        const void* __restrict__ dout, int do_code,
                         const float* __restrict__ lse2,
-                        const float* __restrict__ delta, T* __restrict__ dq,
+                        const float* __restrict__ delta,
+                        void* __restrict__ dq, int g_code,
                         const int* __restrict__ qlens,
-                        const int* __restrict__ klens, Shape sh, float scale) {
+                        const int* __restrict__ klens,
+                        const float* __restrict__ scales, Shape sh,
+                        float scale) {
   constexpr int kB = Tiles<DMAX>::kB, kR = Tiles<DMAX>::kR;
   constexpr int kCols = Tiles<DMAX>::kCols;
+  constexpr bool kFp8 = kIsFp8<T>;
+  const float smult = kFp8 ? scales[0] : 1.f;
+  const float dp_mult = kFp8 ? scales[1] : 1.f;
   extern __shared__ float smem[];
   const int D = sh.D, ld = D + 1;
   float* Qs = smem;             // [kB][ld]
@@ -139,7 +190,7 @@ __global__ void __launch_bounds__(kThreads)
       sh.left >= 0 ? max(0, q0 + sh.offset - sh.left) / kB * kB : 0;
 
   load_tile<T, kB>(q, b, q0, sh.Sq, sh.Hq, h, D, Qs, ld);
-  load_tile<T, kB>(dout, b, q0, sh.Sq, sh.Hq, h, D, dOs, ld);
+  load_tile_as<kB>(dout, do_code, b, q0, sh.Sq, sh.Hq, h, D, dOs, ld);
   for (int i = threadIdx.x; i < kB; i += kThreads) {
     const bool in = q0 + i < sh.Sq;
     const size_t at = ((size_t)b * sh.Hq + h) * sh.Sq + q0 + i;
@@ -193,10 +244,10 @@ __global__ void __launch_bounds__(kThreads)
         const int key = tx + 16 * c;
         float ds = 0.f;
         if (visible(sh, q0 + row, k0 + key, qlen, klen)) {
-          const float p = exp2f(s[r][c] - Ls[row]);
-          ds = p * (dp[r][c] - Dl[row]);
+          const float p = exp2f(s[r][c] * smult - Ls[row]);
+          ds = p * (dp[r][c] * dp_mult - Dl[row]);
         }
-        dSs[row * (kB + 1) + key] = round_to<T>(ds);
+        dSs[row * (kB + 1) + key] = round_to<RoundT<T>>(ds);
       }
     }
     __syncthreads();
@@ -220,23 +271,30 @@ __global__ void __launch_bounds__(kThreads)
   for (int r = 0; r < kR; ++r) {
     const int qi = q0 + ty * kR + r;
     if (qi >= sh.Sq) continue;
-    T* dst = dq + (((size_t)b * sh.Sq + qi) * sh.Hq + h) * D;
+    const size_t at = (((size_t)b * sh.Sq + qi) * sh.Hq + h) * D;
+    const float mult = kFp8 ? scales[2] : scale;
 #pragma unroll
     for (int c = 0; c < kCols; ++c)
-      if (c * 16 < D) dst[tx + 16 * c] = from_float<T>(acc[r][c] * scale);
+      if (c * 16 < D) store_as(dq, g_code, at + tx + 16 * c, acc[r][c] * mult);
   }
 }
 
 template <typename T, int DMAX>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ dout,
+                         const T* __restrict__ v,
+                         const void* __restrict__ dout, int do_code,
                          const float* __restrict__ lse2,
-                         const float* __restrict__ delta, T* __restrict__ dk,
-                         T* __restrict__ dv, const int* __restrict__ qlens,
-                         const int* __restrict__ klens, Shape sh) {
+                         const float* __restrict__ delta,
+                         void* __restrict__ dk, void* __restrict__ dv,
+                         int g_code, const int* __restrict__ qlens,
+                         const int* __restrict__ klens,
+                         const float* __restrict__ scales, Shape sh) {
   constexpr int kB = Tiles<DMAX>::kB, kR = Tiles<DMAX>::kR;
   constexpr int kCols = Tiles<DMAX>::kCols;
+  constexpr bool kFp8 = kIsFp8<T>;
+  const float smult = kFp8 ? scales[0] : 1.f;
+  const float dp_mult = kFp8 ? scales[1] : 1.f;
   extern __shared__ float smem[];
   const int D = sh.D, ld = D + 1;
   float* Ks = smem;             // [kB][ld]
@@ -279,7 +337,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int q0 = qbeg; q0 < qend; q0 += kB) {
       __syncthreads();  // K/V loaded; the previous Q/dO/P/dS no longer read
       load_tile<T, kB>(q, b, q0, sh.Sq, sh.Hq, h, D, Qs, ld);
-      load_tile<T, kB>(dout, b, q0, sh.Sq, sh.Hq, h, D, dOs, ld);
+      load_tile_as<kB>(dout, do_code, b, q0, sh.Sq, sh.Hq, h, D, dOs, ld);
       for (int i = threadIdx.x; i < kB; i += kThreads) {
         const bool in = q0 + i < sh.Sq;
         const size_t at = ((size_t)b * sh.Hq + h) * sh.Sq + q0 + i;
@@ -323,11 +381,11 @@ __global__ void __launch_bounds__(kThreads)
           const int row = tx + 16 * c;
           float p = 0.f, ds = 0.f;
           if (visible(sh, q0 + row, k0 + key, qlen, klen)) {
-            p = exp2f(st[r][c] - Ls[row]);
-            ds = p * (dpt[r][c] - Dl[row]);
+            p = exp2f(st[r][c] * smult - Ls[row]);
+            ds = p * (dpt[r][c] * dp_mult - Dl[row]);
           }
-          Pt[key * (kB + 1) + row] = round_to<T>(p);
-          dSt[key * (kB + 1) + row] = round_to<T>(ds);
+          Pt[key * (kB + 1) + row] = round_to<RoundT<T>>(p);
+          dSt[key * (kB + 1) + row] = round_to<RoundT<T>>(ds);
         }
       }
       __syncthreads();
@@ -355,6 +413,8 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
+  const float dk_mult = kFp8 ? scales[3] : kLn2;
+  const float dv_mult = kFp8 ? scales[4] : 1.f;
 #pragma unroll
   for (int r = 0; r < kR; ++r) {
     const int kj = k0 + ty * kR + r;
@@ -363,8 +423,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
       if (c * 16 < D) {
-        dk[at + tx + 16 * c] = from_float<T>(acc_k[r][c] * kLn2);
-        dv[at + tx + 16 * c] = from_float<T>(acc_v[r][c]);
+        store_as(dk, g_code, at + tx + 16 * c, acc_k[r][c] * dk_mult);
+        store_as(dv, g_code, at + tx + 16 * c, acc_v[r][c] * dv_mult);
       }
     }
   }
@@ -386,9 +446,11 @@ size_t dkv_smem(int D) {
 
 template <typename T, int DMAX>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
-                      const void* dout, const float* lse2, const float* delta,
-                      void* dq, const int* qlens, const int* klens, int B,
-                      const Shape& sh, float scale, cudaStream_t stream) {
+                      const void* dout, int do_code, const float* lse2,
+                      const float* delta, void* dq, int g_code,
+                      const int* qlens, const int* klens,
+                      const float* scales, int B, const Shape& sh,
+                      float scale, cudaStream_t stream) {
   constexpr int kB = Tiles<DMAX>::kB;
   auto kernel = flash_bwd_dq_kernel<T, DMAX>;
   const size_t smem = dq_smem<DMAX>(sh.D);
@@ -397,17 +459,18 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   const dim3 grid((sh.Sq + kB - 1) / kB, sh.Hq, B);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse2, delta,
-      static_cast<T*>(dq), qlens, klens, sh, scale);
+      static_cast<const T*>(v), dout, do_code, lse2, delta, dq, g_code, qlens,
+      klens, scales, sh, scale);
   return cudaGetLastError();
 }
 
 template <typename T, int DMAX>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
-                       const void* dout, const float* lse2,
-                       const float* delta, void* dk, void* dv,
-                       const int* qlens, const int* klens, int B,
-                       const Shape& sh, cudaStream_t stream) {
+                       const void* dout, int do_code, const float* lse2,
+                       const float* delta, void* dk, void* dv, int g_code,
+                       const int* qlens, const int* klens,
+                       const float* scales, int B, const Shape& sh,
+                       cudaStream_t stream) {
   constexpr int kB = Tiles<DMAX>::kB;
   auto kernel = flash_bwd_dkv_kernel<T, DMAX>;
   const size_t smem = dkv_smem<DMAX>(sh.D);
@@ -416,70 +479,84 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   const dim3 grid((sh.Skv + kB - 1) / kB, sh.Hkv, B);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse2, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), qlens, klens, sh);
+      static_cast<const T*>(v), dout, do_code, lse2, delta, dk, dv, g_code,
+      qlens, klens, scales, sh);
   return cudaGetLastError();
 }
 
-bool bad_shape(int B, int Sq, int Skv, int Hq, int Hkv, int D, int left,
-               int right) {
+// Q/K/V of `dtype` (f32, bf16, or e4m3 payloads with `scales`); dO of
+// `do_dtype` (Q's outside the FP8 branch); gradients of `grad_dtype` (f32
+// or bf16; Q's outside the FP8 branch).
+bool bad_args(int B, int Sq, int Skv, int Hq, int Hkv, int D, int left,
+              int right, int dtype, int do_dtype, int grad_dtype,
+              const float* scales) {
+  const bool fp8 = dtype == kFloat8E4M3;
   return B < 1 || Sq < 1 || Skv < 1 || Hkv < 1 || Hq % Hkv != 0 || D < 16 ||
          D > 256 || D % 16 != 0 || B > 65535 || Hq > 65535 || left < -1 ||
-         right < -1;
+         right < -1 || fp8 != (scales != nullptr) || do_dtype < 0 ||
+         do_dtype > kFloat8E5M2 ||
+         (grad_dtype != kFloat32 && grad_dtype != kBFloat16) ||
+         (!fp8 && (do_dtype != dtype || grad_dtype != dtype));
 }
 
 }  // namespace
 
 extern "C" int te_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, int dtype, const void* dout,
-    const float* lse2, const float* delta, void* dq, const int* qlens,
-    const int* klens, int B, int Sq, int Skv, int Hq, int Hkv, int D,
-    int causal, int offset, int left, int right, float scale, void* stream) {
-  if (bad_shape(B, Sq, Skv, Hq, Hkv, D, left, right))
+    int do_dtype, const float* lse2, const float* delta, void* dq,
+    int grad_dtype, const int* qlens, const int* klens, const float* scales,
+    int B, int Sq, int Skv, int Hq, int Hkv, int D, int causal, int offset,
+    int left, int right, float scale, void* stream) {
+  if (bad_args(B, Sq, Skv, Hq, Hkv, D, left, right, dtype, do_dtype,
+               grad_dtype, scales))
     return cudaErrorInvalidValue;
   const Shape sh{Sq, Skv, Hq, Hkv, D, causal, offset, left, right};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define TE_DQ(T, DM) \
-  launch_dq<T, DM>(q, k, v, dout, lse2, delta, dq, qlens, klens, B, sh, scale, s)
+#define TE_DQ(T, DM)                                                        \
+  launch_dq<T, DM>(q, k, v, dout, do_dtype, lse2, delta, dq, grad_dtype,    \
+                   qlens, klens, scales, B, sh, scale, s)
+#define TE_DQ_D(T) \
+  (D <= 64 ? TE_DQ(T, 64) : D <= 128 ? TE_DQ(T, 128) : TE_DQ(T, 256))
   switch (dtype) {
     case kBFloat16:
-      return D <= 64 ? TE_DQ(__nv_bfloat16, 64)
-             : D <= 128 ? TE_DQ(__nv_bfloat16, 128)
-                        : TE_DQ(__nv_bfloat16, 256);
+      return TE_DQ_D(__nv_bfloat16);
     case kFloat32:
-      return D <= 64 ? TE_DQ(float, 64)
-             : D <= 128 ? TE_DQ(float, 128)
-                        : TE_DQ(float, 256);
+      return TE_DQ_D(float);
+    case kFloat8E4M3:
+      return TE_DQ_D(__nv_fp8_e4m3);
     default:
       return cudaErrorInvalidValue;
   }
+#undef TE_DQ_D
 #undef TE_DQ
 }
 
 extern "C" int te_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, int dtype, const void* dout,
-    const float* lse2, const float* delta, void* dk, void* dv,
-    const int* qlens, const int* klens, int B, int Sq, int Skv, int Hq,
-    int Hkv, int D, int causal, int offset, int left, int right,
-    void* stream) {
-  if (bad_shape(B, Sq, Skv, Hq, Hkv, D, left, right))
+    int do_dtype, const float* lse2, const float* delta, void* dk, void* dv,
+    int grad_dtype, const int* qlens, const int* klens, const float* scales,
+    int B, int Sq, int Skv, int Hq, int Hkv, int D, int causal, int offset,
+    int left, int right, void* stream) {
+  if (bad_args(B, Sq, Skv, Hq, Hkv, D, left, right, dtype, do_dtype,
+               grad_dtype, scales))
     return cudaErrorInvalidValue;
   const Shape sh{Sq, Skv, Hq, Hkv, D, causal, offset, left, right};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define TE_DKV(T, DM)                                                       \
-  launch_dkv<T, DM>(q, k, v, dout, lse2, delta, dk, dv, qlens, klens, B, sh, \
-                    s)
+  launch_dkv<T, DM>(q, k, v, dout, do_dtype, lse2, delta, dk, dv,           \
+                    grad_dtype, qlens, klens, scales, B, sh, s)
+#define TE_DKV_D(T) \
+  (D <= 64 ? TE_DKV(T, 64) : D <= 128 ? TE_DKV(T, 128) : TE_DKV(T, 256))
   switch (dtype) {
     case kBFloat16:
-      return D <= 64 ? TE_DKV(__nv_bfloat16, 64)
-             : D <= 128 ? TE_DKV(__nv_bfloat16, 128)
-                        : TE_DKV(__nv_bfloat16, 256);
+      return TE_DKV_D(__nv_bfloat16);
     case kFloat32:
-      return D <= 64 ? TE_DKV(float, 64)
-             : D <= 128 ? TE_DKV(float, 128)
-                        : TE_DKV(float, 256);
+      return TE_DKV_D(float);
+    case kFloat8E4M3:
+      return TE_DKV_D(__nv_fp8_e4m3);
     default:
       return cudaErrorInvalidValue;
   }
+#undef TE_DKV_D
 #undef TE_DKV
 }

@@ -6,7 +6,10 @@ experts (single device). Without a cache the forward is the training
 forward, differentiable end to end. Attention takes biased projections,
 a static sliding window and the softmax sink types; a learnable sink is
 the attention's f32 ``softmax_offset``, which training and the caches
-share. Not ported yet: other masks and norms, expert parallelism,
+share. Under a recipe with ``fp8_dpa`` the cache-free attention runs on
+FP8 Q/K/V, and with ``fp8_mha`` too (per-tensor recipes, no biases) the
+attention and the output projection run as one FP8 function. Not ported
+yet: other masks and norms, expert parallelism,
 cross-attention, relative position bias and dropout."""
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ from torch import nn
 
 from ..attention import (AttnMaskType, SequenceDescriptor, SoftmaxType,
                          fused_attn)
+from ..common.recipe import DelayedScaling, Float8CurrentScaling
 from ..inference.kv_cache import (KVCache, PagedKVCache, cache_append,
                                   calibrate_kv_scale, paged_append_prompt,
                                   paged_append_token)
@@ -24,8 +28,32 @@ from ..ops.decode_attention import decode_attention
 from ..ops.flash_attention import flash_attention
 from ..ops.paged_attention import paged_decode_attention
 from ..ops.rope import apply_rope, rope_frequencies
+from ..quantize.helper import get_quantize_config
+from ..quantize.quantizer import CurrentScaleQuantizer, QuantizeLayout
 from .module import DenseGeneral, LayerNormDenseGeneral, LayerNormMLP
 from .moe import MoELayerNormMLP
+
+
+def _fp8_qkv_quantizers():
+    """The three current-scaling e4m3 quantizers of FP8 Q/K/V (the
+    reference's fp8_dpa gate makes them afresh at every call)."""
+    return tuple(CurrentScaleQuantizer(torch.float8_e4m3fn,
+                                       QuantizeLayout.ROWWISE)
+                 for _ in range(3))
+
+
+def _fp8_dpa_active(recipe) -> bool:
+    """The reference's fp8_dpa gate: any active recipe with the flag (the
+    port's attention has no bias, dropout or context parallelism, which
+    close it there)."""
+    return recipe is not None and getattr(recipe, "fp8_dpa", False)
+
+
+def _fp8_mha_active(recipe, use_bias: bool) -> bool:
+    """The reference's fp8_mha gate (``_fp8_mha_active``): a per-tensor
+    recipe with both flags and no biased projections."""
+    return (isinstance(recipe, (DelayedScaling, Float8CurrentScaling))
+            and recipe.fp8_mha and recipe.fp8_dpa and not use_bias)
 
 
 class MultiHeadAttention(nn.Module):
@@ -98,16 +126,41 @@ class MultiHeadAttention(nn.Module):
             ctx = self._cached_attention(q, k, v, kv_cache,
                                          sequence_descriptor)
         else:
+            cfg = get_quantize_config()
+            recipe = cfg.recipe if cfg.enabled else None
+            mask = (AttnMaskType.PADDING_CAUSAL
+                    if sequence_descriptor is not None
+                    else AttnMaskType.CAUSAL)
+            if _fp8_mha_active(recipe, self.out.bias is not None):
+                return self._fp8_mha(q, k, v, sequence_descriptor, mask)
             # Training and cache-free forward: the reference's
             # DotProductAttention through fused_attn (flash backend).
             ctx = fused_attn(
-                (q, k, v), sequence_descriptor,
-                attn_mask_type=(AttnMaskType.PADDING_CAUSAL
-                                if sequence_descriptor is not None
-                                else AttnMaskType.CAUSAL),
+                (q, k, v), sequence_descriptor, attn_mask_type=mask,
                 window_size=self.window_size, softmax_type=self.softmax_type,
-                softmax_offset=self.softmax_offset)
+                softmax_offset=self.softmax_offset,
+                qkv_quantizers=(_fp8_qkv_quantizers()
+                                if _fp8_dpa_active(recipe) else None))
         return self.out(ctx.reshape(b, s, hq * d))
+
+    def _fp8_mha(self, q, k, v, sequence_descriptor, mask) -> torch.Tensor:
+        """The reference's ``_FP8MHAOutProj``: flash attention and the
+        output projection in one FP8 function, on ``out``'s own kernel,
+        its "dense" quantizer set (the kernel and the gradient; its x
+        quantizer is made and stays unused, as in the reference) and the
+        set "fp8_mha_o" (O and dO), whose delayed state lives in ``out``'s
+        ``fp8_mha_o_*`` buffers."""
+        pset = self.out.quantizer_set("dense")
+        oset = self.out.quantizer_set("fp8_mha_o")
+        quantizers = (*_fp8_qkv_quantizers(), oset.x, pset.kernel,
+                      pset.dgrad, oset.dgrad)
+        return flash_attention(
+            q, k, v, sequence_descriptor, attn_mask_type=mask,
+            window_size=self.window_size,
+            softmax_type=(None if self.softmax_type is SoftmaxType.VANILLA
+                          else self.softmax_type),
+            softmax_offset=self.softmax_offset,
+            mha_proj=(self.out.kernel, quantizers))
 
     def _sink(self, device) -> Optional[torch.Tensor]:
         """The (Hq,) f32 sink logits the caches' kernels take, or None."""

@@ -34,9 +34,31 @@ need nothing for it (the LSE carries it); its gradient ``dsink = -sum
 exp(sink - LSE) * rowsum(dO * O)`` over batch and queries is computed
 outside them, as the reference's ``_flash_core_bwd`` does.
 
-A launch with a window or a sink counts under its own name
-(``flash_attention_fwd_sw``, ``flash_attention_bwd_dq_sw``,
-``flash_attention_bwd_dkv_sw``), so a path can show which branch it ran.
+FP8 (the reference's ``_fp8_core`` and ``_fp8_mha_core``): with
+``scale_invs`` the kernels take per-tensor-scaled e4m3 Q/K/V payloads and
+the (3,) f32 dequantization multipliers ``[sq_inv, sk_inv, sv_inv]`` as a
+device tensor (no host read). q is not pre-scaled: the scores are
+multiplied by ``smult = sq_inv * sk_inv * scale * log2(e)`` before the
+mask, p (and in the backward ds) rounds to bf16 before its product with a
+payload, and V's ``sv_inv`` multiplies the accumulator at write-out. The
+forward writes O in a high-precision dtype, or (``out_scale``, fp8_mha
+under delayed scaling) casts ``O * out_scale`` to fp8 in its epilogue,
+saturating, and returns the amax of O before the cast. The backward
+takes a high-precision dO, or fp8 O and dO payloads with ``o_scale_inv``
+and ``do_scale_inv``: ``delta`` is computed on the payloads times ``so *
+sdo``, dp takes ``sv_inv * sdo``, and the epilogues multiply dQ by
+``scale * sk_inv``, dK by ``scale * sq_inv`` and dV by ``sdo``. Every
+product is exact in f32 (e4m3 x e4m3, bf16 x e4m3 and bf16 x e5m2 fit its
+mantissa), so kernel and plain version differ in summation order alone.
+:func:`flash_attention` takes ``qkv_quantizers`` (Q/K/V quantized inside
+the autograd function) and ``mha_proj`` (the output projection and its
+gradients inside it too, on the fp8 O and dO payloads).
+
+A launch counts under a name that says its branch: ``_fp8`` for FP8
+Q/K/V, ``_fp8_mha`` for the fp8 O epilogue and for a backward from fp8 O
+and dO, then ``_sw`` with a window or a sink (``flash_attention_fwd_sw``,
+``flash_attention_bwd_dq_fp8_sw``, ``flash_attention_bwd_dkv_fp8_mha``),
+so a path can show which branch it ran.
 """
 from __future__ import annotations
 
@@ -47,6 +69,11 @@ import torch
 
 from .. import _build
 from ..attention import AttnMaskType, SoftmaxType
+from ..quantize.dtypes import is_fp8_dtype
+from ..quantize.qmath import saturate_cast
+from ..quantize.quantizer import DelayedScaleQuantizer, QuantizeLayout
+from ..quantize.tensor import ScaledTensor1x
+from .gemm import q_dot
 
 NEG_INF = -1e30
 MASKED = -2e30
@@ -58,8 +85,7 @@ NO_WINDOW = (-1, -1)
 # Arguments of the reference function that this port does not take yet
 # (ROADMAP.md lists them); passing any of them raises.
 _UNPORTED = ("q_position_offset", "bias", "block_q", "block_k",
-             "qkv_quantizers", "dropout_probability", "dropout_seed",
-             "score_mod", "mha_proj")
+             "dropout_probability", "dropout_seed", "score_mod")
 
 
 def _visible(sq, skv, q_seqlens, kv_seqlens, causal, offset, window,
@@ -83,20 +109,31 @@ def _visible(sq, skv, q_seqlens, kv_seqlens, causal, offset, window,
 
 def flash_fwd_plain(q, k, v, q_seqlens=None, kv_seqlens=None, *,
                     causal: bool, offset: int = 0, window=NO_WINDOW,
-                    softmax_sink=None):
-    """Reference forward; ``q`` arrives pre-scaled by scale * log2(e)."""
+                    softmax_sink=None, fp8_scales=None, out_dtype=None):
+    """Reference forward. Without ``fp8_scales`` ``q`` arrives pre-scaled
+    by scale * log2(e) and O takes q's dtype. With them (the FP8 branch)
+    q, k and v are payloads and ``fp8_scales`` is :func:`fp8_fwd_scales`'
+    [smult, sv_inv, out_scale]; O takes ``out_dtype``, and an fp8
+    ``out_dtype`` casts O * out_scale and returns the amax of O as a
+    third output."""
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
+    fp8 = fp8_scales is not None
     s = torch.einsum("bqhgd,bkhd->bhgqk",
                      q.float().reshape(b, sq, hkv, g, d), k.float())
+    if fp8:
+        s = s * fp8_scales[0]
     mask = _visible(sq, skv, q_seqlens, kv_seqlens, causal, offset, window,
                     q.device)
     s = torch.where(mask[:, None, None], s, MASKED)
     m = s.amax(dim=-1, keepdim=True).clamp_min(NEG_INF)
     p = torch.exp2(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    acc = torch.einsum("bhgqk,bkhd->bhgqd", p.to(v.dtype).float(), v.float())
+    p_dtype = torch.bfloat16 if fp8 else v.dtype
+    acc = torch.einsum("bhgqk,bkhd->bhgqd", p.to(p_dtype).float(), v.float())
+    if fp8:
+        acc = acc * fp8_scales[1]
     if softmax_sink is not None:
         s0 = (softmax_sink.float() * LOG2E).reshape(1, hkv, g, 1, 1)
         m2 = torch.maximum(m, s0)
@@ -110,7 +147,12 @@ def flash_fwd_plain(q, k, v, q_seqlens=None, kv_seqlens=None, *,
         lse = torch.where(l > 0, m * LN2 + torch.log(l_safe),
                           torch.full_like(l, NEG_INF))
     o = o.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d)
-    return o.to(q.dtype), lse.reshape(b, hq, sq)
+    lse = lse.reshape(b, hq, sq)
+    out_dtype = out_dtype or q.dtype
+    if is_fp8_dtype(out_dtype):
+        return saturate_cast(o * fp8_scales[2], out_dtype), lse, \
+            o.abs().amax()
+    return o.to(out_dtype), lse
 
 
 def _window(window) -> Tuple[int, int]:
@@ -131,6 +173,37 @@ def _sw(window, softmax_sink) -> str:
     return "_sw" if window != NO_WINDOW or softmax_sink is not None else ""
 
 
+def _branch(fp8: bool, fp8_mha: bool, window, softmax_sink) -> str:
+    """The launch count's suffix of a branch: "_fp8" for FP8 Q/K/V,
+    "_fp8_mha" with fp8 O (and dO), then :func:`_sw`'s."""
+    return (("_fp8_mha" if fp8_mha else "_fp8" if fp8 else "")
+            + _sw(window, softmax_sink))
+
+
+def fp8_fwd_scales(scale_invs: torch.Tensor, scale: float,
+                   out_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The forward's (3,) f32 multipliers from the payloads' dequant
+    scales ``[sq_inv, sk_inv, sv_inv]``: the score multiplier ``smult =
+    sq_inv * sk_inv * scale * log2(e)``, V's ``sv_inv`` and the fp8 O
+    epilogue's scale (1 without one), on the scales' device."""
+    sq_inv, sk_inv, sv_inv = scale_invs.float().reshape(3).unbind()
+    oscale = (out_scale.float().reshape(()) if out_scale is not None
+              else sv_inv.new_ones(()))
+    return torch.stack([sq_inv * sk_inv * (scale * LOG2E), sv_inv, oscale])
+
+
+def fp8_bwd_scales(scale_invs: torch.Tensor, scale: float,
+                   sdo: torch.Tensor) -> torch.Tensor:
+    """The backward's (5,) f32 multipliers: ``[smult, sv_inv * sdo, scale
+    * sk_inv, scale * sq_inv, sdo]`` (the score multiplier, dp's, dQ's,
+    dK's and dV's), with ``sdo`` dO's dequant scale (1 for a
+    high-precision dO)."""
+    sq_inv, sk_inv, sv_inv = scale_invs.float().reshape(3).unbind()
+    sdo = sdo.float().reshape(())
+    return torch.stack([sq_inv * sk_inv * (scale * LOG2E), sv_inv * sdo,
+                        scale * sk_inv, scale * sq_inv, sdo])
+
+
 def _check_qkv(q, k, v, q_seqlens, kv_seqlens) -> None:
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4 or \
             k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]:
@@ -145,19 +218,53 @@ def _check_qkv(q, k, v, q_seqlens, kv_seqlens) -> None:
         raise TypeError("q, k and v must share one dtype")
 
 
+def _check_fp8(q, scale_invs) -> None:
+    """The FP8 branch takes e4m3 Q/K/V payloads (what the reference's
+    fp8_dpa quantizers make) and their three dequant scales."""
+    if q.dtype != torch.float8_e4m3fn:
+        raise TypeError(f"FP8 flash attention takes e4m3 Q/K/V payloads, "
+                        f"got {q.dtype}")
+    if scale_invs.numel() != 3:
+        raise ValueError(f"scale_invs must hold [sq_inv, sk_inv, sv_inv], "
+                         f"got {tuple(scale_invs.shape)}")
+
+
+def _lengths(q_seqlens, kv_seqlens):
+    if q_seqlens is None:
+        return None, None
+    return (q_seqlens.to(torch.int32).contiguous(),
+            kv_seqlens.to(torch.int32).contiguous())
+
+
+def _check_head_dim(d: int) -> None:
+    if d % 16 or d > 256:
+        raise ValueError(f"the flash kernels take D % 16 == 0 and D <= 256, "
+                         f"got {d}")
+
+
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               q_seqlens: Optional[torch.Tensor] = None,
               kv_seqlens: Optional[torch.Tensor] = None, *,
               scale: float, causal: bool, offset: int = 0,
-              window=NO_WINDOW, softmax_sink: Optional[torch.Tensor] = None
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """O (B, Sq, Hq, D) in q's dtype and LSE (B, Hq, Sq) f32.
+              window=NO_WINDOW, softmax_sink: Optional[torch.Tensor] = None,
+              scale_invs: Optional[torch.Tensor] = None,
+              out_dtype: Optional[torch.dtype] = None,
+              out_scale: Optional[torch.Tensor] = None):
+    """O (B, Sq, Hq, D) and LSE (B, Hq, Sq) f32.
 
     ``q_seqlens`` / ``kv_seqlens`` (B,) give each sequence's valid
     lengths (both or neither); ``offset`` shifts the causal diagonal and
     the window (key j is visible to query i when j <= i + offset);
     ``window`` is a static (left, right), -1 for an inactive side;
-    ``softmax_sink`` the (Hq,) sink logits, or None."""
+    ``softmax_sink`` the (Hq,) sink logits, or None.
+
+    FP8 (the reference's ``_flash_fwd`` with ``scale_invs``): q, k and v
+    are e4m3 payloads and ``scale_invs`` their (3,) f32 dequant scales;
+    O takes ``out_dtype`` (bf16 by default, or f32). With ``out_scale``
+    (a (1,) f32 tensor) O is cast to the fp8 ``out_dtype`` (e4m3 by
+    default) in the epilogue, and the amax of O before the cast (an f32
+    scalar tensor) comes back as a third output. Without ``scale_invs``
+    O takes q's dtype."""
     _check_qkv(q, k, v, q_seqlens, kv_seqlens)
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
@@ -165,58 +272,99 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if softmax_sink is not None and softmax_sink.numel() != hq:
         raise ValueError(f"softmax_sink must hold Hq={hq} values, got "
                          f"{tuple(softmax_sink.shape)}")
-    qs = (q.float() * (scale * LOG2E)).to(q.dtype)
-    if _build.on_cpu(q, k, v, q_seqlens, kv_seqlens, softmax_sink):
+    fp8 = scale_invs is not None
+    fp8_out = out_scale is not None
+    if fp8_out and not fp8:
+        raise ValueError("the fp8 O epilogue takes FP8 Q/K/V payloads")
+    if fp8:
+        _check_fp8(q, scale_invs)
+        out_dtype = out_dtype or (torch.float8_e4m3fn if fp8_out
+                                  else torch.bfloat16)
+        if is_fp8_dtype(out_dtype) != fp8_out:
+            raise ValueError("an fp8 O takes an out_scale, and out_scale an "
+                             "fp8 out_dtype")
+        qs, sc = q, fp8_fwd_scales(scale_invs, scale, out_scale)
+    else:
+        if out_dtype not in (None, q.dtype):
+            raise ValueError("O takes q's dtype outside the FP8 branch")
+        out_dtype = q.dtype
+        qs, sc = (q.float() * (scale * LOG2E)).to(q.dtype), None
+    if _build.on_cpu(q, k, v, q_seqlens, kv_seqlens, softmax_sink,
+                     scale_invs, out_scale):
         return flash_fwd_plain(qs, k, v, q_seqlens, kv_seqlens,
                                causal=causal, offset=offset, window=window,
-                               softmax_sink=softmax_sink)
-    code = _build.dtype_code(q, (torch.float32, torch.bfloat16))
-    if d % 16 or d > 256:
-        raise ValueError(f"the flash kernel takes D % 16 == 0 and D <= 256, "
-                         f"got {d}")
+                               softmax_sink=softmax_sink, fp8_scales=sc,
+                               out_dtype=out_dtype)
+    code = _build.dtype_code(q, (torch.float32, torch.bfloat16,
+                                 torch.float8_e4m3fn))
+    out_code = _build.DTYPE_CODES[out_dtype]
+    _check_head_dim(d)
     qs, k, v = qs.contiguous(), k.contiguous(), v.contiguous()
-    if q_seqlens is not None:
-        q_seqlens = q_seqlens.to(torch.int32).contiguous()
-        kv_seqlens = kv_seqlens.to(torch.int32).contiguous()
+    q_seqlens, kv_seqlens = _lengths(q_seqlens, kv_seqlens)
     sink = (softmax_sink.float().reshape(hq).contiguous()
             if softmax_sink is not None else None)
-    _build.check_aligned(qs, k, v, sink)
-    o = torch.empty_like(qs)
+    amax = torch.zeros((1,), dtype=torch.float32, device=q.device) \
+        if fp8_out else None
+    _build.check_aligned(qs, k, v, sink, sc)
+    o = torch.empty(q.shape, dtype=out_dtype, device=q.device)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     _build.launch("te_flash_attention_fwd", _build.ptr(qs), _build.ptr(k),
-                  _build.ptr(v), code, _build.ptr(o), _build.ptr(lse),
-                  _build.ptr(q_seqlens), _build.ptr(kv_seqlens),
-                  _build.ptr(sink), b, sq, skv, hq, hkv, d, int(causal),
+                  _build.ptr(v), code, _build.ptr(o), out_code,
+                  _build.ptr(lse), _build.ptr(q_seqlens),
+                  _build.ptr(kv_seqlens), _build.ptr(sink), _build.ptr(sc),
+                  _build.ptr(amax), b, sq, skv, hq, hkv, d, int(causal),
                   offset, window[0], window[1], _build.stream(q))
-    _build.LAUNCHES["flash_attention_fwd" + _sw(window, sink)] += 1
+    _build.LAUNCHES["flash_attention_fwd"
+                    + _branch(fp8, fp8_out, window, sink)] += 1
+    if fp8_out:
+        return o, lse, amax.reshape(())
     return o, lse
 
 
 def flash_bwd_plain(qs, k, v, do, lse, delta, q_seqlens=None,
                     kv_seqlens=None, *, scale: float, causal: bool,
-                    offset: int = 0, window=NO_WINDOW):
-    """Reference backward; ``qs`` arrives pre-scaled by scale * log2(e),
-    ``delta`` is rowsum(dO * O) (B, Sq, Hq) f32."""
+                    offset: int = 0, window=NO_WINDOW, fp8_scales=None,
+                    grad_dtype=None):
+    """Reference backward; ``delta`` is rowsum(dO * O) (B, Sq, Hq) f32.
+    Without ``fp8_scales`` ``qs`` arrives pre-scaled by scale * log2(e)
+    and each gradient takes its input's dtype. With them (the FP8 branch)
+    ``qs``, k and v are payloads, do a payload or a high-precision
+    tensor, ``fp8_scales`` :func:`fp8_bwd_scales`' five multipliers, and
+    the gradients take ``grad_dtype``."""
     b, sq, hq, d = qs.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
+    fp8 = fp8_scales is not None
     qf = qs.float().reshape(b, sq, hkv, g, d)
     dof = do.float().reshape(b, sq, hkv, g, d)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float())
+    if fp8:
+        s = s * fp8_scales[0]
     mask = _visible(sq, skv, q_seqlens, kv_seqlens, causal, offset, window,
                     qs.device)
     lse2 = (lse.float() * LOG2E).reshape(b, hkv, g, sq, 1)
     p = torch.where(mask[:, None, None], torch.exp2(s - lse2),
                     torch.zeros((), device=qs.device))
     dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, v.float())
+    if fp8:
+        dp = dp * fp8_scales[1]
     dl = delta.float().permute(0, 2, 1).reshape(b, hkv, g, sq, 1)
     ds = p * (dp - dl)
-    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds.to(k.dtype).float(),
-                      k.float()) * scale
-    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds.to(qs.dtype).float(), qf) * LN2
-    dv = torch.einsum("bhgqk,bqhgd->bkhd", p.to(v.dtype).float(), dof)
-    return (dq.reshape(b, sq, hq, d).to(qs.dtype), dk.to(k.dtype),
-            dv.to(v.dtype))
+    if fp8:
+        ds_t = p_t = torch.bfloat16
+        dq_mult, dk_mult, dv_mult = fp8_scales[2], fp8_scales[3], \
+            fp8_scales[4]
+    else:
+        ds_t, p_t = qs.dtype, v.dtype
+        dq_mult, dk_mult, dv_mult = scale, LN2, 1.0
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds.to(ds_t).float(),
+                      k.float()) * dq_mult
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds.to(ds_t).float(), qf) * dk_mult
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p.to(p_t).float(), dof) * dv_mult
+    dq = dq.reshape(b, sq, hq, d)
+    if fp8:
+        return dq.to(grad_dtype), dk.to(grad_dtype), dv.to(grad_dtype)
+    return dq.to(qs.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -224,12 +372,22 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               q_seqlens: Optional[torch.Tensor] = None,
               kv_seqlens: Optional[torch.Tensor] = None, *,
               scale: float, causal: bool, offset: int = 0,
-              window=NO_WINDOW, softmax_sink: Optional[torch.Tensor] = None):
+              window=NO_WINDOW, softmax_sink: Optional[torch.Tensor] = None,
+              scale_invs: Optional[torch.Tensor] = None,
+              grad_dtype: Optional[torch.dtype] = None,
+              o_scale_inv: Optional[torch.Tensor] = None,
+              do_scale_inv: Optional[torch.Tensor] = None):
     """(dQ, dK, dV) of :func:`flash_fwd` for the output gradient ``do``,
     from its inputs (q unscaled), O and LSE; each in its input's dtype
     and shape. ``softmax_sink`` is the forward's: the kernels need only
     the LSE, which holds it, and it names the launch counts
-    (:func:`sink_grad` gives its gradient)."""
+    (:func:`sink_grad` gives its gradient).
+
+    FP8 (the reference's ``_flash_bwd`` with ``scale_invs``): q, k and v
+    are the forward's e4m3 payloads; O and dO are high-precision, or
+    (fp8_mha) fp8 payloads with the (1,) f32 dequant scales
+    ``o_scale_inv`` and ``do_scale_inv``. The gradients take
+    ``grad_dtype`` (dO's dtype by default)."""
     _check_qkv(q, k, v, q_seqlens, kv_seqlens)
     if o.shape != q.shape or do.shape != q.shape or \
             lse.shape != (q.shape[0], q.shape[2], q.shape[1]):
@@ -239,50 +397,78 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     window = _window(window)
-    qs = (q.float() * (scale * LOG2E)).to(q.dtype)
+    fp8 = scale_invs is not None
+    fp8_mha = o_scale_inv is not None or do_scale_inv is not None
+    if fp8_mha and not fp8:
+        raise ValueError("fp8 O and dO payloads take FP8 Q/K/V payloads")
     delta = (do.float() * o.float()).sum(dim=-1)
-    if _build.on_cpu(q, k, v, o, lse, do, q_seqlens, kv_seqlens):
+    if fp8:
+        _check_fp8(q, scale_invs)
+        one = scale_invs.new_ones((), dtype=torch.float32)
+        sdo = do_scale_inv.float().reshape(()) if do_scale_inv is not None \
+            else one
+        if fp8_mha:
+            so = o_scale_inv.float().reshape(()) if o_scale_inv is not None \
+                else one
+            delta = delta * (so * sdo)
+        grad_dtype = grad_dtype or (torch.bfloat16 if is_fp8_dtype(do.dtype)
+                                    else do.dtype)
+        qs, sc = q, fp8_bwd_scales(scale_invs, scale, sdo)
+    else:
+        qs, sc = (q.float() * (scale * LOG2E)).to(q.dtype), None
+        grad_dtype = q.dtype
+    if _build.on_cpu(q, k, v, o, lse, do, q_seqlens, kv_seqlens, scale_invs,
+                     o_scale_inv, do_scale_inv):
         return flash_bwd_plain(qs, k, v, do, lse, delta, q_seqlens,
                                kv_seqlens, scale=scale, causal=causal,
-                               offset=offset, window=window)
-    code = _build.dtype_code(q, (torch.float32, torch.bfloat16))
-    if d % 16 or d > 256:
-        raise ValueError(f"the flash kernels take D % 16 == 0 and D <= 256, "
-                         f"got {d}")
-    do = do.to(q.dtype).contiguous()
+                               offset=offset, window=window, fp8_scales=sc,
+                               grad_dtype=grad_dtype)
+    code = _build.dtype_code(q, (torch.float32, torch.bfloat16,
+                                 torch.float8_e4m3fn))
+    _check_head_dim(d)
+    if not fp8:
+        do = do.to(q.dtype)
+    if grad_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the flash kernels write f32 or bf16 gradients, "
+                        f"got {grad_dtype}")
+    do_code, g_code = (_build.DTYPE_CODES[do.dtype],
+                       _build.DTYPE_CODES[grad_dtype])
+    do = do.contiguous()
     qs, k, v = qs.contiguous(), k.contiguous(), v.contiguous()
     lse2 = (lse.float() * LOG2E).contiguous()
-    if q_seqlens is not None:
-        q_seqlens = q_seqlens.to(torch.int32).contiguous()
-        kv_seqlens = kv_seqlens.to(torch.int32).contiguous()
-    _build.check_aligned(qs, k, v, do, lse2, delta)
-    dq = torch.empty_like(qs)
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
+    q_seqlens, kv_seqlens = _lengths(q_seqlens, kv_seqlens)
+    _build.check_aligned(qs, k, v, do, lse2, delta, sc)
+    dq = torch.empty(q.shape, dtype=grad_dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=grad_dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=grad_dtype, device=q.device)
     P, st = _build.ptr, _build.stream(q)
     left, right = window
-    sw = _sw(window, softmax_sink)
+    name = _branch(fp8, fp8_mha, window, softmax_sink)
     _build.launch("te_flash_attention_bwd_dq", P(qs), P(k), P(v), code,
-                  P(do), P(lse2), P(delta), P(dq), P(q_seqlens),
-                  P(kv_seqlens), b, sq, skv, hq, hkv, d, int(causal), offset,
-                  left, right, float(scale), st)
-    _build.LAUNCHES["flash_attention_bwd_dq" + sw] += 1
+                  P(do), do_code, P(lse2), P(delta), P(dq), g_code,
+                  P(q_seqlens), P(kv_seqlens), P(sc), b, sq, skv, hq, hkv, d,
+                  int(causal), offset, left, right, float(scale), st)
+    _build.LAUNCHES["flash_attention_bwd_dq" + name] += 1
     _build.launch("te_flash_attention_bwd_dkv", P(qs), P(k), P(v), code,
-                  P(do), P(lse2), P(delta), P(dk), P(dv), P(q_seqlens),
-                  P(kv_seqlens), b, sq, skv, hq, hkv, d, int(causal), offset,
-                  left, right, st)
-    _build.LAUNCHES["flash_attention_bwd_dkv" + sw] += 1
+                  P(do), do_code, P(lse2), P(delta), P(dk), P(dv), g_code,
+                  P(q_seqlens), P(kv_seqlens), P(sc), b, sq, skv, hq, hkv, d,
+                  int(causal), offset, left, right, st)
+    _build.LAUNCHES["flash_attention_bwd_dkv" + name] += 1
     return dq, dk, dv
 
 
 def sink_grad(softmax_sink: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
-              do: torch.Tensor) -> torch.Tensor:
+              do: torch.Tensor, delta_scale=None) -> torch.Tensor:
     """The sink's gradient, (Hq,) in its dtype: ``-sum_{b,q} exp(sink -
     LSE) * rowsum(dO * O)``, from the forward's O (B, Sq, Hq, D) and LSE
-    (B, Hq, Sq); a row with no visible key has O = 0 and adds nothing."""
-    delta = (do.float() * o.float()).sum(dim=-1).permute(0, 2, 1)
+    (B, Hq, Sq); a row with no visible key has O = 0 and adds nothing.
+    For fp8 O and dO payloads ``delta_scale`` is ``so * sdo``."""
+    delta = (do.float() * o.float()).sum(dim=-1)
+    if delta_scale is not None:
+        delta = delta * delta_scale
     p_sink = torch.exp(softmax_sink.float().reshape(1, -1, 1) - lse)
-    return (-(p_sink * delta).sum(dim=(0, 2))).to(softmax_sink.dtype)
+    return (-(p_sink * delta.permute(0, 2, 1)).sum(dim=(0, 2))).to(
+        softmax_sink.dtype)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -311,12 +497,159 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, dsink, None, None, None, None, None, None
 
 
+def _quantize_qkv(quantizers, q, k, v):
+    """Q, K and V quantized rowwise by their per-tensor quantizers, and
+    their (3,) f32 dequant scales."""
+    out = [z.quantize(t, layout=QuantizeLayout.ROWWISE)
+           for z, t in zip(quantizers, (q, k, v))]
+    scale_invs = torch.cat([t.scale_inv.float().reshape(1) for t in out])
+    return out, scale_invs
+
+
+def _write_back(quantizers, amaxes) -> None:
+    """Each delayed-scaling quantizer takes the state that this step's
+    amax gives it, in place (the reference's cotangent of the quantizers:
+    the updated state); stateless quantizers are left as they are."""
+    for z, a in zip(quantizers, amaxes):
+        if isinstance(z, DelayedScaleQuantizer) and a is not None:
+            z.write_back(z.update(a))
+
+
+def _fp8_fwd(q, k, v, sink, lens, quantizers, cfg):
+    """The reference's ``_fp8_core_fwd``: O in q's dtype, and the
+    residuals (payloads, dequant scales, O, LSE, amaxes)."""
+    scale, causal, offset, window = cfg
+    (qq, qk, qv), sinv = _quantize_qkv(quantizers, q, k, v)
+    o, lse = flash_fwd(qq.data, qk.data, qv.data, *lens, scale=scale,
+                       causal=causal, offset=offset, window=window,
+                       softmax_sink=sink, scale_invs=sinv, out_dtype=q.dtype)
+    return o, (qq.data, qk.data, qv.data, sinv, o, lse,
+               qq.amax, qk.amax, qv.amax)
+
+
+class _FP8Attention(torch.autograd.Function):
+    """Flash attention on FP8 Q/K/V (the reference's ``_fp8_core``): Q, K
+    and V are quantized per tensor inside the function, the kernels take
+    the payloads, and the backward writes each delayed quantizer's
+    updated state back (a current-scaling one keeps none)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, sink, q_seqlens, kv_seqlens, quantizers, cfg):
+        o, res = _fp8_fwd(q, k, v, sink, (q_seqlens, kv_seqlens), quantizers,
+                          cfg)
+        ctx.save_for_backward(*res, sink, q_seqlens, kv_seqlens)
+        ctx.quantizers, ctx.cfg = quantizers, cfg
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        (qd, kd, vd, sinv, o, lse, *amaxes, sink, q_seqlens,
+         kv_seqlens) = ctx.saved_tensors
+        scale, causal, offset, window = ctx.cfg
+        dq, dk, dv = flash_bwd(qd, kd, vd, o, lse, do, q_seqlens, kv_seqlens,
+                               scale=scale, causal=causal, offset=offset,
+                               window=window, softmax_sink=sink,
+                               scale_invs=sinv, grad_dtype=do.dtype)
+        dsink = (sink_grad(sink, o, lse, do)
+                 if sink is not None and ctx.needs_input_grad[3] else None)
+        _write_back(ctx.quantizers, amaxes)
+        return dq, dk, dv, dsink, None, None, None, None
+
+
+def _fp8_mha_fwd(q, k, v, w, sink, lens, quantizers, cfg):
+    """The reference's ``_fp8_mha_core_fwd``: the attention on FP8 Q/K/V
+    with an fp8 O (cast in the kernel's epilogue under delayed scaling,
+    quantized after it under current scaling), then the output projection
+    of the O payload, (B, Sq, N) in q's dtype; and the residuals."""
+    scale, causal, offset, window = cfg
+    qq_z, qk_z, qv_z, qo_z, qw_z, _, _ = quantizers
+    (qq, qk, qv), sinv = _quantize_qkv((qq_z, qk_z, qv_z), q, k, v)
+    kw = dict(scale=scale, causal=causal, offset=offset, window=window,
+              softmax_sink=sink, scale_invs=sinv)
+    if isinstance(qo_z, DelayedScaleQuantizer):
+        o_pay, lse, o_amax = flash_fwd(qq.data, qk.data, qv.data, *lens,
+                                       out_dtype=qo_z.q_dtype,
+                                       out_scale=qo_z.scale, **kw)
+        so_inv = (1.0 / qo_z.scale.float()).reshape(1)
+    else:
+        o_bf, lse = flash_fwd(qq.data, qk.data, qv.data, *lens,
+                              out_dtype=torch.bfloat16, **kw)
+        qo = qo_z.quantize(o_bf, layout=QuantizeLayout.ROWWISE)
+        o_pay, so_inv, o_amax = qo.data, qo.scale_inv.reshape(1), qo.amax
+    b, sq, hq, d = q.shape
+    # BSHD: O is already (B * Sq, Hq * D) for the projection.
+    o_st = ScaledTensor1x(o_pay.reshape(b * sq, hq * d), so_inv, None,
+                          q.dtype)
+    qw = qw_z.quantize(w, layout=QuantizeLayout.ROWWISE)
+    out = q_dot(o_st, qw, 1, 0).reshape(b, sq, w.shape[1]).to(q.dtype)
+    return out, (qq.data, qk.data, qv.data, sinv, o_pay, so_inv, lse,
+                 qw.data, qw.scale_inv.reshape(1), qq.amax, qk.amax, qv.amax,
+                 o_amax, qw.amax)
+
+
+class _FP8MHA(torch.autograd.Function):
+    """Flash attention and the output projection in one function (the
+    reference's ``_fp8_mha_core``, recipe flag fp8_mha): the projection
+    and its wgrad take the fp8 O payload, the backward quantizes dO once
+    and the flash backward kernels read the fp8 O and dO payloads. The
+    quantizers are (q, k, v, o, w, g, do); the backward writes each
+    delayed one's updated state back."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, w, sink, q_seqlens, kv_seqlens, quantizers,
+                cfg):
+        out, res = _fp8_mha_fwd(q, k, v, w, sink, (q_seqlens, kv_seqlens),
+                                quantizers, cfg)
+        ctx.save_for_backward(*res, sink, q_seqlens, kv_seqlens)
+        ctx.quantizers, ctx.cfg = quantizers, cfg
+        ctx.meta = (q.dtype, tuple(w.shape), w.dtype)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (qd, kd, vd, sinv, o_pay, so_inv, lse, w_pay, sw_inv, *amaxes, sink,
+         q_seqlens, kv_seqlens) = ctx.saved_tensors
+        scale, causal, offset, window = ctx.cfg
+        q_dtype, w_shape, w_dtype = ctx.meta
+        qg_z, qdo_z = ctx.quantizers[5], ctx.quantizers[6]
+        b, sq, hq, d = qd.shape
+        qg = qg_z.quantize(g.reshape(b * sq, w_shape[1]),
+                           layout=QuantizeLayout.ROWWISE)
+        o_st = ScaledTensor1x(o_pay.reshape(b * sq, hq * d), so_inv, None,
+                              q_dtype)
+        dw = q_dot(o_st, qg, 0, 0).reshape(w_shape).to(w_dtype)
+        w_st = ScaledTensor1x(w_pay, sw_inv, None, q_dtype)
+        do4 = q_dot(qg, w_st, 1, 1).reshape(b, sq, hq, d).to(torch.bfloat16)
+        qdo = qdo_z.quantize(do4, layout=QuantizeLayout.ROWWISE)
+        dq, dk, dv = flash_bwd(qd, kd, vd, o_pay, lse, qdo.data, q_seqlens,
+                               kv_seqlens, scale=scale, causal=causal,
+                               offset=offset, window=window,
+                               softmax_sink=sink, scale_invs=sinv,
+                               grad_dtype=q_dtype, o_scale_inv=so_inv,
+                               do_scale_inv=qdo.scale_inv)
+        dsink = None
+        if sink is not None and ctx.needs_input_grad[4]:
+            dsink = sink_grad(sink, o_pay, lse, qdo.data,
+                              so_inv.float().reshape(())
+                              * qdo.scale_inv.float().reshape(()))
+        _write_back(ctx.quantizers, (*amaxes, qg.amax, qdo.amax))
+        return dq, dk, dv, dw, dsink, None, None, None, None
+
+
+def _check_tensor_scaling(quantizers, what: str) -> None:
+    for qz in quantizers:
+        if not qz.scaling_mode.is_tensor_scaling:
+            raise ValueError(f"{what} requires per-tensor scaling quantizers,"
+                             f" got {qz.scaling_mode}")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     sequence_descriptor=None, *, attn_mask_type=None,
                     scaling_factor: Optional[float] = None,
                     window_size: Optional[Tuple[int, int]] = None,
                     softmax_type: Optional[SoftmaxType] = None,
                     softmax_offset: Optional[torch.Tensor] = None,
+                    qkv_quantizers=None, mha_proj=None,
                     **unported) -> torch.Tensor:
     """Flash attention over BSHD inputs; returns O (B, Sq, Hq, D),
     differentiable in q, k, v and the learnable sink.
@@ -325,9 +658,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``sequence_descriptor`` (a :class:`~..attention.SequenceDescriptor`)
     and the static ``window_size`` (left, right). ``softmax_type``
     OFF_BY_ONE adds a sink of logit 0 to every head, LEARNABLE the (Hq,)
-    logits ``softmax_offset``. The reference's dynamic window,
-    ``q_position_offset``, bias, dropout, score_mod, FP8 Q/K/V and fused
-    output projection are not ported yet and raise."""
+    logits ``softmax_offset``.
+
+    ``qkv_quantizers``: a (q, k, v) tuple of per-tensor quantizers (e4m3)
+    runs the FP8 branch. ``mha_proj``: ``(w, quantizers)``, the output
+    projection's (Hq * D, N) kernel and the seven per-tensor quantizers
+    (q, k, v, o, w, g, do), runs the attention and the projection on fp8
+    O and dO and returns (B, Sq, N), differentiable in w too. Either way
+    a delayed quantizer's state is updated by the backward. The
+    reference's dynamic window, ``q_position_offset``, bias, dropout and
+    score_mod are not ported yet and raise."""
     for name, value in unported.items():
         if name not in _UNPORTED:
             raise TypeError(f"flash_attention() got an unexpected argument "
@@ -356,11 +696,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if softmax_offset is None:
             raise ValueError("LEARNABLE softmax requires softmax_offset (Hq,)")
         sink = softmax_offset.reshape(hq)
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (q, k, v, sink)):
-        return _FlashAttention.apply(q, k, v, sink, q_seqlens, kv_seqlens,
-                                     float(scale), mask_type.is_causal,
-                                     offset, window)
+    cfg = (float(scale), mask_type.is_causal, offset, window)
+    lens = (q_seqlens, kv_seqlens)
+    grad = torch.is_grad_enabled()
+    if mha_proj is not None:
+        w, quantizers = mha_proj
+        quantizers = tuple(quantizers)
+        if len(quantizers) != 7:
+            raise ValueError("mha_proj takes (w, (q, k, v, o, w, g, do) "
+                             "quantizers)")
+        _check_tensor_scaling(quantizers, "fp8_mha")
+        if grad and any(t is not None and t.requires_grad
+                        for t in (q, k, v, w, sink)):
+            return _FP8MHA.apply(q, k, v, w, sink, *lens, quantizers, cfg)
+        return _fp8_mha_fwd(q, k, v, w, sink, lens, quantizers, cfg)[0]
+    if qkv_quantizers is not None:
+        quantizers = tuple(qkv_quantizers)
+        _check_tensor_scaling(quantizers, "FP8 flash attention")
+        if grad and any(t is not None and t.requires_grad
+                        for t in (q, k, v, sink)):
+            return _FP8Attention.apply(q, k, v, sink, *lens, quantizers, cfg)
+        return _fp8_fwd(q, k, v, sink, lens, quantizers, cfg)[0]
+    if grad and any(t is not None and t.requires_grad
+                    for t in (q, k, v, sink)):
+        return _FlashAttention.apply(q, k, v, sink, *lens, *cfg)
     return flash_fwd(q, k, v, q_seqlens, kv_seqlens, scale=scale,
                      causal=mask_type.is_causal, offset=offset,
                      window=window, softmax_sink=sink)[0]
