@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases 3,4,5,...,19] [--train-seeds 21]
+    python3 chip_smoke.py [--phases 3,4,5,...,20] [--train-seeds 21]
                           [--moe-seeds 31] [--gptoss-seeds 51]
 
 Phases, each of which raises (and so exits non-zero) on failure:
@@ -37,7 +37,14 @@ Phases, each of which raises (and so exits non-zero) on failure:
      bf16 or through the fp8 O epilogue, a bf16 dO or e4m3 O and e5m2 dO),
      each timed beside SDPA on the dequantized bf16 tensors, then
      padding-causal lengths with fully masked rows, GQA groups of 4 and 8,
-     D 64 and 128, a window with a sink and O scales that saturate;
+     D 64 and 128, a window with a sink and O scales that saturate; the
+     flash kernels' segment branches at phase 20's packed batch (the
+     loader's first batch's ids; bf16, and e4m3 Q/K/V with fp8 O and dO as
+     the fp8_mha recipe runs them), each timed beside SDPA with the
+     block-diagonal causal mask, then f32, GQA groups of 4 and 8, D 64
+     and 256, a window with a sink, an all-zero row, non-contiguous ids,
+     no causal rule, the bottom-right offset, the FP8 branches, and ids
+     with lengths in one descriptor (the ids win);
   4. FP8-resident serving at LLAMA_8B width (seeded random weights, FP8
      KV cache, B = 8, prompts of 512 and 384 tokens, 32 new tokens)
      through prefill and decode_steps, with TTFT, decode ms/step, tok/s
@@ -132,12 +139,24 @@ Phases, each of which raises (and so exits non-zero) on failure:
      FP8 attention) and MXFP8BlockScaling(fp8_dpa) (two steps): SGD steps
      with exact launch counts of each flash branch, the fp8_mha_o delayed
      state moved, then one forward without a gradient each; ms/step,
-     tok/s, peak memory, busy share and the ratio to phase 6's step.
+     tok/s, peak memory, busy share and the ratio to phase 6's step;
+ 20. packed-document training at phase 6's shape (LLAMA_8B width, 4
+     layers, B = 2, S = 2048) on the native PackedDataLoader's batches of
+     seeded documents (64-4096 tokens, log-uniform; the longer ones split)
+     and the next-token loss within each document: three SGD steps
+     without a recipe, under DelayedScaling() and under
+     DelayedScaling(fp8_dpa=True, fp8_mha=True), with exact launch counts
+     of the segment branches (no flash launch without segments), then one
+     forward without a gradient each; ms/step, non-pad tok/s, peak
+     memory, busy share and the ratio to phase 6's step; then one bf16
+     step of 2 layers, B = 1, S = 256 on a packed row of three documents,
+     the card against the CPU, with a planted fault (the kernels given
+     all-ones ids) that the check must catch.
 Then one ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 A kernel's ``launches`` is the sum of its counts over the runs of the
-paths (phases 4, 6, 8, 9, 10, 11, 12, 13, 14, 16, 17 and 19, phase 9's
-load included), each counted from zero; comparisons with the plain versions do
-not count.
+paths (phases 4, 6, 8, 9, 10, 11, 12, 13, 14, 16, 17, 19 and 20, phase
+9's load included), each counted from zero; comparisons with the plain
+versions do not count.
 ``--phases`` runs a subset (for iterating on one path); the default runs
 all. ``--train-seeds`` gives phase 7 other seeds (``21,22,23`` reads
 what its limits were set from), ``--moe-seeds`` phase 15 (``31,32,33``),
@@ -3651,10 +3670,82 @@ def check_flash_bwd_sw(torch, timer, results):
               f"band {GPTOSS_BAND}")
 
 
+def variant_mask(torch, g, mask, b: int, sq: int, skv: int):
+    """A small variant's mask arguments and the (B, Sq) queries and (B,
+    Skv) keys that see nothing: ``mask`` None, a tuple of lengths, or a
+    :func:`small_ids` kind (the queries' ids are the last Sq keys', as
+    under the bottom-right offset)."""
+    if mask is None:
+        return {}, None, None
+    if isinstance(mask, str):
+        kseg = small_ids(torch, g, b, skv, mask)
+        qseg = kseg[:, skv - sq:].contiguous()
+        return (dict(q_segment_ids=qseg, kv_segment_ids=kseg), qseg == 0,
+                kseg == 0)
+    ln = torch.tensor(mask, dtype=torch.int32, device="cuda")
+    pos = torch.arange(max(sq, skv), device="cuda")
+    return (dict(q_seqlens=ln, kv_seqlens=ln), pos[None, :sq] >= ln[:, None],
+            pos[None, :skv] >= ln[:, None])
+
+
+def check_zero_grads(name, grads, qzero, kzero) -> None:
+    """A query that sees no key gets dQ = 0; a key no query sees, dK =
+    dV = 0."""
+    for gname, a, zero in zip(("dQ", "dK", "dV"), grads,
+                              (qzero, kzero, kzero)):
+        if zero is not None and bool(zero.any()) and \
+                float(a[zero].float().abs().max()) != 0.0:
+            raise AssertionError(f"{name} {gname}: a token that sees "
+                                 f"nothing must get a zero gradient")
+
+
+def flash_variants(torch, g, cases) -> None:
+    """Each case (dtype, Sq, Skv, D, Hq, Hkv, causal, window, sink, mask)
+    forward (O, LSE) and backward (dQ, dK, dV from the kernel's own O and
+    LSE) against its plain version; ``mask`` as :func:`variant_mask`
+    takes it, its queries that see nothing writing O = 0 and LSE = -1e30
+    (the sink with one) and getting zero gradients."""
+    from transformerengine_tpu_torch.ops.flash_attention import (
+        LOG2E, flash_bwd, flash_bwd_plain, flash_fwd, flash_fwd_plain)
+    f32 = torch.float32
+
+    def randn(*shape, dtype=f32):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    for dt, sq, skv, d, hq, hkv, causal, window, sink, mask in cases:
+        q, do = randn(2, sq, hq, d, dtype=dt), randn(2, sq, hq, d, dtype=dt)
+        k, v = randn(2, skv, hkv, d, dtype=dt), randn(2, skv, hkv, d,
+                                                      dtype=dt)
+        s0 = (None if sink is None else torch.zeros(hq, device="cuda")
+              if sink == "off_by_one" else randn(hq) * 2)
+        mk, qzero, kzero = variant_mask(torch, g, mask, 2, sq, skv)
+        offset = skv - sq if causal else 0
+        scale = d ** -0.5
+        kw = dict(causal=causal, offset=offset, window=window or (-1, -1),
+                  **mk)
+        o, lse = flash_fwd(q, k, v, scale=scale, softmax_sink=s0, **kw)
+        qs = (q.float() * (scale * LOG2E)).to(dt)
+        o_ref, lse_ref = flash_fwd_plain(qs, k, v, softmax_sink=s0, **kw)
+        name = (f"{dt} Sq={sq} Skv={skv} D={d} G={hq // hkv} causal={causal}"
+                f" window={window} sink={sink} mask={mask}")
+        tol = 1e-4 if dt == f32 else row_tol(o_ref, BF16_ROW_RTOL)
+        check(f"fwd {name} O", o, o_ref, tol)
+        check(f"fwd {name} LSE", lse, lse_ref, LSE_ATOL)
+        check_masked_rows(torch, f"fwd {name}", qzero, o, lse, s0)
+        delta = (do.float() * o.float()).sum(dim=-1)
+        got = flash_bwd(q, k, v, o, lse, do, scale=scale, softmax_sink=s0,
+                        **kw)
+        ref = flash_bwd_plain(qs, k, v, do, lse, delta, scale=scale, **kw)
+        for gname, a, r in zip(("dQ", "dK", "dV"), got, ref):
+            rel = 1e-4 if dt == f32 else BWD_RTOL
+            check(f"bwd {name} {gname}", a, r,
+                  rel * float(r.float().abs().max()))
+        check_zero_grads(f"bwd {name}", got, qzero, kzero)
+
+
 def check_sw_variants(torch, timer) -> None:
-    """[3t] the window and sink branches at small shapes, forward (O and
-    LSE) and backward (dQ, dK, dV from the kernel's own O and LSE), each
-    against its plain version: left only, right only, both sides, the
+    """[3t] the window and sink branches at small shapes (the cases of
+    :func:`flash_variants`): left only, right only, both sides, the
     off-by-one sink, a learnable sink with padded rows, the bottom-right
     offset with a band, f32, D 128 and 256 and a group of 8; then
     decode_attention at GPT-OSS's decode shape with its window and
@@ -3663,8 +3754,6 @@ def check_sw_variants(torch, timer) -> None:
         calibrate_kv_scale, quantize_for_cache)
     from transformerengine_tpu_torch.ops.decode_attention import (
         decode_attention, decode_attention_plain)
-    from transformerengine_tpu_torch.ops.flash_attention import (
-        LOG2E, flash_bwd, flash_bwd_plain, flash_fwd, flash_fwd_plain)
     log("[3t] flash attention's window and sink at small shapes, forward "
         "and backward")
     g = torch.Generator(device="cuda").manual_seed(23)
@@ -3674,50 +3763,14 @@ def check_sw_variants(torch, timer) -> None:
         return torch.randn(shape, generator=g, device="cuda").to(dtype)
 
     # (dtype, Sq, Skv, D, Hq, Hkv, causal, window, sink, lengths)
-    cases = ((f32, 70, 70, 64, 4, 2, False, (10, -1), None, None),
-             (bf16, 96, 96, 64, 4, 2, False, (-1, 7), None, None),
-             (bf16, 100, 100, 128, 4, 2, False, (20, 9), "off_by_one", None),
-             (f32, 70, 70, 128, 4, 2, True, (16, 0), "learnable", (70, 33)),
-             (bf16, 40, 100, 256, 4, 2, True, (24, 0), "learnable", None),
-             (bf16, 150, 150, 64, 16, 2, True, (32, 0), "learnable",
-              (150, 77)))
-    for dt, sq, skv, d, hq, hkv, causal, window, sink, lens in cases:
-        q, do = randn(2, sq, hq, d, dtype=dt), randn(2, sq, hq, d, dtype=dt)
-        k, v = randn(2, skv, hkv, d, dtype=dt), randn(2, skv, hkv, d,
-                                                      dtype=dt)
-        s0 = (None if sink is None else torch.zeros(hq, device="cuda")
-              if sink == "off_by_one" else randn(hq) * 2)
-        ln = (torch.tensor(lens, dtype=torch.int32, device="cuda")
-              if lens else None)
-        offset = skv - sq if causal else 0
-        scale = d ** -0.5
-        kw = dict(causal=causal, offset=offset, window=window)
-        o, lse = flash_fwd(q, k, v, ln, ln, scale=scale, softmax_sink=s0,
-                           **kw)
-        qs = (q.float() * (scale * LOG2E)).to(dt)
-        o_ref, lse_ref = flash_fwd_plain(qs, k, v, ln, ln, softmax_sink=s0,
-                                         **kw)
-        name = (f"{dt} Sq={sq} Skv={skv} D={d} G={hq // hkv} causal={causal}"
-                f" window={window} sink={sink} lengths={lens}")
-        tol = 1e-4 if dt == f32 else row_tol(o_ref, BF16_ROW_RTOL)
-        check(f"fwd {name} O", o, o_ref, tol)
-        check(f"fwd {name} LSE", lse, lse_ref, LSE_ATOL)
-        if lens:
-            pad = o[1, lens[1]:]
-            if float(pad.abs().max()) != 0.0:
-                raise AssertionError("padded rows must write O = 0")
-            want = s0[:, None].expand(hq, sq - lens[1])
-            check(f"fwd {name} padded rows' LSE = sink", lse[1, :, lens[1]:],
-                  want, 1e-5)
-        delta = (do.float() * o.float()).sum(dim=-1)
-        got = flash_bwd(q, k, v, o, lse, do, ln, ln, scale=scale,
-                        softmax_sink=s0, **kw)
-        ref = flash_bwd_plain(qs, k, v, do, lse, delta, ln, ln, scale=scale,
-                              **kw)
-        for gname, a, r in zip(("dQ", "dK", "dV"), got, ref):
-            rel = 1e-4 if dt == f32 else BWD_RTOL
-            check(f"bwd {name} {gname}", a, r,
-                  rel * float(r.float().abs().max()))
+    flash_variants(torch, g, (
+        (f32, 70, 70, 64, 4, 2, False, (10, -1), None, None),
+        (bf16, 96, 96, 64, 4, 2, False, (-1, 7), None, None),
+        (bf16, 100, 100, 128, 4, 2, False, (20, 9), "off_by_one", None),
+        (f32, 70, 70, 128, 4, 2, True, (16, 0), "learnable", (70, 33)),
+        (bf16, 40, 100, 256, 4, 2, True, (24, 0), "learnable", None),
+        (bf16, 150, 150, 64, 16, 2, True, (32, 0), "learnable",
+         (150, 77))))
     b, hq, hkv, d = BATCH, *GPTOSS_HEADS
     s_alloc = -(-(max(PROMPT_LENS) + NEW_TOKENS) // 128) * 128
     lens = mixed_lengths(torch, b, PROMPT_LENS) + NEW_TOKENS // 2
@@ -4211,80 +4264,84 @@ def check_flash_bwd_fp8(torch, timer, results):
     del out, deq
 
 
-def check_fp8_variants(torch) -> None:
-    """[3w] the FP8 branches at small shapes, forward (bf16 O and the fp8
-    O epilogue, O, LSE and the O amax) and backward (bf16 dO, and e4m3 O
-    with e5m2 dO), each against its plain version: padding-causal lengths
-    with fully masked rows, GQA groups of 4 and 8, D 64 and 128, a window
-    with a learnable sink, and O scales that saturate."""
+def fp8_variants(torch, cases, seed: int) -> None:
+    """Each case (Sq, D, Hq, Hkv, window, sink, mask, O scale: the fp8
+    epilogue's scale over 448 / amax(O), above 1 saturating) through the
+    FP8 branches, forward (bf16 O and the fp8 O epilogue: O, LSE, the O
+    amax) and backward (bf16 dO, and e4m3 O with e5m2 dO), each against
+    its plain version; ``mask`` as :func:`variant_mask` takes it (Sq =
+    Skv), its queries that see nothing writing O = 0."""
     from transformerengine_tpu_torch.ops.flash_attention import (
         flash_bwd, flash_bwd_plain, flash_fwd, flash_fwd_plain,
         fp8_bwd_scales, fp8_fwd_scales)
-    log("[3w] flash attention's FP8 branches at small shapes, forward and "
-        "backward")
     e4m3, e5m2, bf16 = torch.float8_e4m3fn, torch.float8_e5m2, torch.bfloat16
-    # (Sq, D, Hq, Hkv, window, sink, lengths, O scale: the fp8 epilogue's
-    # scale over 448 / amax(O), above 1 saturating)
-    cases = ((160, 64, 8, 2, None, False, (160, 77), 0.5),
-             (130, 128, 16, 2, None, False, None, 2.0),
-             (192, 64, 8, 1, (32, 0), True, (192, 50), 1.0),
-             (96, 128, 4, 1, (16, 0), True, None, 4.0))
-    for i, (sq, d, hq, hkv, window, sink, lens, ratio) in enumerate(cases):
+    for i, (sq, d, hq, hkv, window, sink, mask, ratio) in enumerate(cases):
         (_, _, _, do), (qd, kd, vd), sinv = fp8_inputs(
-            torch, 40 + i, (2, sq, hq, hkv, d))
-        g = torch.Generator(device="cuda").manual_seed(50 + i)
+            torch, seed + i, (2, sq, hq, hkv, d))
+        g = torch.Generator(device="cuda").manual_seed(seed + 10 + i)
         s0 = torch.randn((hq,), generator=g, device="cuda") * 2 \
             if sink else None
-        ln = (torch.tensor(lens, dtype=torch.int32, device="cuda")
-              if lens else None)
+        mk, qzero, kzero = variant_mask(torch, g, mask, 2, sq, sq)
         scale = d ** -0.5
-        kw = dict(scale=scale, causal=True, window=window or (-1, -1),
-                  softmax_sink=s0, scale_invs=sinv)
-        pkw = dict(causal=True, window=window or (-1, -1), softmax_sink=s0)
-        name = (f"Sq={sq} D={d} G={hq // hkv} window={window} sink={sink} "
-                f"lengths={lens}")
-        o, lse = flash_fwd(qd, kd, vd, ln, ln, **kw)
-        o_ref, lse_ref = flash_fwd_plain(qd, kd, vd, ln, ln,
-                                         fp8_scales=fp8_fwd_scales(sinv,
-                                                                   scale),
-                                         out_dtype=bf16, **pkw)
+        pkw = dict(causal=True, window=window or (-1, -1), softmax_sink=s0,
+                   **mk)
+        kw = dict(scale=scale, scale_invs=sinv, **pkw)
+        name = f"Sq={sq} D={d} G={hq // hkv} window={window} sink={sink} " \
+               f"mask={mask}"
+        o, lse = flash_fwd(qd, kd, vd, **kw)
+        o_ref, lse_ref = flash_fwd_plain(
+            qd, kd, vd, fp8_scales=fp8_fwd_scales(sinv, scale),
+            out_dtype=bf16, **pkw)
         check(f"fwd {name} O", o, o_ref, row_tol(o_ref, BF16_ROW_RTOL))
         check(f"fwd {name} LSE", lse, lse_ref, LSE_ATOL)
+        check_masked_rows(torch, f"fwd {name}", qzero, o, lse, s0)
         oscale = (448.0 * ratio / o_ref.float().abs().amax()).reshape(1)
-        o8, lse8, am = flash_fwd(qd, kd, vd, ln, ln, out_dtype=e4m3,
-                                 out_scale=oscale, **kw)
+        o8, _, am = flash_fwd(qd, kd, vd, out_dtype=e4m3, out_scale=oscale,
+                              **kw)
         o8_ref, _, am_ref = flash_fwd_plain(
-            qd, kd, vd, ln, ln, fp8_scales=fp8_fwd_scales(sinv, scale, oscale),
+            qd, kd, vd, fp8_scales=fp8_fwd_scales(sinv, scale, oscale),
             out_dtype=e4m3, **pkw)
         check_fp8_o(torch, f"fwd {name} fp8 O, scale x{ratio}", o8, o8_ref)
         check(f"fwd {name} O amax", am, am_ref, 2 ** -8 * float(am_ref))
         if ratio > 1 and not bool((o8.float().abs() == 448.0).any()):
             raise AssertionError("the O scale was set to saturate")
-        if lens:
-            short = lens[1]
-            if float(o[1, short:].float().abs().max()) != 0.0 or \
-                    float(o8[1, short:].float().abs().max()) != 0.0:
-                raise AssertionError("fully masked rows must write O = 0")
+        if qzero is not None and bool(qzero.any()) and \
+                float(o8[qzero].float().abs().max()) != 0.0:
+            raise AssertionError("fully masked rows must write O = 0")
         (do8,), sdo = fp8_payloads(torch, (do,), e5m2)
         so = (1.0 / oscale).reshape(1)
         for bname, o_in, do_in, extra, sdo_t, so_t in (
                 ("bf16 dO", o, do, {}, torch.ones((), device="cuda"), None),
                 ("e4m3 O, e5m2 dO", o8, do8,
                  dict(o_scale_inv=so, do_scale_inv=sdo), sdo, so)):
-            got = flash_bwd(qd, kd, vd, o_in, lse, do_in, ln, ln,
-                            grad_dtype=bf16, **extra, **kw)
+            got = flash_bwd(qd, kd, vd, o_in, lse, do_in, grad_dtype=bf16,
+                            **extra, **kw)
             delta = (do_in.float() * o_in.float()).sum(dim=-1)
             if so_t is not None:
                 delta = delta * (so_t.reshape(()) * sdo_t.reshape(()))
-            ref = flash_bwd_plain(qd, kd, vd, do_in, lse, delta, ln, ln,
-                                  scale=scale, causal=True,
-                                  window=window or (-1, -1),
+            ref = flash_bwd_plain(qd, kd, vd, do_in, lse, delta, scale=scale,
+                                  causal=True, window=window or (-1, -1),
                                   fp8_scales=fp8_bwd_scales(sinv, scale,
                                                             sdo_t),
-                                  grad_dtype=bf16)
+                                  grad_dtype=bf16, **mk)
             for gname, a, r in zip(("dQ", "dK", "dV"), got, ref):
                 check(f"bwd {name} {bname} {gname}", a, r,
                       BWD_RTOL * float(r.float().abs().max()))
+            check_zero_grads(f"bwd {name} {bname}", got, qzero, kzero)
+
+
+def check_fp8_variants(torch) -> None:
+    """[3w] the FP8 branches at small shapes (the cases of
+    :func:`fp8_variants`): padding-causal lengths with fully masked rows,
+    GQA groups of 4 and 8, D 64 and 128, a window with a learnable sink,
+    and O scales that saturate."""
+    log("[3w] flash attention's FP8 branches at small shapes, forward and "
+        "backward")
+    # (Sq, D, Hq, Hkv, window, sink, lengths, O scale ratio)
+    fp8_variants(torch, ((160, 64, 8, 2, None, False, (160, 77), 0.5),
+                         (130, 128, 16, 2, None, False, None, 2.0),
+                         (192, 64, 8, 1, (32, 0), True, (192, 50), 1.0),
+                         (96, 128, 4, 1, (16, 0), True, None, 4.0)), 40)
 
 
 # Phase 19: the LlamaModel training step with FP8 attention, phase 6's
@@ -4413,6 +4470,580 @@ def train_fp8_attention(torch, results) -> None:
     results["_train_fp8_attention"] = stats
 
 
+# ---------------------------------------------------------------------------
+# Packed documents: the flash kernels' segment branches (phase 3,
+# [3x]-[3z]) and the LlamaModel step on the loader's packed batches
+# (phase 20)
+# ---------------------------------------------------------------------------
+
+# The packed dataset: PACK_DOCS documents of lengths log-uniform over
+# PACK_LENS (some longer than TRAIN_S, which the packer splits), tokens
+# uniform in [1, vocab), all drawn from PACK_SEED.
+PACK_SEED, PACK_DOCS, PACK_LENS = 61, 256, (64, 4096)
+
+
+def write_packed_docs(path: str, vocab: int) -> None:
+    """Writes the packed dataset as a TEBIN001 file. The lengths are drawn
+    before the tokens, so the packing does not depend on ``vocab``."""
+    import numpy as np
+    from transformerengine_tpu_torch.data import write_token_bin
+    rng = np.random.default_rng(PACK_SEED)
+    lens = np.exp(rng.uniform(math.log(PACK_LENS[0]), math.log(PACK_LENS[1]),
+                              PACK_DOCS)).astype(np.int64)
+    write_token_bin(path, [rng.integers(1, vocab, int(n), dtype=np.int32)
+                           for n in lens])
+
+
+def packed_loader(vocab: int, b: int, s: int):
+    """A context holding the port's native PackedDataLoader (one thread,
+    so the batches come in a fixed order) over the packed dataset, written
+    into a temporary directory under the package's build directory."""
+    import contextlib
+    import os
+    import tempfile
+    from transformerengine_tpu_torch import _build
+    from transformerengine_tpu_torch.data import PackedDataLoader
+
+    @contextlib.contextmanager
+    def ctx():
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+            path = os.path.join(tmp, "packed.tebin")
+            write_packed_docs(path, vocab)
+            loader = PackedDataLoader(path, b, s, seed=PACK_SEED,
+                                      n_threads=1)
+            try:
+                if not loader.native:
+                    raise AssertionError("the native packer did not build")
+                yield loader
+            finally:
+                loader.close()
+    return ctx()
+
+
+def loader_batch(torch, loader, device):
+    """The loader's next (tokens, segment_ids, positions) on ``device``."""
+    return tuple(torch.from_numpy(a).to(device) for a in loader.next_batch())
+
+
+def seg_pairs(torch, seg) -> int:
+    """Visible (query, key) pairs of a packed batch: equal nonzero ids
+    with j <= i."""
+    pos = torch.arange(seg.shape[1], device=seg.device)
+    same = (seg[:, :, None] == seg[:, None, :]) & (seg[:, :, None] != 0)
+    return int((same & (pos[None, :] <= pos[:, None])).sum())
+
+
+def seg_mask(torch, seg):
+    """(B, 1, S, S) boolean block-diagonal causal mask of a packed batch,
+    True where a query sees a key: what SDPA takes for it."""
+    s = seg.shape[1]
+    pos = torch.arange(s, device=seg.device)
+    mask = (seg[:, :, None] == seg[:, None, :]) & (seg[:, :, None] != 0) \
+        & (pos[:, None] >= pos[None, :])
+    return mask[:, None]
+
+
+def packed_ids(torch, loader_vocab: int):
+    """The segment ids of the loader's first batch at phase 20's shape, on
+    the card."""
+    with packed_loader(loader_vocab, TRAIN_B, TRAIN_S) as loader:
+        return loader_batch(torch, loader, "cuda")[1]
+
+
+def check_masked_rows(torch, name, zero, o, lse, sink=None) -> None:
+    """The queries ``zero`` (B, Sq), which see no key, write O = 0 and
+    LSE = -1e30 (the sink with one)."""
+    if zero is None or not bool(zero.any()):
+        return
+    if float(o[zero].float().abs().max()) != 0.0:
+        raise AssertionError(f"{name}: a query that sees no key must write "
+                             f"O = 0")
+    got = lse.permute(0, 2, 1)[zero]
+    what = f"{name} LSE of the {int(zero.sum())} queries that see no key"
+    if sink is None:
+        if not bool((got == -1e30).all()):
+            raise AssertionError(f"{what} must be -1e30")
+        log(f"  {what}: -1e30 ok")
+    else:
+        # sink * log2(e) * ln(2): the sink within an f32 ulp or two.
+        check(f"{what} (the sink)", got, sink.float().expand_as(got),
+              1e-6 * max(1.0, float(sink.abs().max())))
+
+
+def check_flash_seg(torch, timer, results):
+    """[3x] rows 2s and 2os: the forward's segment branch at phase 20's
+    packed batch (B 2, S 2048, Hq 32, Hkv 8, D 128, padding-causal, the
+    ids of the loader's first batch), in bf16 and, as phase 20's fp8_mha
+    recipe runs it, on e4m3 payloads with the fp8 O epilogue; each
+    against its plain version, timed with it, with SDPA under the
+    block-diagonal causal boolean mask (on the dequantized bf16 tensors
+    for 2os) and with the bound of the same-segment causal pairs."""
+    import torch.nn.functional as F
+    from transformerengine_tpu_torch.models.llama import LLAMA_8B
+    from transformerengine_tpu_torch.ops.flash_attention import (
+        LOG2E, flash_fwd, flash_fwd_plain, fp8_fwd_scales)
+    from transformerengine_tpu_torch.quantize.qmath import (
+        compute_scale_from_amax)
+    b, s, hq, hkv, d = FP8_SHAPE
+    seg = packed_ids(torch, LLAMA_8B.vocab_size)
+    docs = [int(seg[i].max()) for i in range(b)]
+    rows = int((seg != 0).sum())
+    log(f"[3x] flash_attention fwd, segment branch: phase 20's packed batch "
+        f"B={b} S={s} Hq={hq} Hkv={hkv} D={d}, padding-causal, the loader's "
+        f"first batch ({docs} segments a row, {b * s - rows} padding "
+        f"tokens); bf16 (row 2s) and e4m3 Q/K/V with the fp8 O epilogue "
+        f"(row 2os)")
+    (q, k, v, _), (qd, kd, vd), sinv = fp8_inputs(torch, 61, FP8_SHAPE)
+    scale = d ** -0.5
+    ids = dict(q_segment_ids=seg, kv_segment_ids=seg)
+    o, lse = flash_fwd(q, k, v, scale=scale, causal=True, **ids)
+    torch.cuda.synchronize()
+    qs = (q.float() * (scale * LOG2E)).to(q.dtype)
+    o_ref, lse_ref = flash_fwd_plain(qs, k, v, causal=True, **ids)
+    err = check("O", o, o_ref, row_tol(o_ref, BF16_ROW_RTOL))
+    check("LSE", lse, lse_ref, LSE_ATOL)
+    check_masked_rows(torch, "bf16", seg == 0, o, lse)
+    ms = timer(lambda: flash_fwd(q, k, v, scale=scale, causal=True, **ids))
+    plain_ms = timer(lambda: flash_fwd_plain(qs, k, v, causal=True, **ids))
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    mask = seg_mask(torch, seg)
+    library_ms = timer(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, scale=scale, enable_gqa=True))
+    del qt, kt, vt
+    # The fp8 O epilogue at the scale of this O's amax (delayed scaling's
+    # state after a step), as phase 20's fp8_mha recipe runs it.
+    sc = fp8_fwd_scales(sinv, scale)
+    o_deq, _ = flash_fwd_plain(qd, kd, vd, causal=True, fp8_scales=sc,
+                               out_dtype=torch.bfloat16, **ids)
+    oscale = compute_scale_from_amax(o_deq.float().abs().amax(),
+                                     torch.float8_e4m3fn).reshape(1)
+    del o_deq
+    kw8 = dict(scale=scale, causal=True, scale_invs=sinv,
+               out_dtype=torch.float8_e4m3fn, out_scale=oscale, **ids)
+    o8, lse8, am = flash_fwd(qd, kd, vd, **kw8)
+    torch.cuda.synchronize()
+    sc8 = fp8_fwd_scales(sinv, scale, oscale)
+    pkw8 = dict(causal=True, fp8_scales=sc8, out_dtype=torch.float8_e4m3fn,
+                **ids)
+    o8_ref, lse8_ref, am_ref = flash_fwd_plain(qd, kd, vd, **pkw8)
+    err8 = check_fp8_o(torch, "O (fp8 epilogue)", o8, o8_ref)
+    check("LSE (fp8 epilogue)", lse8, lse8_ref, LSE_ATOL)
+    check("O amax", am, am_ref, 2 ** -8 * float(am_ref))
+    check_masked_rows(torch, "fp8", seg == 0, o8, lse8)
+    ms8 = timer(lambda: flash_fwd(qd, kd, vd, **kw8))
+    plain8 = timer(lambda: flash_fwd_plain(qd, kd, vd, **pkw8))
+    deq = [(t.float() * si).to(torch.bfloat16).transpose(1, 2).contiguous()
+           for t, si in zip((qd, kd, vd), sinv.unbind())]
+    library8 = timer(lambda: F.scaled_dot_product_attention(
+        *deq, attn_mask=mask, scale=scale, enable_gqa=True))
+    del deq, mask
+    pairs = seg_pairs(torch, seg) * hq
+    causal_pairs = b * hq * s * (s + 1) // 2
+    flops = 4 * d * pairs
+    # Q, K and V read over the rows with an id; O, LSE written in full;
+    # the ids read once.
+    q_rows, kv_rows = rows * hq * d, rows * hkv * d
+    for name, kms, pms, lms, e, el, o_bytes, prods in (
+            ("flash_attention_fwd_seg", ms, plain_ms, library_ms, err, 2, 2,
+             [(flops, BF16_FLOPS)]),
+            ("flash_attention_fwd_fp8_mha_seg", ms8, plain8, library8, err8,
+             1, 1, [(flops / 2, FP8_FLOPS), (flops / 2, BF16_FLOPS)])):
+        nbytes = el * (q_rows + 2 * kv_rows) + o_bytes * b * s * hq * d \
+            + 4 * b * hq * s + 4 * 2 * b * s
+        b_ms, b_by = bound_ms_mixed(nbytes, prods)
+        log(f"  {name}: kernel {kms:.4f} ms, plain {pms:.4f} ms, SDPA with "
+            f"the block-diagonal causal mask {lms:.4f} ms, bound {b_ms:.4f} "
+            f"ms ({b_by}, {flops / 1e9:.2f} GFLOP over the same-segment "
+            f"causal pairs, {100 * pairs / causal_pairs:.1f} % of the "
+            f"causal triangle's; {nbytes / 1e6:.1f} MB)")
+        results[name] = dict(
+            name=name, route="cuda",
+            source="transformerengine_tpu_torch/csrc/flash_attention.cu",
+            replaces="transformerengine_tpu/ops/flash_attention.py:2057",
+            max_abs_err=e, ms=kms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lms,
+            shape=f"packed B={b} S={s} Hq={hq} Hkv={hkv} D={d} "
+                  f"{'bf16' if el == 2 else 'e4m3, O e4m3'}, {docs} "
+                  f"segments")
+
+
+def check_flash_bwd_seg(torch, timer, results):
+    """[3y] rows 4s and 4os: the backward's segment branch at the same
+    packed batch, from a bf16 dO and (as phase 20's fp8_mha recipe) from
+    e4m3 Q/K/V with e4m3 O and e5m2 dO payloads; each against its plain
+    version, timed with it and with SDPA's backward under the mask."""
+    import torch.nn.functional as F
+    from transformerengine_tpu_torch.models.llama import LLAMA_8B
+    from transformerengine_tpu_torch.ops.flash_attention import (
+        LOG2E, flash_bwd, flash_bwd_plain, flash_fwd, fp8_bwd_scales)
+    from transformerengine_tpu_torch.quantize.qmath import (
+        compute_scale_from_amax)
+    b, s, hq, hkv, d = FP8_SHAPE
+    seg = packed_ids(torch, LLAMA_8B.vocab_size)
+    log(f"[3y] flash_attention bwd, segment branch (dQ and dK/dV kernels): "
+        f"the packed batch of [3x]; bf16 (row 4s), e4m3 Q/K/V with e4m3 O "
+        f"and e5m2 dO (row 4os)")
+    (q, k, v, do), (qd, kd, vd), sinv = fp8_inputs(torch, 62, FP8_SHAPE)
+    scale = d ** -0.5
+    ids = dict(q_segment_ids=seg, kv_segment_ids=seg)
+    o, lse = flash_fwd(q, k, v, scale=scale, causal=True, **ids)
+    o8p, lse8p = flash_fwd(qd, kd, vd, scale=scale, causal=True,
+                           scale_invs=sinv, **ids)
+    oscale = compute_scale_from_amax(o8p.float().abs().amax(),
+                                     torch.float8_e4m3fn).reshape(1)
+    o8, _, _ = flash_fwd(qd, kd, vd, scale=scale, causal=True,
+                         scale_invs=sinv, out_dtype=torch.float8_e4m3fn,
+                         out_scale=oscale, **ids)
+    del o8p
+    (do8,), sdo = fp8_payloads(torch, (do,), torch.float8_e5m2)
+    so = (1.0 / oscale).reshape(1)
+    qs = (q.float() * (scale * LOG2E)).to(q.dtype)
+    zero = seg == 0
+    mask = seg_mask(torch, seg)
+    dot = do.transpose(1, 2).contiguous()
+    pairs = seg_pairs(torch, seg) * hq
+    rows = int((seg != 0).sum())
+    q_rows, kv_rows = rows * hq * d, rows * hkv * d
+    cases = (("flash_attention_bwd_seg", (q, k, v, o, lse, do),
+              dict(scale=scale, causal=True, **ids),
+              (qs, k, v, do, lse), dict(scale=scale, causal=True, **ids),
+              None, 2),
+             ("flash_attention_bwd_fp8_mha_seg", (qd, kd, vd, o8, lse8p, do8),
+              dict(scale=scale, causal=True, scale_invs=sinv,
+                   grad_dtype=torch.bfloat16, o_scale_inv=so,
+                   do_scale_inv=sdo, **ids),
+              (qd, kd, vd, do8, lse8p),
+              dict(scale=scale, causal=True,
+                   fp8_scales=fp8_bwd_scales(sinv, scale, sdo),
+                   grad_dtype=torch.bfloat16, **ids),
+              so.reshape(()) * sdo.reshape(()), 1))
+    for name, args, kw, pargs, pkw, dscale, el in cases:
+        got = flash_bwd(*args, **kw)
+        torch.cuda.synchronize()
+        delta = (args[5].float() * args[3].float()).sum(dim=-1)
+        if dscale is not None:
+            delta = delta * dscale
+        ref = flash_bwd_plain(*pargs, delta, **pkw)
+        err = 0.0
+        for gname, a, r in zip(("dQ", "dK", "dV"), got, ref):
+            differ = int((a != r).sum())
+            err = max(err, check(
+                f"{name} {gname} ({differ} of {r.numel()} elements differ)",
+                a, r, BWD_RTOL * float(r.float().abs().max())))
+        check_zero_grads(name, got, zero, zero)
+        del got, ref
+        ms = timer(lambda: flash_bwd(*args, **kw))
+        plain_ms = timer(lambda: flash_bwd_plain(*pargs, delta, **pkw),
+                         reps=5)
+        if el == 2:
+            src = (q, k, v)
+        else:
+            src = [(t.float() * si).to(torch.bfloat16)
+                   for t, si in zip((qd, kd, vd), sinv.unbind())]
+        leaves = [t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in src]
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                             scale=scale, enable_gqa=True)
+        library_ms = timer.events(lambda: torch.autograd.grad(
+            out, leaves, dot, retain_graph=True))
+        del out, leaves
+        # Five products over the same-segment causal pairs; for 4os s and
+        # dp at the fp8 peak. Read Q, K, V over the rows with an id, O,
+        # dO (in full: delta's rows), LSE and the ids; write dQ, dK, dV.
+        n_fp8 = 0 if el == 2 else 2
+        prods = [(n_fp8 * 2 * d * pairs, FP8_FLOPS),
+                 ((5 - n_fp8) * 2 * d * pairs, BF16_FLOPS)]
+        nbytes = el * (q_rows + 2 * kv_rows) + 2 * el * b * s * hq * d \
+            + 4 * b * hq * s + 4 * 2 * b * s \
+            + 2 * b * s * (hq + 2 * hkv) * d
+        b_ms, b_by = bound_ms_mixed(nbytes, prods)
+        log(f"  {name}: kernels {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+            f"backward with the mask{'' if el == 2 else ' (dequantized bf16)'}"
+            f" {library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+            f"{10 * d * pairs / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
+        results[name] = dict(
+            name=name, route="cuda",
+            source="transformerengine_tpu_torch/csrc/flash_attention_bwd.cu",
+            replaces="transformerengine_tpu/ops/flash_attention.py:1477",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=library_ms,
+            shape=f"packed B={b} S={s} Hq={hq} Hkv={hkv} D={d} "
+                  f"{'bf16' if el == 2 else 'e4m3, O e4m3, dO e5m2'}")
+    del mask
+
+
+def small_ids(torch, g, b: int, s: int, kind: str):
+    """(B, S) int32 segment ids on the card: "packed" (contiguous
+    documents of random lengths, then padding), "gaps" (ids drawn at
+    random from 0-3 per token: non-contiguous, documents that reappear
+    and zeros among them) or "zero_row" (packed, then row 1 all 0)."""
+    if kind == "gaps":
+        return torch.randint(0, 4, (b, s), generator=g, device="cuda",
+                             dtype=torch.int32)
+    cuts = torch.rand((b, 3), generator=g, device="cuda").sort(dim=1).values
+    pos = torch.arange(s, device="cuda")[None, :, None] / s
+    ids = (pos >= cuts[:, None, :]).sum(dim=-1).to(torch.int32) + 1
+    ids = torch.where(pos[..., 0] < 0.9, ids, torch.zeros_like(ids))
+    if kind == "zero_row":
+        ids[1] = 0
+    return ids
+
+
+def check_seg_variants(torch) -> None:
+    """[3z] the segment branches at small shapes, through
+    :func:`flash_variants` (f32; GQA groups of 4 and 8; D 64, 128 and
+    256; a window with a learnable sink; an all-zero row; non-contiguous
+    ids; no causal rule; the bottom-right offset with other q and kv ids)
+    and :func:`fp8_variants` (the FP8 branches with packed and
+    non-contiguous ids, a window and a sink); then ids with lengths in
+    one descriptor through ``flash_attention``, where the ids win."""
+    from transformerengine_tpu_torch.attention import (
+        AttnMaskType, SequenceDescriptor)
+    from transformerengine_tpu_torch.ops.flash_attention import (
+        LOG2E, flash_attention, flash_fwd_plain)
+    log("[3z] flash attention's segment branches at small shapes, forward "
+        "and backward")
+    g = torch.Generator(device="cuda").manual_seed(63)
+    f32, bf16 = torch.float32, torch.bfloat16
+    # (dtype, Sq, Skv, D, Hq, Hkv, causal, window, sink, ids)
+    flash_variants(torch, g, (
+        (f32, 96, 96, 64, 4, 2, True, None, None, "packed"),
+        (bf16, 130, 130, 64, 8, 2, True, None, None, "gaps"),
+        (bf16, 150, 150, 128, 16, 2, True, None, None, "zero_row"),
+        (bf16, 100, 100, 256, 4, 2, True, (24, 0), "learnable", "packed"),
+        (bf16, 70, 70, 128, 4, 1, False, None, None, "gaps"),
+        (f32, 40, 100, 64, 4, 2, True, None, None, "packed")))
+    # (Sq, D, Hq, Hkv, window, sink, ids, O scale ratio)
+    fp8_variants(torch, ((160, 64, 8, 2, None, False, "packed", 1.0),
+                         (96, 128, 8, 1, (16, 0), True, "gaps", 2.0)), 70)
+    # Ids and lengths in one descriptor: the ids win, as in the
+    # reference's wrapper.
+    q, k, v = (torch.randn((2, 64, 4, 64), generator=g, device="cuda").to(
+        bf16) for _ in range(3))
+    seg = small_ids(torch, g, 2, 64, "gaps")
+    lens = torch.tensor([64, 20], dtype=torch.int32, device="cuda")
+    desc = dataclasses.replace(
+        SequenceDescriptor.from_segment_ids_and_pos(seg),
+        q_seqlens=lens, kv_seqlens=lens)
+    o = flash_attention(q, k, v, desc,
+                        attn_mask_type=AttnMaskType.PADDING_CAUSAL)
+    qs = (q.float() * (64 ** -0.5 * LOG2E)).to(bf16)
+    o_ref, _ = flash_fwd_plain(qs, k, v, causal=True, q_segment_ids=seg,
+                               kv_segment_ids=seg)
+    check("flash_attention, ids and lengths in one descriptor (the ids "
+          "win)", o, o_ref, row_tol(o_ref, BF16_ROW_RTOL))
+
+
+# Phase 20: the LlamaModel training step on packed documents, phase 6's
+# shape (LLAMA_8B width, 4 layers, B 2, S 2048, lr 1e-3), three recipes,
+# PACKED_STEPS steps each on the loader's batches.
+PACKED_STEPS = 3
+
+
+def packed_recipes() -> tuple:
+    """(name, recipe, flash branch suffix) of phase 20."""
+    from transformerengine_tpu_torch import DelayedScaling
+    return (("bf16", None, "_seg"), ("delayed", DelayedScaling(), "_seg"),
+            ("delayed_mha", DelayedScaling(fp8_dpa=True, fp8_mha=True),
+             "_fp8_mha_seg"))
+
+
+def packed_loss(torch, model, tokens, seg, pos):
+    """The packed batch's next-token cross entropy: a target counts where
+    it continues its own document."""
+    from transformerengine_tpu_torch.attention import SequenceDescriptor
+    from transformerengine_tpu_torch.models.llama import cross_entropy_loss
+    desc = SequenceDescriptor.from_segment_ids_and_pos(seg, seg, pos, pos)
+    logits = model(tokens, desc, pos)
+    mask = (seg[:, 1:] == seg[:, :-1]) & (seg[:, 1:] != 0)
+    return cross_entropy_loss(logits[:, :-1], tokens[:, 1:], mask=mask)
+
+
+def packed_step(torch, model, batch, recipe, lr: float = TRAIN_LR):
+    tokens, seg, pos = batch
+    return train_step(torch, model, tokens, tokens, recipe, lr=lr,
+                      loss_fn=lambda m, t, _: packed_loss(
+                          torch, m, t, seg.to(t.device), pos.to(t.device)))
+
+
+def train_packed(torch, results) -> None:
+    """Phase 20: packed-document training at LLAMA_8B width, 4 layers,
+    B = 2, S = 2048, on the port's PackedDataLoader's batches: steps
+    without a recipe, under DelayedScaling() and under
+    DelayedScaling(fp8_dpa=True, fp8_mha=True), each step with exact
+    launch counts of the segment branches (no flash launch without
+    segments), then one forward without a gradient each; ms/step, tok/s
+    over the non-pad tokens, peak memory, busy share and the ratio to
+    phase 6's step; then the card against the CPU."""
+    from transformerengine_tpu_torch import autocast
+    from transformerengine_tpu_torch.attention import SequenceDescriptor
+    from transformerengine_tpu_torch.models.llama import LLAMA_8B, LlamaModel
+    cfg = dataclasses.replace(LLAMA_8B, num_layers=TRAIN_LAYERS)
+    b, s, layers = TRAIN_B, TRAIN_S, TRAIN_LAYERS
+    log(f"[20] packed-document training: LLAMA_8B width, {layers} layers, "
+        f"B={b} S={s}, the native PackedDataLoader over {PACK_DOCS} seeded "
+        f"documents of {PACK_LENS[0]}-{PACK_LENS[1]} tokens (log-uniform), "
+        f"{PACKED_STEPS} SGD steps at lr {TRAIN_LR} under each of "
+        f"{[n for n, _, _ in packed_recipes()]}, then the forward without a "
+        f"gradient")
+    totals = collections.Counter()
+    stats = {}
+    base = results.get("_train", {})
+    with packed_loader(cfg.vocab_size, b, s) as loader:
+        for name, recipe, branch in packed_recipes():
+            torch.cuda.reset_peak_memory_stats()
+            model = LlamaModel(cfg, device=CARD, seed=0)
+            shrink_embedding(model)
+            expect = {"flash_attention_fwd" + branch: layers,
+                      "flash_attention_bwd_dq" + branch: layers,
+                      "flash_attention_bwd_dkv" + branch: layers}
+            batches = [loader_batch(torch, loader, CARD)
+                       for _ in range(PACKED_STEPS)]
+            nonpad = [int((bt[1] != 0).sum()) for bt in batches]
+            it = iter(batches)
+            losses, times, counts = timed_steps(
+                torch, lambda: float(packed_step(torch, model, next(it),
+                                                 recipe)),
+                expect, PACKED_STEPS, "step")
+            totals.update(counts)
+            if not all(map(math.isfinite, losses)):
+                raise AssertionError(f"{name}: losses {losses}")
+            step_ms = statistics.median(times[1:]) * 1e3
+            tok_s = statistics.median(n / t for n, t in
+                                      zip(nonpad[1:], times[1:]))
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            ref = base.get("bf16_ms_per_step" if recipe is None
+                           else "ms_per_step")
+            st = dict(ms_per_step=step_ms, nonpad_tok_per_s=tok_s,
+                      nonpad_tokens=nonpad, losses=losses, peak_gib=peak)
+            log(f"  {name} {recipe}:")
+            log(f"    losses {[round(x, 5) for x in losses]} (all finite); "
+                f"launches per step {expect} in every step ok")
+            log(f"    step times {[round(t * 1e3, 2) for t in times]} ms; "
+                f"median of steps 2-{PACKED_STEPS} {step_ms:.2f} ms/step, "
+                f"{tok_s:.0f} non-pad tok/s (non-pad tokens {nonpad} of "
+                f"{b * s}), peak {peak:.2f} GiB"
+                + (f"; {step_ms / ref:.3f}x phase 6's "
+                   f"{'bf16' if recipe is None else 'DelayedScaling'} step "
+                   f"({ref:.2f} ms)" if ref else ""))
+            busy, wall, kernels = device_profile(
+                torch, lambda: packed_step(torch, model, batches[-1], recipe),
+                1)
+            log_profile(f"{name} packed step", st, busy, wall, kernels, 1)
+            tokens, seg, pos = batches[-1]
+            desc = SequenceDescriptor.from_segment_ids_and_pos(seg, seg, pos,
+                                                               pos)
+            expect_fwd = {"flash_attention_fwd" + branch: layers}
+            with torch.no_grad(), autocast(enabled=recipe is not None,
+                                           recipe=recipe):
+                outs, fwd_times, fwd_counts = timed_steps(
+                    torch, lambda: model(tokens, desc, pos), expect_fwd, 1,
+                    "forward without a gradient")
+            totals.update(fwd_counts)
+            if outs[0].shape != (b, s, cfg.vocab_size) or \
+                    not bool(torch.isfinite(outs[0]).all()):
+                raise AssertionError(f"{name}: the forward's logits are not "
+                                     f"finite")
+            st["forward_ms"] = fwd_times[0] * 1e3
+            log(f"    forward without a gradient: launches {expect_fwd} ok, "
+                f"logits finite, {fwd_times[0] * 1e3:.2f} ms")
+            stats[name] = st
+            del model, outs, batches, it
+            torch.cuda.empty_cache()
+    for kernel, n in totals.items():
+        add_launches(results, bwd_row(kernel), n)
+    results["_train_packed"] = stats
+    failures = packed_card_vs_cpu(torch)
+    if failures:
+        raise AssertionError(f"packed step, card against CPU: {failures}")
+
+
+# Phase 20's card against the CPU: one bf16 step of 2 layers at LLAMA_8B
+# width on one packed row of three documents and padding, held to phase
+# 7's bf16 limits.
+PACKED_VS_CPU_SEED, PACKED_VS_CPU_S = 71, 256
+PACKED_VS_CPU_DOCS = (120, 80, 40)
+
+
+def packed_card_vs_cpu(torch) -> list:
+    """Phase 20's card-against-CPU check; returns what failed. The planted
+    fault gives the card's flash kernels all-ones ids, which ignores the
+    packing."""
+    import contextlib
+    import numpy as np
+    from transformerengine_tpu_torch.data import pack_sequences
+    from transformerengine_tpu_torch.models.llama import LLAMA_8B, LlamaModel
+    from transformerengine_tpu_torch.ops import flash_attention as fa
+    cfg = dataclasses.replace(LLAMA_8B, num_layers=2)
+    rng = np.random.default_rng(PACKED_VS_CPU_SEED)
+    docs = [rng.integers(1, cfg.vocab_size, n, dtype=np.int32)
+            for n in PACKED_VS_CPU_DOCS]
+    offsets = np.cumsum([0, *PACKED_VS_CPU_DOCS]).astype(np.int64)
+    packed = pack_sequences(np.concatenate(docs), offsets, PACKED_VS_CPU_S,
+                            use_native=True)
+    batch = tuple(torch.from_numpy(a) for a in packed)
+    if batch[0].shape[0] != 1:
+        raise AssertionError("the three documents must pack into one row")
+    log(f"  card vs CPU: one bf16 step of 2 layers at LLAMA_8B width, B=1 "
+        f"S={PACKED_VS_CPU_S}, one packed row of documents of "
+        f"{PACKED_VS_CPU_DOCS} tokens and {int((batch[1] == 0).sum())} "
+        f"padding, seed {PACKED_VS_CPU_SEED}")
+    limits = TRAIN_VS_CPU_LIMITS["bf16"]
+    t0 = time.perf_counter()
+    cpu = LlamaModel(cfg, device="cpu", seed=PACKED_VS_CPU_SEED)
+    shrink_embedding(cpu)
+    start = {n: t.clone() for n, t in cpu.state_dict().items()}
+
+    def readings(model, dev):
+        tokens, seg, pos = (t.to(dev) for t in batch)
+        return step_readings(
+            torch, model, tokens, tokens, None, dev,
+            loss_fn=lambda m, t, _: packed_loss(torch, m, t, seg, pos))
+
+    ref = readings(cpu, "cpu")
+    del cpu
+    card = LlamaModel(cfg, device=CARD, seed=PACKED_VS_CPU_SEED)
+    card.load_state_dict(start)
+    got = differences(readings(card, CARD), ref)
+
+    @contextlib.contextmanager
+    def ids_ignored():
+        real_fwd, real_bwd = fa.flash_fwd, fa.flash_bwd
+
+        def ones(kw):
+            for key in ("q_segment_ids", "kv_segment_ids"):
+                if kw.get(key) is not None:
+                    kw[key] = torch.ones_like(kw[key])
+            return kw
+
+        fa.flash_fwd = lambda *a, **kw: real_fwd(*a, **ones(kw))
+        fa.flash_bwd = lambda *a, **kw: real_bwd(*a, **ones(kw))
+        try:
+            yield
+        finally:
+            fa.flash_fwd, fa.flash_bwd = real_fwd, real_bwd
+
+    card.load_state_dict(start)
+    with ids_ignored():
+        planted = differences(readings(card, CARD), ref)
+    del card
+    ok = all(got[k] <= limits[k] for k in limits)
+    log(f"    ({time.perf_counter() - t0:.1f} s) limits "
+        + ", ".join(f"{k} {v:.3e}" for k, v in limits.items()))
+    log("    residual stream after each layer, largest difference over the "
+        "largest |CPU|: " + ", ".join(f"{e:.3e}" for e in got["stream"]))
+    log(f"    card against CPU: {_fmt(got)} {'ok' if ok else 'FAIL'}")
+    failures = [] if ok else ["packed bf16"]
+    caught = [k for k in limits if not planted[k] <= limits[k]]
+    log(f"    planted fault 'all-ones ids (the packing ignored)': "
+        f"{_fmt(planted)}: "
+        + (f"caught by {', '.join(caught)}" if caught else "NOT CAUGHT"))
+    if not caught:
+        failures.append("packed: 'all-ones ids' not caught")
+    return failures
+
+
 def bwd_row(kernel: str) -> str:
     """The results row of a launch name: a branch's dQ and dK/dV kernels
     share one row."""
@@ -4423,7 +5054,7 @@ def bwd_row(kernel: str) -> str:
 
 
 PHASES = ("3", "4", "5", "6", "7", "8", "9", "10", "11", "12", "13", "14",
-          "15", "16", "17", "18", "19")
+          "15", "16", "17", "18", "19", "20")
 
 
 def main() -> int:
@@ -4434,7 +5065,7 @@ def main() -> int:
     import argparse
     parser = argparse.ArgumentParser()
     parser.add_argument("--phases", default=",".join(PHASES),
-                        help="comma-separated subset of 3-19")
+                        help="comma-separated subset of 3-20")
     parser.add_argument("--train-seeds", default=str(TRAIN_VS_CPU_SEED),
                         help="comma-separated seeds of phase 7 (its limits "
                         "were set from the readings of 21,22,23)")
@@ -4506,6 +5137,9 @@ def main() -> int:
     run("3", check_flash_fp8, timer, results)
     run("3", check_flash_bwd_fp8, timer, results)
     run("3", check_fp8_variants)
+    run("3", check_flash_seg, timer, results)
+    run("3", check_flash_bwd_seg, timer, results)
+    run("3", check_seg_variants)
     run("4", serve, results)
     run("9", serve_paged_mxfp8, results)
     run("12", serve_paged_nvfp4, results)
@@ -4519,6 +5153,7 @@ def main() -> int:
     run("16", train_gptoss, results)
     run("17", serve_gptoss, results)
     run("19", train_fp8_attention, results)
+    run("20", train_packed, results)
     failed = []
     for seed in map(int, args.train_seeds.split(",")):
         run("7", lambda torch, seed=seed: failed.extend(
@@ -4538,7 +5173,8 @@ def main() -> int:
                                          "_serve_paged_nvfp4", "_batching",
                                          "_train_mixtral", "_serve_mixtral",
                                          "_train_gptoss", "_serve_gptoss",
-                                         "_train_fp8_attention")
+                                         "_train_fp8_attention",
+                                         "_train_packed")
              if k in results}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -1,7 +1,8 @@
-"""Guards of the port: it imports nothing of JAX or of the JAX package, its
-entry points never fall back to the CPU on their own, no ``try`` wraps a
-kernel launch, and its kernel wrappers never return the plain version for
-a tensor on the card."""
+"""Guards of the port: it imports nothing of JAX or of the JAX package (its
+data module included), its entry points never fall back to the CPU on
+their own, no ``try`` wraps a kernel launch, and its kernel wrappers never
+return the plain version for a tensor on the card, segment ids
+included."""
 import ast
 import subprocess
 import sys
@@ -71,6 +72,29 @@ def test_importing_the_whole_port_loads_no_jax():
     assert out.returncode == 0, out.stderr
     count, left = out.stdout.split(" ", 1)
     assert int(count) >= 20 and left.strip() == "[]"
+
+
+def test_data_module_loads_no_jax():
+    """The input pipeline alone (its packer built and run) imports
+    nothing of JAX or of the JAX package."""
+    code = _IMPORT_ALL.split("import transformerengine_tpu_torch as pkg")[0] \
+        + """
+import numpy as np
+from transformerengine_tpu_torch import data
+tok, seg, pos = data.pack_sequences(np.arange(1, 50, dtype=np.int32),
+                                    np.array([0, 20, 49]), 64)
+left = sorted(n for n in sys.modules if forbidden(n))
+print(int(seg.max()), left)
+assert not left, left
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split(" ", 1) == ["2", "[]\n"]
+    files = sorted((PORT / "data").rglob("*.py"))
+    assert [f.name for f in files] == ["__init__.py", "loader.py"]
+    for path in files:
+        assert not set(_imported_roots(path)) & set(FORBIDDEN), path
 
 
 def _imported_roots(path: Path):
@@ -152,12 +176,36 @@ def test_entry_points_without_a_device_need_the_card(monkeypatch):
         ContinuousBatchingEngine(model, **batching)
 
 
+def test_packed_forward_keeps_the_card_default(monkeypatch):
+    """LlamaModel's forward takes a segment descriptor and positions,
+    and the model still defaults to the card: without one it raises;
+    on the CPU the packed forward runs when asked for."""
+    import inspect
+    from transformerengine_tpu_torch.attention import SequenceDescriptor
+    assert inspect.signature(LlamaModel).parameters["device"].default == \
+        "cuda"
+    params = inspect.signature(LlamaModel.forward).parameters
+    assert list(params)[1:4] == ["tokens", "sequence_descriptor",
+                                 "positions"]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LlamaModel(LLAMA_TINY)
+    model = LlamaModel(LLAMA_TINY, device="cpu")
+    seg = torch.tensor([[1, 1, 2, 2, 2, 0]])
+    pos = torch.tensor([[0, 1, 0, 1, 2, 0]])
+    with torch.no_grad():
+        logits = model(torch.ones((1, 6), dtype=torch.int32),
+                       SequenceDescriptor.from_segment_ids_and_pos(seg),
+                       pos)
+    assert logits.shape == (1, 6, LLAMA_TINY.vocab_size)
+
+
 def _calls():
     """One call of each kernel wrapper, and of the quantizer methods that
     reach the fused casts, on tensors that lie on the card. They are fake
     tensors (shapes, dtypes and a device, no storage), so no card is
     needed to build them."""
-    bf16, f32 = torch.bfloat16, torch.float32
+    bf16, f32, i32 = torch.bfloat16, torch.float32, torch.int32
     e4m3 = torch.float8_e4m3fn
     both = QuantizeLayout.ROWWISE_COLWISE
 
@@ -211,6 +259,32 @@ def _calls():
             cuda(2, 64, 4, 32, dtype=torch.float8_e5m2), scale=0.2,
             causal=True, scale_invs=cuda(3, dtype=f32),
             o_scale_inv=cuda(1, dtype=f32), do_scale_inv=cuda(1, dtype=f32)),
+        # The segment branches (packed documents) count under "_seg".
+        "flash_fwd_seg": lambda: fa.flash_fwd(
+            cuda(2, 64, 4, 32), cuda(2, 64, 2, 32), cuda(2, 64, 2, 32),
+            scale=0.2, causal=True, q_segment_ids=cuda(2, 64, dtype=i32),
+            kv_segment_ids=cuda(2, 64, dtype=i32)),
+        "flash_bwd_seg": lambda: fa.flash_bwd(
+            cuda(2, 64, 4, 32), cuda(2, 64, 2, 32), cuda(2, 64, 2, 32),
+            cuda(2, 64, 4, 32), cuda(2, 4, 64, dtype=f32),
+            cuda(2, 64, 4, 32), scale=0.2, causal=True,
+            q_segment_ids=cuda(2, 64, dtype=i32),
+            kv_segment_ids=cuda(2, 64, dtype=i32)),
+        "flash_fwd_fp8_mha_seg": lambda: fa.flash_fwd(
+            cuda(2, 64, 4, 32, dtype=e4m3), cuda(2, 64, 2, 32, dtype=e4m3),
+            cuda(2, 64, 2, 32, dtype=e4m3), scale=0.2, causal=True,
+            scale_invs=cuda(3, dtype=f32), out_scale=cuda(1, dtype=f32),
+            q_segment_ids=cuda(2, 64, dtype=i32),
+            kv_segment_ids=cuda(2, 64, dtype=i32)),
+        "flash_bwd_fp8_mha_seg": lambda: fa.flash_bwd(
+            cuda(2, 64, 4, 32, dtype=e4m3), cuda(2, 64, 2, 32, dtype=e4m3),
+            cuda(2, 64, 2, 32, dtype=e4m3), cuda(2, 64, 4, 32, dtype=e4m3),
+            cuda(2, 4, 64, dtype=f32),
+            cuda(2, 64, 4, 32, dtype=torch.float8_e5m2), scale=0.2,
+            causal=True, scale_invs=cuda(3, dtype=f32),
+            o_scale_inv=cuda(1, dtype=f32), do_scale_inv=cuda(1, dtype=f32),
+            q_segment_ids=cuda(2, 64, dtype=i32),
+            kv_segment_ids=cuda(2, 64, dtype=i32)),
         "te_paged_decode_attention": lambda: pa.paged_decode_attention(
             cuda(2, 1, 4, 32), cuda(6, 8, 2, 32, dtype=torch.float8_e4m3fn),
             cuda(6, 8, 2, 32, dtype=torch.float8_e4m3fn),
@@ -292,6 +366,12 @@ _LAUNCHED = {"te_flash_attention_bwd": ["te_flash_attention_bwd_dq",
                                "te_flash_attention_bwd_dkv"],
              "flash_bwd_fp8_mha": ["te_flash_attention_bwd_dq",
                                    "te_flash_attention_bwd_dkv"],
+             "flash_fwd_seg": ["te_flash_attention_fwd"],
+             "flash_fwd_fp8_mha_seg": ["te_flash_attention_fwd"],
+             "flash_bwd_seg": ["te_flash_attention_bwd_dq",
+                               "te_flash_attention_bwd_dkv"],
+             "flash_bwd_fp8_mha_seg": ["te_flash_attention_bwd_dq",
+                                       "te_flash_attention_bwd_dkv"],
              "delayed_quantize_2x": ["te_cast_transpose"],
              "current_quantize_2x": ["te_cast_transpose"],
              "quantize_normed": ["te_norm_cast_transpose"],
@@ -311,6 +391,9 @@ _LAUNCHED = {"te_flash_attention_bwd": ["te_flash_attention_bwd_dq",
                                    "flash_fwd_sw", "flash_bwd_sw",
                                    "flash_fwd_fp8", "flash_fwd_fp8_mha",
                                    "flash_bwd_fp8", "flash_bwd_fp8_mha",
+                                   "flash_fwd_seg", "flash_bwd_seg",
+                                   "flash_fwd_fp8_mha_seg",
+                                   "flash_bwd_fp8_mha_seg",
                                    "te_decode_attention",
                                    "te_paged_decode_attention",
                                    "te_decode_kn_matvec",
@@ -380,13 +463,70 @@ def test_wrappers_on_the_card_launch_or_raise(entry, monkeypatch):
     assert launched == expected
     grown = _build.LAUNCHES - before
     assert sum(grown.values()) == len(expected)
-    if entry.endswith("_sw"):
-        assert all(name.endswith("_sw") for name in grown), grown
+    if entry.endswith(("_sw", "_seg")):
+        suffix = entry[entry.rindex("_"):]
+        assert all(name.endswith(suffix) for name in grown), grown
     if "_fp8" in entry:
-        branch = "_fp8_mha" if entry.endswith("_mha") else "_fp8"
+        branch = "_fp8_mha" if "_mha" in entry else "_fp8"
         assert all(branch in name for name in grown), grown
         if entry == "flash_fwd_fp8_mha":     # with its window: "_sw" last
             assert all(name.endswith("_fp8_mha_sw") for name in grown), grown
+    if entry.startswith("flash_") and not entry.endswith("_seg"):
+        assert not any(name.endswith("_seg") for name in grown), grown
+
+
+# Where the lengths and the segment ids sit among each C entry point's
+# arguments.
+_MASK_ARGS = {"te_flash_attention_fwd": slice(7, 11),
+              "te_flash_attention_bwd_dq": slice(10, 14),
+              "te_flash_attention_bwd_dkv": slice(11, 15)}
+
+
+@pytest.mark.parametrize("how", ["kernel", "descriptor"])
+def test_segment_ids_reach_the_kernels(how, monkeypatch):
+    """On CUDA tensors the ids reach the forward, dQ and dK/dV kernels as
+    int32 (B, S) pointers in place of the lengths, called directly or
+    through ``flash_attention``'s descriptor (whose ids win over its
+    lengths), and the plain versions never run."""
+    from transformerengine_tpu_torch.attention import (
+        AttnMaskType, SequenceDescriptor)
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(fa, "flash_fwd_plain", plain)
+    monkeypatch.setattr(fa, "flash_bwd_plain", plain)
+    monkeypatch.setattr(_build, "stream", lambda t: None)
+    monkeypatch.setattr(_build, "ptr", lambda t: t)
+    seen = {}
+    monkeypatch.setattr(_build, "launch",
+                        lambda name, *args: seen.setdefault(
+                            name, args[_MASK_ARGS[name]]))
+    with warnings.catch_warnings(), FakeTensorMode():
+        warnings.simplefilter("ignore", UserWarning)
+        q = torch.empty((2, 64, 4, 32), dtype=torch.bfloat16, device="cuda")
+        kv = torch.empty((2, 64, 2, 32), dtype=torch.bfloat16,
+                         device="cuda")
+        ids = torch.empty((2, 64), dtype=torch.int64, device="cuda")
+        if how == "kernel":
+            o, lse = fa.flash_fwd(q, kv, kv, scale=0.2, causal=True,
+                                  q_segment_ids=ids, kv_segment_ids=ids)
+            fa.flash_bwd(q, kv, kv, o, lse, q, scale=0.2, causal=True,
+                         q_segment_ids=ids, kv_segment_ids=ids)
+        else:
+            lens = torch.empty((2,), dtype=torch.int32, device="cuda")
+            desc = SequenceDescriptor(q_seqlens=lens, kv_seqlens=lens,
+                                      q_segment_ids=ids, kv_segment_ids=ids)
+            fa.flash_attention(q, kv, kv, desc,
+                               attn_mask_type=AttnMaskType.PADDING_CAUSAL)
+    expect = (["te_flash_attention_fwd"] if how == "descriptor"
+              else list(_MASK_ARGS))
+    assert sorted(seen) == sorted(expect)
+    for name, (qlens, klens, qseg, kseg) in seen.items():
+        assert qlens is None and klens is None, name
+        for t in (qseg, kseg):
+            assert t.dtype == torch.int32 and tuple(t.shape) == (2, 64), name
+            assert t.device.type == "cuda" and t.is_contiguous(), name
 
 
 def test_wrappers_refuse_mixed_devices():

@@ -44,16 +44,16 @@ _U = ctypes.c_uint
 _SIGNATURES = {
     "te_decode_tn_matvec": (_P, _I, _P, _I, _P, _P, _I, _I, _I, _P),
     "te_flash_attention_fwd": (_P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P,
-                               _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                               _P),
+                               _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                               _I, _I, _P),
     "te_decode_attention": (_P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I,
                             _I, _I, _I, _F, _I, _P),
     "te_flash_attention_bwd_dq": (_P, _P, _P, _I, _P, _I, _P, _P, _P, _I,
-                                  _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                                  _I, _I, _F, _P),
+                                  _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  _I, _I, _I, _I, _F, _P),
     "te_flash_attention_bwd_dkv": (_P, _P, _P, _I, _P, _I, _P, _P, _P, _P,
-                                   _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                   _I, _I, _I, _P),
+                                   _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _I, _I, _I, _I, _I, _P),
     "te_cast_transpose": (_P, _I, _P, _I, _P, _P, _P, _I, _I, _P),
     "te_norm_cast_transpose": (_P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _F, _P),

@@ -6,10 +6,14 @@ two backends:
 * ``UNFUSED``: plain PyTorch with materialized scores, differentiated by
   autograd; the yardstick of the tests.
 
-Both backends take a static sliding window and the softmax sink types;
-the flash backend also takes FP8 Q/K/V quantizers (``fp8_dpa``).
-Segment ids (packed batches), biases and dropout are not ported yet and
-raise.
+Both backends take a static sliding window, the softmax sink types and
+segment ids (packed documents: a :class:`SequenceDescriptor` from
+:meth:`SequenceDescriptor.from_segment_ids_and_pos`); the flash backend
+also takes FP8 Q/K/V quantizers (``fp8_dpa``). The QKV layouts of the
+reference (packed QKV, packed KV, THD) are unpacked to BSHD by
+:func:`canonicalize_qkv`; a THD batch is a BSHD one whose segment ids
+describe the packing (:func:`fused_attn_thd`). Biases and dropout are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -42,6 +46,43 @@ class AttnMaskType(enum.Enum):
         return self.value.endswith("bottom_right")
 
 
+class QKVLayout(enum.Enum):
+    """How q, k and v arrive: one packed (B, S, 3, H, D) tensor, q with a
+    packed (B, S, 2, H, D) kv, or three tensors; the THD names are the
+    same packings of a packed batch (its ragged documents described by
+    segment ids in the :class:`SequenceDescriptor`)."""
+    BS3HD = "bs3hd"
+    BSHD_BS2HD = "bshd_bs2hd"
+    BSHD_BSHD_BSHD = "bshd_bshd_bshd"
+    T3HD = "t3hd"
+    THD_T2HD = "thd_t2hd"
+    THD_THD_THD = "thd_thd_thd"
+
+    @property
+    def is_qkvpacked(self) -> bool:
+        return self in (QKVLayout.BS3HD, QKVLayout.T3HD)
+
+    @property
+    def is_kvpacked(self) -> bool:
+        return self in (QKVLayout.BSHD_BS2HD, QKVLayout.THD_T2HD)
+
+    @property
+    def is_thd(self) -> bool:
+        return self in (QKVLayout.T3HD, QKVLayout.THD_T2HD,
+                        QKVLayout.THD_THD_THD)
+
+    def get_qkv_format(self) -> "QKVFormat":
+        return QKVFormat.THD if self.is_thd else QKVFormat.BSHD
+
+
+class QKVFormat(enum.Enum):
+    """The memory format of a QKV layout. SBHD is named, as in the
+    reference, and no layout has it: transpose to BSHD first."""
+    SBHD = "sbhd"
+    BSHD = "bshd"
+    THD = "thd"
+
+
 class SoftmaxType(enum.Enum):
     """Softmax variants: vanilla, off-by-one (a sink of logit 0) and
     learnable (a per-head sink logit)."""
@@ -56,17 +97,40 @@ AttnSoftmaxType = SoftmaxType
 
 @dataclasses.dataclass(frozen=True)
 class SequenceDescriptor:
-    """Valid lengths of a right-padded BSHD batch: ``q_seqlens`` and
-    ``kv_seqlens``, each (B,) int."""
+    """Valid lengths of a right-padded BSHD batch, or the segments of a
+    packed one.
+
+    ``q_seqlens`` / ``kv_seqlens``: (B,) int lengths. ``q_segment_ids`` /
+    ``kv_segment_ids``: (B, S) int ids of packed documents; 0 marks
+    padding, and a query sees the keys of its own nonzero id.
+    ``q_segment_pos`` / ``kv_segment_pos``: (B, S) positions within each
+    document (the unfused mask's causal and window rule read them). Ids
+    take precedence over lengths where both are given."""
 
     q_seqlens: Optional[torch.Tensor] = None
     kv_seqlens: Optional[torch.Tensor] = None
+    q_segment_ids: Optional[torch.Tensor] = None
+    kv_segment_ids: Optional[torch.Tensor] = None
+    q_segment_pos: Optional[torch.Tensor] = None
+    kv_segment_pos: Optional[torch.Tensor] = None
 
     @classmethod
     def from_seqlens(cls, q_seqlens, kv_seqlens=None) -> "SequenceDescriptor":
         return cls(q_seqlens=q_seqlens,
                    kv_seqlens=kv_seqlens if kv_seqlens is not None
                    else q_seqlens)
+
+    @classmethod
+    def from_segment_ids_and_pos(cls, q_segment_ids, kv_segment_ids=None,
+                                 q_segment_pos=None, kv_segment_pos=None
+                                 ) -> "SequenceDescriptor":
+        """A packed batch's descriptor; the kv ids default to the q ids
+        (self-attention). The positions stay as given."""
+        return cls(q_segment_ids=q_segment_ids,
+                   kv_segment_ids=(kv_segment_ids
+                                   if kv_segment_ids is not None
+                                   else q_segment_ids),
+                   q_segment_pos=q_segment_pos, kv_segment_pos=kv_segment_pos)
 
 
 class AttnBackend(enum.Enum):
@@ -94,36 +158,86 @@ def get_attention_backend(*, attn_mask_type: AttnMaskType =
     return AttnBackend.FLASH
 
 
+def canonicalize_qkv(qkv: Sequence[torch.Tensor], qkv_layout: QKVLayout):
+    """(q, k, v), each (B, S, H, D), from any :class:`QKVLayout`."""
+    if qkv_layout.is_qkvpacked:
+        (packed,) = qkv
+        return packed[..., 0, :, :], packed[..., 1, :, :], \
+            packed[..., 2, :, :]
+    if qkv_layout.is_kvpacked:
+        q, kv = qkv
+        return q, kv[..., 0, :, :], kv[..., 1, :, :]
+    q, k, v = qkv
+    return q, k, v
+
+
 def make_attention_mask(seq_desc: Optional[SequenceDescriptor],
                         attn_mask_type: AttnMaskType, q_len: int, kv_len: int,
                         batch: int,
                         window_size: Optional[Tuple[int, int]] = None,
                         device=None) -> torch.Tensor:
     """Boolean mask (B, 1, Sq, Skv), True where a query may attend.
-    ``window_size`` (left, right) keeps the keys j with ``i - left <= j <=
-    i + right`` for query i, each side where it is >= 0; as in the
-    reference, the window takes no bottom-right offset here (the flash
-    kernels shift it with the causal diagonal)."""
-    rows = torch.arange(q_len, device=device)[:, None]
-    cols = torch.arange(kv_len, device=device)[None, :]
+
+    Segment ids keep the pairs of one nonzero id; else lengths keep the
+    valid rows and keys. The causal rule and ``window_size`` (left,
+    right: keys j with ``i - left <= j <= i + right``, each side where it
+    is >= 0) compare the descriptor's segment positions where it gives
+    them, else the indices, and the bottom-right offset applies only
+    without positions; as in the reference, the window takes no offset
+    here (the flash kernels shift it with the causal diagonal, and
+    compare indices)."""
+    rows = torch.arange(q_len, device=device)
+    cols = torch.arange(kv_len, device=device)
     mask = torch.ones((batch, 1, q_len, kv_len), dtype=torch.bool,
                       device=device)
-    if seq_desc is not None and seq_desc.q_seqlens is not None:
+    q_pos = kv_pos = None
+    if seq_desc is not None and seq_desc.q_segment_ids is not None:
+        qs = seq_desc.q_segment_ids.to(device)[:, :, None]
+        ks = seq_desc.kv_segment_ids.to(device)[:, None, :]
+        mask = mask & ((qs == ks) & (qs != 0))[:, None]
+        q_pos, kv_pos = seq_desc.q_segment_pos, seq_desc.kv_segment_pos
+    elif seq_desc is not None and seq_desc.q_seqlens is not None:
         qlens = seq_desc.q_seqlens.to(device).reshape(-1, 1, 1)
         klens = (seq_desc.kv_seqlens if seq_desc.kv_seqlens is not None
                  else seq_desc.q_seqlens).to(device).reshape(-1, 1, 1)
-        mask = mask & ((rows[None] < qlens) & (cols[None] < klens))[:, None]
+        mask = mask & ((rows[None, :, None] < qlens)
+                       & (cols[None, None, :] < klens))[:, None]
+    qp = (q_pos.to(device) if q_pos is not None
+          else rows.expand(batch, q_len))[:, :, None]
+    kp = (kv_pos.to(device) if kv_pos is not None
+          else cols.expand(batch, kv_len))[:, None, :]
     if attn_mask_type.is_causal:
-        offset = kv_len - q_len if attn_mask_type.is_bottom_right else 0
-        mask = mask & (rows + offset >= cols)
+        offset = kv_len - q_len if (attn_mask_type.is_bottom_right
+                                    and q_pos is None) else 0
+        mask = mask & (qp + offset >= kp)[:, None]
     if window_size is not None and tuple(window_size) != (-1, -1):
         left, right = window_size
-        diff = rows - cols
+        diff = qp - kp
         if left >= 0:
-            mask = mask & (diff <= left)
+            mask = mask & (diff <= left)[:, None]
         if right >= 0:
-            mask = mask & (diff >= -right)
+            mask = mask & (diff >= -right)[:, None]
     return mask
+
+
+def make_swa_mask(segment_pos_q: torch.Tensor, segment_pos_kv: torch.Tensor,
+                  window_size: Optional[Tuple[int, int]] = None,
+                  dtype=torch.float32) -> torch.Tensor:
+    """Sliding-window mask (1 = attend, 0 = masked), (..., 1, Sq, Skv),
+    from the positions of the queries (..., Sq) and keys (..., Skv): a
+    query at position i sees the keys at ``[i - left, i + right]``, a
+    negative side unbounded."""
+    pos_q = segment_pos_q[..., :, None].to(torch.int32)
+    pos_kv = segment_pos_kv[..., None, :].to(torch.int32)
+    keep = torch.ones(torch.broadcast_shapes(pos_q.shape, pos_kv.shape),
+                      dtype=torch.bool, device=pos_q.device)
+    if window_size is not None:
+        left, right = window_size
+        if left >= 0:
+            keep = keep & (pos_kv >= pos_q - left)
+        if right >= 0:
+            keep = keep & (pos_kv <= pos_q + right)
+    return keep[..., None, :, :].to(dtype)
 
 
 def _unfused_attn(q, k, v, mask, *, scaling_factor: float,
@@ -165,16 +279,19 @@ def fused_attn(qkv: Sequence[torch.Tensor],
                softmax_type: SoftmaxType = SoftmaxType.VANILLA,
                softmax_offset: Optional[torch.Tensor] = None,
                qkv_quantizers=None,
+               qkv_layout: QKVLayout = QKVLayout.BSHD_BSHD_BSHD,
                backend: AttnBackend = AttnBackend.AUTO) -> torch.Tensor:
-    """Scaled dot-product attention over BSHD (q, k, v); returns (B, Sq,
-    Hq, D). ``mask`` (bool, broadcastable to (B, H, Sq, Skv), True =
-    attend) is an explicit mask, which only the unfused backend takes.
+    """Scaled dot-product attention over ``qkv`` in ``qkv_layout`` (three
+    BSHD tensors by default); returns (B, Sq, Hq, D). A descriptor with
+    segment ids masks a packed batch in either backend. ``mask`` (bool,
+    broadcastable to (B, H, Sq, Skv), True = attend) is an explicit mask,
+    which only the unfused backend takes.
     ``window_size`` (left, right) is a static sliding window;
     ``softmax_type`` a sink type, LEARNABLE with the (Hq,) logits
     ``softmax_offset``. ``qkv_quantizers`` (per-tensor quantizers of q, k
     and v) run the flash backend's FP8 branch; the unfused backend
     ignores them, as the reference's does."""
-    q, k, v = qkv
+    q, k, v = canonicalize_qkv(qkv, qkv_layout)
     if scaling_factor is None:
         scaling_factor = 1.0 / (q.shape[-1] ** 0.5)
     if attn_mask_type.is_padding and sequence_descriptor is None and \
@@ -210,3 +327,17 @@ def fused_attn(qkv: Sequence[torch.Tensor],
     return _unfused_attn(q, k, v, full_mask, scaling_factor=scaling_factor,
                          softmax_type=softmax_type,
                          softmax_offset=softmax_offset)
+
+
+def fused_attn_thd(qkv: Sequence[torch.Tensor],
+                   sequence_descriptor: Optional[SequenceDescriptor] = None,
+                   *, qkv_layout: QKVLayout = QKVLayout.THD_THD_THD,
+                   **kwargs) -> torch.Tensor:
+    """:func:`fused_attn` with a THD layout: a packed batch, (B, S, ...)
+    rows of documents that the descriptor's segment ids (and positions)
+    describe."""
+    if not qkv_layout.is_thd:
+        raise ValueError(f"fused_attn_thd needs a THD layout, got "
+                         f"{qkv_layout}")
+    return fused_attn(qkv, sequence_descriptor, qkv_layout=qkv_layout,
+                      **kwargs)

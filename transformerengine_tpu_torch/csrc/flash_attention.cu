@@ -5,11 +5,23 @@
 // forward (`_flash_fwd` with the Pallas `_fwd_kernel_steps` /
 // `_fwd_kernel`, bodies `_fwd_block_body` and `_fwd_write_out`). Scope:
 // no mask, causal with a bottom-right offset, the padding mask from
-// per-sequence lengths, a static sliding window (`_mask_scores`: key j is
-// visible to query i when i + offset - left <= j <= i + offset + right,
-// each side where it is >= 0) and a per-head softmax sink; GQA with
-// Hq % Hkv == 0; bf16 or f32, or e4m3 payloads (the FP8 branch below);
-// D <= 256.
+// per-sequence lengths, segment ids of packed documents (below), a static
+// sliding window (`_mask_scores`: key j is visible to query i when
+// i + offset - left <= j <= i + offset + right, each side where it is
+// >= 0) and a per-head softmax sink; GQA with Hq % Hkv == 0; bf16 or f32,
+// or e4m3 payloads (the FP8 branch below); D <= 256.
+//
+// Segment branch (the reference's `use_segments`, `_mask_scores`): with
+// `qseg` and `kseg`, (B, Sq) and (B, Skv) int32 ids, key j is visible to
+// query i only where qseg[b, i] == kseg[b, j] != 0, beside the other
+// terms (the causal rule and the window compare indices, as the
+// reference's kernel does). Any ids in any order: the rule is equality.
+// The block keeps its Q tile's ids in shared memory and loads each K/V
+// tile's with the tile, each in its tile's padding column (index D of a
+// row, which the products never read), so the branch adds no shared
+// memory: at D = 128 two blocks still fit an SM. A query with id 0 sees
+// no key and writes O = 0 and LSE = -1e30 (the sink with one). Tiles are
+// not skipped by segment: a packed row does the causal triangle's work.
 //
 // Numerics follow the reference: the caller folds scale * log2(e) into q
 // in q's dtype, scores run in the exp2 domain, masked scores are -2e30
@@ -91,6 +103,8 @@ __global__ void __launch_bounds__(kThreads)
                      int out_code, float* __restrict__ lse,
                      const int* __restrict__ qlens,
                      const int* __restrict__ klens,
+                     const int* __restrict__ qseg,
+                     const int* __restrict__ kseg,
                      const float* __restrict__ sink,
                      const float* __restrict__ scales,
                      float* __restrict__ o_amax, int Sq, int Skv, int Hq,
@@ -104,6 +118,7 @@ __global__ void __launch_bounds__(kThreads)
   float* Ks = Qs + kBQ * ld;     // [kBK][D + 1]
   float* Vs = Ks + kBK * ld;     // [kBK][D]
   float* Ps = Vs + kBK * D;      // [kBQ][kBK + 1]
+  // With segments, Qs[r][D] and Ks[j][D] hold the rows' ids as int bits.
 
   const int q0 = blockIdx.x * kBQ;
   const int h = blockIdx.y;
@@ -141,6 +156,9 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int e = 0; e < kVec; ++e) Qs[r * ld + d + e] = qv[e];
   }
+  if (qseg != nullptr && tid < kBQ)
+    Qs[tid * ld + D] =
+        __int_as_float(q0 + tid < Sq ? qseg[(size_t)b * Sq + q0 + tid] : 0);
 
   float m[4], l[4], acc[4][kCols];
 #pragma unroll
@@ -172,6 +190,9 @@ __global__ void __launch_bounds__(kThreads)
         Vs[j * D + d + e] = vv[e];
       }
     }
+    if (kseg != nullptr && tid < kBK)
+      Ks[tid * ld + D] = __int_as_float(
+          k0 + tid < Skv ? kseg[(size_t)b * Skv + k0 + tid] : 0);
     __syncthreads();
 
     float s[4][4];
@@ -203,6 +224,11 @@ __global__ void __launch_bounds__(kThreads)
         if (left >= 0) visible = visible && kj >= qi + offset - left;
         if (right >= 0) visible = visible && kj <= qi + offset + right;
         if (qlens != nullptr) visible = visible && qi < qlen && kj < klen;
+        if (qseg != nullptr) {
+          const int qs = __float_as_int(Qs[(ty * 4 + r) * ld + D]);
+          visible = visible && qs != 0 &&
+                    qs == __float_as_int(Ks[(tx + 16 * c) * ld + D]);
+        }
         if (kFp8) s[r][c] *= smult;
         if (!visible) s[r][c] = kMasked;
         mx = fmaxf(mx, s[r][c]);
@@ -286,7 +312,8 @@ struct Mask {
 template <typename T, int DMAX>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int out_code, float* lse, const int* qlens,
-                   const int* klens, const float* sink, const float* scales,
+                   const int* klens, const int* qseg, const int* kseg,
+                   const float* sink, const float* scales,
                    float* o_amax, int B, int Sq, int Skv, int Hq, int Hkv,
                    int D, const Mask& mk, cudaStream_t stream) {
   auto kernel = flash_fwd_kernel<T, DMAX>;
@@ -296,21 +323,23 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), o, out_code, lse, qlens, klens, sink, scales,
-      o_amax, Sq, Skv, Hq, Hkv, D, mk.causal, mk.offset, mk.left, mk.right);
+      static_cast<const T*>(v), o, out_code, lse, qlens, klens, qseg, kseg,
+      sink, scales, o_amax, Sq, Skv, Hq, Hkv, D, mk.causal, mk.offset,
+      mk.left, mk.right);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
                      int out_code, float* lse, const int* qlens,
-                     const int* klens, const float* sink,
+                     const int* klens, const int* qseg, const int* kseg,
+                     const float* sink,
                      const float* scales, float* o_amax, int B, int Sq,
                      int Skv, int Hq, int Hkv, int D, const Mask& mk,
                      cudaStream_t stream) {
 #define TE_FWD(DM)                                                          \
-  launch<T, DM>(q, k, v, o, out_code, lse, qlens, klens, sink, scales,      \
-                o_amax, B, Sq, Skv, Hq, Hkv, D, mk, stream)
+  launch<T, DM>(q, k, v, o, out_code, lse, qlens, klens, qseg, kseg, sink, \
+                scales, o_amax, B, Sq, Skv, Hq, Hkv, D, mk, stream)
   return D <= 64 ? TE_FWD(64) : D <= 128 ? TE_FWD(128) : TE_FWD(256);
 #undef TE_FWD
 }
@@ -319,18 +348,22 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
 
 // `dtype` is Q/K/V's (f32, bf16, or e4m3 payloads with `scales`), O's is
 // `out_dtype`: Q's outside the FP8 branch; bf16, f32, or an fp8 type with
-// `o_amax` (zeroed by the caller) in it.
+// `o_amax` (zeroed by the caller) in it. `qlens`/`klens` and `qseg`/`kseg`
+// are each both given or both null.
 extern "C" int te_flash_attention_fwd(const void* q, const void* k,
                                       const void* v, int dtype, void* o,
                                       int out_dtype, float* lse,
                                       const int* qlens, const int* klens,
+                                      const int* qseg, const int* kseg,
                                       const float* sink, const float* scales,
                                       float* o_amax, int B, int Sq, int Skv,
                                       int Hq, int Hkv, int D, int causal,
                                       int offset, int left, int right,
                                       void* stream) {
   if (B < 1 || Sq < 1 || Skv < 1 || Hkv < 1 || Hq % Hkv != 0 || D < 16 ||
-      D > 256 || D % 16 != 0 || left < -1 || right < -1)
+      D > 256 || D % 16 != 0 || left < -1 || right < -1 ||
+      (qlens == nullptr) != (klens == nullptr) ||
+      (qseg == nullptr) != (kseg == nullptr))
     return cudaErrorInvalidValue;
   const bool fp8 = dtype == kFloat8E4M3;
   const bool fp8_out = out_dtype == kFloat8E4M3 || out_dtype == kFloat8E5M2;
@@ -343,15 +376,16 @@ extern "C" int te_flash_attention_fwd(const void* q, const void* k,
   switch (dtype) {
     case kBFloat16:
       return launch_d<__nv_bfloat16>(q, k, v, o, out_dtype, lse, qlens, klens,
-                                     sink, scales, o_amax, B, Sq, Skv, Hq,
-                                     Hkv, D, mk, s);
+                                     qseg, kseg, sink, scales, o_amax, B, Sq,
+                                     Skv, Hq, Hkv, D, mk, s);
     case kFloat32:
-      return launch_d<float>(q, k, v, o, out_dtype, lse, qlens, klens, sink,
-                             scales, o_amax, B, Sq, Skv, Hq, Hkv, D, mk, s);
+      return launch_d<float>(q, k, v, o, out_dtype, lse, qlens, klens, qseg,
+                             kseg, sink, scales, o_amax, B, Sq, Skv, Hq, Hkv,
+                             D, mk, s);
     case kFloat8E4M3:
       return launch_d<__nv_fp8_e4m3>(q, k, v, o, out_dtype, lse, qlens, klens,
-                                     sink, scales, o_amax, B, Sq, Skv, Hq,
-                                     Hkv, D, mk, s);
+                                     qseg, kseg, sink, scales, o_amax, B, Sq,
+                                     Skv, Hq, Hkv, D, mk, s);
     default:
       return cudaErrorInvalidValue;
   }

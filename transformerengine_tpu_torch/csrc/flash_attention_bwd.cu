@@ -5,11 +5,17 @@
 // (the Pallas `_bwd_dq_kernel[_steps]` and `_bwd_dkv_kernel[_steps]`,
 // bodies `_bwd_dq_block_body` and `_bwd_dkv_block_body`). Scope: exactly
 // the forward kernel's (no mask, causal with a bottom-right offset, the
-// padding mask from per-sequence lengths, a static sliding window; GQA
-// with Hq % Hkv == 0; bf16 or f32; D <= 256 with D % 16 == 0). A softmax
-// sink needs nothing here: it enters through the forward's LSE, and its
-// own gradient is computed from the LSE outside the kernels, as the
-// reference does (`_flash_core_bwd`).
+// padding mask from per-sequence lengths, segment ids, a static sliding
+// window; GQA with Hq % Hkv == 0; bf16 or f32; D <= 256 with
+// D % 16 == 0). Segment ids (`qseg`, `kseg`, (B, Sq) and (B, Skv) int32,
+// or null) add the forward's term qseg[b, i] == kseg[b, j] != 0 to each
+// pair's visibility; each kernel keeps the ids of the tile it holds in
+// shared memory and loads the other side's with each tile it walks, in the
+// Q and K tiles' padding column as the forward does (no added shared
+// memory), so a query with id 0 gets dQ = 0 and adds nothing to dK or dV.
+// A softmax sink needs nothing here: it enters through the forward's LSE,
+// and its own gradient is computed from the LSE outside the kernels, as
+// the reference does (`_flash_core_bwd`).
 //
 // Numerics follow the reference: the caller passes q pre-scaled by
 // scale * log2(e) in q's dtype, LSE moved into the log2 domain
@@ -82,6 +88,24 @@ struct Shape {
   int Sq, Skv, Hq, Hkv, D, causal, offset, left, right;
 };
 
+// Copies the segment ids of rows [r0, r0 + R) of sequence b into the
+// padding column (index D) of a shared [R][ld] tile, as int bits (0 past
+// S), or 1s without segments.
+template <int R>
+__device__ __forceinline__ void load_seg(const int* __restrict__ seg, int b,
+                                         int r0, int S, float* tile, int ld,
+                                         int D) {
+  for (int i = threadIdx.x; i < R; i += kThreads)
+    tile[i * ld + D] = __int_as_float(
+        seg == nullptr ? 1 : r0 + i < S ? seg[(size_t)b * S + r0 + i] : 0);
+}
+
+// The segment id load_seg left in row i of a tile.
+__device__ __forceinline__ int seg_of(const float* tile, int ld, int D,
+                                      int i) {
+  return __float_as_int(tile[i * ld + D]);
+}
+
 // Copies rows [r0, r0 + R) of one head of a BSHD tensor into a shared
 // [R][ld] f32 tile; rows past S read as 0.
 template <typename T, int R>
@@ -131,9 +155,11 @@ __device__ __forceinline__ void load_tile_as(const void* src, int code,
   }
 }
 
+// `qs` and `ks`: the pair's segment ids, both 1 without segments.
 __device__ __forceinline__ bool visible(const Shape& sh, int qi, int kj,
-                                        int qlen, int klen) {
-  bool ok = qi < sh.Sq && kj < sh.Skv && qi < qlen && kj < klen;
+                                        int qlen, int klen, int qs, int ks) {
+  bool ok = qi < sh.Sq && kj < sh.Skv && qi < qlen && kj < klen &&
+            qs != 0 && qs == ks;
   if (sh.causal) ok = ok && kj <= qi + sh.offset;
   if (sh.left >= 0) ok = ok && kj >= qi + sh.offset - sh.left;
   if (sh.right >= 0) ok = ok && kj <= qi + sh.offset + sh.right;
@@ -157,6 +183,8 @@ __global__ void __launch_bounds__(kThreads)
                         void* __restrict__ dq, int g_code,
                         const int* __restrict__ qlens,
                         const int* __restrict__ klens,
+                        const int* __restrict__ qseg,
+                        const int* __restrict__ kseg,
                         const float* __restrict__ scales, Shape sh,
                         float scale) {
   constexpr int kB = Tiles<DMAX>::kB, kR = Tiles<DMAX>::kR;
@@ -191,6 +219,7 @@ __global__ void __launch_bounds__(kThreads)
 
   load_tile<T, kB>(q, b, q0, sh.Sq, sh.Hq, h, D, Qs, ld);
   load_tile_as<kB>(dout, do_code, b, q0, sh.Sq, sh.Hq, h, D, dOs, ld);
+  load_seg<kB>(qseg, b, q0, sh.Sq, Qs, ld, D);
   for (int i = threadIdx.x; i < kB; i += kThreads) {
     const bool in = q0 + i < sh.Sq;
     const size_t at = ((size_t)b * sh.Hq + h) * sh.Sq + q0 + i;
@@ -209,6 +238,7 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();  // Q/dO loaded; the previous K/V/dS no longer read
     load_tile<T, kB>(k, b, k0, sh.Skv, sh.Hkv, hk, D, Ks, ld);
     load_tile<T, kB>(v, b, k0, sh.Skv, sh.Hkv, hk, D, Vs, ld);
+    load_seg<kB>(kseg, b, k0, sh.Skv, Ks, ld, D);
     __syncthreads();
 
     float s[kR][kR], dp[kR][kR];
@@ -243,7 +273,8 @@ __global__ void __launch_bounds__(kThreads)
       for (int c = 0; c < kR; ++c) {
         const int key = tx + 16 * c;
         float ds = 0.f;
-        if (visible(sh, q0 + row, k0 + key, qlen, klen)) {
+        if (visible(sh, q0 + row, k0 + key, qlen, klen,
+                    seg_of(Qs, ld, D, row), seg_of(Ks, ld, D, key))) {
           const float p = exp2f(s[r][c] * smult - Ls[row]);
           ds = p * (dp[r][c] * dp_mult - Dl[row]);
         }
@@ -289,6 +320,8 @@ __global__ void __launch_bounds__(kThreads)
                          void* __restrict__ dk, void* __restrict__ dv,
                          int g_code, const int* __restrict__ qlens,
                          const int* __restrict__ klens,
+                         const int* __restrict__ qseg,
+                         const int* __restrict__ kseg,
                          const float* __restrict__ scales, Shape sh) {
   constexpr int kB = Tiles<DMAX>::kB, kR = Tiles<DMAX>::kR;
   constexpr int kCols = Tiles<DMAX>::kCols;
@@ -326,6 +359,7 @@ __global__ void __launch_bounds__(kThreads)
 
   load_tile<T, kB>(k, b, k0, sh.Skv, sh.Hkv, hk, D, Ks, ld);
   load_tile<T, kB>(v, b, k0, sh.Skv, sh.Hkv, hk, D, Vs, ld);
+  load_seg<kB>(kseg, b, k0, sh.Skv, Ks, ld, D);
 
   float acc_k[kR][kCols], acc_v[kR][kCols];
 #pragma unroll
@@ -338,6 +372,7 @@ __global__ void __launch_bounds__(kThreads)
       __syncthreads();  // K/V loaded; the previous Q/dO/P/dS no longer read
       load_tile<T, kB>(q, b, q0, sh.Sq, sh.Hq, h, D, Qs, ld);
       load_tile_as<kB>(dout, do_code, b, q0, sh.Sq, sh.Hq, h, D, dOs, ld);
+      load_seg<kB>(qseg, b, q0, sh.Sq, Qs, ld, D);
       for (int i = threadIdx.x; i < kB; i += kThreads) {
         const bool in = q0 + i < sh.Sq;
         const size_t at = ((size_t)b * sh.Hq + h) * sh.Sq + q0 + i;
@@ -380,7 +415,8 @@ __global__ void __launch_bounds__(kThreads)
         for (int c = 0; c < kR; ++c) {
           const int row = tx + 16 * c;
           float p = 0.f, ds = 0.f;
-          if (visible(sh, q0 + row, k0 + key, qlen, klen)) {
+          if (visible(sh, q0 + row, k0 + key, qlen, klen,
+                      seg_of(Qs, ld, D, row), seg_of(Ks, ld, D, key))) {
             p = exp2f(st[r][c] * smult - Ls[row]);
             ds = p * (dpt[r][c] * dp_mult - Dl[row]);
           }
@@ -448,9 +484,9 @@ template <typename T, int DMAX>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, int do_code, const float* lse2,
                       const float* delta, void* dq, int g_code,
-                      const int* qlens, const int* klens,
-                      const float* scales, int B, const Shape& sh,
-                      float scale, cudaStream_t stream) {
+                      const int* qlens, const int* klens, const int* qseg,
+                      const int* kseg, const float* scales, int B,
+                      const Shape& sh, float scale, cudaStream_t stream) {
   constexpr int kB = Tiles<DMAX>::kB;
   auto kernel = flash_bwd_dq_kernel<T, DMAX>;
   const size_t smem = dq_smem<DMAX>(sh.D);
@@ -460,7 +496,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), dout, do_code, lse2, delta, dq, g_code, qlens,
-      klens, scales, sh, scale);
+      klens, qseg, kseg, scales, sh, scale);
   return cudaGetLastError();
 }
 
@@ -468,9 +504,9 @@ template <typename T, int DMAX>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, int do_code, const float* lse2,
                        const float* delta, void* dk, void* dv, int g_code,
-                       const int* qlens, const int* klens,
-                       const float* scales, int B, const Shape& sh,
-                       cudaStream_t stream) {
+                       const int* qlens, const int* klens, const int* qseg,
+                       const int* kseg, const float* scales, int B,
+                       const Shape& sh, cudaStream_t stream) {
   constexpr int kB = Tiles<DMAX>::kB;
   auto kernel = flash_bwd_dkv_kernel<T, DMAX>;
   const size_t smem = dkv_smem<DMAX>(sh.D);
@@ -480,23 +516,27 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), dout, do_code, lse2, delta, dk, dv, g_code,
-      qlens, klens, scales, sh);
+      qlens, klens, qseg, kseg, scales, sh);
   return cudaGetLastError();
 }
 
 // Q/K/V of `dtype` (f32, bf16, or e4m3 payloads with `scales`); dO of
 // `do_dtype` (Q's outside the FP8 branch); gradients of `grad_dtype` (f32
-// or bf16; Q's outside the FP8 branch).
+// or bf16; Q's outside the FP8 branch); lengths and segment ids each both
+// given or both null.
 bool bad_args(int B, int Sq, int Skv, int Hq, int Hkv, int D, int left,
               int right, int dtype, int do_dtype, int grad_dtype,
-              const float* scales) {
+              const float* scales, const int* qlens, const int* klens,
+              const int* qseg, const int* kseg) {
   const bool fp8 = dtype == kFloat8E4M3;
   return B < 1 || Sq < 1 || Skv < 1 || Hkv < 1 || Hq % Hkv != 0 || D < 16 ||
          D > 256 || D % 16 != 0 || B > 65535 || Hq > 65535 || left < -1 ||
          right < -1 || fp8 != (scales != nullptr) || do_dtype < 0 ||
          do_dtype > kFloat8E5M2 ||
          (grad_dtype != kFloat32 && grad_dtype != kBFloat16) ||
-         (!fp8 && (do_dtype != dtype || grad_dtype != dtype));
+         (!fp8 && (do_dtype != dtype || grad_dtype != dtype)) ||
+         (qlens == nullptr) != (klens == nullptr) ||
+         (qseg == nullptr) != (kseg == nullptr);
 }
 
 }  // namespace
@@ -504,17 +544,18 @@ bool bad_args(int B, int Sq, int Skv, int Hq, int Hkv, int D, int left,
 extern "C" int te_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, int dtype, const void* dout,
     int do_dtype, const float* lse2, const float* delta, void* dq,
-    int grad_dtype, const int* qlens, const int* klens, const float* scales,
-    int B, int Sq, int Skv, int Hq, int Hkv, int D, int causal, int offset,
-    int left, int right, float scale, void* stream) {
+    int grad_dtype, const int* qlens, const int* klens, const int* qseg,
+    const int* kseg, const float* scales, int B, int Sq, int Skv, int Hq,
+    int Hkv, int D, int causal, int offset, int left, int right, float scale,
+    void* stream) {
   if (bad_args(B, Sq, Skv, Hq, Hkv, D, left, right, dtype, do_dtype,
-               grad_dtype, scales))
+               grad_dtype, scales, qlens, klens, qseg, kseg))
     return cudaErrorInvalidValue;
   const Shape sh{Sq, Skv, Hq, Hkv, D, causal, offset, left, right};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define TE_DQ(T, DM)                                                        \
   launch_dq<T, DM>(q, k, v, dout, do_dtype, lse2, delta, dq, grad_dtype,    \
-                   qlens, klens, scales, B, sh, scale, s)
+                   qlens, klens, qseg, kseg, scales, B, sh, scale, s)
 #define TE_DQ_D(T) \
   (D <= 64 ? TE_DQ(T, 64) : D <= 128 ? TE_DQ(T, 128) : TE_DQ(T, 256))
   switch (dtype) {
@@ -534,17 +575,18 @@ extern "C" int te_flash_attention_bwd_dq(
 extern "C" int te_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, int dtype, const void* dout,
     int do_dtype, const float* lse2, const float* delta, void* dk, void* dv,
-    int grad_dtype, const int* qlens, const int* klens, const float* scales,
-    int B, int Sq, int Skv, int Hq, int Hkv, int D, int causal, int offset,
-    int left, int right, void* stream) {
+    int grad_dtype, const int* qlens, const int* klens, const int* qseg,
+    const int* kseg, const float* scales, int B, int Sq, int Skv, int Hq,
+    int Hkv, int D, int causal, int offset, int left, int right,
+    void* stream) {
   if (bad_args(B, Sq, Skv, Hq, Hkv, D, left, right, dtype, do_dtype,
-               grad_dtype, scales))
+               grad_dtype, scales, qlens, klens, qseg, kseg))
     return cudaErrorInvalidValue;
   const Shape sh{Sq, Skv, Hq, Hkv, D, causal, offset, left, right};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define TE_DKV(T, DM)                                                       \
   launch_dkv<T, DM>(q, k, v, dout, do_dtype, lse2, delta, dk, dv,           \
-                    grad_dtype, qlens, klens, scales, B, sh, s)
+                    grad_dtype, qlens, klens, qseg, kseg, scales, B, sh, s)
 #define TE_DKV_D(T) \
   (D <= 64 ? TE_DKV(T, 64) : D <= 128 ? TE_DKV(T, 128) : TE_DKV(T, 256))
   switch (dtype) {

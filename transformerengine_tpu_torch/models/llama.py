@@ -81,16 +81,21 @@ class LlamaModel(nn.Module):
         return self.embedding.device
 
     def forward(self, tokens: torch.Tensor,
-                sequence_descriptor: Optional[SequenceDescriptor] = None, *,
+                sequence_descriptor: Optional[SequenceDescriptor] = None,
+                positions: Optional[torch.Tensor] = None, *,
                 kv_caches: Optional[Sequence[KVCache]] = None
                 ) -> torch.Tensor:
         """(B, S) int tokens -> (B, S, vocab) f32 logits. Attention is
         causal, and padding-causal when ``sequence_descriptor`` gives the
-        lengths. With ``kv_caches`` (one per layer) the call prefills or
-        decodes through them, updating them in place."""
+        lengths or, for a packed batch, the segment ids
+        (:meth:`SequenceDescriptor.from_segment_ids_and_pos`);
+        ``positions`` (B, S) are the tokens' RoPE positions (a packed
+        batch's positions within each document). With ``kv_caches`` (one
+        per layer) the call prefills or decodes through them, updating
+        them in place."""
         x = self.embedding[tokens]
         for i, layer in enumerate(self.layers):
-            x = layer(x, sequence_descriptor,
+            x = layer(x, sequence_descriptor, positions,
                       kv_cache=kv_caches[i] if kv_caches is not None else None)
         return tied_logits(self.final_norm(x), self.embedding)
 

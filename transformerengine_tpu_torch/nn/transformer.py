@@ -8,9 +8,11 @@ a static sliding window and the softmax sink types; a learnable sink is
 the attention's f32 ``softmax_offset``, which training and the caches
 share. Under a recipe with ``fp8_dpa`` the cache-free attention runs on
 FP8 Q/K/V, and with ``fp8_mha`` too (per-tensor recipes, no biases) the
-attention and the output projection run as one FP8 function. Not ported
-yet: other masks and norms, expert parallelism,
-cross-attention, relative position bias and dropout."""
+attention and the output projection run as one FP8 function. A packed
+batch (a descriptor with segment ids) and its per-document ``positions``
+run through the same cache-free path. Not ported yet: other masks and
+norms, expert parallelism, cross-attention, relative position bias and
+dropout."""
 from __future__ import annotations
 
 from typing import Optional, Tuple, Union
@@ -99,22 +101,26 @@ class MultiHeadAttention(nn.Module):
             persistent=False)
 
     def forward(self, x: torch.Tensor,
-                sequence_descriptor: Optional[SequenceDescriptor] = None, *,
+                sequence_descriptor: Optional[SequenceDescriptor] = None,
+                positions: Optional[torch.Tensor] = None, *,
                 kv_cache: Optional[Union[KVCache, PagedKVCache]] = None
                 ) -> torch.Tensor:
         """Causal attention, padding-causal where ``sequence_descriptor``
-        gives the lengths; differentiable without a cache. ``kv_cache``:
-        the layer's cache. A call with
-        S > 1 tokens is a prefill into an empty cache; S == 1 is a decode
-        step. Positions continue from the cache's lengths."""
+        gives the lengths or the segment ids of a packed batch;
+        differentiable without a cache. ``positions`` (B, S): each
+        token's RoPE position (a packed batch's positions within its
+        document); by default 0..S-1, or with a cache continuing from its
+        lengths. ``kv_cache``: the layer's cache. A call with S > 1
+        tokens is a prefill into an empty cache; S == 1 is a decode step;
+        the cached path reads only the descriptor's lengths, as the
+        reference's does."""
         b, s = x.shape[:2]
         d, hq, hkv = self.head_dim, self.num_heads, self.num_kv_heads
         qkv = self.qkv(x)
         q = qkv[..., :hq * d].reshape(b, s, hq, d)
         k = qkv[..., hq * d:(hq + hkv) * d].reshape(b, s, hkv, d)
         v = qkv[..., (hq + hkv) * d:].reshape(b, s, hkv, d)
-        positions = None
-        if kv_cache is not None:
+        if positions is None and kv_cache is not None:
             # Clamped into the table, as the reference's gather clamps: an
             # idle continuous-batching slot's length keeps growing.
             positions = (kv_cache.length[:, None] + torch.arange(
@@ -275,9 +281,12 @@ class TransformerLayer(nn.Module):
                 generator=generator)
 
     def forward(self, x: torch.Tensor,
-                sequence_descriptor: Optional[SequenceDescriptor] = None, *,
+                sequence_descriptor: Optional[SequenceDescriptor] = None,
+                positions: Optional[torch.Tensor] = None, *,
                 kv_cache: Optional[Union[KVCache, PagedKVCache]] = None):
-        x = x + self.self_attention(x, sequence_descriptor,
+        """``positions`` (B, S): the tokens' RoPE positions, as the
+        attention takes them."""
+        x = x + self.self_attention(x, sequence_descriptor, positions,
                                     kv_cache=kv_cache)
         if self.is_moe:
             out, aux_loss = self.mlp(x)

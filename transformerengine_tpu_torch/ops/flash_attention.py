@@ -21,10 +21,14 @@ fully masked rows and padded keys get exact zeros.
 
 Masks: none, causal (with the bottom-right offset), padding from
 per-sequence lengths, whose padded rows and keys (segment 0 in the
-reference) are masked on both sides, and a static sliding window
-``(left, right)``: key j is visible to query i when ``i + offset - left
-<= j <= i + offset + right``, each side where it is >= 0 (the
-reference's ``_mask_scores``). GQA takes Hq % Hkv == 0.
+reference) are masked on both sides, segment ids of packed documents
+((B, S) int32 ``q_segment_ids`` and ``kv_segment_ids``: query i sees key
+j when their ids are equal and not 0, any ids in any order), and a static
+sliding window ``(left, right)``: key j is visible to query i when ``i +
+offset - left <= j <= i + offset + right``, each side where it is >= 0
+(the reference's ``_mask_scores``; the causal rule and the window compare
+indices, also in a packed row). The terms compose. GQA takes Hq % Hkv ==
+0.
 
 Softmax sink (``softmax_type`` OFF_BY_ONE or LEARNABLE): one virtual key
 per query head with logit ``sink`` and no value joins the denominator at
@@ -58,7 +62,9 @@ A launch counts under a name that says its branch: ``_fp8`` for FP8
 Q/K/V, ``_fp8_mha`` for the fp8 O epilogue and for a backward from fp8 O
 and dO, then ``_sw`` with a window or a sink (``flash_attention_fwd_sw``,
 ``flash_attention_bwd_dq_fp8_sw``, ``flash_attention_bwd_dkv_fp8_mha``),
-so a path can show which branch it ran.
+and ``_seg`` last with segment ids (``flash_attention_fwd_seg``,
+``flash_attention_bwd_dq_fp8_mha_seg``), so a path can show which branch
+it ran.
 """
 from __future__ import annotations
 
@@ -89,7 +95,7 @@ _UNPORTED = ("q_position_offset", "bias", "block_q", "block_k",
 
 
 def _visible(sq, skv, q_seqlens, kv_seqlens, causal, offset, window,
-             device):
+             device, q_segment_ids=None, kv_segment_ids=None):
     """(B or 1, Sq, Skv) bool: which keys each query sees."""
     qpos = torch.arange(sq, device=device)[:, None] + offset
     kpos = torch.arange(skv, device=device)[None, :]
@@ -104,12 +110,16 @@ def _visible(sq, skv, q_seqlens, kv_seqlens, causal, offset, window,
         rows = torch.arange(sq, device=device)[:, None]
         mask = (mask & (rows < q_seqlens.reshape(-1, 1, 1))
                 & (kpos < kv_seqlens.reshape(-1, 1, 1)))
+    if q_segment_ids is not None:
+        qs = q_segment_ids[:, :, None]
+        mask = mask & (qs == kv_segment_ids[:, None, :]) & (qs != 0)
     return mask
 
 
 def flash_fwd_plain(q, k, v, q_seqlens=None, kv_seqlens=None, *,
                     causal: bool, offset: int = 0, window=NO_WINDOW,
-                    softmax_sink=None, fp8_scales=None, out_dtype=None):
+                    softmax_sink=None, fp8_scales=None, out_dtype=None,
+                    q_segment_ids=None, kv_segment_ids=None):
     """Reference forward. Without ``fp8_scales`` ``q`` arrives pre-scaled
     by scale * log2(e) and O takes q's dtype. With them (the FP8 branch)
     q, k and v are payloads and ``fp8_scales`` is :func:`fp8_fwd_scales`'
@@ -125,7 +135,7 @@ def flash_fwd_plain(q, k, v, q_seqlens=None, kv_seqlens=None, *,
     if fp8:
         s = s * fp8_scales[0]
     mask = _visible(sq, skv, q_seqlens, kv_seqlens, causal, offset, window,
-                    q.device)
+                    q.device, q_segment_ids, kv_segment_ids)
     s = torch.where(mask[:, None, None], s, MASKED)
     m = s.amax(dim=-1, keepdim=True).clamp_min(NEG_INF)
     p = torch.exp2(s - m)
@@ -173,11 +183,13 @@ def _sw(window, softmax_sink) -> str:
     return "_sw" if window != NO_WINDOW or softmax_sink is not None else ""
 
 
-def _branch(fp8: bool, fp8_mha: bool, window, softmax_sink) -> str:
+def _branch(fp8: bool, fp8_mha: bool, window, softmax_sink,
+            segments: bool) -> str:
     """The launch count's suffix of a branch: "_fp8" for FP8 Q/K/V,
-    "_fp8_mha" with fp8 O (and dO), then :func:`_sw`'s."""
+    "_fp8_mha" with fp8 O (and dO), then :func:`_sw`'s, then "_seg" with
+    segment ids."""
     return (("_fp8_mha" if fp8_mha else "_fp8" if fp8 else "")
-            + _sw(window, softmax_sink))
+            + _sw(window, softmax_sink) + ("_seg" if segments else ""))
 
 
 def fp8_fwd_scales(scale_invs: torch.Tensor, scale: float,
@@ -204,7 +216,8 @@ def fp8_bwd_scales(scale_invs: torch.Tensor, scale: float,
                         scale * sk_inv, scale * sq_inv, sdo])
 
 
-def _check_qkv(q, k, v, q_seqlens, kv_seqlens) -> None:
+def _check_qkv(q, k, v, q_seqlens, kv_seqlens, q_segment_ids=None,
+               kv_segment_ids=None) -> None:
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4 or \
             k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]:
         raise ValueError(f"expected BSHD q, k, v, got {tuple(q.shape)}, "
@@ -214,6 +227,17 @@ def _check_qkv(q, k, v, q_seqlens, kv_seqlens) -> None:
                          f"heads {k.shape[2]}")
     if (q_seqlens is None) != (kv_seqlens is None):
         raise ValueError("give both q_seqlens and kv_seqlens, or neither")
+    if (q_segment_ids is None) != (kv_segment_ids is None):
+        raise ValueError("give both q_segment_ids and kv_segment_ids, or "
+                         "neither")
+    if q_segment_ids is not None:
+        if q_seqlens is not None:
+            raise ValueError("give segment ids or lengths, not both")
+        want = ((q.shape[0], q.shape[1]), (k.shape[0], k.shape[1]))
+        got = (tuple(q_segment_ids.shape), tuple(kv_segment_ids.shape))
+        if got != want:
+            raise ValueError(f"segment ids must be (B, Sq) and (B, Skv) = "
+                             f"{want}, got {got}")
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError("q, k and v must share one dtype")
 
@@ -229,11 +253,10 @@ def _check_fp8(q, scale_invs) -> None:
                          f"got {tuple(scale_invs.shape)}")
 
 
-def _lengths(q_seqlens, kv_seqlens):
-    if q_seqlens is None:
-        return None, None
-    return (q_seqlens.to(torch.int32).contiguous(),
-            kv_seqlens.to(torch.int32).contiguous())
+def _int32(*tensors):
+    """The kernels' int32 lengths or segment ids (None stays None)."""
+    return tuple(None if t is None else t.to(torch.int32).contiguous()
+                 for t in tensors)
 
 
 def _check_head_dim(d: int) -> None:
@@ -249,12 +272,18 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               window=NO_WINDOW, softmax_sink: Optional[torch.Tensor] = None,
               scale_invs: Optional[torch.Tensor] = None,
               out_dtype: Optional[torch.dtype] = None,
-              out_scale: Optional[torch.Tensor] = None):
+              out_scale: Optional[torch.Tensor] = None,
+              q_segment_ids: Optional[torch.Tensor] = None,
+              kv_segment_ids: Optional[torch.Tensor] = None):
     """O (B, Sq, Hq, D) and LSE (B, Hq, Sq) f32.
 
     ``q_seqlens`` / ``kv_seqlens`` (B,) give each sequence's valid
-    lengths (both or neither); ``offset`` shifts the causal diagonal and
-    the window (key j is visible to query i when j <= i + offset);
+    lengths (both or neither); ``q_segment_ids`` / ``kv_segment_ids``
+    (B, Sq) and (B, Skv) the ids of packed documents (both or neither,
+    and not with lengths): a query with id 0 or no visible key writes O
+    = 0 and LSE = -1e30 (the sink with one); ``offset`` shifts the causal
+    diagonal and the window (key j is visible to query i when j <= i +
+    offset);
     ``window`` is a static (left, right), -1 for an inactive side;
     ``softmax_sink`` the (Hq,) sink logits, or None.
 
@@ -265,7 +294,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     default) in the epilogue, and the amax of O before the cast (an f32
     scalar tensor) comes back as a third output. Without ``scale_invs``
     O takes q's dtype."""
-    _check_qkv(q, k, v, q_seqlens, kv_seqlens)
+    _check_qkv(q, k, v, q_seqlens, kv_seqlens, q_segment_ids, kv_segment_ids)
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     window = _window(window)
@@ -290,17 +319,20 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out_dtype = q.dtype
         qs, sc = (q.float() * (scale * LOG2E)).to(q.dtype), None
     if _build.on_cpu(q, k, v, q_seqlens, kv_seqlens, softmax_sink,
-                     scale_invs, out_scale):
+                     scale_invs, out_scale, q_segment_ids, kv_segment_ids):
         return flash_fwd_plain(qs, k, v, q_seqlens, kv_seqlens,
                                causal=causal, offset=offset, window=window,
                                softmax_sink=softmax_sink, fp8_scales=sc,
-                               out_dtype=out_dtype)
+                               out_dtype=out_dtype,
+                               q_segment_ids=q_segment_ids,
+                               kv_segment_ids=kv_segment_ids)
     code = _build.dtype_code(q, (torch.float32, torch.bfloat16,
                                  torch.float8_e4m3fn))
     out_code = _build.DTYPE_CODES[out_dtype]
     _check_head_dim(d)
     qs, k, v = qs.contiguous(), k.contiguous(), v.contiguous()
-    q_seqlens, kv_seqlens = _lengths(q_seqlens, kv_seqlens)
+    q_seqlens, kv_seqlens, qseg, kseg = _int32(q_seqlens, kv_seqlens,
+                                               q_segment_ids, kv_segment_ids)
     sink = (softmax_sink.float().reshape(hq).contiguous()
             if softmax_sink is not None else None)
     amax = torch.zeros((1,), dtype=torch.float32, device=q.device) \
@@ -311,11 +343,12 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.launch("te_flash_attention_fwd", _build.ptr(qs), _build.ptr(k),
                   _build.ptr(v), code, _build.ptr(o), out_code,
                   _build.ptr(lse), _build.ptr(q_seqlens),
-                  _build.ptr(kv_seqlens), _build.ptr(sink), _build.ptr(sc),
+                  _build.ptr(kv_seqlens), _build.ptr(qseg), _build.ptr(kseg),
+                  _build.ptr(sink), _build.ptr(sc),
                   _build.ptr(amax), b, sq, skv, hq, hkv, d, int(causal),
                   offset, window[0], window[1], _build.stream(q))
-    _build.LAUNCHES["flash_attention_fwd"
-                    + _branch(fp8, fp8_out, window, sink)] += 1
+    _build.LAUNCHES["flash_attention_fwd" + _branch(
+        fp8, fp8_out, window, sink, qseg is not None)] += 1
     if fp8_out:
         return o, lse, amax.reshape(())
     return o, lse
@@ -324,7 +357,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_bwd_plain(qs, k, v, do, lse, delta, q_seqlens=None,
                     kv_seqlens=None, *, scale: float, causal: bool,
                     offset: int = 0, window=NO_WINDOW, fp8_scales=None,
-                    grad_dtype=None):
+                    grad_dtype=None, q_segment_ids=None,
+                    kv_segment_ids=None):
     """Reference backward; ``delta`` is rowsum(dO * O) (B, Sq, Hq) f32.
     Without ``fp8_scales`` ``qs`` arrives pre-scaled by scale * log2(e)
     and each gradient takes its input's dtype. With them (the FP8 branch)
@@ -341,7 +375,7 @@ def flash_bwd_plain(qs, k, v, do, lse, delta, q_seqlens=None,
     if fp8:
         s = s * fp8_scales[0]
     mask = _visible(sq, skv, q_seqlens, kv_seqlens, causal, offset, window,
-                    qs.device)
+                    qs.device, q_segment_ids, kv_segment_ids)
     lse2 = (lse.float() * LOG2E).reshape(b, hkv, g, sq, 1)
     p = torch.where(mask[:, None, None], torch.exp2(s - lse2),
                     torch.zeros((), device=qs.device))
@@ -376,10 +410,14 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               scale_invs: Optional[torch.Tensor] = None,
               grad_dtype: Optional[torch.dtype] = None,
               o_scale_inv: Optional[torch.Tensor] = None,
-              do_scale_inv: Optional[torch.Tensor] = None):
+              do_scale_inv: Optional[torch.Tensor] = None,
+              q_segment_ids: Optional[torch.Tensor] = None,
+              kv_segment_ids: Optional[torch.Tensor] = None):
     """(dQ, dK, dV) of :func:`flash_fwd` for the output gradient ``do``,
-    from its inputs (q unscaled), O and LSE; each in its input's dtype
-    and shape. ``softmax_sink`` is the forward's: the kernels need only
+    from its inputs (q unscaled), O and LSE and the forward's mask
+    (lengths or segment ids); each in its input's dtype and shape. A
+    query with no visible key gets dQ = 0 and adds nothing to dK or
+    dV. ``softmax_sink`` is the forward's: the kernels need only
     the LSE, which holds it, and it names the launch counts
     (:func:`sink_grad` gives its gradient).
 
@@ -388,7 +426,7 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (fp8_mha) fp8 payloads with the (1,) f32 dequant scales
     ``o_scale_inv`` and ``do_scale_inv``. The gradients take
     ``grad_dtype`` (dO's dtype by default)."""
-    _check_qkv(q, k, v, q_seqlens, kv_seqlens)
+    _check_qkv(q, k, v, q_seqlens, kv_seqlens, q_segment_ids, kv_segment_ids)
     if o.shape != q.shape or do.shape != q.shape or \
             lse.shape != (q.shape[0], q.shape[2], q.shape[1]):
         raise ValueError(f"expected O and dO like q {tuple(q.shape)} and LSE "
@@ -418,11 +456,14 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         qs, sc = (q.float() * (scale * LOG2E)).to(q.dtype), None
         grad_dtype = q.dtype
     if _build.on_cpu(q, k, v, o, lse, do, q_seqlens, kv_seqlens, scale_invs,
-                     o_scale_inv, do_scale_inv):
+                     o_scale_inv, do_scale_inv, q_segment_ids,
+                     kv_segment_ids):
         return flash_bwd_plain(qs, k, v, do, lse, delta, q_seqlens,
                                kv_seqlens, scale=scale, causal=causal,
                                offset=offset, window=window, fp8_scales=sc,
-                               grad_dtype=grad_dtype)
+                               grad_dtype=grad_dtype,
+                               q_segment_ids=q_segment_ids,
+                               kv_segment_ids=kv_segment_ids)
     code = _build.dtype_code(q, (torch.float32, torch.bfloat16,
                                  torch.float8_e4m3fn))
     _check_head_dim(d)
@@ -436,23 +477,25 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     do = do.contiguous()
     qs, k, v = qs.contiguous(), k.contiguous(), v.contiguous()
     lse2 = (lse.float() * LOG2E).contiguous()
-    q_seqlens, kv_seqlens = _lengths(q_seqlens, kv_seqlens)
+    q_seqlens, kv_seqlens, qseg, kseg = _int32(q_seqlens, kv_seqlens,
+                                               q_segment_ids, kv_segment_ids)
     _build.check_aligned(qs, k, v, do, lse2, delta, sc)
     dq = torch.empty(q.shape, dtype=grad_dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=grad_dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=grad_dtype, device=q.device)
     P, st = _build.ptr, _build.stream(q)
     left, right = window
-    name = _branch(fp8, fp8_mha, window, softmax_sink)
+    name = _branch(fp8, fp8_mha, window, softmax_sink, qseg is not None)
     _build.launch("te_flash_attention_bwd_dq", P(qs), P(k), P(v), code,
                   P(do), do_code, P(lse2), P(delta), P(dq), g_code,
-                  P(q_seqlens), P(kv_seqlens), P(sc), b, sq, skv, hq, hkv, d,
-                  int(causal), offset, left, right, float(scale), st)
+                  P(q_seqlens), P(kv_seqlens), P(qseg), P(kseg), P(sc), b,
+                  sq, skv, hq, hkv, d, int(causal), offset, left, right,
+                  float(scale), st)
     _build.LAUNCHES["flash_attention_bwd_dq" + name] += 1
     _build.launch("te_flash_attention_bwd_dkv", P(qs), P(k), P(v), code,
                   P(do), do_code, P(lse2), P(delta), P(dk), P(dv), g_code,
-                  P(q_seqlens), P(kv_seqlens), P(sc), b, sq, skv, hq, hkv, d,
-                  int(causal), offset, left, right, st)
+                  P(q_seqlens), P(kv_seqlens), P(qseg), P(kseg), P(sc), b,
+                  sq, skv, hq, hkv, d, int(causal), offset, left, right, st)
     _build.LAUNCHES["flash_attention_bwd_dkv" + name] += 1
     return dq, dk, dv
 
@@ -471,30 +514,40 @@ def sink_grad(softmax_sink: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
         softmax_sink.dtype)
 
 
+def _mask_kw(masks) -> dict:
+    """flash_fwd's and flash_bwd's mask arguments from the (q_seqlens,
+    kv_seqlens, q_segment_ids, kv_segment_ids) that the autograd
+    functions carry."""
+    return dict(zip(("q_seqlens", "kv_seqlens", "q_segment_ids",
+                     "kv_segment_ids"), masks))
+
+
 class _FlashAttention(torch.autograd.Function):
     """O = flash_fwd(q, k, v); the backward runs :func:`flash_bwd` from
-    the saved q, k, v, O and LSE, and :func:`sink_grad` for a sink."""
+    the saved q, k, v, O, LSE and mask, and :func:`sink_grad` for a
+    sink."""
 
     @staticmethod
-    def forward(ctx, q, k, v, sink, q_seqlens, kv_seqlens, scale, causal,
-                offset, window):
-        o, lse = flash_fwd(q, k, v, q_seqlens, kv_seqlens, scale=scale,
-                           causal=causal, offset=offset, window=window,
-                           softmax_sink=sink)
-        ctx.save_for_backward(q, k, v, o, lse, sink, q_seqlens, kv_seqlens)
+    def forward(ctx, q, k, v, sink, q_seqlens, kv_seqlens, q_segment_ids,
+                kv_segment_ids, scale, causal, offset, window):
+        masks = (q_seqlens, kv_seqlens, q_segment_ids, kv_segment_ids)
+        o, lse = flash_fwd(q, k, v, scale=scale, causal=causal,
+                           offset=offset, window=window, softmax_sink=sink,
+                           **_mask_kw(masks))
+        ctx.save_for_backward(q, k, v, o, lse, sink, *masks)
         ctx.cfg = (scale, causal, offset, window)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse, sink, q_seqlens, kv_seqlens = ctx.saved_tensors
+        q, k, v, o, lse, sink, *masks = ctx.saved_tensors
         scale, causal, offset, window = ctx.cfg
-        dq, dk, dv = flash_bwd(q, k, v, o, lse, do, q_seqlens, kv_seqlens,
-                               scale=scale, causal=causal, offset=offset,
-                               window=window, softmax_sink=sink)
+        dq, dk, dv = flash_bwd(q, k, v, o, lse, do, scale=scale,
+                               causal=causal, offset=offset, window=window,
+                               softmax_sink=sink, **_mask_kw(masks))
         dsink = (sink_grad(sink, o, lse, do)
                  if sink is not None and ctx.needs_input_grad[3] else None)
-        return dq, dk, dv, dsink, None, None, None, None, None, None
+        return (dq, dk, dv, dsink) + (None,) * 8
 
 
 def _quantize_qkv(quantizers, q, k, v):
@@ -515,14 +568,15 @@ def _write_back(quantizers, amaxes) -> None:
             z.write_back(z.update(a))
 
 
-def _fp8_fwd(q, k, v, sink, lens, quantizers, cfg):
+def _fp8_fwd(q, k, v, sink, masks, quantizers, cfg):
     """The reference's ``_fp8_core_fwd``: O in q's dtype, and the
     residuals (payloads, dequant scales, O, LSE, amaxes)."""
     scale, causal, offset, window = cfg
     (qq, qk, qv), sinv = _quantize_qkv(quantizers, q, k, v)
-    o, lse = flash_fwd(qq.data, qk.data, qv.data, *lens, scale=scale,
+    o, lse = flash_fwd(qq.data, qk.data, qv.data, scale=scale,
                        causal=causal, offset=offset, window=window,
-                       softmax_sink=sink, scale_invs=sinv, out_dtype=q.dtype)
+                       softmax_sink=sink, scale_invs=sinv, out_dtype=q.dtype,
+                       **_mask_kw(masks))
     return o, (qq.data, qk.data, qv.data, sinv, o, lse,
                qq.amax, qk.amax, qv.amax)
 
@@ -534,29 +588,30 @@ class _FP8Attention(torch.autograd.Function):
     updated state back (a current-scaling one keeps none)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, sink, q_seqlens, kv_seqlens, quantizers, cfg):
-        o, res = _fp8_fwd(q, k, v, sink, (q_seqlens, kv_seqlens), quantizers,
-                          cfg)
-        ctx.save_for_backward(*res, sink, q_seqlens, kv_seqlens)
+    def forward(ctx, q, k, v, sink, q_seqlens, kv_seqlens, q_segment_ids,
+                kv_segment_ids, quantizers, cfg):
+        masks = (q_seqlens, kv_seqlens, q_segment_ids, kv_segment_ids)
+        o, res = _fp8_fwd(q, k, v, sink, masks, quantizers, cfg)
+        ctx.save_for_backward(*res, sink, *masks)
         ctx.quantizers, ctx.cfg = quantizers, cfg
         return o
 
     @staticmethod
     def backward(ctx, do):
-        (qd, kd, vd, sinv, o, lse, *amaxes, sink, q_seqlens,
-         kv_seqlens) = ctx.saved_tensors
+        qd, kd, vd, sinv, o, lse, *rest = ctx.saved_tensors
+        amaxes, sink, masks = rest[:3], rest[3], rest[4:]
         scale, causal, offset, window = ctx.cfg
-        dq, dk, dv = flash_bwd(qd, kd, vd, o, lse, do, q_seqlens, kv_seqlens,
-                               scale=scale, causal=causal, offset=offset,
-                               window=window, softmax_sink=sink,
-                               scale_invs=sinv, grad_dtype=do.dtype)
+        dq, dk, dv = flash_bwd(qd, kd, vd, o, lse, do, scale=scale,
+                               causal=causal, offset=offset, window=window,
+                               softmax_sink=sink, scale_invs=sinv,
+                               grad_dtype=do.dtype, **_mask_kw(masks))
         dsink = (sink_grad(sink, o, lse, do)
                  if sink is not None and ctx.needs_input_grad[3] else None)
         _write_back(ctx.quantizers, amaxes)
-        return dq, dk, dv, dsink, None, None, None, None
+        return (dq, dk, dv, dsink) + (None,) * 6
 
 
-def _fp8_mha_fwd(q, k, v, w, sink, lens, quantizers, cfg):
+def _fp8_mha_fwd(q, k, v, w, sink, masks, quantizers, cfg):
     """The reference's ``_fp8_mha_core_fwd``: the attention on FP8 Q/K/V
     with an fp8 O (cast in the kernel's epilogue under delayed scaling,
     quantized after it under current scaling), then the output projection
@@ -565,14 +620,14 @@ def _fp8_mha_fwd(q, k, v, w, sink, lens, quantizers, cfg):
     qq_z, qk_z, qv_z, qo_z, qw_z, _, _ = quantizers
     (qq, qk, qv), sinv = _quantize_qkv((qq_z, qk_z, qv_z), q, k, v)
     kw = dict(scale=scale, causal=causal, offset=offset, window=window,
-              softmax_sink=sink, scale_invs=sinv)
+              softmax_sink=sink, scale_invs=sinv, **_mask_kw(masks))
     if isinstance(qo_z, DelayedScaleQuantizer):
-        o_pay, lse, o_amax = flash_fwd(qq.data, qk.data, qv.data, *lens,
+        o_pay, lse, o_amax = flash_fwd(qq.data, qk.data, qv.data,
                                        out_dtype=qo_z.q_dtype,
                                        out_scale=qo_z.scale, **kw)
         so_inv = (1.0 / qo_z.scale.float()).reshape(1)
     else:
-        o_bf, lse = flash_fwd(qq.data, qk.data, qv.data, *lens,
+        o_bf, lse = flash_fwd(qq.data, qk.data, qv.data,
                               out_dtype=torch.bfloat16, **kw)
         qo = qo_z.quantize(o_bf, layout=QuantizeLayout.ROWWISE)
         o_pay, so_inv, o_amax = qo.data, qo.scale_inv.reshape(1), qo.amax
@@ -596,19 +651,20 @@ class _FP8MHA(torch.autograd.Function):
     delayed one's updated state back."""
 
     @staticmethod
-    def forward(ctx, q, k, v, w, sink, q_seqlens, kv_seqlens, quantizers,
-                cfg):
-        out, res = _fp8_mha_fwd(q, k, v, w, sink, (q_seqlens, kv_seqlens),
-                                quantizers, cfg)
-        ctx.save_for_backward(*res, sink, q_seqlens, kv_seqlens)
+    def forward(ctx, q, k, v, w, sink, q_seqlens, kv_seqlens, q_segment_ids,
+                kv_segment_ids, quantizers, cfg):
+        masks = (q_seqlens, kv_seqlens, q_segment_ids, kv_segment_ids)
+        out, res = _fp8_mha_fwd(q, k, v, w, sink, masks, quantizers, cfg)
+        ctx.save_for_backward(*res, sink, *masks)
         ctx.quantizers, ctx.cfg = quantizers, cfg
         ctx.meta = (q.dtype, tuple(w.shape), w.dtype)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        (qd, kd, vd, sinv, o_pay, so_inv, lse, w_pay, sw_inv, *amaxes, sink,
-         q_seqlens, kv_seqlens) = ctx.saved_tensors
+        (qd, kd, vd, sinv, o_pay, so_inv, lse, w_pay, sw_inv,
+         *rest) = ctx.saved_tensors
+        amaxes, sink, masks = rest[:5], rest[5], rest[6:]
         scale, causal, offset, window = ctx.cfg
         q_dtype, w_shape, w_dtype = ctx.meta
         qg_z, qdo_z = ctx.quantizers[5], ctx.quantizers[6]
@@ -621,19 +677,18 @@ class _FP8MHA(torch.autograd.Function):
         w_st = ScaledTensor1x(w_pay, sw_inv, None, q_dtype)
         do4 = q_dot(qg, w_st, 1, 1).reshape(b, sq, hq, d).to(torch.bfloat16)
         qdo = qdo_z.quantize(do4, layout=QuantizeLayout.ROWWISE)
-        dq, dk, dv = flash_bwd(qd, kd, vd, o_pay, lse, qdo.data, q_seqlens,
-                               kv_seqlens, scale=scale, causal=causal,
-                               offset=offset, window=window,
+        dq, dk, dv = flash_bwd(qd, kd, vd, o_pay, lse, qdo.data, scale=scale,
+                               causal=causal, offset=offset, window=window,
                                softmax_sink=sink, scale_invs=sinv,
                                grad_dtype=q_dtype, o_scale_inv=so_inv,
-                               do_scale_inv=qdo.scale_inv)
+                               do_scale_inv=qdo.scale_inv, **_mask_kw(masks))
         dsink = None
         if sink is not None and ctx.needs_input_grad[4]:
             dsink = sink_grad(sink, o_pay, lse, qdo.data,
                               so_inv.float().reshape(())
                               * qdo.scale_inv.float().reshape(()))
         _write_back(ctx.quantizers, (*amaxes, qg.amax, qdo.amax))
-        return dq, dk, dv, dw, dsink, None, None, None, None
+        return (dq, dk, dv, dw, dsink) + (None,) * 6
 
 
 def _check_tensor_scaling(quantizers, what: str) -> None:
@@ -654,9 +709,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Flash attention over BSHD inputs; returns O (B, Sq, Hq, D),
     differentiable in q, k, v and the learnable sink.
 
-    Masking comes from ``attn_mask_type``, the lengths in
-    ``sequence_descriptor`` (a :class:`~..attention.SequenceDescriptor`)
-    and the static ``window_size`` (left, right). ``softmax_type``
+    Masking comes from ``attn_mask_type``, the segment ids or else the
+    lengths in ``sequence_descriptor`` (a
+    :class:`~..attention.SequenceDescriptor`; its ids mask a packed batch
+    whatever the mask type, as the reference's do) and the static
+    ``window_size`` (left, right). ``softmax_type``
     OFF_BY_ONE adds a sink of logit 0 to every head, LEARNABLE the (Hq,)
     logits ``softmax_offset``.
 
@@ -676,14 +733,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise NotImplementedError(
                 f"flash_attention({name}=...) is not ported yet")
     mask_type = attn_mask_type or AttnMaskType.NO_MASK
-    q_seqlens = kv_seqlens = None
-    if sequence_descriptor is not None and \
-            sequence_descriptor.q_seqlens is not None:
-        q_seqlens = sequence_descriptor.q_seqlens
-        kv_seqlens = (sequence_descriptor.kv_seqlens
-                      if sequence_descriptor.kv_seqlens is not None
-                      else q_seqlens)
-    if mask_type.is_padding and q_seqlens is None:
+    masks = (None,) * 4
+    desc = sequence_descriptor
+    if desc is not None and desc.q_segment_ids is not None:
+        masks = (None, None, desc.q_segment_ids, desc.kv_segment_ids)
+    elif desc is not None and desc.q_seqlens is not None:
+        masks = (desc.q_seqlens, desc.kv_seqlens
+                 if desc.kv_seqlens is not None else desc.q_seqlens,
+                 None, None)
+    if mask_type.is_padding and masks == (None,) * 4:
         raise ValueError("padding mask requires a sequence_descriptor")
     d, hq = q.shape[-1], q.shape[2]
     offset = k.shape[1] - q.shape[1] if mask_type.is_bottom_right else 0
@@ -697,7 +755,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError("LEARNABLE softmax requires softmax_offset (Hq,)")
         sink = softmax_offset.reshape(hq)
     cfg = (float(scale), mask_type.is_causal, offset, window)
-    lens = (q_seqlens, kv_seqlens)
     grad = torch.is_grad_enabled()
     if mha_proj is not None:
         w, quantizers = mha_proj
@@ -708,18 +765,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _check_tensor_scaling(quantizers, "fp8_mha")
         if grad and any(t is not None and t.requires_grad
                         for t in (q, k, v, w, sink)):
-            return _FP8MHA.apply(q, k, v, w, sink, *lens, quantizers, cfg)
-        return _fp8_mha_fwd(q, k, v, w, sink, lens, quantizers, cfg)[0]
+            return _FP8MHA.apply(q, k, v, w, sink, *masks, quantizers, cfg)
+        return _fp8_mha_fwd(q, k, v, w, sink, masks, quantizers, cfg)[0]
     if qkv_quantizers is not None:
         quantizers = tuple(qkv_quantizers)
         _check_tensor_scaling(quantizers, "FP8 flash attention")
         if grad and any(t is not None and t.requires_grad
                         for t in (q, k, v, sink)):
-            return _FP8Attention.apply(q, k, v, sink, *lens, quantizers, cfg)
-        return _fp8_fwd(q, k, v, sink, lens, quantizers, cfg)[0]
+            return _FP8Attention.apply(q, k, v, sink, *masks, quantizers,
+                                       cfg)
+        return _fp8_fwd(q, k, v, sink, masks, quantizers, cfg)[0]
     if grad and any(t is not None and t.requires_grad
                     for t in (q, k, v, sink)):
-        return _FlashAttention.apply(q, k, v, sink, *lens, *cfg)
-    return flash_fwd(q, k, v, q_seqlens, kv_seqlens, scale=scale,
-                     causal=mask_type.is_causal, offset=offset,
-                     window=window, softmax_sink=sink)[0]
+        return _FlashAttention.apply(q, k, v, sink, *masks, *cfg)
+    return flash_fwd(q, k, v, scale=scale, causal=mask_type.is_causal,
+                     offset=offset, window=window, softmax_sink=sink,
+                     **_mask_kw(masks))[0]
