@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases 3,4,5,...,20] [--train-seeds 21]
+    python3 chip_smoke.py [--phases 3,4,5,...,22] [--train-seeds 21]
                           [--moe-seeds 31] [--gptoss-seeds 51]
 
 Phases, each of which raises (and so exits non-zero) on failure:
@@ -44,7 +44,14 @@ Phases, each of which raises (and so exits non-zero) on failure:
      block-diagonal causal mask, then f32, GQA groups of 4 and 8, D 64
      and 256, a window with a sink, an all-zero row, non-contiguous ids,
      no causal rule, the bottom-right offset, the FP8 branches, and ids
-     with lengths in one descriptor (the ids win);
+     with lengths in one descriptor (the ids win); the flash kernels' bias
+     and ALiBi branches at the encoder's training shape (B 2, S 2048, Hq
+     32, Hkv 8, D 128, bf16, padding lengths 2048 and 1536, an f32 (1, 32,
+     2048, 2048) relative bias; dbias held too), each timed beside SDPA
+     with the bias as a float mask, then a per-batch bf16 bias, causal
+     (dbias exactly 0 above the diagonal), a window with a sink, f32, D 64
+     and 256, GQA groups of 4 and 8, and ALiBi with padding, the
+     bottom-right offset and a window;
   4. FP8-resident serving at LLAMA_8B width (seeded random weights, FP8
      KV cache, B = 8, prompts of 512 and 384 tokens, 32 new tokens)
      through prefill and decode_steps, with TTFT, decode ms/step, tok/s
@@ -151,12 +158,26 @@ Phases, each of which raises (and so exits non-zero) on failure:
      memory, busy share and the ratio to phase 6's step; then one bf16
      step of 2 layers, B = 1, S = 256 on a packed row of three documents,
      the card against the CPU, with a planted fault (the kernels given
-     all-ones ids) that the check must catch.
+     all-ones ids) that the check must catch;
+ 21. encoder training at LLAMA_8B width (hidden 4096, FFN 14336, 32/8
+     heads), 4 TransformerLayers (cut from the reference's depth for the
+     time limit) with LayerNorm, GELU, the padding mask (lengths 2048 and
+     1536) and the relative-position bias, B = 2, S = 2048, a seeded
+     linear read-out as the loss: three SGD steps without a recipe, two
+     under MXFP8BlockScaling() and two under DelayedScaling(fp8_dpa=True,
+     fp8_mha=True), each with exact launch counts (the bias branch of
+     every flash launch, no FP8 one: the bias closes the gates), ms/step,
+     tok/s, peak memory and a profiled step's busy share; then two bf16
+     steps of 4 ALiBi attention blocks with their ALiBi launches counted;
+ 22. the encoder step, the card against the CPU: 2 layers at LLAMA_8B
+     width, B = 1, S = 256 (200 valid), bf16: the read-out, every
+     gradient and rel_embedding's, with planted faults (the bias ignored,
+     dbias zeroed) that the check must catch.
 Then one ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 A kernel's ``launches`` is the sum of its counts over the runs of the
-paths (phases 4, 6, 8, 9, 10, 11, 12, 13, 14, 16, 17, 19 and 20, phase
-9's load included), each counted from zero; comparisons with the plain
-versions do not count.
+paths (phases 4, 6, 8, 9, 10, 11, 12, 13, 14, 16, 17, 19, 20 and 21,
+phase 9's load included), each counted from zero; comparisons with the
+plain versions do not count.
 ``--phases`` runs a subset (for iterating on one path); the default runs
 all. ``--train-seeds`` gives phase 7 other seeds (``21,22,23`` reads
 what its limits were set from), ``--moe-seeds`` phase 15 (``31,32,33``),
@@ -5044,6 +5065,576 @@ def packed_card_vs_cpu(torch) -> list:
     return failures
 
 
+# Phase 3's bias and ALiBi rows and phases 21 and 22: the encoder
+# TransformerLayer (relative-position bias, LayerNorm, GELU, a padding
+# mask) at LLAMA_8B width. The rows' shape is its attention at the
+# training shape: B 2, S 2048, Hq 32, Hkv 8, D 128, lengths 2048 and 1536.
+ENC_LENS = (2048, 1536)
+ENC_LAYERS = 4
+ENC_SEED = 81
+# dbias is f32 on both sides: the same f32 products, the scores summed in
+# other orders, far below one bf16 ulp of the largest element.
+DBIAS_RTOL = 2 ** -10
+
+
+def encoder_bias(torch, s: int, hq: int, seed: int):
+    """The f32 (1, Hq, S, S) bidirectional bias of a
+    RelativePositionBiases at the reference's 32 buckets and max distance
+    128, its embedding drawn from ``seed`` as the layer draws it."""
+    from transformerengine_tpu_torch.nn.transformer import (
+        RelativePositionBiases)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    mod = RelativePositionBiases(32, 128, hq, device="cuda", generator=g)
+    with torch.no_grad():
+        return mod(s, s, True)
+
+
+def enc_inputs(torch, seed: int):
+    """bf16 q, k, v, dO at the training shape and the padding lengths, on
+    the card."""
+    b, s, hq, hkv, d = FP8_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*sh):
+        return torch.randn(sh, generator=g, device="cuda").to(torch.bfloat16)
+
+    lens = torch.tensor(ENC_LENS[:b], dtype=torch.int32, device="cuda")
+    return (randn(b, s, hq, d), randn(b, s, hkv, d), randn(b, s, hkv, d),
+            randn(b, s, hq, d), lens)
+
+
+def enc_sdpa_mask(torch, bias, lens, s: int):
+    """SDPA's float attn_mask for a bias under the padding mask, (B, H, S,
+    S) bf16: the bias where a query sees a key, -inf elsewhere (a query
+    past its length sees nothing: SDPA writes NaN there, and is timed
+    alone)."""
+    pos = torch.arange(s, device="cuda")
+    valid = (pos[None, :, None] < lens[:, None, None]) \
+        & (pos[None, None, :] < lens[:, None, None])
+    return torch.where(valid[:, None], bias.to(torch.bfloat16),
+                       float("-inf")).to(torch.bfloat16)
+
+
+def enc_terms(torch, term: str, hq: int, s: int):
+    """(flash kwargs, plain kwargs, the bias SDPA adds) of a term:
+    "bias" the relative bias, "alibi" ALiBi (its bias materialized for
+    SDPA as the unfused backend does)."""
+    from transformerengine_tpu_torch.attention import alibi_bias
+    from transformerengine_tpu_torch.flex_attention import AlibiMod
+    if term == "bias":
+        bias = encoder_bias(torch, s, hq, ENC_SEED)
+        return dict(bias=bias), dict(bias=bias), bias
+    mod = AlibiMod(hq)
+    return (dict(score_mod=mod),
+            dict(alibi_slopes=mod.slopes(hq, "cuda")),
+            alibi_bias(hq, s, s, "cuda"))
+
+
+def enc_pairs(lens, hq: int) -> int:
+    """Visible (query, key) pairs of the bidirectional padding mask."""
+    return hq * sum(int(n) * int(n) for n in lens.tolist())
+
+
+def check_flash_bias(torch, timer, results):
+    """[3A] rows 2b and 2a: the forward's bias and ALiBi branches at the
+    encoder's training shape (B 2, S 2048, Hq 32, Hkv 8, D 128, bf16, the
+    padding mask with lengths 2048 and 1536, no causal rule), the bias an
+    f32 (1, 32, 2048, 2048) relative bias; each against its plain
+    version, timed with it and with SDPA under the bias as a float
+    attn_mask, and with its bound."""
+    import torch.nn.functional as F
+    from transformerengine_tpu_torch.ops.flash_attention import (
+        LOG2E, flash_fwd, flash_fwd_plain)
+    b, s, hq, hkv, d = FP8_SHAPE
+    log(f"[3A] flash_attention fwd, bias (row 2b) and ALiBi (row 2a) "
+        f"branches: the encoder's B={b} S={s} Hq={hq} Hkv={hkv} D={d} bf16, "
+        f"padding lengths {ENC_LENS}, no causal rule; an f32 (1, {hq}, {s}, "
+        f"{s}) relative bias")
+    q, k, v, _, lens = enc_inputs(torch, 71)
+    scale = d ** -0.5
+    zero = torch.arange(s, device="cuda")[None, :] >= lens[:, None]
+    pairs = enc_pairs(lens, hq)
+    causal_pairs = b * hq * s * (s + 1) // 2
+    rows = int(lens.sum())
+    for term, row in (("bias", "2b"), ("alibi", "2a")):
+        kw, pkw, lib_bias = enc_terms(torch, term, hq, s)
+        name = f"flash_attention_fwd_{term}"
+        o, lse = flash_fwd(q, k, v, lens, lens, scale=scale, causal=False,
+                           **kw)
+        torch.cuda.synchronize()
+        qs = q if term == "alibi" else (q.float() * (scale * LOG2E)).to(
+            q.dtype)
+        o_ref, lse_ref = flash_fwd_plain(qs, k, v, lens, lens, causal=False,
+                                         scale=scale, **pkw)
+        err = check(f"{name} O", o, o_ref, row_tol(o_ref, BF16_ROW_RTOL))
+        check(f"{name} LSE", lse, lse_ref, LSE_ATOL)
+        check_masked_rows(torch, name, zero, o, lse)
+        del o, lse, o_ref, lse_ref
+        ms = timer(lambda: flash_fwd(q, k, v, lens, lens, scale=scale,
+                                     causal=False, **kw))
+        plain_ms = timer(lambda: flash_fwd_plain(
+            qs, k, v, lens, lens, causal=False, scale=scale, **pkw), reps=5)
+        mask = enc_sdpa_mask(torch, lib_bias, lens, s)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        library_ms = timer(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, scale=scale, enable_gqa=True))
+        del qt, kt, vt, mask
+        flops = 4 * d * pairs
+        # Q, K and V read over the valid rows, the bias (2b) once in
+        # full; O and LSE written in full.
+        nbytes = 2 * (rows * hq * d + 2 * rows * hkv * d) \
+            + 2 * b * s * hq * d + 4 * b * hq * s \
+            + (kw["bias"].numel() * 4 if term == "bias" else 4 * hq)
+        b_ms, b_by = bound_ms(nbytes, flops)
+        log(f"  {name} (row {row}): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms, SDPA with the bias as a float mask {library_ms:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}, {flops / 1e9:.1f} GFLOP over the "
+            f"visible pairs, {pairs / causal_pairs:.2f}x the causal "
+            f"triangle's; {nbytes / 1e6:.1f} MB)")
+        results[name] = dict(
+            name=name, route="cuda",
+            source="transformerengine_tpu_torch/csrc/flash_attention.cu",
+            replaces="transformerengine_tpu/ops/flash_attention.py:724",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=library_ms,
+            shape=f"encoder B={b} S={s} Hq={hq} Hkv={hkv} D={d} bf16, "
+                  f"padding {ENC_LENS}, {term}")
+        del kw, pkw, lib_bias
+
+
+def check_flash_bwd_bias(torch, timer, results):
+    """[3B] rows 4b and 4a: the backward's bias (with dbias) and ALiBi
+    branches at the shape of [3A]; dQ, dK, dV and the per-batch f32 dbias
+    against the plain version, zero gradients for the padded rows and
+    keys and a zero dbias past the lengths; timed with the plain version
+    and with SDPA's backward under the float mask (its gradient included:
+    the mask is a leaf that needs one)."""
+    import torch.nn.functional as F
+    from transformerengine_tpu_torch.ops.flash_attention import (
+        LOG2E, flash_bwd, flash_bwd_plain, flash_fwd)
+    b, s, hq, hkv, d = FP8_SHAPE
+    log(f"[3B] flash_attention bwd, bias (row 4b, with dbias) and ALiBi "
+        f"(row 4a) branches (dQ and dK/dV kernels): the shape of [3A]")
+    q, k, v, do, lens = enc_inputs(torch, 72)
+    scale = d ** -0.5
+    zero = torch.arange(s, device="cuda")[None, :] >= lens[:, None]
+    pairs = enc_pairs(lens, hq)
+    rows = int(lens.sum())
+    for term, row in (("bias", "4b"), ("alibi", "4a")):
+        kw, pkw, lib_bias = enc_terms(torch, term, hq, s)
+        name = f"flash_attention_bwd_{term}"
+        o, lse = flash_fwd(q, k, v, lens, lens, scale=scale, causal=False,
+                           **kw)
+        got = flash_bwd(q, k, v, o, lse, do, lens, lens, scale=scale,
+                        causal=False, **kw)
+        torch.cuda.synchronize()
+        qs = q if term == "alibi" else (q.float() * (scale * LOG2E)).to(
+            q.dtype)
+        delta = (do.float() * o.float()).sum(dim=-1)
+        ref = flash_bwd_plain(qs, k, v, do, lse, delta, lens, lens,
+                              scale=scale, causal=False, **pkw)
+        err = 0.0
+        for gname, a, r in zip(("dQ", "dK", "dV"), got, ref):
+            differ = int((a != r).sum())
+            err = max(err, check(
+                f"{name} {gname} ({differ} of {r.numel()} elements differ)",
+                a, r, BWD_RTOL * float(r.float().abs().max())))
+        check_zero_grads(name, got, zero, zero)
+        if term == "bias":
+            differ = int((got[3] != ref[3]).sum())
+            err = max(err, check(
+                f"{name} dbias ({differ} of {ref[3].numel()} differ)",
+                got[3], ref[3], DBIAS_RTOL * float(ref[3].abs().max())))
+            past = ~(~zero[:, :, None] & ~zero[:, None, :])
+            if float(got[3].abs().amax(dim=1)[past].max()) != 0.0:
+                raise AssertionError(f"{name}: dbias past the lengths must "
+                                     f"be exactly 0")
+            log(f"  {name} dbias past the lengths: exactly 0 ok")
+        del got, ref
+        ms = timer(lambda: flash_bwd(q, k, v, o, lse, do, lens, lens,
+                                     scale=scale, causal=False, **kw))
+        plain_ms = timer(lambda: flash_bwd_plain(
+            qs, k, v, do, lse, delta, lens, lens, scale=scale, causal=False,
+            **pkw), reps=3)
+        leaves = [t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v)]
+        mask = enc_sdpa_mask(torch, lib_bias, lens, s).requires_grad_()
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                             scale=scale, enable_gqa=True)
+        dot = do.transpose(1, 2).contiguous()
+        library_ms = timer.events(lambda: torch.autograd.grad(
+            out, (*leaves, mask), dot, retain_graph=True))
+        del out, leaves, mask, dot, o, lse
+        flops = 10 * d * pairs
+        # Read Q, K, V over the valid rows, O and dO in full (delta's
+        # rows), LSE, the bias once (4b); write dQ, dK, dV and (4b) the
+        # per-batch f32 dbias.
+        nbytes = 2 * (rows * hq * d + 2 * rows * hkv * d) \
+            + 2 * 2 * b * s * hq * d + 4 * b * hq * s \
+            + 2 * b * s * (hq + 2 * hkv) * d \
+            + (kw["bias"].numel() * 4 + 4 * b * hq * s * s
+               if term == "bias" else 4 * hq)
+        b_ms, b_by = bound_ms(nbytes, flops)
+        log(f"  {name} (row {row}): kernels {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, SDPA backward with the float mask and its "
+            f"gradient {library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+            f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
+        results[name] = dict(
+            name=name, route="cuda",
+            source="transformerengine_tpu_torch/csrc/flash_attention_bwd.cu",
+            replaces="transformerengine_tpu/ops/flash_attention.py:1477",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=library_ms,
+            shape=f"encoder B={b} S={s} Hq={hq} Hkv={hkv} D={d} bf16, "
+                  f"padding {ENC_LENS}, {term}")
+        del kw, pkw, lib_bias
+
+
+def check_bias_variants(torch) -> None:
+    """[3C] the bias and ALiBi branches at small shapes, forward (O, LSE)
+    and backward (dQ, dK, dV, dbias) against the plain versions: a
+    per-batch bf16 bias, causal (dbias exactly 0 above the diagonal,
+    whole skipped tiles included), a window with a sink, f32, D 64 and
+    256, GQA groups of 4 and 8, and ALiBi with padding, the bottom-right
+    offset and a window."""
+    from transformerengine_tpu_torch.flex_attention import AlibiMod
+    from transformerengine_tpu_torch.ops.flash_attention import (
+        LOG2E, flash_bwd, flash_bwd_plain, flash_fwd, flash_fwd_plain)
+    log("[3C] flash attention's bias and ALiBi at small shapes, forward and "
+        "backward")
+    g = torch.Generator(device="cuda").manual_seed(73)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def randn(*shape, dtype=f32):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    # (dtype, Sq, Skv, D, Hq, Hkv, causal, window, sink, lengths, term,
+    # bias batch, bias dtype)
+    cases = (
+        (bf16, 96, 96, 64, 4, 2, False, None, None, (96, 50), "bias", 2,
+         bf16),
+        (bf16, 200, 200, 128, 8, 2, True, None, None, None, "bias", 1, f32),
+        (bf16, 100, 100, 64, 4, 2, True, (24, 0), "learnable", None, "bias",
+         1, f32),
+        (f32, 70, 70, 64, 4, 1, False, None, None, (70, 33), "bias", 1, f32),
+        (bf16, 64, 64, 256, 4, 2, True, None, None, None, "bias", 2, bf16),
+        (bf16, 80, 80, 64, 16, 2, False, None, None, (80, 80), "bias", 1,
+         f32),
+        (bf16, 96, 96, 128, 8, 2, False, None, None, (96, 41), "alibi", 0,
+         None),
+        (bf16, 40, 100, 64, 4, 2, True, None, None, None, "alibi", 0, None),
+        (f32, 64, 64, 256, 4, 2, True, (16, 0), "off_by_one", None, "alibi",
+         0, None))
+    for (dt, sq, skv, d, hq, hkv, causal, window, sink, lens, term, bb,
+         bdt) in cases:
+        q, do = randn(2, sq, hq, d, dtype=dt), randn(2, sq, hq, d, dtype=dt)
+        k, v = randn(2, skv, hkv, d, dtype=dt), randn(2, skv, hkv, d,
+                                                      dtype=dt)
+        s0 = (None if sink is None else torch.zeros(hq, device="cuda")
+              if sink == "off_by_one" else randn(hq) * 2)
+        mk, qzero, kzero = variant_mask(torch, g, lens, 2, sq, skv)
+        offset = skv - sq if causal else 0
+        scale = d ** -0.5
+        if term == "bias":
+            bias = (randn(bb, hq, sq, skv) * 2).to(bdt)
+            kw, pkw = dict(bias=bias), dict(bias=bias)
+        else:
+            mod = AlibiMod(hq)
+            kw = dict(score_mod=mod)
+            pkw = dict(alibi_slopes=mod.slopes(hq, "cuda"), scale=scale)
+        base = dict(causal=causal, offset=offset, window=window or (-1, -1),
+                    **mk)
+        o, lse = flash_fwd(q, k, v, scale=scale, softmax_sink=s0, **base,
+                           **kw)
+        qs = q if term == "alibi" else (q.float() * (scale * LOG2E)).to(dt)
+        o_ref, lse_ref = flash_fwd_plain(qs, k, v, softmax_sink=s0, **base,
+                                         **pkw)
+        name = (f"{term} {dt} Sq={sq} Skv={skv} D={d} G={hq // hkv} "
+                f"causal={causal} window={window} sink={sink} lens={lens}"
+                + (f" bias ({bb}, ...) {bdt}" if term == "bias" else ""))
+        tol = 1e-4 if dt == f32 else row_tol(o_ref, BF16_ROW_RTOL)
+        check(f"fwd {name} O", o, o_ref, tol)
+        check(f"fwd {name} LSE", lse, lse_ref, LSE_ATOL)
+        check_masked_rows(torch, f"fwd {name}", qzero, o, lse, s0)
+        delta = (do.float() * o.float()).sum(dim=-1)
+        got = flash_bwd(q, k, v, o, lse, do, scale=scale, softmax_sink=s0,
+                        **base, **kw)
+        ref = flash_bwd_plain(qs, k, v, do, lse, delta, scale=scale, **base,
+                              **{k_: v_ for k_, v_ in pkw.items()
+                                 if k_ != "scale"})
+        for gname, a, r in zip(("dQ", "dK", "dV", "dbias"), got, ref):
+            rel = (1e-4 if dt == f32 else BWD_RTOL) if gname != "dbias" \
+                else DBIAS_RTOL
+            check(f"bwd {name} {gname}", a, r,
+                  rel * float(r.float().abs().max()))
+        check_zero_grads(f"bwd {name}", got, qzero, kzero)
+        if term == "bias" and causal and window is None:
+            upper = torch.ones((sq, skv), dtype=torch.bool,
+                               device="cuda").triu(offset + 1)
+            if float(got[3][..., upper].abs().max()) != 0.0:
+                raise AssertionError(f"bwd {name}: dbias above the diagonal "
+                                     f"must be exactly 0")
+            log(f"  bwd {name}: dbias above the diagonal exactly 0 ok")
+
+
+def encoder_stack(torch, layers: int, device, seed: int, alibi=False):
+    """``layers`` encoder TransformerLayers at LLAMA_8B width (hidden 4096,
+    FFN 14336, 32/8 heads of 128): LayerNorm, GELU, the padding mask and
+    the relative bias; with ``alibi`` instead ``layers`` ALiBi
+    MultiHeadAttention blocks (LayerNorm, the padding mask), as a
+    ModuleList whose blocks add to the residual stream."""
+    from transformerengine_tpu_torch.attention import (
+        AttnBiasType, AttnMaskType)
+    from transformerengine_tpu_torch.models.llama import LLAMA_8B
+    from transformerengine_tpu_torch.nn.transformer import (
+        MultiHeadAttention, TransformerLayer)
+    cfg = LLAMA_8B
+    g = torch.Generator(device=device).manual_seed(seed)
+    if alibi:
+        return torch.nn.ModuleList(
+            MultiHeadAttention(cfg.hidden_size, cfg.num_attention_heads,
+                               num_gqa_groups=cfg.num_kv_heads,
+                               layernorm_epsilon=cfg.norm_eps,
+                               attn_mask_type=AttnMaskType.PADDING,
+                               attn_bias_type=AttnBiasType.ALIBI,
+                               device=device, generator=g)
+            for _ in range(layers))
+    return torch.nn.ModuleList(
+        TransformerLayer(cfg.hidden_size, cfg.intermediate_size,
+                         cfg.num_attention_heads,
+                         num_gqa_groups=cfg.num_kv_heads,
+                         layernorm_epsilon=cfg.norm_eps,
+                         norm_type="layernorm", mlp_activations=("gelu",),
+                         self_attn_mask_type=AttnMaskType.PADDING,
+                         enable_relative_embedding=True, device=device,
+                         generator=g)
+        for _ in range(layers))
+
+
+def encoder_batch(torch, b: int, s: int, lens, device, seed: int):
+    """(x, the descriptor, the read-out r, the valid token count): x
+    (B, S, 4096) bf16 and r (B, S, 4096) f32 drawn with numpy from
+    ``seed``."""
+    import numpy as np
+    from transformerengine_tpu_torch.attention import SequenceDescriptor
+    from transformerengine_tpu_torch.models.llama import LLAMA_8B
+    rng = np.random.default_rng(seed)
+    h = LLAMA_8B.hidden_size
+    x = torch.from_numpy(rng.standard_normal((b, s, h)).astype(
+        np.float32)).to(device=device, dtype=torch.bfloat16)
+    r = torch.from_numpy(rng.standard_normal((b, s, h)).astype(
+        np.float32)).to(device)
+    ln = torch.tensor(lens, dtype=torch.int32, device=device)
+    return x, SequenceDescriptor.from_seqlens(ln), r, int(sum(lens))
+
+
+def encoder_loss(stack, x, desc, r, n_valid, alibi=False):
+    """The read-out ``sum(y * r) / n_valid`` of the stack's output."""
+    y = x
+    for block in stack:
+        y = y + block(y, desc) if alibi else block(y, desc)
+    return (y.float() * r).sum() / n_valid
+
+
+def encoder_recipes() -> tuple:
+    """(name, recipe, steps) of phase 21."""
+    from transformerengine_tpu_torch import DelayedScaling, MXFP8BlockScaling
+    return (("bf16", None, 3), ("mxfp8", MXFP8BlockScaling(), 2),
+            ("delayed_mha", DelayedScaling(fp8_dpa=True, fp8_mha=True), 2))
+
+
+def train_encoder(torch, results) -> None:
+    """Phase 21: the encoder stack at LLAMA_8B width, 4 layers (cut from
+    the reference's depth for the time limit), B = 2, S = 2048, lengths
+    2048 and 1536: SGD steps at lr 1e-3 without a recipe, under
+    MXFP8BlockScaling() and under DelayedScaling(fp8_dpa=True,
+    fp8_mha=True), each with finite losses and exact launch counts (a
+    bias forward and a bias dQ and dK/dV launch per layer per step, no
+    FP8 flash branch: the bias closes the gates; under MXFP8 its
+    quantize kernels as a Llama layer's); ms/step, tok/s, peak memory and
+    the busy share of one profiled step each. Then two bf16 steps of 4
+    ALiBi attention blocks at the same shape, their ALiBi launches
+    counted."""
+    b, s, layers = TRAIN_B, TRAIN_S, ENC_LAYERS
+    log(f"[21] encoder training: LLAMA_8B width, {layers} TransformerLayers "
+        f"(LayerNorm, GELU, padding mask, relative bias: 32 buckets, max "
+        f"distance 128), B={b} S={s}, lengths {ENC_LENS}, read-out loss, "
+        f"SGD at lr {TRAIN_LR}: {[(n, k) for n, _, k in encoder_recipes()]}")
+    x, desc, r, n_valid = encoder_batch(torch, b, s, ENC_LENS, CARD,
+                                        ENC_SEED)
+    bias_counts = {f"flash_attention_{k}_bias": layers
+                   for k in ("fwd", "bwd_dq", "bwd_dkv")}
+    totals = collections.Counter()
+    stats = {}
+    for name, recipe, steps in encoder_recipes():
+        torch.cuda.reset_peak_memory_stats()
+        stack = encoder_stack(torch, layers, CARD, ENC_SEED)
+        expect = dict(bias_counts)
+        if name == "mxfp8":
+            expect.update({"mxfp8_norm_quantize_2x": 2 * layers,
+                           "mxfp8_quantize_2x": 10 * layers})
+
+        def step():
+            return train_step(torch, stack, x, None, recipe,
+                              loss_fn=lambda m, t, _: encoder_loss(
+                                  m, t, desc, r, n_valid))
+        losses, times, counts = timed_steps(
+            torch, lambda: float(step()), expect, steps, "step")
+        totals.update(counts)
+        if not all(map(math.isfinite, losses)):
+            raise AssertionError(f"{name}: losses {losses}")
+        step_ms = statistics.median(times[1:]) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        st = dict(ms_per_step=step_ms, tok_per_s=b * s / (step_ms / 1e3),
+                  valid_tok_per_s=n_valid / (step_ms / 1e3), losses=losses,
+                  peak_gib=peak)
+        log(f"  {name} {recipe}: losses {[round(v, 5) for v in losses]} "
+            f"(all finite); launches per step {expect} in every step ok")
+        log(f"    step times {[round(t * 1e3, 2) for t in times]} ms; median "
+            f"of steps 2-{steps} {step_ms:.2f} ms/step, "
+            f"{st['tok_per_s']:.0f} tok/s ({st['valid_tok_per_s']:.0f} "
+            f"valid), peak {peak:.2f} GiB")
+        busy, wall, kernels = device_profile(torch, step, 1)
+        log_profile(f"{name} encoder step", st, busy, wall, kernels, 1)
+        stats[name] = st
+        del stack
+        torch.cuda.empty_cache()
+    stack = encoder_stack(torch, layers, CARD, ENC_SEED, alibi=True)
+    expect = {f"flash_attention_{k}_alibi": layers
+              for k in ("fwd", "bwd_dq", "bwd_dkv")}
+    losses, times, counts = timed_steps(
+        torch, lambda: float(train_step(
+            torch, stack, x, None, None, loss_fn=lambda m, t, _: encoder_loss(
+                m, t, desc, r, n_valid, alibi=True))), expect, 2, "step")
+    totals.update(counts)
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"ALiBi: losses {losses}")
+    log(f"  ALiBi attention blocks ({layers}, bf16): losses "
+        f"{[round(v, 5) for v in losses]}, launches {expect} in both steps "
+        f"ok, step times {[round(t * 1e3, 2) for t in times]} ms")
+    stats["alibi_ms_per_step"] = times[-1] * 1e3
+    del stack
+    for kernel, n in totals.items():
+        add_launches(results, bwd_row(kernel), n)
+    results["_train_encoder"] = stats
+
+
+# Phase 22: the encoder step, card against CPU: 2 layers at LLAMA_8B
+# width, B 1, S 256 with 200 valid tokens, the relative bias, bf16.
+ENC_VS_CPU_SEED, ENC_VS_CPU_S, ENC_VS_CPU_LEN = 83, 256, 200
+# The read-out's difference over its terms' size (||y * r|| / n: one
+# bf16 ulp of every output element, 2^-8, with random signs, adds up like
+# a norm), each parameter's gradient in norm (gnorm) and its largest
+# element (grad) over its largest |CPU|, and rel_embedding's gradient in
+# norm (rel). Both sides run bf16 GEMMs and the same attention in other
+# summation orders: as phase 7's bf16 step, one-ulp roundings that
+# accumulate through the layers. Readings on an H100 at this seed: loss
+# 1.52e-3, gnorm 6.48e-3, grad 7.59e-3, rel 6.48e-3; the limits sit about
+# 2.5x above them, and the planted faults read 8.7e-3 to 1.0.
+ENC_VS_CPU_LIMITS = dict(loss=2 ** -8, gnorm=2 ** -6, grad=2 ** -6,
+                         rel=2 ** -6)
+
+
+def encoder_card_vs_cpu(torch) -> list:
+    """Phase 22's check; returns what failed. Planted faults: the card's
+    kernels given a zero bias (the relative bias ignored), and dbias
+    zeroed (rel_embedding learns nothing); each must fail a limit."""
+    import contextlib
+    from transformerengine_tpu_torch.ops import flash_attention as fa
+    s, n = ENC_VS_CPU_S, ENC_VS_CPU_LEN
+    log(f"[22] encoder step, card against CPU: 2 layers at LLAMA_8B width, "
+        f"B=1 S={s} ({n} valid), the relative bias, bf16, seed "
+        f"{ENC_VS_CPU_SEED}")
+    t0 = time.perf_counter()
+
+    def readings(device, start=None):
+        stack = encoder_stack(torch, 2, device, ENC_VS_CPU_SEED)
+        if start is not None:
+            stack.load_state_dict(start)
+        x, desc, r, n_valid = encoder_batch(torch, 1, s, (n,), device,
+                                            ENC_VS_CPU_SEED)
+        stack.zero_grad(set_to_none=True)
+        y = x
+        for layer in stack:
+            y = layer(y, desc)
+        loss = (y.float() * r).sum() / n_valid
+        loss.backward()
+        size = float((y.detach().float() * r).norm()) / n_valid
+        grads = {k: p.grad.detach().float().cpu()
+                 for k, p in stack.named_parameters()}
+        return float(loss.detach()), size, grads, {
+            k: v.cpu() for k, v in stack.state_dict().items()}
+
+    loss_c, size, grads_c, start = readings("cpu")
+
+    def differences(loss, grads) -> dict:
+        out = dict(loss=abs(loss - loss_c) / size, gnorm=0.0, grad=0.0,
+                   rel=0.0)
+        for k, ref in grads_c.items():
+            diff = (grads[k] - ref)
+            gn = float(diff.norm() / ref.norm().clamp_min(1e-30))
+            if gn > out["gnorm"]:
+                out["gnorm"], out["gnorm_of"] = gn, k
+            out["grad"] = max(out["grad"], float(
+                diff.abs().max() / ref.abs().max().clamp_min(1e-30)))
+            if k.endswith("rel_embedding"):
+                out["rel"] = max(out["rel"], gn)
+        return out
+
+    def fmt(d) -> str:
+        return ", ".join(f"{k} {d[k]:.3e}" for k in ENC_VS_CPU_LIMITS) + \
+            f" (gnorm of {d.get('gnorm_of')})"
+
+    def card():
+        loss, _, grads, _ = readings(CARD, start)
+        return differences(loss, grads)
+
+    got = card()
+
+    @contextlib.contextmanager
+    def patched(fwd=None, bwd=None):
+        real_fwd, real_bwd = fa.flash_fwd, fa.flash_bwd
+        fa.flash_fwd = fwd(real_fwd) if fwd else real_fwd
+        fa.flash_bwd = bwd(real_bwd) if bwd else real_bwd
+        try:
+            yield
+        finally:
+            fa.flash_fwd, fa.flash_bwd = real_fwd, real_bwd
+
+    def zero_bias(real):
+        def call(*a, **kw):
+            if kw.get("bias") is not None:
+                kw["bias"] = torch.zeros_like(kw["bias"])
+            return real(*a, **kw)
+        return call
+
+    def zero_dbias(real):
+        def call(*a, **kw):
+            out = real(*a, **kw)
+            return (*out[:3], torch.zeros_like(out[3])) if len(out) == 4 \
+                else out
+        return call
+
+    planted = {}
+    with patched(fwd=zero_bias, bwd=zero_bias):
+        planted["the relative bias ignored"] = card()
+    with patched(bwd=zero_dbias):
+        planted["dbias zeroed"] = card()
+    limits = ENC_VS_CPU_LIMITS
+    ok = all(got[k] <= limits[k] for k in limits)
+    log(f"    ({time.perf_counter() - t0:.1f} s) limits "
+        + ", ".join(f"{k} {v:.3e}" for k, v in limits.items()))
+    log(f"    card against CPU: {fmt(got)} {'ok' if ok else 'FAIL'}")
+    failures = [] if ok else ["encoder bf16"]
+    for what, diff in planted.items():
+        caught = [k for k in limits if not diff[k] <= limits[k]]
+        log(f"    planted fault '{what}': {fmt(diff)}: "
+            + (f"caught by {', '.join(caught)}" if caught else "NOT CAUGHT"))
+        if not caught:
+            failures.append(f"encoder: '{what}' not caught")
+    return failures
+
+
 def bwd_row(kernel: str) -> str:
     """The results row of a launch name: a branch's dQ and dK/dV kernels
     share one row."""
@@ -5054,7 +5645,7 @@ def bwd_row(kernel: str) -> str:
 
 
 PHASES = ("3", "4", "5", "6", "7", "8", "9", "10", "11", "12", "13", "14",
-          "15", "16", "17", "18", "19", "20")
+          "15", "16", "17", "18", "19", "20", "21", "22")
 
 
 def main() -> int:
@@ -5065,7 +5656,7 @@ def main() -> int:
     import argparse
     parser = argparse.ArgumentParser()
     parser.add_argument("--phases", default=",".join(PHASES),
-                        help="comma-separated subset of 3-20")
+                        help="comma-separated subset of 3-22")
     parser.add_argument("--train-seeds", default=str(TRAIN_VS_CPU_SEED),
                         help="comma-separated seeds of phase 7 (its limits "
                         "were set from the readings of 21,22,23)")
@@ -5140,6 +5731,9 @@ def main() -> int:
     run("3", check_flash_seg, timer, results)
     run("3", check_flash_bwd_seg, timer, results)
     run("3", check_seg_variants)
+    run("3", check_flash_bias, timer, results)
+    run("3", check_flash_bwd_bias, timer, results)
+    run("3", check_bias_variants)
     run("4", serve, results)
     run("9", serve_paged_mxfp8, results)
     run("12", serve_paged_nvfp4, results)
@@ -5154,6 +5748,7 @@ def main() -> int:
     run("17", serve_gptoss, results)
     run("19", train_fp8_attention, results)
     run("20", train_packed, results)
+    run("21", train_encoder, results)
     failed = []
     for seed in map(int, args.train_seeds.split(",")):
         run("7", lambda torch, seed=seed: failed.extend(
@@ -5164,6 +5759,7 @@ def main() -> int:
     for seed in map(int, args.gptoss_seeds.split(",")):
         run("18", lambda torch, seed=seed: failed.extend(
             gptoss_card_vs_cpu(torch, seed)))
+    run("22", lambda torch: failed.extend(encoder_card_vs_cpu(torch)))
     if failed:
         raise AssertionError(f"training step, card against CPU: {failed}")
     log(f"phase seconds: {', '.join(f'{p} {t:.1f}' for p, t in timings.items())}")
@@ -5174,7 +5770,7 @@ def main() -> int:
                                          "_train_mixtral", "_serve_mixtral",
                                          "_train_gptoss", "_serve_gptoss",
                                          "_train_fp8_attention",
-                                         "_train_packed")
+                                         "_train_packed", "_train_encoder")
              if k in results}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -249,8 +249,9 @@ def test_unfused_window_sink_matches_reference(window, sink):
 
 def test_wrapper_arguments():
     """The window and the sink types are taken; the rest of the
-    reference's arguments, a dynamic window and a learnable sink without
-    its logits still raise."""
+    reference's arguments (score mods other than ALiBi among them), a
+    dynamic window and a learnable sink without its logits still raise;
+    a bias is taken at its (B or 1, Hq, Sq, Skv) shape only."""
     q = torch.zeros((1, 8, 2, 32))
     k = v = torch.zeros((1, 8, 1, 32))
     flash_attention(q, k, v, attn_mask_type=AttnMaskType.CAUSAL,
@@ -259,11 +260,13 @@ def test_wrapper_arguments():
                     softmax_type=SoftmaxType.LEARNABLE,
                     softmax_offset=torch.zeros(2))
     assert AttnSoftmaxType is SoftmaxType
-    for name, value in (("q_position_offset", 3), ("bias", q),
+    for name, value in (("q_position_offset", 3),
                         ("dropout_probability", 0.1), ("score_mod", abs),
                         ("block_q", 64)):
         with pytest.raises(NotImplementedError, match="not ported"):
             flash_attention(q, k, v, **{name: value})
+    with pytest.raises(ValueError, match="bias must be"):
+        flash_attention(q, k, v, bias=q)
     with pytest.raises(NotImplementedError, match="dynamic"):
         flash_attention(q, k, v, window_size=(torch.tensor(4), 0))
     with pytest.raises(ValueError, match="softmax_offset"):

@@ -1,8 +1,8 @@
 """Guards of the port: it imports nothing of JAX or of the JAX package (its
-data module included), its entry points never fall back to the CPU on
-their own, no ``try`` wraps a kernel launch, and its kernel wrappers never
-return the plain version for a tensor on the card, segment ids
-included."""
+data module and its score mods included), its entry points never fall
+back to the CPU on their own, no ``try`` wraps a kernel launch, and its
+kernel wrappers never return the plain version for a tensor on the card,
+segment ids, a bias and ALiBi included."""
 import ast
 import subprocess
 import sys
@@ -14,6 +14,7 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from transformerengine_tpu_torch import _build
+from transformerengine_tpu_torch.flex_attention import AlibiMod
 from transformerengine_tpu_torch.inference import (
     ContinuousBatchingEngine, InferenceParams, generate, prefill)
 from transformerengine_tpu_torch.models.llama import LLAMA_TINY, LlamaModel
@@ -112,7 +113,8 @@ def test_source_scan_finds_no_jax_import():
     # The MoE slice's modules are among them.
     for name in ("moe.py", "permutation.py", "grouped_dense.py",
                  "ops/router.py", "ops/grouped_gemm.py", "nn/moe.py",
-                 "models/mixtral.py", "quantize/microbatch.py"):
+                 "models/mixtral.py", "quantize/microbatch.py",
+                 "flex_attention.py"):
         assert PORT / name in files, name
     for path in files:
         bad = set(_imported_roots(path)) & set(FORBIDDEN)
@@ -285,6 +287,23 @@ def _calls():
             o_scale_inv=cuda(1, dtype=f32), do_scale_inv=cuda(1, dtype=f32),
             q_segment_ids=cuda(2, 64, dtype=i32),
             kv_segment_ids=cuda(2, 64, dtype=i32)),
+        # A bias and ALiBi count under "_bias" and "_alibi".
+        "flash_fwd_bias": lambda: fa.flash_fwd(
+            cuda(2, 64, 4, 32), cuda(2, 64, 2, 32), cuda(2, 64, 2, 32),
+            scale=0.2, causal=False, bias=cuda(1, 4, 64, 64, dtype=f32)),
+        "flash_bwd_bias": lambda: fa.flash_bwd(
+            cuda(2, 64, 4, 32), cuda(2, 64, 2, 32), cuda(2, 64, 2, 32),
+            cuda(2, 64, 4, 32), cuda(2, 4, 64, dtype=f32),
+            cuda(2, 64, 4, 32), scale=0.2, causal=False,
+            bias=cuda(2, 4, 64, 64)),
+        "flash_fwd_alibi": lambda: fa.flash_fwd(
+            cuda(2, 64, 4, 32), cuda(2, 64, 2, 32), cuda(2, 64, 2, 32),
+            scale=0.2, causal=True, score_mod=AlibiMod(4)),
+        "flash_bwd_alibi": lambda: fa.flash_bwd(
+            cuda(2, 64, 4, 32), cuda(2, 64, 2, 32), cuda(2, 64, 2, 32),
+            cuda(2, 64, 4, 32), cuda(2, 4, 64, dtype=f32),
+            cuda(2, 64, 4, 32), scale=0.2, causal=True,
+            score_mod=AlibiMod(4)),
         "te_paged_decode_attention": lambda: pa.paged_decode_attention(
             cuda(2, 1, 4, 32), cuda(6, 8, 2, 32, dtype=torch.float8_e4m3fn),
             cuda(6, 8, 2, 32, dtype=torch.float8_e4m3fn),
@@ -372,6 +391,12 @@ _LAUNCHED = {"te_flash_attention_bwd": ["te_flash_attention_bwd_dq",
                                "te_flash_attention_bwd_dkv"],
              "flash_bwd_fp8_mha_seg": ["te_flash_attention_bwd_dq",
                                        "te_flash_attention_bwd_dkv"],
+             "flash_fwd_bias": ["te_flash_attention_fwd"],
+             "flash_fwd_alibi": ["te_flash_attention_fwd"],
+             "flash_bwd_bias": ["te_flash_attention_bwd_dq",
+                                "te_flash_attention_bwd_dkv"],
+             "flash_bwd_alibi": ["te_flash_attention_bwd_dq",
+                                 "te_flash_attention_bwd_dkv"],
              "delayed_quantize_2x": ["te_cast_transpose"],
              "current_quantize_2x": ["te_cast_transpose"],
              "quantize_normed": ["te_norm_cast_transpose"],
@@ -394,6 +419,8 @@ _LAUNCHED = {"te_flash_attention_bwd": ["te_flash_attention_bwd_dq",
                                    "flash_fwd_seg", "flash_bwd_seg",
                                    "flash_fwd_fp8_mha_seg",
                                    "flash_bwd_fp8_mha_seg",
+                                   "flash_fwd_bias", "flash_bwd_bias",
+                                   "flash_fwd_alibi", "flash_bwd_alibi",
                                    "te_decode_attention",
                                    "te_paged_decode_attention",
                                    "te_decode_kn_matvec",
@@ -463,7 +490,7 @@ def test_wrappers_on_the_card_launch_or_raise(entry, monkeypatch):
     assert launched == expected
     grown = _build.LAUNCHES - before
     assert sum(grown.values()) == len(expected)
-    if entry.endswith(("_sw", "_seg")):
+    if entry.endswith(("_sw", "_seg", "_bias", "_alibi")):
         suffix = entry[entry.rindex("_"):]
         assert all(name.endswith(suffix) for name in grown), grown
     if "_fp8" in entry:
@@ -534,3 +561,63 @@ def test_wrappers_refuse_mixed_devices():
     w = torch.zeros((2048, 1024), dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="all on one CUDA device"):
         dm.decode_tn_matvec(x, w)
+
+
+# Where a bias (pointer, dtype code, batch), the ALiBi slopes and dbias
+# sit among each C entry point's arguments.
+_TERM_ARGS = {"te_flash_attention_fwd": slice(14, 18),
+              "te_flash_attention_bwd_dq": slice(15, 20),
+              "te_flash_attention_bwd_dkv": slice(16, 20)}
+
+
+@pytest.mark.parametrize("term", ["bias", "alibi"])
+def test_bias_and_slopes_reach_the_kernels(term, monkeypatch):
+    """On CUDA tensors a broadcast bf16 bias reaches the forward, dQ and
+    dK/dV kernels with its dtype code and batch 1 (the dQ kernel also
+    gets a per-batch f32 dbias to write), and ALiBi reaches them as an
+    (Hq,) f32 slopes vector and no bias; the plain versions never run,
+    and the wrappers refuse a bias of the wrong shape before any
+    launch."""
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(fa, "flash_fwd_plain", plain)
+    monkeypatch.setattr(fa, "flash_bwd_plain", plain)
+    monkeypatch.setattr(_build, "stream", lambda t: None)
+    monkeypatch.setattr(_build, "ptr", lambda t: t)
+    seen = {}
+    monkeypatch.setattr(_build, "launch",
+                        lambda name, *args: seen.setdefault(
+                            name, args[_TERM_ARGS[name]]))
+    with warnings.catch_warnings(), FakeTensorMode():
+        warnings.simplefilter("ignore", UserWarning)
+        q = torch.empty((2, 64, 4, 32), dtype=torch.bfloat16, device="cuda")
+        kv = torch.empty((2, 64, 2, 32), dtype=torch.bfloat16,
+                         device="cuda")
+        kw = (dict(bias=torch.empty((1, 4, 64, 64), dtype=torch.bfloat16,
+                                    device="cuda"))
+              if term == "bias" else dict(score_mod=AlibiMod(4)))
+        o, lse = fa.flash_fwd(q, kv, kv, scale=0.2, causal=False, **kw)
+        grads = fa.flash_bwd(q, kv, kv, o, lse, q, scale=0.2, causal=False,
+                             **kw)
+        assert len(grads) == (4 if term == "bias" else 3)
+        for bad in ((2, 4, 64, 32), (3, 4, 64, 64)):
+            with pytest.raises(ValueError, match="bias must be"):
+                fa.flash_fwd(q, kv, kv, scale=0.2, causal=False,
+                             bias=torch.empty(bad, device="cuda"))
+    assert sorted(seen) == sorted(_TERM_ARGS)
+    for name, args in seen.items():
+        bias, code, batch, slopes = args[:4]
+        if term == "bias":
+            assert (code, batch) == (_build.DTYPE_CODES[torch.bfloat16], 1)
+            assert tuple(bias.shape) == (1, 4, 64, 64) and slopes is None
+            if name == "te_flash_attention_bwd_dq":
+                dbias = args[4]
+                assert dbias.dtype == torch.float32
+                assert tuple(dbias.shape) == (2, 4, 64, 64)
+        else:
+            assert bias is None and (code, batch) == (-1, 0)
+            assert slopes.dtype == torch.float32 and \
+                tuple(slopes.shape) == (4,)
+            if name == "te_flash_attention_bwd_dq":
+                assert args[4] is None

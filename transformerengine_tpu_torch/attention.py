@@ -6,14 +6,17 @@ two backends:
 * ``UNFUSED``: plain PyTorch with materialized scores, differentiated by
   autograd; the yardstick of the tests.
 
-Both backends take a static sliding window, the softmax sink types and
+Both backends take a static sliding window, the softmax sink types,
 segment ids (packed documents: a :class:`SequenceDescriptor` from
-:meth:`SequenceDescriptor.from_segment_ids_and_pos`); the flash backend
-also takes FP8 Q/K/V quantizers (``fp8_dpa``). The QKV layouts of the
-reference (packed QKV, packed KV, THD) are unpacked to BSHD by
-:func:`canonicalize_qkv`; a THD batch is a BSHD one whose segment ids
-describe the packing (:func:`fused_attn_thd`). Biases and dropout are not
-ported yet.
+:meth:`SequenceDescriptor.from_segment_ids_and_pos`), a post-scale bias
+and ALiBi (:class:`AttnBiasType`); the unfused backend also takes a
+pre-scale bias, and materializes ALiBi as a post-scale bias. The flash
+backend also takes FP8 Q/K/V quantizers (``fp8_dpa``), which it drops
+under a bias or ALiBi, as the reference's ``fused_attn`` does. The QKV
+layouts of the reference (packed QKV, packed KV, THD) are unpacked to
+BSHD by :func:`canonicalize_qkv`; a THD batch is a BSHD one whose segment
+ids describe the packing (:func:`fused_attn_thd`). Dropout is not ported
+yet.
 """
 from __future__ import annotations
 
@@ -23,6 +26,16 @@ import os
 from typing import Optional, Sequence, Tuple
 
 import torch
+
+
+class AttnBiasType(enum.Enum):
+    """No bias, a bias added before or after the softmax scale, or ALiBi
+    (slopes from the head index; the flash kernels run it in-kernel, the
+    unfused backend materializes it)."""
+    NO_BIAS = "no_bias"
+    PRE_SCALE_BIAS = "pre_scale_bias"
+    POST_SCALE_BIAS = "post_scale_bias"
+    ALIBI = "alibi"
 
 
 class AttnMaskType(enum.Enum):
@@ -139,13 +152,16 @@ class AttnBackend(enum.Enum):
     UNFUSED = "unfused"
 
 
-def get_attention_backend(*, attn_mask_type: AttnMaskType =
+def get_attention_backend(*, attn_bias_type: AttnBiasType =
+                          AttnBiasType.NO_BIAS,
+                          attn_mask_type: AttnMaskType =
                           AttnMaskType.NO_MASK, head_dim: int = 128,
                           has_explicit_mask: bool = False) -> AttnBackend:
-    """FLASH for what the flash kernels take, else UNFUSED: an explicit
-    mask, or a head dim that is not a multiple of 16 up to 256 (the
-    reference's Pallas kernel takes multiples of 8; the port's CUDA
-    kernels multiples of 16). ``TE_TPU_ATTN_BACKEND={flash,unfused}`` in
+    """FLASH for what the flash kernels take, else UNFUSED: a pre-scale
+    bias, an explicit mask, or a head dim that is not a multiple of 16 up
+    to 256 (the reference's Pallas kernel takes multiples of 8; the
+    port's CUDA kernels multiples of 16). A post-scale bias and ALiBi
+    stay on the flash kernels. ``TE_TPU_ATTN_BACKEND={flash,unfused}`` in
     the environment overrides the choice, as in the reference."""
     del attn_mask_type      # every ported mask type runs in the kernels
     env = os.environ.get("TE_TPU_ATTN_BACKEND", "").lower()
@@ -153,6 +169,8 @@ def get_attention_backend(*, attn_mask_type: AttnMaskType =
         return AttnBackend.UNFUSED
     if env == "flash":
         return AttnBackend.FLASH
+    if attn_bias_type is AttnBiasType.PRE_SCALE_BIAS:
+        return AttnBackend.UNFUSED
     if has_explicit_mask or head_dim % 16 or head_dim > 256:
         return AttnBackend.UNFUSED
     return AttnBackend.FLASH
@@ -242,16 +260,24 @@ def make_swa_mask(segment_pos_q: torch.Tensor, segment_pos_kv: torch.Tensor,
 
 def _unfused_attn(q, k, v, mask, *, scaling_factor: float,
                   softmax_type: SoftmaxType = SoftmaxType.VANILLA,
-                  softmax_offset: Optional[torch.Tensor] = None
+                  softmax_offset: Optional[torch.Tensor] = None,
+                  bias: Optional[torch.Tensor] = None,
+                  attn_bias_type: AttnBiasType = AttnBiasType.NO_BIAS
                   ) -> torch.Tensor:
-    """Softmax attention with the scores in f32: masked logits at -1e30,
-    and rows with no visible key set to 0. A sink type appends one logit
-    column (0, or the per-head ``softmax_offset``) that takes its share of
-    the softmax and is dropped after it."""
+    """Softmax attention with the scores in f32: a pre-scale bias added
+    before the scale and a post-scale one after it, masked logits at
+    -1e30, and rows with no visible key set to 0. A sink type appends one
+    logit column (0, or the per-head ``softmax_offset``) that takes its
+    share of the softmax and is dropped after it."""
     group = q.shape[2] // k.shape[2]
     kf = k.float().repeat_interleave(group, dim=2)
     vf = v.float().repeat_interleave(group, dim=2)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * scaling_factor
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf)
+    if attn_bias_type is AttnBiasType.PRE_SCALE_BIAS and bias is not None:
+        logits = logits + bias.float()
+    logits = logits * scaling_factor
+    if attn_bias_type is AttnBiasType.POST_SCALE_BIAS and bias is not None:
+        logits = logits + bias.float()
     if mask is not None:
         logits = torch.where(mask, logits, torch.full((), -1e30,
                                                       device=q.device))
@@ -270,8 +296,23 @@ def _unfused_attn(q, k, v, mask, *, scaling_factor: float,
     return torch.einsum("bhqk,bkhd->bqhd", probs, vf).to(q.dtype)
 
 
+def alibi_bias(num_heads: int, q_len: int, kv_len: int,
+               device=None) -> torch.Tensor:
+    """The unfused backend's materialized ALiBi bias (1, H, Sq, Skv) f32:
+    ``-slope_h * |i - j|`` with the reference's slopes, the distance on
+    the indices (no bottom-right offset, as in the reference)."""
+    from .flex_attention import alibi_slopes
+    slopes = alibi_slopes(num_heads, device=device)
+    dist = (torch.arange(q_len, dtype=torch.float32, device=device)[:, None]
+            - torch.arange(kv_len, dtype=torch.float32,
+                           device=device)[None, :]).abs()
+    return (-slopes[:, None, None] * dist)[None]
+
+
 def fused_attn(qkv: Sequence[torch.Tensor],
                sequence_descriptor: Optional[SequenceDescriptor] = None, *,
+               bias: Optional[torch.Tensor] = None,
+               attn_bias_type: AttnBiasType = AttnBiasType.NO_BIAS,
                attn_mask_type: AttnMaskType = AttnMaskType.NO_MASK,
                scaling_factor: Optional[float] = None,
                window_size: Optional[Tuple[int, int]] = None,
@@ -288,12 +329,16 @@ def fused_attn(qkv: Sequence[torch.Tensor],
     which only the unfused backend takes.
     ``window_size`` (left, right) is a static sliding window;
     ``softmax_type`` a sink type, LEARNABLE with the (Hq,) logits
-    ``softmax_offset``. ``qkv_quantizers`` (per-tensor quantizers of q, k
-    and v) run the flash backend's FP8 branch; the unfused backend
-    ignores them, as the reference's does."""
+    ``softmax_offset``. ``bias`` (B or 1, Hq, Sq, Skv) is added as
+    ``attn_bias_type`` says (PRE_SCALE_BIAS takes the unfused backend);
+    ALIBI takes no bias. ``qkv_quantizers`` (per-tensor quantizers of q, k
+    and v) run the flash backend's FP8 branch, without a bias or ALiBi;
+    the unfused backend ignores them, as the reference's does."""
     q, k, v = canonicalize_qkv(qkv, qkv_layout)
     if scaling_factor is None:
         scaling_factor = 1.0 / (q.shape[-1] ** 0.5)
+    if attn_bias_type is AttnBiasType.ALIBI and bias is not None:
+        raise ValueError("ALIBI computes its own bias; bias must be None")
     if attn_mask_type.is_padding and sequence_descriptor is None and \
             mask is None:
         # Nothing marks any token invalid: drop the padding component.
@@ -301,13 +346,22 @@ def fused_attn(qkv: Sequence[torch.Tensor],
                           else AttnMaskType.NO_MASK)
     chosen = backend
     if chosen is AttnBackend.AUTO:
-        chosen = get_attention_backend(attn_mask_type=attn_mask_type,
+        chosen = get_attention_backend(attn_bias_type=attn_bias_type,
+                                       attn_mask_type=attn_mask_type,
                                        head_dim=q.shape[-1],
                                        has_explicit_mask=mask is not None)
     if chosen is AttnBackend.FLASH:
         if mask is not None:
             raise ValueError("the flash backend takes no explicit mask")
+        if attn_bias_type is AttnBiasType.PRE_SCALE_BIAS:
+            raise ValueError("the flash backend takes no pre-scale bias")
+        from .flex_attention import alibi_arith_mod
         from .ops.flash_attention import flash_attention
+        score_mod = (alibi_arith_mod(q.shape[2])
+                     if attn_bias_type is AttnBiasType.ALIBI else None)
+        # As the reference: FP8 Q/K/V only without a bias or a score mod.
+        fp8_ok = qkv_quantizers is not None and bias is None and \
+            score_mod is None
         return flash_attention(
             q, k, v, sequence_descriptor, attn_mask_type=attn_mask_type,
             scaling_factor=scaling_factor, window_size=window_size,
@@ -315,8 +369,13 @@ def fused_attn(qkv: Sequence[torch.Tensor],
                           if softmax_type is not SoftmaxType.VANILLA
                           else None),
             softmax_offset=softmax_offset,
-            qkv_quantizers=(tuple(qkv_quantizers)
-                            if qkv_quantizers is not None else None))
+            bias=(bias if attn_bias_type is AttnBiasType.POST_SCALE_BIAS
+                  else None),
+            score_mod=score_mod,
+            qkv_quantizers=tuple(qkv_quantizers) if fp8_ok else None)
+    if attn_bias_type is AttnBiasType.ALIBI:
+        bias = alibi_bias(q.shape[2], q.shape[1], k.shape[1], q.device)
+        attn_bias_type = AttnBiasType.POST_SCALE_BIAS
     full_mask = mask
     if full_mask is None and (attn_mask_type is not AttnMaskType.NO_MASK
                               or sequence_descriptor is not None
@@ -326,7 +385,8 @@ def fused_attn(qkv: Sequence[torch.Tensor],
             q.shape[0], window_size, device=q.device)
     return _unfused_attn(q, k, v, full_mask, scaling_factor=scaling_factor,
                          softmax_type=softmax_type,
-                         softmax_offset=softmax_offset)
+                         softmax_offset=softmax_offset, bias=bias,
+                         attn_bias_type=attn_bias_type)
 
 
 def fused_attn_thd(qkv: Sequence[torch.Tensor],

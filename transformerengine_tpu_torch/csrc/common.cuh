@@ -237,3 +237,55 @@ inline cudaError_t allow_smem(K kernel, size_t bytes) {
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
 }
+
+// The flash kernels' score terms (the reference's `_fwd_block_body`,
+// `_bwd_dq_block_body` and `_bwd_dkv_block_body`): a post-scale bias or
+// ALiBi. At most one of the two is set, and neither with FP8 Q/K/V.
+struct ScoreTerms {
+  const void* bias;     // (bias_b, Hq, Sq, Skv), f32 or bf16, or null
+  int bias_code;        // its DTypeCode
+  int bias_b;           // 1 (broadcast over the batch) or B
+  const float* slopes;  // (Hq,) f32 ALiBi slopes, or null
+  float scale;          // the softmax scale (ALiBi's q is not pre-scaled)
+};
+
+// Score s of query qi (bottom-right offset `offset`) and key kj in head h
+// of sequence b, in the exp2 domain. With a bias, s comes from pre-scaled
+// q and becomes s + bias * log2(e); with ALiBi, s is the unscaled q . k
+// and becomes (s * scale - slope_h * |qi + offset - kj|) * log2(e); each
+// operation rounded as the reference's f32 ops (no contraction into an
+// FMA). Positions past Sq or Skv read no bias: the mask replaces them.
+__device__ __forceinline__ float add_score_terms(const ScoreTerms& t,
+                                                 float s, int b, int h,
+                                                 int Hq, int Sq, int Skv,
+                                                 int qi, int kj, int offset) {
+  constexpr float kLog2eF = 1.4426950408889634f;
+  if (t.bias != nullptr) {
+    float bv = 0.f;
+    if (qi < Sq && kj < Skv) {
+      const size_t i =
+          (((size_t)(t.bias_b > 1 ? b : 0) * Hq + h) * Sq + qi) * Skv + kj;
+      bv = t.bias_code == kFloat32
+               ? __ldg(static_cast<const float*>(t.bias) + i)
+               : __bfloat162float(static_cast<const __nv_bfloat16*>(t.bias)[i]);
+    }
+    return __fadd_rn(s, __fmul_rn(bv, kLog2eF));
+  }
+  if (t.slopes != nullptr) {
+    const float dist = fabsf(static_cast<float>(qi + offset - kj));
+    return __fmul_rn(
+        __fsub_rn(__fmul_rn(s, t.scale), __fmul_rn(__ldg(t.slopes + h), dist)),
+        kLog2eF);
+  }
+  return s;
+}
+
+// The C entry points' check of the score terms: a bias of f32 or bf16
+// whose batch is 1 or B, not with slopes, and neither with FP8 Q/K/V.
+inline bool bad_terms(const ScoreTerms& t, int B, bool fp8) {
+  const bool has_bias = t.bias != nullptr;
+  return (has_bias && ((t.bias_code != kFloat32 && t.bias_code != kBFloat16) ||
+                       (t.bias_b != 1 && t.bias_b != B))) ||
+         (has_bias && t.slopes != nullptr) ||
+         (fp8 && (has_bias || t.slopes != nullptr));
+}

@@ -23,6 +23,29 @@
 // no key and writes O = 0 and LSE = -1e30 (the sink with one). Tiles are
 // not skipped by segment: a packed row does the causal triangle's work.
 //
+// Bias and ALiBi branches (the reference's `use_bias` and its ALiBi
+// `score_mod`, `_fwd_block_body`): a post-scale bias (`bias_b` = 1 or B,
+// Hq, Sq, Skv), f32 or bf16 and read in its own dtype, adds bias * log2(e)
+// in f32 to each pre-scaled score before the mask; a first dimension of 1
+// broadcasts it over the batch, and each query head reads its own plane
+// under GQA. ALiBi takes q unscaled and the (Hq,) f32 slopes: each score
+// becomes (s * scale - slope_h * |i + offset - j|) * log2(e). Each thread
+// reads the bias elements of its own 4 x 4 score block straight from
+// global memory (16 lanes read 16 consecutive keys of a row), so the
+// branch adds no shared memory; it is a template instance of its own
+// (bf16 and f32 only, built in flash_attention_terms.cu beside this
+// file), so the kernel without it compiles as it did: a runtime flag in
+// the shared instance cost the bias-free forward 5 % and backward 18 %
+// (an H100 80GB HBM3 at 700 W). Tiles are skipped by the mask alone, so
+// a bidirectional (padding-mask) layer visits every (Q tile, K tile) pair
+// below the lengths: up to twice the causal triangle's work at the same
+// shape (1.56x at lengths 2048 and 1536). Bound at
+// the encoder's training shape (B 2, S 2048, Hq 32, Hkv 8, D 128, bf16,
+// lengths 2048 and 1536, an f32 (1, 32, 2048, 2048) bias): the products
+// over the visible pairs (107 GFLOP, 0.109 ms at the bf16 peak) against
+// the bias's 512 MiB read once with Q, K, V, O and LSE (about 622 MB,
+// 0.19 ms): bytes.
+//
 // Numerics follow the reference: the caller folds scale * log2(e) into q
 // in q's dtype, scores run in the exp2 domain, masked scores are -2e30
 // under a running max that starts at -1e30 (so they underflow to exactly
@@ -83,6 +106,18 @@
 // against 4.3 us for its 8.6 GFLOP at the 1,979 TFLOP/s fp8 peak.
 #include "common.cuh"
 
+// flash_attention_terms.cu includes this file with TE_FLASH_TERMS 1 and
+// compiles the bias and ALiBi instances (bf16 and f32) beside this one.
+#ifndef TE_FLASH_TERMS
+#define TE_FLASH_TERMS 0
+#endif
+
+// The causal rule with its offset and the window's sides; shared by both
+// translation units.
+struct Mask {
+  int causal, offset, left, right;
+};
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -96,7 +131,7 @@ size_t smem_bytes(int D) {
                           (size_t)kBK * D + (size_t)kBQ * (kBK + 1));
 }
 
-template <typename T, int DMAX>
+template <typename T, int DMAX, bool kTerms>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, void* __restrict__ o,
@@ -107,9 +142,9 @@ __global__ void __launch_bounds__(kThreads)
                      const int* __restrict__ kseg,
                      const float* __restrict__ sink,
                      const float* __restrict__ scales,
-                     float* __restrict__ o_amax, int Sq, int Skv, int Hq,
-                     int Hkv, int D, int causal, int offset, int left,
-                     int right) {
+                     float* __restrict__ o_amax, ScoreTerms terms, int Sq,
+                     int Skv, int Hq, int Hkv, int D, int causal, int offset,
+                     int left, int right) {
   constexpr int kCols = DMAX / 16;
   constexpr bool kFp8 = kIsFp8<T>;
   extern __shared__ float smem[];
@@ -230,6 +265,9 @@ __global__ void __launch_bounds__(kThreads)
                     qs == __float_as_int(Ks[(tx + 16 * c) * ld + D]);
         }
         if (kFp8) s[r][c] *= smult;
+        if constexpr (kTerms)
+          s[r][c] = add_score_terms(terms, s[r][c], b, h, Hq, Sq, Skv, qi, kj,
+                                    offset);
         if (!visible) s[r][c] = kMasked;
         mx = fmaxf(mx, s[r][c]);
       }
@@ -305,18 +343,15 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-struct Mask {
-  int causal, offset, left, right;
-};
-
-template <typename T, int DMAX>
+template <typename T, int DMAX, bool kTerms>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int out_code, float* lse, const int* qlens,
                    const int* klens, const int* qseg, const int* kseg,
                    const float* sink, const float* scales,
-                   float* o_amax, int B, int Sq, int Skv, int Hq, int Hkv,
-                   int D, const Mask& mk, cudaStream_t stream) {
-  auto kernel = flash_fwd_kernel<T, DMAX>;
+                   float* o_amax, const ScoreTerms& terms, int B, int Sq,
+                   int Skv, int Hq, int Hkv, int D, const Mask& mk,
+                   cudaStream_t stream) {
+  auto kernel = flash_fwd_kernel<T, DMAX, kTerms>;
   const size_t smem = smem_bytes(D);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -324,42 +359,83 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), o, out_code, lse, qlens, klens, qseg, kseg,
-      sink, scales, o_amax, Sq, Skv, Hq, Hkv, D, mk.causal, mk.offset,
+      sink, scales, o_amax, terms, Sq, Skv, Hq, Hkv, D, mk.causal, mk.offset,
       mk.left, mk.right);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kTerms>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
                      int out_code, float* lse, const int* qlens,
                      const int* klens, const int* qseg, const int* kseg,
                      const float* sink,
-                     const float* scales, float* o_amax, int B, int Sq,
-                     int Skv, int Hq, int Hkv, int D, const Mask& mk,
-                     cudaStream_t stream) {
+                     const float* scales, float* o_amax,
+                     const ScoreTerms& terms, int B, int Sq, int Skv, int Hq,
+                     int Hkv, int D, const Mask& mk, cudaStream_t stream) {
 #define TE_FWD(DM)                                                          \
-  launch<T, DM>(q, k, v, o, out_code, lse, qlens, klens, qseg, kseg, sink, \
-                scales, o_amax, B, Sq, Skv, Hq, Hkv, D, mk, stream)
+  launch<T, DM, kTerms>(q, k, v, o, out_code, lse, qlens, klens, qseg, kseg, \
+                        sink, scales, o_amax, terms, B, Sq, Skv, Hq, Hkv, D,  \
+                        mk, stream)
   return D <= 64 ? TE_FWD(64) : D <= 128 ? TE_FWD(128) : TE_FWD(256);
 #undef TE_FWD
 }
 
 }  // namespace
 
+// The bias and ALiBi instances (`dtype` bf16 or f32), in a translation
+// unit of their own: the kernels without the terms compile as they did,
+// and nvcc builds the two units at once.
+cudaError_t flash_fwd_terms(int dtype, const void* q, const void* k,
+                            const void* v, void* o, float* lse,
+                            const int* qlens, const int* klens,
+                            const int* qseg, const int* kseg,
+                            const float* sink, const ScoreTerms& terms, int B,
+                            int Sq, int Skv, int Hq, int Hkv, int D,
+                            const Mask& mk, cudaStream_t stream);
+
+#if TE_FLASH_TERMS
+cudaError_t flash_fwd_terms(int dtype, const void* q, const void* k,
+                            const void* v, void* o, float* lse,
+                            const int* qlens, const int* klens,
+                            const int* qseg, const int* kseg,
+                            const float* sink, const ScoreTerms& terms, int B,
+                            int Sq, int Skv, int Hq, int Hkv, int D,
+                            const Mask& mk, cudaStream_t stream) {
+  switch (dtype) {
+    case kBFloat16:
+      return launch_d<__nv_bfloat16, true>(q, k, v, o, dtype, lse, qlens,
+                                           klens, qseg, kseg, sink, nullptr,
+                                           nullptr, terms, B, Sq, Skv, Hq,
+                                           Hkv, D, mk, stream);
+    case kFloat32:
+      return launch_d<float, true>(q, k, v, o, dtype, lse, qlens, klens,
+                                   qseg, kseg, sink, nullptr, nullptr, terms,
+                                   B, Sq, Skv, Hq, Hkv, D, mk, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+#else
 // `dtype` is Q/K/V's (f32, bf16, or e4m3 payloads with `scales`), O's is
 // `out_dtype`: Q's outside the FP8 branch; bf16, f32, or an fp8 type with
 // `o_amax` (zeroed by the caller) in it. `qlens`/`klens` and `qseg`/`kseg`
-// are each both given or both null.
+// are each both given or both null. `bias` (`bias_b` = 1 or B, Hq, Sq,
+// Skv) of `bias_dtype` f32 or bf16, or the (Hq,) ALiBi `slopes` with the
+// softmax `scale` (q then unscaled), or neither; not with FP8.
 extern "C" int te_flash_attention_fwd(const void* q, const void* k,
                                       const void* v, int dtype, void* o,
                                       int out_dtype, float* lse,
                                       const int* qlens, const int* klens,
                                       const int* qseg, const int* kseg,
                                       const float* sink, const float* scales,
-                                      float* o_amax, int B, int Sq, int Skv,
-                                      int Hq, int Hkv, int D, int causal,
-                                      int offset, int left, int right,
-                                      void* stream) {
+                                      float* o_amax, const void* bias,
+                                      int bias_dtype, int bias_b,
+                                      const float* slopes, int B, int Sq,
+                                      int Skv, int Hq, int Hkv, int D,
+                                      int causal, int offset, int left,
+                                      int right, float scale, void* stream) {
+  const ScoreTerms terms{bias, bias_dtype, bias_b, slopes, scale};
+  if (bad_terms(terms, B, dtype == kFloat8E4M3)) return cudaErrorInvalidValue;
   if (B < 1 || Sq < 1 || Skv < 1 || Hkv < 1 || Hq % Hkv != 0 || D < 16 ||
       D > 256 || D % 16 != 0 || left < -1 || right < -1 ||
       (qlens == nullptr) != (klens == nullptr) ||
@@ -373,20 +449,26 @@ extern "C" int te_flash_attention_fwd(const void* q, const void* k,
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Mask mk{causal, offset, left, right};
+  if (bias != nullptr || slopes != nullptr)
+    return flash_fwd_terms(dtype, q, k, v, o, lse, qlens, klens, qseg, kseg,
+                           sink, terms, B, Sq, Skv, Hq, Hkv, D, mk, s);
   switch (dtype) {
     case kBFloat16:
-      return launch_d<__nv_bfloat16>(q, k, v, o, out_dtype, lse, qlens, klens,
-                                     qseg, kseg, sink, scales, o_amax, B, Sq,
-                                     Skv, Hq, Hkv, D, mk, s);
+      return launch_d<__nv_bfloat16, false>(q, k, v, o, out_dtype, lse, qlens,
+                                            klens, qseg, kseg, sink, scales,
+                                            o_amax, terms, B, Sq, Skv, Hq,
+                                            Hkv, D, mk, s);
     case kFloat32:
-      return launch_d<float>(q, k, v, o, out_dtype, lse, qlens, klens, qseg,
-                             kseg, sink, scales, o_amax, B, Sq, Skv, Hq, Hkv,
-                             D, mk, s);
+      return launch_d<float, false>(q, k, v, o, out_dtype, lse, qlens, klens,
+                                    qseg, kseg, sink, scales, o_amax, terms,
+                                    B, Sq, Skv, Hq, Hkv, D, mk, s);
     case kFloat8E4M3:
-      return launch_d<__nv_fp8_e4m3>(q, k, v, o, out_dtype, lse, qlens, klens,
-                                     qseg, kseg, sink, scales, o_amax, B, Sq,
-                                     Skv, Hq, Hkv, D, mk, s);
+      return launch_d<__nv_fp8_e4m3, false>(q, k, v, o, out_dtype, lse,
+                                            qlens, klens, qseg, kseg, sink,
+                                            scales, o_amax, terms, B, Sq, Skv,
+                                            Hq, Hkv, D, mk, s);
     default:
       return cudaErrorInvalidValue;
   }
 }
+#endif  // TE_FLASH_TERMS

@@ -17,6 +17,25 @@
 // and its own gradient is computed from the LSE outside the kernels, as
 // the reference does (`_flash_core_bwd`).
 //
+// Bias and ALiBi branches (the reference's `use_bias` with its dbias
+// output, and its ALiBi `score_mod`): both kernels add the forward's
+// score terms (common.cuh `add_score_terms`) to the recomputed scores,
+// in template instances of their own (bf16 and f32 only, built in
+// flash_attention_bwd_terms.cu beside this file), so the kernels without
+// them compile as they did.
+// The dQ kernel also writes dbias, the per-batch f32 ds (B, Hq, Sq, Skv)
+// before its rounding: it owns every key of its (Q tile, head, batch)
+// rows, so it writes each element once with no atomics, ds = 0 for masked
+// pairs and exact zeros for the keys of the tiles its loop skips (the
+// reference's skipped blocks read 0). A broadcast bias is summed over the
+// batch outside the kernel, as the reference does. Under ALiBi q is
+// unscaled and dQ and dK both take `scale` as their multiplier (the mod's
+// VJP is the identity). Bound at the encoder's training shape (B 2,
+// S 2048, Hq 32, Hkv 8, D 128, bf16, lengths 2048 and 1536, an f32
+// broadcast bias): the five products over the visible pairs (268 GFLOP,
+// 0.27 ms at the bf16 peak) against the inputs, the bias's 512 MiB and
+// dbias's 1 GiB (about 1.78 GB, 0.53 ms): bytes.
+//
 // Numerics follow the reference: the caller passes q pre-scaled by
 // scale * log2(e) in q's dtype, LSE moved into the log2 domain
 // (lse2 = lse * log2(e), (B, Hq, Sq)) and delta = rowsum(dO * O) in f32
@@ -79,14 +98,22 @@
 // 92 MB of bytes with fp8 O and dO (0.027 ms).
 #include "common.cuh"
 
+// flash_attention_bwd_terms.cu includes this file with TE_FLASH_TERMS 1
+// and compiles the bias and ALiBi instances (bf16 and f32) beside this
+// one.
+#ifndef TE_FLASH_TERMS
+#define TE_FLASH_TERMS 0
+#endif
+
+// The shape and mask of a call; shared by both translation units.
+struct Shape {
+  int Sq, Skv, Hq, Hkv, D, causal, offset, left, right;
+};
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr float kLn2 = 0.6931471805599453f;
-
-struct Shape {
-  int Sq, Skv, Hq, Hkv, D, causal, offset, left, right;
-};
 
 // Copies the segment ids of rows [r0, r0 + R) of sequence b into the
 // padding column (index D) of a shared [R][ld] tile, as int bits (0 past
@@ -173,7 +200,7 @@ struct Tiles {
   static constexpr int kCols = DMAX / 16;           // columns a thread
 };
 
-template <typename T, int DMAX>
+template <typename T, int DMAX, bool kTerms>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v,
@@ -185,8 +212,8 @@ __global__ void __launch_bounds__(kThreads)
                         const int* __restrict__ klens,
                         const int* __restrict__ qseg,
                         const int* __restrict__ kseg,
-                        const float* __restrict__ scales, Shape sh,
-                        float scale) {
+                        const float* __restrict__ scales, ScoreTerms terms,
+                        float* __restrict__ dbias, Shape sh) {
   constexpr int kB = Tiles<DMAX>::kB, kR = Tiles<DMAX>::kR;
   constexpr int kCols = Tiles<DMAX>::kCols;
   constexpr bool kFp8 = kIsFp8<T>;
@@ -216,6 +243,8 @@ __global__ void __launch_bounds__(kThreads)
   if (q0 >= qlen) kend = 0;
   const int kbeg =
       sh.left >= 0 ? max(0, q0 + sh.offset - sh.left) / kB * kB : 0;
+  // dbias's row q0 of this (batch, head).
+  const size_t dbias_row = (((size_t)b * sh.Hq + h) * sh.Sq + q0) * sh.Skv;
 
   load_tile<T, kB>(q, b, q0, sh.Sq, sh.Hq, h, D, Qs, ld);
   load_tile_as<kB>(dout, do_code, b, q0, sh.Sq, sh.Hq, h, D, dOs, ld);
@@ -269,15 +298,26 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int r = 0; r < kR; ++r) {
       const int row = ty * kR + r;
+      const int qi = q0 + row;
 #pragma unroll
       for (int c = 0; c < kR; ++c) {
         const int key = tx + 16 * c;
+        const int kj = k0 + key;
         float ds = 0.f;
-        if (visible(sh, q0 + row, k0 + key, qlen, klen,
-                    seg_of(Qs, ld, D, row), seg_of(Ks, ld, D, key))) {
-          const float p = exp2f(s[r][c] * smult - Ls[row]);
+        if (visible(sh, qi, kj, qlen, klen, seg_of(Qs, ld, D, row),
+                    seg_of(Ks, ld, D, key))) {
+          float sv = s[r][c] * smult;
+          if constexpr (kTerms)
+            sv = add_score_terms(terms, sv, b, h, sh.Hq, sh.Sq, sh.Skv, qi,
+                                 kj, sh.offset);
+          const float p = exp2f(sv - Ls[row]);
           ds = p * (dp[r][c] * dp_mult - Dl[row]);
         }
+        // dbias is ds before its rounding (the reference returns the f32
+        // ds block); masked pairs write 0.
+        if constexpr (kTerms)
+          if (dbias != nullptr && qi < sh.Sq && kj < sh.Skv)
+            dbias[dbias_row + (size_t)row * sh.Skv + kj] = ds;
         dSs[row * (kB + 1) + key] = round_to<RoundT<T>>(ds);
       }
     }
@@ -298,19 +338,33 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
+  if (kTerms && dbias != nullptr) {
+    // The keys of the tiles the loop skipped (before kbeg, and from the
+    // end of its last tile on) get exact zeros, as the reference's
+    // skipped dbias blocks.
+    const int kstop =
+        kend > kbeg ? kbeg + (kend - kbeg + kB - 1) / kB * kB : kbeg;
+    const int lo = min(kbeg, sh.Skv);
+    for (int row = 0; row < kB && q0 + row < sh.Sq; ++row) {
+      float* out = dbias + dbias_row + (size_t)row * sh.Skv;
+      for (int j = threadIdx.x; j < lo; j += kThreads) out[j] = 0.f;
+      for (int j = kstop + threadIdx.x; j < sh.Skv; j += kThreads)
+        out[j] = 0.f;
+    }
+  }
 #pragma unroll
   for (int r = 0; r < kR; ++r) {
     const int qi = q0 + ty * kR + r;
     if (qi >= sh.Sq) continue;
     const size_t at = (((size_t)b * sh.Sq + qi) * sh.Hq + h) * D;
-    const float mult = kFp8 ? scales[2] : scale;
+    const float mult = kFp8 ? scales[2] : terms.scale;
 #pragma unroll
     for (int c = 0; c < kCols; ++c)
       if (c * 16 < D) store_as(dq, g_code, at + tx + 16 * c, acc[r][c] * mult);
   }
 }
 
-template <typename T, int DMAX>
+template <typename T, int DMAX, bool kTerms>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v,
@@ -322,7 +376,8 @@ __global__ void __launch_bounds__(kThreads)
                          const int* __restrict__ klens,
                          const int* __restrict__ qseg,
                          const int* __restrict__ kseg,
-                         const float* __restrict__ scales, Shape sh) {
+                         const float* __restrict__ scales, ScoreTerms terms,
+                         Shape sh) {
   constexpr int kB = Tiles<DMAX>::kB, kR = Tiles<DMAX>::kR;
   constexpr int kCols = Tiles<DMAX>::kCols;
   constexpr bool kFp8 = kIsFp8<T>;
@@ -417,7 +472,11 @@ __global__ void __launch_bounds__(kThreads)
           float p = 0.f, ds = 0.f;
           if (visible(sh, q0 + row, k0 + key, qlen, klen,
                       seg_of(Qs, ld, D, row), seg_of(Ks, ld, D, key))) {
-            p = exp2f(st[r][c] * smult - Ls[row]);
+            float sv = st[r][c] * smult;
+            if constexpr (kTerms)
+              sv = add_score_terms(terms, sv, b, h, sh.Hq, sh.Sq, sh.Skv,
+                                   q0 + row, k0 + key, sh.offset);
+            p = exp2f(sv - Ls[row]);
             ds = p * (dpt[r][c] * dp_mult - Dl[row]);
           }
           Pt[key * (kB + 1) + row] = round_to<RoundT<T>>(p);
@@ -449,7 +508,9 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  const float dk_mult = kFp8 ? scales[3] : kLn2;
+  // q carries scale * log2(e), except under ALiBi, where it is unscaled.
+  const float dk_mult =
+      kFp8 ? scales[3] : terms.slopes != nullptr ? terms.scale : kLn2;
   const float dv_mult = kFp8 ? scales[4] : 1.f;
 #pragma unroll
   for (int r = 0; r < kR; ++r) {
@@ -480,15 +541,16 @@ size_t dkv_smem(int D) {
          (4 * (size_t)kB * (D + 1) + 2 * (size_t)kB * (kB + 1) + 2 * kB);
 }
 
-template <typename T, int DMAX>
+template <typename T, int DMAX, bool kTerms>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, int do_code, const float* lse2,
                       const float* delta, void* dq, int g_code,
                       const int* qlens, const int* klens, const int* qseg,
-                      const int* kseg, const float* scales, int B,
-                      const Shape& sh, float scale, cudaStream_t stream) {
+                      const int* kseg, const float* scales,
+                      const ScoreTerms& terms, float* dbias, int B,
+                      const Shape& sh, cudaStream_t stream) {
   constexpr int kB = Tiles<DMAX>::kB;
-  auto kernel = flash_bwd_dq_kernel<T, DMAX>;
+  auto kernel = flash_bwd_dq_kernel<T, DMAX, kTerms>;
   const size_t smem = dq_smem<DMAX>(sh.D);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -496,19 +558,20 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), dout, do_code, lse2, delta, dq, g_code, qlens,
-      klens, qseg, kseg, scales, sh, scale);
+      klens, qseg, kseg, scales, terms, dbias, sh);
   return cudaGetLastError();
 }
 
-template <typename T, int DMAX>
+template <typename T, int DMAX, bool kTerms>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, int do_code, const float* lse2,
                        const float* delta, void* dk, void* dv, int g_code,
                        const int* qlens, const int* klens, const int* qseg,
-                       const int* kseg, const float* scales, int B,
-                       const Shape& sh, cudaStream_t stream) {
+                       const int* kseg, const float* scales,
+                       const ScoreTerms& terms, int B, const Shape& sh,
+                       cudaStream_t stream) {
   constexpr int kB = Tiles<DMAX>::kB;
-  auto kernel = flash_bwd_dkv_kernel<T, DMAX>;
+  auto kernel = flash_bwd_dkv_kernel<T, DMAX, kTerms>;
   const size_t smem = dkv_smem<DMAX>(sh.D);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -516,7 +579,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), dout, do_code, lse2, delta, dk, dv, g_code,
-      qlens, klens, qseg, kseg, scales, sh);
+      qlens, klens, qseg, kseg, scales, terms, sh);
   return cudaGetLastError();
 }
 
@@ -541,64 +604,134 @@ bool bad_args(int B, int Sq, int Skv, int Hq, int Hkv, int D, int left,
 
 }  // namespace
 
+#define TE_DQ(T, DM, TERMS)                                                 \
+  launch_dq<T, DM, TERMS>(q, k, v, dout, do_dtype, lse2, delta, dq,         \
+                          grad_dtype, qlens, klens, qseg, kseg, scales,     \
+                          terms, dbias, B, sh, s)
+#define TE_DKV(T, DM, TERMS)                                                \
+  launch_dkv<T, DM, TERMS>(q, k, v, dout, do_dtype, lse2, delta, dk, dv,    \
+                           grad_dtype, qlens, klens, qseg, kseg, scales,    \
+                           terms, B, sh, s)
+#define TE_BY_D(LAUNCH, T, TERMS)                                          \
+  (sh.D <= 64 ? LAUNCH(T, 64, TERMS)                                       \
+              : sh.D <= 128 ? LAUNCH(T, 128, TERMS) : LAUNCH(T, 256, TERMS))
+
+// The bias and ALiBi instances (`dtype` bf16 or f32), in a translation
+// unit of their own: the kernels without the terms compile as they did,
+// and nvcc builds the two units at once.
+cudaError_t flash_bwd_dq_terms(
+    const void* q, const void* k, const void* v, int dtype, const void* dout,
+    int do_dtype, const float* lse2, const float* delta, void* dq,
+    int grad_dtype, const int* qlens, const int* klens, const int* qseg,
+    const int* kseg, const float* scales, const ScoreTerms& terms,
+    float* dbias, int B, const Shape& sh, cudaStream_t s);
+cudaError_t flash_bwd_dkv_terms(
+    const void* q, const void* k, const void* v, int dtype, const void* dout,
+    int do_dtype, const float* lse2, const float* delta, void* dk, void* dv,
+    int grad_dtype, const int* qlens, const int* klens, const int* qseg,
+    const int* kseg, const float* scales, const ScoreTerms& terms, int B,
+    const Shape& sh, cudaStream_t s);
+
+#if TE_FLASH_TERMS
+cudaError_t flash_bwd_dq_terms(
+    const void* q, const void* k, const void* v, int dtype, const void* dout,
+    int do_dtype, const float* lse2, const float* delta, void* dq,
+    int grad_dtype, const int* qlens, const int* klens, const int* qseg,
+    const int* kseg, const float* scales, const ScoreTerms& terms,
+    float* dbias, int B, const Shape& sh, cudaStream_t s) {
+  switch (dtype) {
+    case kBFloat16:
+      return TE_BY_D(TE_DQ, __nv_bfloat16, true);
+    case kFloat32:
+      return TE_BY_D(TE_DQ, float, true);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t flash_bwd_dkv_terms(
+    const void* q, const void* k, const void* v, int dtype, const void* dout,
+    int do_dtype, const float* lse2, const float* delta, void* dk, void* dv,
+    int grad_dtype, const int* qlens, const int* klens, const int* qseg,
+    const int* kseg, const float* scales, const ScoreTerms& terms, int B,
+    const Shape& sh, cudaStream_t s) {
+  switch (dtype) {
+    case kBFloat16:
+      return TE_BY_D(TE_DKV, __nv_bfloat16, true);
+    case kFloat32:
+      return TE_BY_D(TE_DKV, float, true);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+#else
+// `bias` (`bias_b` = 1 or B, Hq, Sq, Skv) of `bias_dtype` f32 or bf16,
+// with `dbias` its per-batch f32 (B, Hq, Sq, Skv) gradient, every element
+// of which the dQ kernel writes; or the (Hq,) ALiBi `slopes` (q unscaled);
+// or neither. Not with FP8.
 extern "C" int te_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, int dtype, const void* dout,
     int do_dtype, const float* lse2, const float* delta, void* dq,
     int grad_dtype, const int* qlens, const int* klens, const int* qseg,
-    const int* kseg, const float* scales, int B, int Sq, int Skv, int Hq,
-    int Hkv, int D, int causal, int offset, int left, int right, float scale,
-    void* stream) {
+    const int* kseg, const float* scales, const void* bias, int bias_dtype,
+    int bias_b, const float* slopes, float* dbias, int B, int Sq, int Skv,
+    int Hq, int Hkv, int D, int causal, int offset, int left, int right,
+    float scale, void* stream) {
+  const ScoreTerms terms{bias, bias_dtype, bias_b, slopes, scale};
   if (bad_args(B, Sq, Skv, Hq, Hkv, D, left, right, dtype, do_dtype,
-               grad_dtype, scales, qlens, klens, qseg, kseg))
+               grad_dtype, scales, qlens, klens, qseg, kseg) ||
+      bad_terms(terms, B, dtype == kFloat8E4M3) ||
+      (bias != nullptr) != (dbias != nullptr))
     return cudaErrorInvalidValue;
   const Shape sh{Sq, Skv, Hq, Hkv, D, causal, offset, left, right};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define TE_DQ(T, DM)                                                        \
-  launch_dq<T, DM>(q, k, v, dout, do_dtype, lse2, delta, dq, grad_dtype,    \
-                   qlens, klens, qseg, kseg, scales, B, sh, scale, s)
-#define TE_DQ_D(T) \
-  (D <= 64 ? TE_DQ(T, 64) : D <= 128 ? TE_DQ(T, 128) : TE_DQ(T, 256))
+  if (bias != nullptr || slopes != nullptr)
+    return flash_bwd_dq_terms(q, k, v, dtype, dout, do_dtype, lse2, delta,
+                              dq, grad_dtype, qlens, klens, qseg, kseg,
+                              scales, terms, dbias, B, sh, s);
   switch (dtype) {
     case kBFloat16:
-      return TE_DQ_D(__nv_bfloat16);
+      return TE_BY_D(TE_DQ, __nv_bfloat16, false);
     case kFloat32:
-      return TE_DQ_D(float);
+      return TE_BY_D(TE_DQ, float, false);
     case kFloat8E4M3:
-      return TE_DQ_D(__nv_fp8_e4m3);
+      return TE_BY_D(TE_DQ, __nv_fp8_e4m3, false);
     default:
       return cudaErrorInvalidValue;
   }
-#undef TE_DQ_D
-#undef TE_DQ
 }
 
 extern "C" int te_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, int dtype, const void* dout,
     int do_dtype, const float* lse2, const float* delta, void* dk, void* dv,
     int grad_dtype, const int* qlens, const int* klens, const int* qseg,
-    const int* kseg, const float* scales, int B, int Sq, int Skv, int Hq,
-    int Hkv, int D, int causal, int offset, int left, int right,
+    const int* kseg, const float* scales, const void* bias, int bias_dtype,
+    int bias_b, const float* slopes, int B, int Sq, int Skv, int Hq, int Hkv,
+    int D, int causal, int offset, int left, int right, float scale,
     void* stream) {
+  const ScoreTerms terms{bias, bias_dtype, bias_b, slopes, scale};
   if (bad_args(B, Sq, Skv, Hq, Hkv, D, left, right, dtype, do_dtype,
-               grad_dtype, scales, qlens, klens, qseg, kseg))
+               grad_dtype, scales, qlens, klens, qseg, kseg) ||
+      bad_terms(terms, B, dtype == kFloat8E4M3))
     return cudaErrorInvalidValue;
   const Shape sh{Sq, Skv, Hq, Hkv, D, causal, offset, left, right};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define TE_DKV(T, DM)                                                       \
-  launch_dkv<T, DM>(q, k, v, dout, do_dtype, lse2, delta, dk, dv,           \
-                    grad_dtype, qlens, klens, qseg, kseg, scales, B, sh, s)
-#define TE_DKV_D(T) \
-  (D <= 64 ? TE_DKV(T, 64) : D <= 128 ? TE_DKV(T, 128) : TE_DKV(T, 256))
+  if (bias != nullptr || slopes != nullptr)
+    return flash_bwd_dkv_terms(q, k, v, dtype, dout, do_dtype, lse2, delta,
+                               dk, dv, grad_dtype, qlens, klens, qseg, kseg,
+                               scales, terms, B, sh, s);
   switch (dtype) {
     case kBFloat16:
-      return TE_DKV_D(__nv_bfloat16);
+      return TE_BY_D(TE_DKV, __nv_bfloat16, false);
     case kFloat32:
-      return TE_DKV_D(float);
+      return TE_BY_D(TE_DKV, float, false);
     case kFloat8E4M3:
-      return TE_DKV_D(__nv_fp8_e4m3);
+      return TE_BY_D(TE_DKV, __nv_fp8_e4m3, false);
     default:
       return cudaErrorInvalidValue;
   }
-#undef TE_DKV_D
-#undef TE_DKV
 }
+#endif  // TE_FLASH_TERMS
+#undef TE_BY_D
+#undef TE_DKV
+#undef TE_DQ

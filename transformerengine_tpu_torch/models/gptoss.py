@@ -21,7 +21,7 @@ from typing import Mapping, Optional, Tuple
 import torch
 from torch import nn
 
-from ..attention import SequenceDescriptor, SoftmaxType
+from ..attention import AttnMaskType, SequenceDescriptor, SoftmaxType
 from ..device import resolve_device
 from ..nn.module import LayerNorm
 from ..nn.transformer import TransformerLayer
@@ -88,8 +88,10 @@ class GptOssModel(nn.Module):
                 cfg.hidden_size, cfg.intermediate_size,
                 cfg.num_attention_heads, head_dim=cfg.head_dim,
                 num_gqa_groups=cfg.num_kv_heads,
-                layernorm_epsilon=cfg.norm_eps,
+                layernorm_epsilon=cfg.norm_eps, norm_type="rmsnorm",
                 mlp_activations="clamped_swiglu", use_bias=cfg.use_bias,
+                self_attn_mask_type=AttnMaskType.CAUSAL,
+                enable_rotary_pos_emb=True,
                 window_size=layer_window(cfg, i),
                 softmax_type=SoftmaxType.LEARNABLE,
                 rotary_pos_emb_base=cfg.rope_base,
@@ -99,6 +101,7 @@ class GptOssModel(nn.Module):
                 device=dev, generator=gen)
             for i in range(cfg.num_layers))
         self.final_norm = LayerNorm(cfg.hidden_size, epsilon=cfg.norm_eps,
+                                    norm_type="rmsnorm",
                                     device=dev)
 
     @property

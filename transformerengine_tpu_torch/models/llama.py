@@ -15,12 +15,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..attention import SequenceDescriptor
+from ..attention import AttnMaskType, SequenceDescriptor
 from ..dense import needs_grad
 from ..device import resolve_device
 from ..inference.kv_cache import KVCache
 from ..nn.module import LayerNorm
-from ..nn.transformer import TransformerLayer
+from ..nn.transformer import TransformerLayer, flax_state
 from ..ops.gemm import matmul_f32
 from ..quantize.prequant import BlockResidentKernel, PrequantizedKernel
 
@@ -68,12 +68,16 @@ class LlamaModel(nn.Module):
                 cfg.hidden_size, cfg.intermediate_size,
                 cfg.num_attention_heads, head_dim=cfg.head_dim,
                 num_gqa_groups=cfg.num_kv_heads,
-                layernorm_epsilon=cfg.norm_eps, mlp_activations="swiglu",
+                layernorm_epsilon=cfg.norm_eps, norm_type="rmsnorm",
+                mlp_activations="swiglu",
+                self_attn_mask_type=AttnMaskType.CAUSAL,
+                enable_rotary_pos_emb=True,
                 rotary_pos_emb_base=cfg.rope_base,
                 max_seq_len=cfg.max_seq_len, dtype=cfg.dtype, device=dev,
                 generator=gen)
             for _ in range(cfg.num_layers))
         self.final_norm = LayerNorm(cfg.hidden_size, epsilon=cfg.norm_eps,
+                                    norm_type="rmsnorm",
                                     device=dev)
 
     @property
@@ -148,10 +152,6 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
     return -ll.mean()
 
 
-# Parameters kept in f32 whatever the model's dtype: norm scales, a MoE
-# layer's router kernel and an attention's learnable sink.
-F32_PARAMS = ("scale", "router_kernel", "softmax_offset")
-
 _FP8_NUMPY = {"float8_e4m3fn": torch.float8_e4m3fn,
               "float8_e5m2": torch.float8_e5m2}
 
@@ -197,7 +197,7 @@ def load_flax_params(params_np: Mapping, config: LlamaConfig,
     numpy arrays, boxes removed) to a :class:`LlamaModel` ``state_dict`` on
     ``device``: ``layer_{i}`` becomes ``layers.{i}``, kernels take
     ``config.dtype``, and norm scales and router kernels stay f32
-    (``F32_PARAMS``). ``quantize_meta``, the
+    (``nn.transformer.F32_PARAMS``). ``quantize_meta``, the
     reference's collection of the same name, adds the delayed-scaling
     state (``{gemm}_{role}_scale`` and ``_amax_history``, f32) under the
     same keys; ``load_state_dict`` creates those buffers. ``prequant``, the
@@ -206,28 +206,12 @@ def load_flax_params(params_np: Mapping, config: LlamaConfig,
     :class:`PrequantizedKernel` module with the same payload bytes;
     :func:`load_flax_state` installs such a state."""
     dev = resolve_device(device)
-    state = {}
-
-    def walk(tree, prefix, param_dtype):
-        for name, sub in tree.items():
-            key = f"layers.{name[len('layer_'):]}" if name.startswith(
-                "layer_") else name
-            key = f"{prefix}{key}"
-            if isinstance(sub, Mapping):
-                walk(sub, key + ".", param_dtype)
-            elif param_dtype == "prequant":
-                state[key] = _resident_module(sub, config, dev)
-            else:
-                dtype = param_dtype if param_dtype is not None else (
-                    torch.float32 if name in F32_PARAMS else config.dtype)
-                arr = np.array(sub, dtype=np.float32)
-                state[key] = torch.from_numpy(arr).to(device=dev, dtype=dtype)
-
-    walk(params_np, "", None)
+    state = flax_state(params_np, config.dtype, dev)
     if quantize_meta is not None:
-        walk(quantize_meta, "", torch.float32)
+        state.update(flax_state(quantize_meta, torch.float32, dev))
     if prequant is not None:
-        walk(prequant, "", "prequant")
+        state.update(flax_state(prequant, None, dev, leaf=lambda name, arr:
+                                _resident_module(arr, config, dev)))
     return state
 
 

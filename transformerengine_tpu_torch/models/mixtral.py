@@ -16,7 +16,7 @@ from typing import Mapping, Optional, Sequence
 import torch
 from torch import nn
 
-from ..attention import SequenceDescriptor
+from ..attention import AttnMaskType, SequenceDescriptor
 from ..device import resolve_device
 from ..inference.kv_cache import KVCache
 from ..nn.module import LayerNorm
@@ -72,7 +72,10 @@ class MixtralModel(nn.Module):
                 cfg.hidden_size, cfg.intermediate_size,
                 cfg.num_attention_heads, head_dim=cfg.head_dim,
                 num_gqa_groups=cfg.num_kv_heads,
-                layernorm_epsilon=cfg.norm_eps, mlp_activations="swiglu",
+                layernorm_epsilon=cfg.norm_eps, norm_type="rmsnorm",
+                mlp_activations="swiglu",
+                self_attn_mask_type=AttnMaskType.CAUSAL,
+                enable_rotary_pos_emb=True,
                 rotary_pos_emb_base=cfg.rope_base,
                 max_seq_len=cfg.max_seq_len,
                 num_moe_experts=cfg.num_experts, moe_topk=cfg.topk,
@@ -80,6 +83,7 @@ class MixtralModel(nn.Module):
                 device=dev, generator=gen)
             for _ in range(cfg.num_layers))
         self.final_norm = LayerNorm(cfg.hidden_size, epsilon=cfg.norm_eps,
+                                    norm_type="rmsnorm",
                                     device=dev)
 
     @property

@@ -3,8 +3,11 @@ transformerengine_tpu/flax/module.py: LayerNorm, DenseGeneral,
 LayerNormDenseGeneral, LayerNormMLP).
 
 Parameters keep the reference's names and layouts (kernels contracting
-dim first, norm ``scale`` in f32), so a Flax params tree maps onto a
-``state_dict`` one to one, and they are trainable. After
+dim first, norm ``scale`` and, under ``norm_type="layernorm"``, its
+``ln_bias`` in f32), so a Flax params tree maps onto a ``state_dict`` one
+to one, and they are trainable. The norm modules take the reference's
+``norm_type`` ("layernorm", the default, or "rmsnorm") and
+``zero_centered_gamma`` (the scale stored as gamma - 1, zeros at init). After
 :func:`~..quantize.prequant.prequantize_kernels`, a kernel parameter is
 replaced by a :class:`~..quantize.prequant.PrequantizedKernel` whose
 buffers hold the resident (N, K) payload.
@@ -47,8 +50,22 @@ def init_kernel(shape, fan_in: int, dtype: torch.dtype, device,
     return nn.Parameter(w.to(dtype))
 
 
-def _ones(n: int, device) -> nn.Parameter:
-    return nn.Parameter(torch.ones(n, dtype=torch.float32, device=device))
+def _norm_params(module: nn.Module, hidden: int, norm_type: str,
+                 zero_centered_gamma: bool, device) -> None:
+    """The reference's norm parameters on ``module``: an f32 ``scale``
+    (ones, or zeros under ``zero_centered_gamma``) and, for "layernorm",
+    an f32 ``ln_bias`` of zeros (else None)."""
+    if norm_type not in ("layernorm", "rmsnorm"):
+        raise ValueError(f"norm_type must be layernorm or rmsnorm, got "
+                         f"{norm_type!r}")
+    module.norm_type = norm_type
+    module.zero_centered_gamma = zero_centered_gamma
+    fill = torch.zeros if zero_centered_gamma else torch.ones
+    module.scale = nn.Parameter(fill(hidden, dtype=torch.float32,
+                                     device=device))
+    module.ln_bias = (nn.Parameter(torch.zeros(hidden, dtype=torch.float32,
+                                               device=device))
+                      if norm_type == "layernorm" else None)
 
 
 class TransformerEngineBase(nn.Module):
@@ -106,18 +123,20 @@ class TransformerEngineBase(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    """RMSNorm over the last axis with an f32 ``scale`` (the reference's
-    ``LayerNorm(norm_type="rmsnorm")``), differentiable through the
-    functional ``layernorm``."""
+    """LayerNorm (with ``ln_bias``) or RMSNorm over the last axis, its
+    parameters in f32, differentiable through the functional
+    ``layernorm``."""
 
-    def __init__(self, hidden: int, *, epsilon: float = 1e-6, device=None):
+    def __init__(self, hidden: int, *, epsilon: float = 1e-6,
+                 norm_type: str = "layernorm",
+                 zero_centered_gamma: bool = False, device=None):
         super().__init__()
         self.epsilon = epsilon
-        self.scale = _ones(hidden, device)
+        _norm_params(self, hidden, norm_type, zero_centered_gamma, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return layernorm(x, self.scale, None, "rmsnorm",
-                         epsilon=self.epsilon)
+        return layernorm(x, self.scale, self.ln_bias, self.norm_type,
+                         self.zero_centered_gamma, epsilon=self.epsilon)
 
 
 def _bias(use_bias: bool, features: int, dtype: torch.dtype, device):
@@ -148,40 +167,48 @@ class DenseGeneral(TransformerEngineBase):
 
 
 class LayerNormDenseGeneral(TransformerEngineBase):
-    """``rmsnorm(x) . kernel (+ bias)``; quantizer set "ln_dense"."""
+    """``norm(x) . kernel (+ bias)``; quantizer set "ln_dense". The port's
+    layers pass ``use_bias`` as the reference's attention does, so the
+    default is off."""
 
     def __init__(self, in_features: int, features: int, *,
-                 epsilon: float = 1e-6, use_bias: bool = False,
+                 epsilon: float = 1e-6, norm_type: str = "layernorm",
+                 zero_centered_gamma: bool = False, use_bias: bool = False,
                  dtype: torch.dtype = torch.bfloat16, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.epsilon = epsilon
-        self.scale = _ones(in_features, device)
+        _norm_params(self, in_features, norm_type, zero_centered_gamma,
+                     device)
         self.kernel = init_kernel((in_features, features), in_features,
                                   dtype, device, generator)
         self.bias = _bias(use_bias, features, dtype, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return layernorm_dense(x, self.kernel, self.scale, bias=self.bias,
+        return layernorm_dense(x, self.kernel, self.scale, beta=self.ln_bias,
+                               bias=self.bias, norm_type=self.norm_type,
+                               zero_centered_gamma=self.zero_centered_gamma,
                                epsilon=self.epsilon,
                                quantizer_set=self.quantizer_set("ln_dense"))
 
 
 class LayerNormMLP(TransformerEngineBase):
-    """``dense(act(dense(rmsnorm(x))))`` with ``wi_kernel`` (hidden,
-    n_act, intermediate) and ``wo_kernel`` (intermediate, hidden);
-    quantizer sets "mlp1" and "mlp2"."""
+    """``dense(act(dense(norm(x))))`` with ``wi_kernel`` (hidden, n_act,
+    intermediate) and ``wo_kernel`` (intermediate, hidden); quantizer
+    sets "mlp1" and "mlp2". The activations default to the reference
+    module's ``("relu",)``; its biases are not ported."""
 
     def __init__(self, hidden: int, intermediate_dim: int, *,
-                 epsilon: float = 1e-6,
-                 activations: Union[str, Sequence[str]] = "swiglu",
+                 epsilon: float = 1e-6, norm_type: str = "layernorm",
+                 zero_centered_gamma: bool = False,
+                 activations: Union[str, Sequence[str]] = ("relu",),
                  dtype: torch.dtype = torch.bfloat16, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.epsilon = epsilon
         self.activations = normalize_activation_type(activations)
         n_act = num_halves(self.activations)
-        self.scale = _ones(hidden, device)
+        _norm_params(self, hidden, norm_type, zero_centered_gamma, device)
         self.wi_kernel = init_kernel((hidden, n_act, intermediate_dim),
                                      hidden, dtype, device, generator)
         self.wo_kernel = init_kernel((intermediate_dim, hidden),
@@ -190,6 +217,8 @@ class LayerNormMLP(TransformerEngineBase):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return layernorm_mlp(x, self.scale, self.wi_kernel, self.wo_kernel,
+                             beta=self.ln_bias, norm_type=self.norm_type,
+                             zero_centered_gamma=self.zero_centered_gamma,
                              epsilon=self.epsilon,
                              activation_type=self.activations,
                              quantizer_sets=(self.quantizer_set("mlp1"),

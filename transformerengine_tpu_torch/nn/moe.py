@@ -34,7 +34,8 @@ class MoELayerNormMLP(TransformerEngineBase):
         self.activations = normalize_activation_type(activations)
         n_act = num_halves(self.activations)
         e, f = num_experts, intermediate_dim
-        self.ln = LayerNorm(hidden, epsilon=epsilon, device=device)
+        self.ln = LayerNorm(hidden, epsilon=epsilon, norm_type="rmsnorm",
+                            device=device)
         self.router_kernel = init_kernel((hidden, e), hidden, torch.float32,
                                          device, generator)
         self.wi_kernel = init_kernel((e, hidden, n_act * f), hidden, dtype,

@@ -1,6 +1,11 @@
 """Activations and their gradients (counterpart of
-transformerengine_tpu/ops/activation.py act_lu / dact_lu). Computed in
-f32; results take the input's dtype.
+transformerengine_tpu/ops/activation.py act_lu / dact_lu): the
+reference's table, GELU (its tanh approximation), quick GELU, SiLU,
+ReLU, squared ReLU and linear, and the gated pairs GeGLU, SwiGLU, ReGLU,
+quick GeGLU and squared ReGLU. Computed in f32; results take the input's
+dtype. Each gradient takes the reference's autodiff order of f32
+operations (``jax.vjp`` of the forward), and at a tie of ReLU's max JAX's
+half gradient.
 
 Gated activations take ``[..., 2, H]``: ``act(x[..., 0, :]) *
 x[..., 1, :]``, so SwiGLU applies SiLU to the first half of the
@@ -14,7 +19,26 @@ from __future__ import annotations
 
 from typing import Sequence, Tuple, Union
 
+import math
+
 import torch
+
+# GELU's tanh approximation: sqrt(2 / pi) and the cubic's coefficient.
+_GELU_C = math.sqrt(2.0 / math.pi)
+_GELU_A = 0.044715
+_QGELU_ALPHA = 1.702
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """tanh-approximated GELU: ``0.5 x (1 + tanh(c (x + a x^3)))``."""
+    x = x.float()
+    return 0.5 * x * (1.0 + torch.tanh(_GELU_C * (x + _GELU_A * (x * x * x))))
+
+
+def qgelu(x: torch.Tensor) -> torch.Tensor:
+    """Quick GELU: ``x * sigmoid(1.702 x)``."""
+    x = x.float()
+    return x * torch.sigmoid(_QGELU_ALPHA * x)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -22,12 +46,25 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
 
 
+def relu(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp_min(x.float(), 0.0)
+
+
+def srelu(x: torch.Tensor) -> torch.Tensor:
+    """Squared ReLU: ``x^2`` where x > 0, else 0."""
+    x = x.float()
+    return torch.where(x > 0, x * x, 0.0)
+
+
 def linear(x: torch.Tensor) -> torch.Tensor:
     return x.float()
 
 
-_ACT = {"silu": silu, "swish": silu, "linear": linear}
-GATED_ALIASES = {"swiglu": ("silu", "linear")}
+_ACT = {"gelu": gelu, "qgelu": qgelu, "quick_gelu": qgelu, "silu": silu,
+        "swish": silu, "relu": relu, "srelu": srelu, "linear": linear}
+GATED_ALIASES = {"geglu": ("gelu", "linear"), "swiglu": ("silu", "linear"),
+                 "reglu": ("relu", "linear"), "qgeglu": ("qgelu", "linear"),
+                 "sreglu": ("srelu", "linear")}
 CLAMPED = ("clamped_swiglu",)
 
 # GPT-OSS's clamp (the reference's ClampedSwiGLUParam defaults).
@@ -104,9 +141,9 @@ def normalize_activation_type(
         acts = tuple(activation_type)
     for a in acts:
         if a not in _ACT:
-            raise NotImplementedError(
-                f"activation {a!r} is not ported yet; ported: {sorted(_ACT)} "
-                f"and gated {sorted(GATED_ALIASES)}")
+            raise ValueError(
+                f"unknown activation {a!r}; one of {sorted(_ACT)} or gated "
+                f"aliases {sorted(GATED_ALIASES)}")
     return acts
 
 
@@ -144,9 +181,45 @@ def _dsilu(x: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
     return dout * s + (dout * x) * (s * (1.0 - s))
 
 
+def _dgelu(x: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """The VJP of :func:`gelu` as JAX's autodiff takes it: through
+    ``0.5 x * (1 + t)``, then tanh's ``(g + g t)(1 - t)``, the cubic's
+    ``3 x^2`` and the three uses of x summed in the order the backward
+    pass reaches them."""
+    half = 0.5 * x
+    t = torch.tanh(_GELU_C * (x + _GELU_A * (x * x * x)))
+    r = (half * dout) * (1.0 - t)
+    u = _GELU_C * (r + r * t)
+    return (u + (_GELU_A * u) * (3.0 * (x * x))) + 0.5 * (dout * (1.0 + t))
+
+
+def _dqgelu(x: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """The VJP of :func:`qgelu`: ``dout s + 1.702 ((x dout) (s (1 -
+    s)))`` with ``s = sigmoid(1.702 x)``."""
+    s = torch.sigmoid(_QGELU_ALPHA * x)
+    return dout * s + _QGELU_ALPHA * ((x * dout) * (s * (1.0 - s)))
+
+
+def _drelu(x: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """The VJP of ``max(x, 0)`` with JAX's ``max`` rule: 1 above 0, 0
+    below, one half at x == 0 (a tie)."""
+    return dout * _tie_grad(x > 0, x == 0)
+
+
+def _dsrelu(x: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """The VJP of :func:`srelu`: ``x g + g x`` with ``g`` the gradient
+    where x > 0, else 0."""
+    g = torch.where(x > 0, dout, 0.0)
+    return x * g + g * x
+
+
+_DACT = {"silu": _dsilu, "swish": _dsilu, "gelu": _dgelu, "qgelu": _dqgelu,
+         "quick_gelu": _dqgelu, "relu": _drelu, "srelu": _dsrelu}
+
+
 def _dact(name: str, x: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
-    if name in ("silu", "swish"):
-        return _dsilu(x, dout)
+    if name in _DACT:
+        return _DACT[name](x, dout)
     return dout
 
 

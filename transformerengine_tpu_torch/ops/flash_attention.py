@@ -58,13 +58,29 @@ mantissa), so kernel and plain version differ in summation order alone.
 the autograd function) and ``mha_proj`` (the output projection and its
 gradients inside it too, on the fp8 O and dO payloads).
 
+Post-scale bias (the reference's ``bias``): a (B or 1, Hq, Sq, Skv) f32
+or bf16 tensor added to the natural-domain scores, ``bias * log2(e)`` in
+f32 on the pre-scaled exp2-domain scores, before the mask; a first
+dimension of 1 broadcasts over the batch. The backward also returns dbias,
+the per-batch f32 ``ds`` (B, Hq, Sq, Skv) before its rounding, 0 wherever
+a pair is masked; the autograd function sums it over a broadcast batch and
+casts it to the bias's dtype, as the reference's ``_flash_core_bwd``
+does. ALiBi (``score_mod=``:class:`~..flex_attention.AlibiMod`): q is not
+pre-scaled; the kernels compute ``(s * scale - slope_h * |i + offset -
+j|) * log2(e)`` from an (Hq,) f32 slopes vector that the wrapper makes
+once and both the kernels and the plain versions read, and dQ and dK both
+take ``scale`` as their multiplier (the mod's VJP is the identity). A
+bias or ALiBi composes with the masks, the window and the sink, and with
+neither FP8 branch; no other score mod is ported.
+
 A launch counts under a name that says its branch: ``_fp8`` for FP8
 Q/K/V, ``_fp8_mha`` for the fp8 O epilogue and for a backward from fp8 O
-and dO, then ``_sw`` with a window or a sink (``flash_attention_fwd_sw``,
-``flash_attention_bwd_dq_fp8_sw``, ``flash_attention_bwd_dkv_fp8_mha``),
-and ``_seg`` last with segment ids (``flash_attention_fwd_seg``,
-``flash_attention_bwd_dq_fp8_mha_seg``), so a path can show which branch
-it ran.
+and dO, ``_bias`` with a bias and ``_alibi`` with ALiBi, then ``_sw``
+with a window or a sink (``flash_attention_fwd_sw``,
+``flash_attention_bwd_dq_fp8_sw``, ``flash_attention_bwd_dkv_fp8_mha``,
+``flash_attention_fwd_bias_sw``), and ``_seg`` last with segment ids
+(``flash_attention_fwd_seg``, ``flash_attention_bwd_dq_fp8_mha_seg``), so
+a path can show which branch it ran.
 """
 from __future__ import annotations
 
@@ -75,6 +91,7 @@ import torch
 
 from .. import _build
 from ..attention import AttnMaskType, SoftmaxType
+from ..flex_attention import AlibiMod
 from ..quantize.dtypes import is_fp8_dtype
 from ..quantize.qmath import saturate_cast
 from ..quantize.quantizer import DelayedScaleQuantizer, QuantizeLayout
@@ -90,8 +107,8 @@ NO_WINDOW = (-1, -1)
 
 # Arguments of the reference function that this port does not take yet
 # (ROADMAP.md lists them); passing any of them raises.
-_UNPORTED = ("q_position_offset", "bias", "block_q", "block_k",
-             "dropout_probability", "dropout_seed", "score_mod")
+_UNPORTED = ("q_position_offset", "block_q", "block_k",
+             "dropout_probability", "dropout_seed")
 
 
 def _visible(sq, skv, q_seqlens, kv_seqlens, causal, offset, window,
@@ -116,16 +133,37 @@ def _visible(sq, skv, q_seqlens, kv_seqlens, causal, offset, window,
     return mask
 
 
+def _score_terms(s, bias, alibi_slopes, scale, offset):
+    """The exp2-domain scores (B, Hkv, G, Sq, Skv) after a bias (``s``
+    from pre-scaled q: ``s + bias * log2(e)``) or ALiBi (``s`` from
+    unscaled q: ``(s * scale - slope_h * |i + offset - j|) * log2(e)``),
+    in the reference's order of f32 operations."""
+    b, hkv, g, sq, skv = s.shape
+    if bias is not None:
+        bb = bias.float().reshape(bias.shape[0], hkv, g, sq, skv)
+        return s + bb * LOG2E
+    if alibi_slopes is not None:
+        qpos = torch.arange(sq, device=s.device)[:, None] + offset
+        kpos = torch.arange(skv, device=s.device)[None, :]
+        dist = (qpos - kpos).abs().to(torch.float32)
+        slope = alibi_slopes.float().reshape(1, hkv, g, 1, 1)
+        return (s * scale - slope * dist) * LOG2E
+    return s
+
+
 def flash_fwd_plain(q, k, v, q_seqlens=None, kv_seqlens=None, *,
                     causal: bool, offset: int = 0, window=NO_WINDOW,
                     softmax_sink=None, fp8_scales=None, out_dtype=None,
-                    q_segment_ids=None, kv_segment_ids=None):
+                    q_segment_ids=None, kv_segment_ids=None, bias=None,
+                    alibi_slopes=None, scale: float = 1.0):
     """Reference forward. Without ``fp8_scales`` ``q`` arrives pre-scaled
     by scale * log2(e) and O takes q's dtype. With them (the FP8 branch)
     q, k and v are payloads and ``fp8_scales`` is :func:`fp8_fwd_scales`'
     [smult, sv_inv, out_scale]; O takes ``out_dtype``, and an fp8
     ``out_dtype`` casts O * out_scale and returns the amax of O as a
-    third output."""
+    third output. ``bias`` (B or 1, Hq, Sq, Skv) is added to the
+    pre-scaled scores; with ``alibi_slopes`` (Hq,) q arrives unscaled and
+    ``scale`` is the softmax scale."""
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -134,6 +172,7 @@ def flash_fwd_plain(q, k, v, q_seqlens=None, kv_seqlens=None, *,
                      q.float().reshape(b, sq, hkv, g, d), k.float())
     if fp8:
         s = s * fp8_scales[0]
+    s = _score_terms(s, bias, alibi_slopes, scale, offset)
     mask = _visible(sq, skv, q_seqlens, kv_seqlens, causal, offset, window,
                     q.device, q_segment_ids, kv_segment_ids)
     s = torch.where(mask[:, None, None], s, MASKED)
@@ -184,12 +223,42 @@ def _sw(window, softmax_sink) -> str:
 
 
 def _branch(fp8: bool, fp8_mha: bool, window, softmax_sink,
-            segments: bool) -> str:
+            segments: bool, bias=None, slopes=None) -> str:
     """The launch count's suffix of a branch: "_fp8" for FP8 Q/K/V,
-    "_fp8_mha" with fp8 O (and dO), then :func:`_sw`'s, then "_seg" with
-    segment ids."""
+    "_fp8_mha" with fp8 O (and dO), "_bias" with a bias and "_alibi" with
+    ALiBi, then :func:`_sw`'s, then "_seg" with segment ids."""
     return (("_fp8_mha" if fp8_mha else "_fp8" if fp8 else "")
+            + ("_bias" if bias is not None else "")
+            + ("_alibi" if slopes is not None else "")
             + _sw(window, softmax_sink) + ("_seg" if segments else ""))
+
+
+def _check_score_terms(q, k, bias, score_mod, fp8: bool):
+    """The ALiBi slopes (Hq,) f32 on q's device, or None; raises for what
+    the kernels do not take: a bias not (B or 1, Hq, Sq, Skv) in f32 or
+    bf16, a bias with a score mod, either with FP8 Q/K/V, and any score
+    mod other than ALiBi."""
+    if score_mod is not None and not isinstance(score_mod, AlibiMod):
+        raise NotImplementedError(
+            "flash attention runs ALiBi (flex_attention.alibi_arith_mod) "
+            "as its one score_mod; other score mods are not ported yet")
+    if bias is not None and score_mod is not None:
+        raise ValueError("score_mod and bias are mutually exclusive")
+    if fp8 and (bias is not None or score_mod is not None):
+        raise ValueError("FP8 flash attention takes no bias or score_mod")
+    if bias is not None:
+        b, sq, hq = q.shape[:3]
+        want = (hq, sq, k.shape[1])
+        if bias.dim() != 4 or bias.shape[0] not in (1, b) or \
+                tuple(bias.shape[1:]) != want:
+            raise ValueError(f"bias must be (B or 1, Hq, Sq, Skv) with B={b}"
+                             f" and (Hq, Sq, Skv) = {want}, got "
+                             f"{tuple(bias.shape)}")
+        if bias.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"the bias must be f32 or bf16, got {bias.dtype}")
+    if score_mod is None:
+        return None
+    return score_mod.slopes(q.shape[2], q.device)
 
 
 def fp8_fwd_scales(scale_invs: torch.Tensor, scale: float,
@@ -274,7 +343,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               out_dtype: Optional[torch.dtype] = None,
               out_scale: Optional[torch.Tensor] = None,
               q_segment_ids: Optional[torch.Tensor] = None,
-              kv_segment_ids: Optional[torch.Tensor] = None):
+              kv_segment_ids: Optional[torch.Tensor] = None,
+              bias: Optional[torch.Tensor] = None, score_mod=None):
     """O (B, Sq, Hq, D) and LSE (B, Hq, Sq) f32.
 
     ``q_seqlens`` / ``kv_seqlens`` (B,) give each sequence's valid
@@ -285,7 +355,9 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     diagonal and the window (key j is visible to query i when j <= i +
     offset);
     ``window`` is a static (left, right), -1 for an inactive side;
-    ``softmax_sink`` the (Hq,) sink logits, or None.
+    ``softmax_sink`` the (Hq,) sink logits, or None. ``bias`` (B or 1,
+    Hq, Sq, Skv), f32 or bf16, is a post-scale bias; ``score_mod`` an
+    :class:`~..flex_attention.AlibiMod` (ALiBi), or None.
 
     FP8 (the reference's ``_flash_fwd`` with ``scale_invs``): q, k and v
     are e4m3 payloads and ``scale_invs`` their (3,) f32 dequant scales;
@@ -303,6 +375,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(softmax_sink.shape)}")
     fp8 = scale_invs is not None
     fp8_out = out_scale is not None
+    slopes = _check_score_terms(q, k, bias, score_mod, fp8)
     if fp8_out and not fp8:
         raise ValueError("the fp8 O epilogue takes FP8 Q/K/V payloads")
     if fp8:
@@ -317,15 +390,19 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if out_dtype not in (None, q.dtype):
             raise ValueError("O takes q's dtype outside the FP8 branch")
         out_dtype = q.dtype
-        qs, sc = (q.float() * (scale * LOG2E)).to(q.dtype), None
+        sc = None
+        qs = q if slopes is not None else \
+            (q.float() * (scale * LOG2E)).to(q.dtype)
     if _build.on_cpu(q, k, v, q_seqlens, kv_seqlens, softmax_sink,
-                     scale_invs, out_scale, q_segment_ids, kv_segment_ids):
+                     scale_invs, out_scale, q_segment_ids, kv_segment_ids,
+                     bias):
         return flash_fwd_plain(qs, k, v, q_seqlens, kv_seqlens,
                                causal=causal, offset=offset, window=window,
                                softmax_sink=softmax_sink, fp8_scales=sc,
                                out_dtype=out_dtype,
                                q_segment_ids=q_segment_ids,
-                               kv_segment_ids=kv_segment_ids)
+                               kv_segment_ids=kv_segment_ids, bias=bias,
+                               alibi_slopes=slopes, scale=scale)
     code = _build.dtype_code(q, (torch.float32, torch.bfloat16,
                                  torch.float8_e4m3fn))
     out_code = _build.DTYPE_CODES[out_dtype]
@@ -337,34 +414,44 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             if softmax_sink is not None else None)
     amax = torch.zeros((1,), dtype=torch.float32, device=q.device) \
         if fp8_out else None
-    _build.check_aligned(qs, k, v, sink, sc)
+    bias = bias.contiguous() if bias is not None else None
+    _build.check_aligned(qs, k, v, sink, sc, bias, slopes)
     o = torch.empty(q.shape, dtype=out_dtype, device=q.device)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
-    _build.launch("te_flash_attention_fwd", _build.ptr(qs), _build.ptr(k),
-                  _build.ptr(v), code, _build.ptr(o), out_code,
-                  _build.ptr(lse), _build.ptr(q_seqlens),
-                  _build.ptr(kv_seqlens), _build.ptr(qseg), _build.ptr(kseg),
-                  _build.ptr(sink), _build.ptr(sc),
-                  _build.ptr(amax), b, sq, skv, hq, hkv, d, int(causal),
-                  offset, window[0], window[1], _build.stream(q))
+    P = _build.ptr
+    _build.launch("te_flash_attention_fwd", P(qs), P(k), P(v), code, P(o),
+                  out_code, P(lse), P(q_seqlens), P(kv_seqlens), P(qseg),
+                  P(kseg), P(sink), P(sc), P(amax), P(bias),
+                  *_bias_args(bias), P(slopes), b, sq, skv, hq, hkv, d,
+                  int(causal), offset, window[0], window[1], float(scale),
+                  _build.stream(q))
     _build.LAUNCHES["flash_attention_fwd" + _branch(
-        fp8, fp8_out, window, sink, qseg is not None)] += 1
+        fp8, fp8_out, window, sink, qseg is not None, bias, slopes)] += 1
     if fp8_out:
         return o, lse, amax.reshape(())
     return o, lse
+
+
+def _bias_args(bias) -> tuple:
+    """The kernels' (bias dtype code, bias batch) for ``bias`` or None."""
+    if bias is None:
+        return (-1, 0)
+    return (_build.DTYPE_CODES[bias.dtype], bias.shape[0])
 
 
 def flash_bwd_plain(qs, k, v, do, lse, delta, q_seqlens=None,
                     kv_seqlens=None, *, scale: float, causal: bool,
                     offset: int = 0, window=NO_WINDOW, fp8_scales=None,
                     grad_dtype=None, q_segment_ids=None,
-                    kv_segment_ids=None):
+                    kv_segment_ids=None, bias=None, alibi_slopes=None):
     """Reference backward; ``delta`` is rowsum(dO * O) (B, Sq, Hq) f32.
     Without ``fp8_scales`` ``qs`` arrives pre-scaled by scale * log2(e)
     and each gradient takes its input's dtype. With them (the FP8 branch)
     ``qs``, k and v are payloads, do a payload or a high-precision
     tensor, ``fp8_scales`` :func:`fp8_bwd_scales`' five multipliers, and
-    the gradients take ``grad_dtype``."""
+    the gradients take ``grad_dtype``. With ``bias`` (q pre-scaled) a
+    fourth output is dbias, the per-batch f32 ds (B, Hq, Sq, Skv); with
+    ``alibi_slopes`` q arrives unscaled and dK takes ``scale``."""
     b, sq, hq, d = qs.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -374,6 +461,7 @@ def flash_bwd_plain(qs, k, v, do, lse, delta, q_seqlens=None,
     s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float())
     if fp8:
         s = s * fp8_scales[0]
+    s = _score_terms(s, bias, alibi_slopes, scale, offset)
     mask = _visible(sq, skv, q_seqlens, kv_seqlens, causal, offset, window,
                     qs.device, q_segment_ids, kv_segment_ids)
     lse2 = (lse.float() * LOG2E).reshape(b, hkv, g, sq, 1)
@@ -390,7 +478,8 @@ def flash_bwd_plain(qs, k, v, do, lse, delta, q_seqlens=None,
             fp8_scales[4]
     else:
         ds_t, p_t = qs.dtype, v.dtype
-        dq_mult, dk_mult, dv_mult = scale, LN2, 1.0
+        dq_mult, dv_mult = scale, 1.0
+        dk_mult = scale if alibi_slopes is not None else LN2
     dq = torch.einsum("bhgqk,bkhd->bqhgd", ds.to(ds_t).float(),
                       k.float()) * dq_mult
     dk = torch.einsum("bhgqk,bqhgd->bkhd", ds.to(ds_t).float(), qf) * dk_mult
@@ -398,7 +487,10 @@ def flash_bwd_plain(qs, k, v, do, lse, delta, q_seqlens=None,
     dq = dq.reshape(b, sq, hq, d)
     if fp8:
         return dq.to(grad_dtype), dk.to(grad_dtype), dv.to(grad_dtype)
-    return dq.to(qs.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    grads = dq.to(qs.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    if bias is not None:
+        return (*grads, ds.reshape(b, hq, sq, skv))
+    return grads
 
 
 def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -412,14 +504,18 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               o_scale_inv: Optional[torch.Tensor] = None,
               do_scale_inv: Optional[torch.Tensor] = None,
               q_segment_ids: Optional[torch.Tensor] = None,
-              kv_segment_ids: Optional[torch.Tensor] = None):
+              kv_segment_ids: Optional[torch.Tensor] = None,
+              bias: Optional[torch.Tensor] = None, score_mod=None):
     """(dQ, dK, dV) of :func:`flash_fwd` for the output gradient ``do``,
     from its inputs (q unscaled), O and LSE and the forward's mask
     (lengths or segment ids); each in its input's dtype and shape. A
     query with no visible key gets dQ = 0 and adds nothing to dK or
     dV. ``softmax_sink`` is the forward's: the kernels need only
     the LSE, which holds it, and it names the launch counts
-    (:func:`sink_grad` gives its gradient).
+    (:func:`sink_grad` gives its gradient). With the forward's ``bias``
+    a fourth output is dbias, the per-batch f32 ``ds`` (B, Hq, Sq, Skv),
+    0 wherever a pair is masked or its tile skipped; ``score_mod`` is the
+    forward's ALiBi.
 
     FP8 (the reference's ``_flash_bwd`` with ``scale_invs``): q, k and v
     are the forward's e4m3 payloads; O and dO are high-precision, or
@@ -437,6 +533,7 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     window = _window(window)
     fp8 = scale_invs is not None
     fp8_mha = o_scale_inv is not None or do_scale_inv is not None
+    slopes = _check_score_terms(q, k, bias, score_mod, fp8)
     if fp8_mha and not fp8:
         raise ValueError("fp8 O and dO payloads take FP8 Q/K/V payloads")
     delta = (do.float() * o.float()).sum(dim=-1)
@@ -453,17 +550,19 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                     else do.dtype)
         qs, sc = q, fp8_bwd_scales(scale_invs, scale, sdo)
     else:
-        qs, sc = (q.float() * (scale * LOG2E)).to(q.dtype), None
-        grad_dtype = q.dtype
+        sc, grad_dtype = None, q.dtype
+        qs = q if slopes is not None else \
+            (q.float() * (scale * LOG2E)).to(q.dtype)
     if _build.on_cpu(q, k, v, o, lse, do, q_seqlens, kv_seqlens, scale_invs,
                      o_scale_inv, do_scale_inv, q_segment_ids,
-                     kv_segment_ids):
+                     kv_segment_ids, bias):
         return flash_bwd_plain(qs, k, v, do, lse, delta, q_seqlens,
                                kv_seqlens, scale=scale, causal=causal,
                                offset=offset, window=window, fp8_scales=sc,
                                grad_dtype=grad_dtype,
                                q_segment_ids=q_segment_ids,
-                               kv_segment_ids=kv_segment_ids)
+                               kv_segment_ids=kv_segment_ids, bias=bias,
+                               alibi_slopes=slopes)
     code = _build.dtype_code(q, (torch.float32, torch.bfloat16,
                                  torch.float8_e4m3fn))
     _check_head_dim(d)
@@ -479,24 +578,33 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse2 = (lse.float() * LOG2E).contiguous()
     q_seqlens, kv_seqlens, qseg, kseg = _int32(q_seqlens, kv_seqlens,
                                                q_segment_ids, kv_segment_ids)
-    _build.check_aligned(qs, k, v, do, lse2, delta, sc)
+    bias = bias.contiguous() if bias is not None else None
+    _build.check_aligned(qs, k, v, do, lse2, delta, sc, bias, slopes)
     dq = torch.empty(q.shape, dtype=grad_dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=grad_dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=grad_dtype, device=q.device)
+    # The dQ kernel writes every element of dbias, zeros included.
+    dbias = (torch.empty((b, hq, sq, skv), dtype=torch.float32,
+                         device=q.device) if bias is not None else None)
     P, st = _build.ptr, _build.stream(q)
     left, right = window
-    name = _branch(fp8, fp8_mha, window, softmax_sink, qseg is not None)
+    name = _branch(fp8, fp8_mha, window, softmax_sink, qseg is not None,
+                   bias, slopes)
+    terms = (P(bias), *_bias_args(bias), P(slopes))
     _build.launch("te_flash_attention_bwd_dq", P(qs), P(k), P(v), code,
                   P(do), do_code, P(lse2), P(delta), P(dq), g_code,
-                  P(q_seqlens), P(kv_seqlens), P(qseg), P(kseg), P(sc), b,
-                  sq, skv, hq, hkv, d, int(causal), offset, left, right,
-                  float(scale), st)
+                  P(q_seqlens), P(kv_seqlens), P(qseg), P(kseg), P(sc),
+                  *terms, P(dbias), b, sq, skv, hq, hkv, d, int(causal),
+                  offset, left, right, float(scale), st)
     _build.LAUNCHES["flash_attention_bwd_dq" + name] += 1
     _build.launch("te_flash_attention_bwd_dkv", P(qs), P(k), P(v), code,
                   P(do), do_code, P(lse2), P(delta), P(dk), P(dv), g_code,
-                  P(q_seqlens), P(kv_seqlens), P(qseg), P(kseg), P(sc), b,
-                  sq, skv, hq, hkv, d, int(causal), offset, left, right, st)
+                  P(q_seqlens), P(kv_seqlens), P(qseg), P(kseg), P(sc),
+                  *terms, b, sq, skv, hq, hkv, d, int(causal), offset, left,
+                  right, float(scale), st)
     _build.LAUNCHES["flash_attention_bwd_dkv" + name] += 1
+    if dbias is not None:
+        return dq, dk, dv, dbias
     return dq, dk, dv
 
 
@@ -524,30 +632,38 @@ def _mask_kw(masks) -> dict:
 
 class _FlashAttention(torch.autograd.Function):
     """O = flash_fwd(q, k, v); the backward runs :func:`flash_bwd` from
-    the saved q, k, v, O, LSE and mask, and :func:`sink_grad` for a
-    sink."""
+    the saved q, k, v, O, LSE, bias and mask, :func:`sink_grad` for a
+    sink, and reduces dbias over a broadcast batch in the bias's dtype
+    (the reference's ``_flash_core_bwd``)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, sink, q_seqlens, kv_seqlens, q_segment_ids,
-                kv_segment_ids, scale, causal, offset, window):
+    def forward(ctx, q, k, v, sink, bias, q_seqlens, kv_seqlens,
+                q_segment_ids, kv_segment_ids, scale, causal, offset, window,
+                score_mod):
         masks = (q_seqlens, kv_seqlens, q_segment_ids, kv_segment_ids)
         o, lse = flash_fwd(q, k, v, scale=scale, causal=causal,
                            offset=offset, window=window, softmax_sink=sink,
-                           **_mask_kw(masks))
-        ctx.save_for_backward(q, k, v, o, lse, sink, *masks)
-        ctx.cfg = (scale, causal, offset, window)
+                           bias=bias, score_mod=score_mod, **_mask_kw(masks))
+        ctx.save_for_backward(q, k, v, o, lse, sink, bias, *masks)
+        ctx.cfg = (scale, causal, offset, window, score_mod)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse, sink, *masks = ctx.saved_tensors
-        scale, causal, offset, window = ctx.cfg
-        dq, dk, dv = flash_bwd(q, k, v, o, lse, do, scale=scale,
-                               causal=causal, offset=offset, window=window,
-                               softmax_sink=sink, **_mask_kw(masks))
+        q, k, v, o, lse, sink, bias, *masks = ctx.saved_tensors
+        scale, causal, offset, window, score_mod = ctx.cfg
+        dq, dk, dv, *dbias = flash_bwd(
+            q, k, v, o, lse, do, scale=scale, causal=causal, offset=offset,
+            window=window, softmax_sink=sink, bias=bias, score_mod=score_mod,
+            **_mask_kw(masks))
         dsink = (sink_grad(sink, o, lse, do)
                  if sink is not None and ctx.needs_input_grad[3] else None)
-        return (dq, dk, dv, dsink) + (None,) * 8
+        dbias = dbias[0] if dbias and ctx.needs_input_grad[4] else None
+        if dbias is not None:
+            if bias.shape[0] == 1:
+                dbias = dbias.sum(dim=0, keepdim=True)
+            dbias = dbias.to(bias.dtype)
+        return (dq, dk, dv, dsink, dbias) + (None,) * 9
 
 
 def _quantize_qkv(quantizers, q, k, v):
@@ -704,10 +820,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     window_size: Optional[Tuple[int, int]] = None,
                     softmax_type: Optional[SoftmaxType] = None,
                     softmax_offset: Optional[torch.Tensor] = None,
+                    bias: Optional[torch.Tensor] = None, score_mod=None,
                     qkv_quantizers=None, mha_proj=None,
                     **unported) -> torch.Tensor:
     """Flash attention over BSHD inputs; returns O (B, Sq, Hq, D),
-    differentiable in q, k, v and the learnable sink.
+    differentiable in q, k, v, the learnable sink and the bias.
 
     Masking comes from ``attn_mask_type``, the segment ids or else the
     lengths in ``sequence_descriptor`` (a
@@ -715,7 +832,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     whatever the mask type, as the reference's do) and the static
     ``window_size`` (left, right). ``softmax_type``
     OFF_BY_ONE adds a sink of logit 0 to every head, LEARNABLE the (Hq,)
-    logits ``softmax_offset``.
+    logits ``softmax_offset``. ``bias`` (B or 1, Hq, Sq, Skv) is a
+    post-scale bias; ``score_mod`` ALiBi
+    (:func:`~..flex_attention.alibi_arith_mod`), not with a bias, and
+    neither with FP8.
 
     ``qkv_quantizers``: a (q, k, v) tuple of per-tensor quantizers (e4m3)
     runs the FP8 branch. ``mha_proj``: ``(w, quantizers)``, the output
@@ -723,8 +843,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (q, k, v, o, w, g, do), runs the attention and the projection on fp8
     O and dO and returns (B, Sq, N), differentiable in w too. Either way
     a delayed quantizer's state is updated by the backward. The
-    reference's dynamic window, ``q_position_offset``, bias, dropout and
-    score_mod are not ported yet and raise."""
+    reference's dynamic window, ``q_position_offset``, dropout and score
+    mods other than ALiBi are not ported yet and raise."""
     for name, value in unported.items():
         if name not in _UNPORTED:
             raise TypeError(f"flash_attention() got an unexpected argument "
@@ -756,6 +876,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         sink = softmax_offset.reshape(hq)
     cfg = (float(scale), mask_type.is_causal, offset, window)
     grad = torch.is_grad_enabled()
+    if score_mod is not None and qkv_quantizers is not None:
+        raise ValueError("score_mod is not supported on the FP8 flash path")
+    if score_mod is not None and bias is not None:
+        raise ValueError("score_mod and bias are mutually exclusive; fold "
+                         "the bias into the mod or use the bias alone")
+    if mha_proj is not None and (bias is not None or score_mod is not None):
+        raise ValueError("fp8_mha does not take a bias or score_mod")
+    if qkv_quantizers is not None and bias is not None:
+        raise ValueError("FP8 flash attention does not take a bias")
     if mha_proj is not None:
         w, quantizers = mha_proj
         quantizers = tuple(quantizers)
@@ -776,8 +905,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                        cfg)
         return _fp8_fwd(q, k, v, sink, masks, quantizers, cfg)[0]
     if grad and any(t is not None and t.requires_grad
-                    for t in (q, k, v, sink)):
-        return _FlashAttention.apply(q, k, v, sink, *masks, *cfg)
+                    for t in (q, k, v, sink, bias)):
+        return _FlashAttention.apply(q, k, v, sink, bias, *masks, *cfg,
+                                     score_mod)
     return flash_fwd(q, k, v, scale=scale, causal=mask_type.is_causal,
                      offset=offset, window=window, softmax_sink=sink,
-                     **_mask_kw(masks))[0]
+                     bias=bias, score_mod=score_mod, **_mask_kw(masks))[0]
