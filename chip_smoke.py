@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases 3,4,5,...,22] [--train-seeds 21]
+    python3 chip_smoke.py [--phases 3,4,5,...,24] [--train-seeds 21]
                           [--moe-seeds 31] [--gptoss-seeds 51]
 
 Phases, each of which raises (and so exits non-zero) on failure:
@@ -51,7 +51,15 @@ Phases, each of which raises (and so exits non-zero) on failure:
      with the bias as a float mask, then a per-batch bf16 bias, causal
      (dbias exactly 0 above the diagonal), a window with a sink, f32, D 64
      and 256, GQA groups of 4 and 8, and ALiBi with padding, the
-     bottom-right offset and a window;
+     bottom-right offset and a window; the flash kernels' dropout
+     branches (rate 0.1, fixed seed words, the first above 2^31) at phase
+     6's causal training shape and at the encoder's with its relative
+     bias, forward and backward against their plain versions on the same
+     seed words, a planted wrong seed that must fail, the plain mask's
+     keep share, each timed beside SDPA at dropout_p 0.1; then f32, D 64
+     and 256, GQA groups of 4, 8 and 16, padding, segment ids, a window
+     with a sink, the bottom-right offset, a bias, ALiBi, the reference's
+     small explicit tiles and rate 0.5 at small shapes;
   4. FP8-resident serving at LLAMA_8B width (seeded random weights, FP8
      KV cache, B = 8, prompts of 512 and 384 tokens, 32 new tokens)
      through prefill and decode_steps, with TTFT, decode ms/step, tok/s
@@ -172,11 +180,25 @@ Phases, each of which raises (and so exits non-zero) on failure:
  22. the encoder step, the card against the CPU: 2 layers at LLAMA_8B
      width, B = 1, S = 256 (200 valid), bf16: the read-out, every
      gradient and rel_embedding's, with planted faults (the bias ignored,
-     dbias zeroed) that the check must catch.
+     dbias zeroed) that the check must catch;
+ 23. dropout training at LLAMA_8B width, 4 TransformerLayers, B = 2,
+     S = 2048, attention, hidden and drop-path dropout at 0.1 drawn from
+     one card generator: phase 21's encoder in bf16 beside the same
+     stack's step without dropout (ms/step, tok/s, peak memory, the busy
+     share of a profiled step; the peaks within 0.5 GiB, no mask being
+     stored), then a causal RoPE stack (RMSNorm, SwiGLU) under
+     DelayedScaling(fp8_dpa=True, fp8_mha=True), where dropout closes the
+     FP8 attention gates; exact launch counts of the dropout branches
+     and no FP8 flash launch;
+ 24. the dropout step, the card against the CPU: phase 22's 2 encoder
+     layers with attention dropout at 0.1 on the same seed words on both
+     sides, held to phase 22's limits, with planted faults (the card's
+     seed words off by one, the mask not replayed in the backward) that
+     the check must catch.
 Then one ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 A kernel's ``launches`` is the sum of its counts over the runs of the
-paths (phases 4, 6, 8, 9, 10, 11, 12, 13, 14, 16, 17, 19, 20 and 21,
-phase 9's load included), each counted from zero; comparisons with the
+paths (phases 4, 6, 8, 9, 10, 11, 12, 13, 14, 16, 17, 19, 20, 21 and
+23, phase 9's load included), each counted from zero; comparisons with the
 plain versions do not count.
 ``--phases`` runs a subset (for iterating on one path); the default runs
 all. ``--train-seeds`` gives phase 7 other seeds (``21,22,23`` reads
@@ -5377,10 +5399,12 @@ def check_bias_variants(torch) -> None:
             log(f"  bwd {name}: dbias above the diagonal exactly 0 ok")
 
 
-def encoder_stack(torch, layers: int, device, seed: int, alibi=False):
+def encoder_stack(torch, layers: int, device, seed: int, alibi=False,
+                  **dropout):
     """``layers`` encoder TransformerLayers at LLAMA_8B width (hidden 4096,
     FFN 14336, 32/8 heads of 128): LayerNorm, GELU, the padding mask and
-    the relative bias; with ``alibi`` instead ``layers`` ALiBi
+    the relative bias, with ``dropout`` (the layers' attention_dropout,
+    hidden_dropout, drop_path); with ``alibi`` instead ``layers`` ALiBi
     MultiHeadAttention blocks (LayerNorm, the padding mask), as a
     ModuleList whose blocks add to the residual stream."""
     from transformerengine_tpu_torch.attention import (
@@ -5407,7 +5431,7 @@ def encoder_stack(torch, layers: int, device, seed: int, alibi=False):
                          norm_type="layernorm", mlp_activations=("gelu",),
                          self_attn_mask_type=AttnMaskType.PADDING,
                          enable_relative_embedding=True, device=device,
-                         generator=g)
+                         generator=g, **dropout)
         for _ in range(layers))
 
 
@@ -5428,11 +5452,12 @@ def encoder_batch(torch, b: int, s: int, lens, device, seed: int):
     return x, SequenceDescriptor.from_seqlens(ln), r, int(sum(lens))
 
 
-def encoder_loss(stack, x, desc, r, n_valid, alibi=False):
-    """The read-out ``sum(y * r) / n_valid`` of the stack's output."""
+def encoder_loss(stack, x, desc, r, n_valid, alibi=False, **train):
+    """The read-out ``sum(y * r) / n_valid`` of the stack's output;
+    ``train`` (deterministic, generator) goes to each layer."""
     y = x
     for block in stack:
-        y = y + block(y, desc) if alibi else block(y, desc)
+        y = y + block(y, desc) if alibi else block(y, desc, **train)
     return (y.float() * r).sum() / n_valid
 
 
@@ -5635,6 +5660,559 @@ def encoder_card_vs_cpu(torch) -> list:
     return failures
 
 
+# Phase 3's dropout rows (3D-3H) and phases 23 and 24: attention dropout
+# at rate 0.1, what a fine-tune sets, from fixed seed words (the first
+# above 2^31 as uint32). The rows' shapes are phase 6's causal training
+# attention (2d, 4d) and phase 21's encoder attention with its relative
+# bias (2db, 4db).
+DROP_RATE = 0.1
+DROP_WORDS = (0x9ABCDEF0 - 2 ** 32, 0x2468ACE1)
+# 32-bit integer operations of the keep hash per visited score (the two
+# index terms' xor and the origins' sum, the finalizer's three shifts,
+# three xors and two multiplies, the compare and the select): the bound
+# counts them at F32_FLOPS, the rate of the CUDA cores (the card's table
+# gives no other for 32-bit integer work). The backward pays them twice.
+HASH_OPS = 14
+
+
+def drop_seed(torch, words=DROP_WORDS):
+    from transformerengine_tpu_torch.ops.flash_attention import dropout_seed
+    return dropout_seed(torch.tensor(words, dtype=torch.int32), "cuda")
+
+
+def drop_kw(torch, words=DROP_WORDS) -> tuple:
+    """(the kernels' dropout kwargs, the plain versions' Dropout)."""
+    from transformerengine_tpu_torch.ops.flash_attention import Dropout
+    seed = drop_seed(torch, words)
+    return (dict(dropout_probability=DROP_RATE, dropout_seed=seed),
+            Dropout(seed, DROP_RATE))
+
+
+def planted_seed(torch) -> tuple:
+    """The dropout of a wrong seed (the second word off by one)."""
+    return drop_kw(torch, (DROP_WORDS[0], DROP_WORDS[1] + 1))
+
+
+def check_keep_rate(torch, b, hq, hkv, s, visible, what: str) -> None:
+    """The kept share of the visible scores of the plain mask is 1 - rate
+    within five binomial standard deviations."""
+    from transformerengine_tpu_torch.ops.flash_attention import dropout_keep
+    keep = dropout_keep(drop_seed(torch), b, hq, hkv, s, s, DROP_RATE)
+    n = int(visible.sum()) * hq
+    share = float((keep & visible[:, None]).sum()) / n
+    bound = 5 * math.sqrt(DROP_RATE * (1 - DROP_RATE) / n)
+    ok = abs(share - (1 - DROP_RATE)) <= bound
+    log(f"  {what} keep share {share:.6f} of {n} visible scores (1 - rate "
+        f"{1 - DROP_RATE}, bound {bound:.1e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: keep share {share}")
+
+
+def must_differ(name: str, got, wrong, atol) -> None:
+    """A planted fault: ``got`` held against a plain version on a wrong
+    seed must fail the tolerance that it meets on the right one."""
+    diff = (got.float() - wrong.float()).abs()
+    if bool((diff <= atol).all()):
+        raise AssertionError(f"{name}: the wrong seed's plain version was "
+                             f"not caught")
+    log(f"  {name} against the plain version on a wrong seed: "
+        f"max_abs_err {float(diff.max()):.3e}, caught ok")
+
+
+def drop_inputs(torch, term: str, seed: int):
+    """(q, k, v, dO, mask kwargs, the visible (B, S, S) pairs, causal,
+    flash kwargs, plain kwargs, SDPA kwargs, what) of a dropout row:
+    "causal" phase 6's attention, "bias" phase 21's with its bias."""
+    b, s, hq, hkv, d = FP8_SHAPE
+    pos = torch.arange(s, device="cuda")
+    if term == "causal":
+        g = torch.Generator(device="cuda").manual_seed(seed)
+
+        def randn(*sh):
+            return torch.randn(sh, generator=g, device="cuda").to(
+                torch.bfloat16)
+        q, k, v, do = (randn(b, s, hq, d), randn(b, s, hkv, d),
+                       randn(b, s, hkv, d), randn(b, s, hq, d))
+        visible = (pos[:, None] >= pos[None, :]).expand(b, s, s)
+        return (q, k, v, do, {}, visible, True, {}, {},
+                dict(is_causal=True), "causal")
+    q, k, v, do, lens = enc_inputs(torch, seed)
+    bias = encoder_bias(torch, s, hq, ENC_SEED)
+    valid = pos[None, :] < lens[:, None]
+    visible = valid[:, :, None] & valid[:, None, :]
+    return (q, k, v, do, dict(q_seqlens=lens, kv_seqlens=lens), visible,
+            False, dict(bias=bias), dict(bias=bias),
+            dict(attn_mask=enc_sdpa_mask(torch, bias, lens, s)),
+            f"padding {ENC_LENS}, an f32 (1, {hq}, {s}, {s}) relative bias")
+
+
+def check_flash_dropout(torch, timer, results):
+    """[3D] row 2d and [3F] row 2db: the forward's dropout branch at phase
+    6's causal training shape and, with the relative bias, at the
+    encoder's (B 2, S 2048, Hq 32, Hkv 8, D 128, bf16, rate 0.1); each
+    against its plain version on the same seed words (the masks are equal
+    bit for bit, so O meets row 2's bf16 tolerance), a planted wrong seed
+    that must fail it, the plain mask's keep share, and timed with the
+    plain version and with SDPA at dropout_p 0.1."""
+    import torch.nn.functional as F
+    from transformerengine_tpu_torch.ops.flash_attention import (
+        LOG2E, flash_fwd, flash_fwd_plain)
+    b, s, hq, hkv, d = FP8_SHAPE
+    scale = d ** -0.5
+    kw, drop = drop_kw(torch)
+    for term, label, row in (("causal", "3D", "2d"), ("bias", "3F", "2db")):
+        (q, k, v, _, mk, visible, causal, fkw, pkw, skw,
+         what) = drop_inputs(torch, term, 74)
+        name = "flash_attention_fwd" + ("_bias" if fkw else "") + "_dropout"
+        log(f"[{label}] flash_attention fwd, dropout branch (row {row}): "
+            f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} bf16, {what}, rate "
+            f"{DROP_RATE}, seed words {DROP_WORDS}")
+        o, lse = flash_fwd(q, k, v, scale=scale, causal=causal, **mk, **fkw,
+                           **kw)
+        torch.cuda.synchronize()
+        qs = (q.float() * (scale * LOG2E)).to(q.dtype)
+        o_ref, lse_ref = flash_fwd_plain(qs, k, v, causal=causal, **mk,
+                                         **pkw, dropout=drop)
+        tol = row_tol(o_ref, BF16_ROW_RTOL)
+        err = check(f"{name} O", o, o_ref, tol)
+        check(f"{name} LSE", lse, lse_ref, LSE_ATOL)
+        if mk:
+            check_masked_rows(torch, name, ~visible.any(dim=2), o, lse)
+        wrong = flash_fwd_plain(qs, k, v, causal=causal, **mk, **pkw,
+                                dropout=planted_seed(torch)[1])[0]
+        must_differ(f"{name} O", o, wrong, tol)
+        del o, lse, o_ref, lse_ref, wrong
+        check_keep_rate(torch, b, hq, hkv, s, visible, name)
+        ms = timer(lambda: flash_fwd(q, k, v, scale=scale, causal=causal,
+                                     **mk, **fkw, **kw))
+        plain_ms = timer(lambda: flash_fwd_plain(
+            qs, k, v, causal=causal, **mk, **pkw, dropout=drop), reps=3)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        library_ms = timer.events(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, dropout_p=DROP_RATE, scale=scale, enable_gqa=True,
+            **skw))
+        del qt, kt, vt, skw
+        pairs = int(visible.sum()) * hq
+        rows = int(visible.any(dim=2).sum())
+        flops, ops = 4 * d * pairs, HASH_OPS * pairs
+        # Q, K and V read over the valid rows, the bias (2db) once; O and
+        # LSE written in full.
+        nbytes = 2 * (rows * hq * d + 2 * rows * hkv * d) \
+            + 2 * b * s * hq * d + 4 * b * hq * s \
+            + (fkw["bias"].numel() * 4 if fkw else 0)
+        b_ms, b_by = bound_ms_mixed(nbytes, [(flops, BF16_FLOPS),
+                                             (ops, F32_FLOPS)])
+        log(f"  {name} (row {row}): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms, SDPA with dropout_p {DROP_RATE} {library_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}: {flops / 1e9:.1f} GFLOP at the bf16 "
+            f"peak and {ops / 1e9:.2f} G hash operations at the CUDA cores' "
+            f"rate; {nbytes / 1e6:.1f} MB)")
+        results[name] = dict(
+            name=name, route="cuda",
+            source="transformerengine_tpu_torch/csrc/flash_attention.cu",
+            replaces="transformerengine_tpu/ops/flash_attention.py:724",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=library_ms,
+            shape=f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} bf16, {what}, "
+                  f"dropout {DROP_RATE}")
+        del q, k, v, fkw, pkw
+
+
+def check_flash_bwd_dropout(torch, timer, results):
+    """[3E] row 4d and [3G] row 4db: the backward's dropout branch (dQ
+    and dK/dV kernels replaying the forward's mask) at the shapes of [3D]
+    and [3F]; dQ, dK, dV (and dbias) against the plain version on the same
+    seed words, a planted wrong seed that must fail, zero gradients past
+    the lengths; timed with the plain version and with SDPA's backward at
+    dropout_p 0.1 (its float mask's gradient included under the bias)."""
+    import torch.nn.functional as F
+    from transformerengine_tpu_torch.ops.flash_attention import (
+        LOG2E, flash_bwd, flash_bwd_plain, flash_fwd)
+    b, s, hq, hkv, d = FP8_SHAPE
+    scale = d ** -0.5
+    kw, drop = drop_kw(torch)
+    for term, label, row in (("causal", "3E", "4d"), ("bias", "3G", "4db")):
+        (q, k, v, do, mk, visible, causal, fkw, pkw, skw,
+         what) = drop_inputs(torch, term, 75)
+        name = "flash_attention_bwd" + ("_bias" if fkw else "") + "_dropout"
+        log(f"[{label}] flash_attention bwd, dropout branch (row {row}, dQ "
+            f"and dK/dV kernels): the shape of row {row.replace('4', '2')}")
+        o, lse = flash_fwd(q, k, v, scale=scale, causal=causal, **mk, **fkw,
+                           **kw)
+        got = flash_bwd(q, k, v, o, lse, do, scale=scale, causal=causal,
+                        **mk, **fkw, **kw)
+        torch.cuda.synchronize()
+        qs = (q.float() * (scale * LOG2E)).to(q.dtype)
+        delta = (do.float() * o.float()).sum(dim=-1)
+        ref = flash_bwd_plain(qs, k, v, do, lse, delta, scale=scale,
+                              causal=causal, **mk, **pkw, dropout=drop)
+        err = 0.0
+        for gname, a, r in zip(("dQ", "dK", "dV", "dbias"), got, ref):
+            differ = int((a != r).sum())
+            rtol = DBIAS_RTOL if gname == "dbias" else BWD_RTOL
+            err = max(err, check(
+                f"{name} {gname} ({differ} of {r.numel()} elements differ)",
+                a, r, rtol * float(r.float().abs().max())))
+        if mk:
+            zero = ~visible.any(dim=2)
+            check_zero_grads(name, got, zero, zero)
+        wrong = flash_bwd_plain(qs, k, v, do, lse, delta, scale=scale,
+                                causal=causal, **mk, **pkw,
+                                dropout=planted_seed(torch)[1])
+        must_differ(f"{name} dV", got[2], wrong[2],
+                    BWD_RTOL * float(ref[2].float().abs().max()))
+        del got, ref, wrong
+        ms = timer(lambda: flash_bwd(q, k, v, o, lse, do, scale=scale,
+                                     causal=causal, **mk, **fkw, **kw))
+        plain_ms = timer(lambda: flash_bwd_plain(
+            qs, k, v, do, lse, delta, scale=scale, causal=causal, **mk,
+            **pkw, dropout=drop), reps=3)
+        leaves = [t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v)]
+        if "attn_mask" in skw:
+            skw["attn_mask"].requires_grad_()
+            leaves.append(skw["attn_mask"])
+        out = F.scaled_dot_product_attention(
+            *leaves[:3], dropout_p=DROP_RATE, scale=scale, enable_gqa=True,
+            **skw)
+        dot = do.transpose(1, 2).contiguous()
+        library_ms = timer.events(lambda: torch.autograd.grad(
+            out, leaves, dot, retain_graph=True))
+        del out, leaves, dot, skw, o, lse
+        pairs = int(visible.sum()) * hq
+        rows = int(visible.any(dim=2).sum())
+        flops, ops = 10 * d * pairs, 2 * HASH_OPS * pairs
+        # Read Q, K, V over the valid rows, O and dO in full, LSE, the bias
+        # once (4db); write dQ, dK, dV and (4db) the per-batch f32 dbias.
+        nbytes = 2 * (rows * hq * d + 2 * rows * hkv * d) \
+            + 2 * 2 * b * s * hq * d + 4 * b * hq * s \
+            + 2 * b * s * (hq + 2 * hkv) * d \
+            + (fkw["bias"].numel() * 4 + 4 * b * hq * s * s if fkw else 0)
+        b_ms, b_by = bound_ms_mixed(nbytes, [(flops, BF16_FLOPS),
+                                             (ops, F32_FLOPS)])
+        log(f"  {name} (row {row}): kernels {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, SDPA backward with dropout_p {DROP_RATE} "
+            f"{library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+            f"{flops / 1e9:.1f} GFLOP, {ops / 1e9:.2f} G hash operations; "
+            f"{nbytes / 1e6:.1f} MB)")
+        results[name] = dict(
+            name=name, route="cuda",
+            source="transformerengine_tpu_torch/csrc/flash_attention_bwd.cu",
+            replaces="transformerengine_tpu/ops/flash_attention.py:1477",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=library_ms,
+            shape=f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} bf16, {what}, "
+                  f"dropout {DROP_RATE}")
+        del q, k, v, do, fkw, pkw
+
+
+def check_dropout_variants(torch) -> None:
+    """[3H] the dropout branches at small shapes, forward (O, LSE) and
+    backward (dQ, dK, dV, dbias) against the plain versions: f32, D 64
+    and 256, GQA groups of 4 and 8, padding with fully masked rows,
+    segment ids, a window with a sink, the bottom-right offset, a bias,
+    ALiBi, the reference's small explicit tiles, rate 0.5 and seed words
+    of 2^31 and above."""
+    from transformerengine_tpu_torch.flex_attention import AlibiMod
+    from transformerengine_tpu_torch.ops.flash_attention import (
+        LOG2E, Dropout, flash_bwd, flash_bwd_plain, flash_fwd,
+        flash_fwd_plain)
+    log("[3H] flash attention's dropout at small shapes, forward and "
+        "backward")
+    g = torch.Generator(device="cuda").manual_seed(76)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def randn(*shape, dtype=f32):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    # (dtype, Sq, Skv, D, Hq, Hkv, causal, window, sink, mask, term, rate,
+    # block_q, block_k, seed words)
+    cases = (
+        (bf16, 96, 96, 64, 4, 2, True, None, None, None, None, 0.1, 32, 64,
+         DROP_WORDS),
+        (f32, 100, 100, 128, 8, 2, False, None, None, (100, 41), "bias",
+         0.3, 16, 32, (-1, -(2 ** 31))),
+        (bf16, 130, 130, 256, 4, 1, True, (24, 0), "learnable", (130, 70),
+         None, 0.2, 512, 1024, DROP_WORDS),
+        (bf16, 80, 80, 64, 16, 2, True, None, None, "packed", None, 0.1, 512,
+         1024, (5, 7)),
+        (f32, 70, 90, 64, 16, 2, True, None, "off_by_one", None, "alibi",
+         0.5, 512, 1024, DROP_WORDS),
+        (bf16, 64, 64, 128, 32, 8, False, None, None, (64, 17), "bias", 0.1,
+         8, 16, DROP_WORDS))
+    for (dt, sq, skv, d, hq, hkv, causal, window, sink, mask, term, rate,
+         bq, bk, words) in cases:
+        q, do = randn(2, sq, hq, d, dtype=dt), randn(2, sq, hq, d, dtype=dt)
+        k, v = randn(2, skv, hkv, d, dtype=dt), randn(2, skv, hkv, d,
+                                                      dtype=dt)
+        s0 = (None if sink is None else torch.zeros(hq, device="cuda")
+              if sink == "off_by_one" else randn(hq) * 2)
+        mk, qzero, kzero = variant_mask(torch, g, mask, 2, sq, skv)
+        offset = skv - sq if causal else 0
+        scale = d ** -0.5
+        kw, pkw = {}, {}
+        if term == "bias":
+            bias = randn(1, hq, sq, skv) * 2
+            kw, pkw = dict(bias=bias), dict(bias=bias)
+        elif term == "alibi":
+            mod = AlibiMod(hq)
+            kw = dict(score_mod=mod)
+            pkw = dict(alibi_slopes=mod.slopes(hq, "cuda"))
+        seed = drop_seed(torch, words)
+        dkw = dict(dropout_probability=rate, dropout_seed=seed, block_q=bq,
+                   block_k=bk)
+        drop = Dropout(seed, rate, bq, bk)
+        base = dict(causal=causal, offset=offset, window=window or (-1, -1),
+                    **mk)
+        o, lse = flash_fwd(q, k, v, scale=scale, softmax_sink=s0, **base,
+                           **kw, **dkw)
+        qs = q if term == "alibi" else (q.float() * (scale * LOG2E)).to(dt)
+        o_ref, lse_ref = flash_fwd_plain(qs, k, v, softmax_sink=s0,
+                                         scale=scale, dropout=drop, **base,
+                                         **pkw)
+        name = (f"{dt} Sq={sq} Skv={skv} D={d} G={hq // hkv} causal="
+                f"{causal} window={window} sink={sink} mask={mask} term="
+                f"{term} rate={rate} tiles {bq}x{bk} seed {words}")
+        tol = 1e-4 if dt == f32 else row_tol(o_ref, BF16_ROW_RTOL)
+        check(f"fwd {name} O", o, o_ref, tol)
+        check(f"fwd {name} LSE", lse, lse_ref, LSE_ATOL)
+        check_masked_rows(torch, f"fwd {name}", qzero, o, lse, s0)
+        delta = (do.float() * o.float()).sum(dim=-1)
+        got = flash_bwd(q, k, v, o, lse, do, scale=scale, softmax_sink=s0,
+                        **base, **kw, **dkw)
+        ref = flash_bwd_plain(qs, k, v, do, lse, delta, scale=scale,
+                              dropout=drop, **base, **pkw)
+        for gname, a, r in zip(("dQ", "dK", "dV", "dbias"), got, ref):
+            rel = (1e-4 if dt == f32 else BWD_RTOL) if gname != "dbias" \
+                else DBIAS_RTOL
+            check(f"bwd {name} {gname}", a, r,
+                  rel * float(r.float().abs().max()))
+        check_zero_grads(f"bwd {name}", got, qzero, kzero)
+
+
+# Phase 23: dropout in training at LLAMA_8B width, 4 layers, B 2, S 2048,
+# every rate 0.1 (attention, hidden and drop path).
+DROP_LAYERS = 4
+DROP_STEPS = 3
+# With no stored mask the dropout encoder's peak stays within this of the
+# same stack's step without dropout (a (B, Hq, S, S) bool mask would add
+# 256 MiB a layer).
+DROP_PEAK_GIB = 0.5
+
+
+def causal_stack(torch, layers: int, device, seed: int, **dropout):
+    """``layers`` causal TransformerLayers at LLAMA_8B width with RoPE,
+    RMSNorm and SwiGLU (a Llama decoder block's options) and ``dropout``,
+    as a ModuleList."""
+    from transformerengine_tpu_torch.attention import AttnMaskType
+    from transformerengine_tpu_torch.models.llama import LLAMA_8B
+    from transformerengine_tpu_torch.nn.transformer import TransformerLayer
+    cfg = LLAMA_8B
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.nn.ModuleList(
+        TransformerLayer(cfg.hidden_size, cfg.intermediate_size,
+                         cfg.num_attention_heads,
+                         num_gqa_groups=cfg.num_kv_heads,
+                         layernorm_epsilon=cfg.norm_eps, norm_type="rmsnorm",
+                         mlp_activations=("silu", "linear"),
+                         self_attn_mask_type=AttnMaskType.CAUSAL,
+                         enable_rotary_pos_emb=True, device=device,
+                         generator=g, **dropout)
+        for _ in range(layers))
+
+
+def train_dropout(torch, results) -> None:
+    """Phase 23: SGD steps with every dropout rate at 0.1 (attention,
+    hidden, drop path), training calls drawing from one card generator:
+    phase 21's encoder stack in bf16 beside the same stack's step without
+    dropout (ms/step, tok/s, peak memory, the busy share of a profiled
+    step; the peaks within DROP_PEAK_GIB of each other, as no mask is
+    stored), then a causal RoPE stack under DelayedScaling(fp8_dpa=True,
+    fp8_mha=True), where dropout alone closes the FP8 attention gates.
+    Exact launch counts: a dropout forward, dQ and dK/dV per layer per
+    step (the encoder's with its bias), and no FP8 flash launch."""
+    from transformerengine_tpu_torch import DelayedScaling
+    b, s, layers = TRAIN_B, TRAIN_S, DROP_LAYERS
+    rates = dict(attention_dropout=DROP_RATE, hidden_dropout=DROP_RATE,
+                 drop_path=DROP_RATE)
+    log(f"[23] dropout training: LLAMA_8B width, {layers} TransformerLayers, "
+        f"B={b} S={s}, attention, hidden and drop-path dropout {DROP_RATE}, "
+        f"read-out loss, SGD at lr {TRAIN_LR}: the encoder (bf16, beside its "
+        f"step without dropout), then a causal RoPE stack under "
+        f"DelayedScaling(fp8_dpa, fp8_mha)")
+    gen = torch.Generator(device=CARD).manual_seed(23)
+    train_kw = dict(deterministic=False, generator=gen)
+    x, desc, r, n_valid = encoder_batch(torch, b, s, ENC_LENS, CARD,
+                                        ENC_SEED)
+    totals = collections.Counter()
+    stats = {}
+    runs = (("encoder_no_dropout", "encoder", None, {}, 2,
+             {f"flash_attention_{k}_bias": layers
+              for k in ("fwd", "bwd_dq", "bwd_dkv")}),
+            ("encoder_dropout", "encoder", None, train_kw, DROP_STEPS,
+             {f"flash_attention_{k}_bias_dropout": layers
+              for k in ("fwd", "bwd_dq", "bwd_dkv")}),
+            ("causal_delayed_mha", "causal",
+             DelayedScaling(amax_history_len=16, fp8_dpa=True, fp8_mha=True),
+             train_kw, DROP_STEPS,
+             {f"flash_attention_{k}_dropout": layers
+              for k in ("fwd", "bwd_dq", "bwd_dkv")}))
+    for name, kind, recipe, kw, steps, expect in runs:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        if kind == "encoder":
+            stack = encoder_stack(torch, layers, CARD, ENC_SEED,
+                                  **(rates if kw else {}))
+            desc_used = desc
+        else:
+            stack = causal_stack(torch, layers, CARD, ENC_SEED, **rates)
+            desc_used = None
+
+        def step():
+            return train_step(torch, stack, x, None, recipe,
+                              loss_fn=lambda m, t, _: encoder_loss(
+                                  m, t, desc_used, r, n_valid, **kw))
+        losses, times, counts = timed_steps(
+            torch, lambda: float(step()), expect, steps, "step")
+        if kw:
+            totals.update(counts)
+        if not all(map(math.isfinite, losses)):
+            raise AssertionError(f"{name}: losses {losses}")
+        step_ms = statistics.median(times[1:]) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        st = dict(ms_per_step=step_ms, tok_per_s=b * s / (step_ms / 1e3),
+                  losses=losses, peak_gib=peak)
+        log(f"  {name} {recipe}: losses {[round(v, 5) for v in losses]} (all "
+            f"finite); launches per step {expect} in every step ok")
+        log(f"    step times {[round(t * 1e3, 2) for t in times]} ms; median "
+            f"of steps 2-{steps} {step_ms:.2f} ms/step, "
+            f"{st['tok_per_s']:.0f} tok/s, peak {peak:.2f} GiB")
+        if kw:
+            busy, wall, kernels = device_profile(torch, step, 1)
+            log_profile(f"{name} step", st, busy, wall, kernels, 1)
+        stats[name] = st
+        del stack
+    grown = stats["encoder_dropout"]["peak_gib"] - \
+        stats["encoder_no_dropout"]["peak_gib"]
+    ratio = stats["encoder_dropout"]["ms_per_step"] / \
+        stats["encoder_no_dropout"]["ms_per_step"]
+    ok = grown <= DROP_PEAK_GIB
+    log(f"  the dropout encoder's step: {ratio:.3f}x the step without "
+        f"dropout, peak {grown:+.3f} GiB (limit {DROP_PEAK_GIB}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"dropout grew the encoder's peak by {grown} GiB")
+    stats["encoder_dropout_ratio"] = ratio
+    for kernel, n in totals.items():
+        add_launches(results, bwd_row(kernel), n)
+    results["_train_dropout"] = stats
+
+
+# Phase 24: the dropout step, card against CPU: phase 22's encoder (2
+# layers at LLAMA_8B width, B 1, S 256 with 200 valid, the relative bias,
+# bf16) with attention dropout at 0.1 on the same seed words on both
+# sides (the masks are equal bit for bit), so phase 22's limits hold.
+DROP_VS_CPU_WORDS = ((0x13572468, -0x2468ACE0), (0x7FFFFFFF, 0x0BADF00D))
+
+
+def dropout_card_vs_cpu(torch) -> list:
+    """Phase 24's check; returns what failed. Each layer's attention
+    takes the seed words of DROP_VS_CPU_WORDS in place of its generator's
+    draw. Planted faults: the card's words off by one (another mask), and
+    the backward kernels given no dropout (the mask not replayed); each
+    must fail a limit."""
+    import contextlib
+    from transformerengine_tpu_torch.nn import transformer as tr
+    from transformerengine_tpu_torch.ops import flash_attention as fa
+    s, n = ENC_VS_CPU_S, ENC_VS_CPU_LEN
+    log(f"[24] dropout step, card against CPU: 2 encoder layers at LLAMA_8B "
+        f"width, B=1 S={s} ({n} valid), the relative bias, attention "
+        f"dropout {DROP_RATE} on the seed words {DROP_VS_CPU_WORDS}, bf16")
+    t0 = time.perf_counter()
+
+    @contextlib.contextmanager
+    def words(offset=0):
+        real = tr.draw_seed
+        it = iter(DROP_VS_CPU_WORDS)
+        tr.draw_seed = lambda generator: fa.dropout_seed(
+            [w + offset for w in next(it)])
+        try:
+            yield
+        finally:
+            tr.draw_seed = real
+
+    def readings(device, start=None, offset=0):
+        stack = encoder_stack(torch, 2, device, ENC_VS_CPU_SEED,
+                              attention_dropout=DROP_RATE)
+        if start is not None:
+            stack.load_state_dict(start)
+        x, desc, r, n_valid = encoder_batch(torch, 1, s, (n,), device,
+                                            ENC_VS_CPU_SEED)
+        stack.zero_grad(set_to_none=True)
+        y = x
+        with words(offset):
+            for layer in stack:
+                y = layer(y, desc, deterministic=False,
+                          generator=torch.Generator(device=device))
+        loss = (y.float() * r).sum() / n_valid
+        loss.backward()
+        size = float((y.detach().float() * r).norm()) / n_valid
+        grads = {k: p.grad.detach().float().cpu()
+                 for k, p in stack.named_parameters()}
+        return float(loss.detach()), size, grads, {
+            k: v.cpu() for k, v in stack.state_dict().items()}
+
+    loss_c, size, grads_c, start = readings("cpu")
+
+    def differences(loss, grads) -> dict:
+        out = dict(loss=abs(loss - loss_c) / size, gnorm=0.0, grad=0.0,
+                   rel=0.0)
+        for k, ref in grads_c.items():
+            diff = grads[k] - ref
+            gn = float(diff.norm() / ref.norm().clamp_min(1e-30))
+            if gn > out["gnorm"]:
+                out["gnorm"], out["gnorm_of"] = gn, k
+            out["grad"] = max(out["grad"], float(
+                diff.abs().max() / ref.abs().max().clamp_min(1e-30)))
+            if k.endswith("rel_embedding"):
+                out["rel"] = max(out["rel"], gn)
+        return out
+
+    def fmt(d) -> str:
+        return ", ".join(f"{k} {d[k]:.3e}" for k in ENC_VS_CPU_LIMITS) + \
+            f" (gnorm of {d.get('gnorm_of')})"
+
+    def card(offset=0):
+        loss, _, grads, _ = readings(CARD, start, offset)
+        return differences(loss, grads)
+
+    got = card()
+    planted = {"the card's seed words off by one": card(offset=1)}
+    real_bwd = fa.flash_bwd
+
+    def no_replay(*a, **kw):
+        kw.pop("dropout_probability", None)
+        return real_bwd(*a, **kw)
+    fa.flash_bwd = no_replay
+    try:
+        planted["the mask not replayed in the backward"] = card()
+    finally:
+        fa.flash_bwd = real_bwd
+    limits = ENC_VS_CPU_LIMITS
+    ok = all(got[k] <= limits[k] for k in limits)
+    log(f"    ({time.perf_counter() - t0:.1f} s) limits "
+        + ", ".join(f"{k} {v:.3e}" for k, v in limits.items()))
+    log(f"    card against CPU: {fmt(got)} {'ok' if ok else 'FAIL'}")
+    failures = [] if ok else ["dropout bf16"]
+    for what, diff in planted.items():
+        caught = [k for k in limits if not diff[k] <= limits[k]]
+        log(f"    planted fault '{what}': {fmt(diff)}: "
+            + (f"caught by {', '.join(caught)}" if caught else "NOT CAUGHT"))
+        if not caught:
+            failures.append(f"dropout: '{what}' not caught")
+    return failures
+
+
 def bwd_row(kernel: str) -> str:
     """The results row of a launch name: a branch's dQ and dK/dV kernels
     share one row."""
@@ -5645,7 +6223,7 @@ def bwd_row(kernel: str) -> str:
 
 
 PHASES = ("3", "4", "5", "6", "7", "8", "9", "10", "11", "12", "13", "14",
-          "15", "16", "17", "18", "19", "20", "21", "22")
+          "15", "16", "17", "18", "19", "20", "21", "22", "23", "24")
 
 
 def main() -> int:
@@ -5656,7 +6234,7 @@ def main() -> int:
     import argparse
     parser = argparse.ArgumentParser()
     parser.add_argument("--phases", default=",".join(PHASES),
-                        help="comma-separated subset of 3-22")
+                        help="comma-separated subset of 3-24")
     parser.add_argument("--train-seeds", default=str(TRAIN_VS_CPU_SEED),
                         help="comma-separated seeds of phase 7 (its limits "
                         "were set from the readings of 21,22,23)")
@@ -5734,6 +6312,9 @@ def main() -> int:
     run("3", check_flash_bias, timer, results)
     run("3", check_flash_bwd_bias, timer, results)
     run("3", check_bias_variants)
+    run("3", check_flash_dropout, timer, results)
+    run("3", check_flash_bwd_dropout, timer, results)
+    run("3", check_dropout_variants)
     run("4", serve, results)
     run("9", serve_paged_mxfp8, results)
     run("12", serve_paged_nvfp4, results)
@@ -5749,6 +6330,7 @@ def main() -> int:
     run("19", train_fp8_attention, results)
     run("20", train_packed, results)
     run("21", train_encoder, results)
+    run("23", train_dropout, results)
     failed = []
     for seed in map(int, args.train_seeds.split(",")):
         run("7", lambda torch, seed=seed: failed.extend(
@@ -5760,6 +6342,7 @@ def main() -> int:
         run("18", lambda torch, seed=seed: failed.extend(
             gptoss_card_vs_cpu(torch, seed)))
     run("22", lambda torch: failed.extend(encoder_card_vs_cpu(torch)))
+    run("24", lambda torch: failed.extend(dropout_card_vs_cpu(torch)))
     if failed:
         raise AssertionError(f"training step, card against CPU: {failed}")
     log(f"phase seconds: {', '.join(f'{p} {t:.1f}' for p, t in timings.items())}")
@@ -5770,7 +6353,8 @@ def main() -> int:
                                          "_train_mixtral", "_serve_mixtral",
                                          "_train_gptoss", "_serve_gptoss",
                                          "_train_fp8_attention",
-                                         "_train_packed", "_train_encoder")
+                                         "_train_packed", "_train_encoder",
+                                         "_train_dropout")
              if k in results}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -300,9 +300,12 @@ def test_refusals_follow_the_reference():
     with pytest.raises(TypeError, match="f32 or bf16"):
         flash_fwd(q, k, v, scale=0.2, causal=False,
                   bias=torch.zeros((1, 4, 16, 16), dtype=torch.float16))
-    for name in ("dropout_probability", "q_position_offset"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            flash_attention(q, k, v, **{name: 0.1})
+    with pytest.raises(NotImplementedError, match="not ported"):
+        flash_attention(q, k, v, q_position_offset=0.1)
+    # Dropout is ported: a rate without a seed raises, as the reference's
+    # wrapper does.
+    with pytest.raises(ValueError, match="dropout_seed"):
+        flash_attention(q, k, v, dropout_probability=0.1)
 
 
 def test_bias_gradient_is_off_without_requires_grad():

@@ -260,11 +260,14 @@ def test_wrapper_arguments():
                     softmax_type=SoftmaxType.LEARNABLE,
                     softmax_offset=torch.zeros(2))
     assert AttnSoftmaxType is SoftmaxType
-    for name, value in (("q_position_offset", 3),
-                        ("dropout_probability", 0.1), ("score_mod", abs),
-                        ("block_q", 64)):
+    for name, value in (("q_position_offset", 3), ("score_mod", abs)):
         with pytest.raises(NotImplementedError, match="not ported"):
             flash_attention(q, k, v, **{name: value})
+    # Dropout and the reference's tile sizes are taken; a rate needs a
+    # seed, as in the reference.
+    flash_attention(q, k, v, block_q=64, block_k=32)
+    with pytest.raises(ValueError, match="dropout_seed"):
+        flash_attention(q, k, v, dropout_probability=0.1)
     with pytest.raises(ValueError, match="bias must be"):
         flash_attention(q, k, v, bias=q)
     with pytest.raises(NotImplementedError, match="dynamic"):

@@ -2,7 +2,8 @@
 data module and its score mods included), its entry points never fall
 back to the CPU on their own, no ``try`` wraps a kernel launch, and its
 kernel wrappers never return the plain version for a tensor on the card,
-segment ids, a bias and ALiBi included."""
+segment ids, a bias, ALiBi and dropout included (the dropout seed's
+pointer, threshold and tile sizes reach the kernels)."""
 import ast
 import subprocess
 import sys
@@ -304,6 +305,26 @@ def _calls():
             cuda(2, 64, 4, 32), cuda(2, 4, 64, dtype=f32),
             cuda(2, 64, 4, 32), scale=0.2, causal=True,
             score_mod=AlibiMod(4)),
+        # Dropout counts under "_dropout", also beside a bias.
+        "flash_fwd_dropout": lambda: fa.flash_fwd(
+            cuda(2, 64, 4, 32), cuda(2, 64, 2, 32), cuda(2, 64, 2, 32),
+            scale=0.2, causal=True, dropout_probability=0.1,
+            dropout_seed=cuda(2, dtype=i32)),
+        "flash_bwd_dropout": lambda: fa.flash_bwd(
+            cuda(2, 64, 4, 32), cuda(2, 64, 2, 32), cuda(2, 64, 2, 32),
+            cuda(2, 64, 4, 32), cuda(2, 4, 64, dtype=f32),
+            cuda(2, 64, 4, 32), scale=0.2, causal=True,
+            dropout_probability=0.1, dropout_seed=cuda(2, dtype=i32)),
+        "flash_fwd_bias_dropout": lambda: fa.flash_fwd(
+            cuda(2, 64, 4, 32), cuda(2, 64, 2, 32), cuda(2, 64, 2, 32),
+            scale=0.2, causal=False, bias=cuda(1, 4, 64, 64, dtype=f32),
+            dropout_probability=0.3, dropout_seed=cuda(2, dtype=i32)),
+        "flash_bwd_bias_dropout": lambda: fa.flash_bwd(
+            cuda(2, 64, 4, 32), cuda(2, 64, 2, 32), cuda(2, 64, 2, 32),
+            cuda(2, 64, 4, 32), cuda(2, 4, 64, dtype=f32),
+            cuda(2, 64, 4, 32), scale=0.2, causal=False,
+            bias=cuda(2, 4, 64, 64), dropout_probability=0.3,
+            dropout_seed=cuda(2, dtype=i32)),
         "te_paged_decode_attention": lambda: pa.paged_decode_attention(
             cuda(2, 1, 4, 32), cuda(6, 8, 2, 32, dtype=torch.float8_e4m3fn),
             cuda(6, 8, 2, 32, dtype=torch.float8_e4m3fn),
@@ -397,6 +418,12 @@ _LAUNCHED = {"te_flash_attention_bwd": ["te_flash_attention_bwd_dq",
                                 "te_flash_attention_bwd_dkv"],
              "flash_bwd_alibi": ["te_flash_attention_bwd_dq",
                                  "te_flash_attention_bwd_dkv"],
+             "flash_fwd_dropout": ["te_flash_attention_fwd"],
+             "flash_fwd_bias_dropout": ["te_flash_attention_fwd"],
+             "flash_bwd_dropout": ["te_flash_attention_bwd_dq",
+                                   "te_flash_attention_bwd_dkv"],
+             "flash_bwd_bias_dropout": ["te_flash_attention_bwd_dq",
+                                        "te_flash_attention_bwd_dkv"],
              "delayed_quantize_2x": ["te_cast_transpose"],
              "current_quantize_2x": ["te_cast_transpose"],
              "quantize_normed": ["te_norm_cast_transpose"],
@@ -421,6 +448,9 @@ _LAUNCHED = {"te_flash_attention_bwd": ["te_flash_attention_bwd_dq",
                                    "flash_bwd_fp8_mha_seg",
                                    "flash_fwd_bias", "flash_bwd_bias",
                                    "flash_fwd_alibi", "flash_bwd_alibi",
+                                   "flash_fwd_dropout", "flash_bwd_dropout",
+                                   "flash_fwd_bias_dropout",
+                                   "flash_bwd_bias_dropout",
                                    "te_decode_attention",
                                    "te_paged_decode_attention",
                                    "te_decode_kn_matvec",
@@ -490,9 +520,11 @@ def test_wrappers_on_the_card_launch_or_raise(entry, monkeypatch):
     assert launched == expected
     grown = _build.LAUNCHES - before
     assert sum(grown.values()) == len(expected)
-    if entry.endswith(("_sw", "_seg", "_bias", "_alibi")):
+    if entry.endswith(("_sw", "_seg", "_bias", "_alibi", "_dropout")):
         suffix = entry[entry.rindex("_"):]
         assert all(name.endswith(suffix) for name in grown), grown
+    if entry.endswith("_bias_dropout"):
+        assert all(name.endswith("_bias_dropout") for name in grown), grown
     if "_fp8" in entry:
         branch = "_fp8_mha" if "_mha" in entry else "_fp8"
         assert all(branch in name for name in grown), grown
@@ -621,3 +653,75 @@ def test_bias_and_slopes_reach_the_kernels(term, monkeypatch):
                 tuple(slopes.shape) == (4,)
             if name == "te_flash_attention_bwd_dq":
                 assert args[4] is None
+
+
+@pytest.mark.parametrize("how", ["kernel", "flash_attention"])
+def test_dropout_seed_reaches_the_kernels(how, monkeypatch):
+    """On CUDA tensors the forward, dQ and dK/dV kernels get the seed
+    words as a (2,) int32 pointer on the card (no host copy of them), the
+    reference's threshold, 1 / (1 - rate) in f32 and the reference's tile
+    sizes (here the MAX_ROWS cap at GQA 4: 256 x 1024 at S 2048); the
+    plain versions never run, and without dropout the seed is null.
+    ``flash_attention`` passes its arguments on (its forward without
+    autograd: fake tensors here cannot record a graph)."""
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(fa, "flash_fwd_plain", plain)
+    monkeypatch.setattr(fa, "flash_bwd_plain", plain)
+    monkeypatch.setattr(_build, "stream", lambda t: None)
+    monkeypatch.setattr(_build, "ptr", lambda t: t)
+    seen = {}
+    monkeypatch.setattr(_build, "launch", lambda name, *args: seen.setdefault(
+        name, []).append(args[-6:-1]))
+    with warnings.catch_warnings(), FakeTensorMode():
+        warnings.simplefilter("ignore", UserWarning)
+        q = torch.empty((2, 2048, 16, 32), dtype=torch.bfloat16,
+                        device="cuda")
+        kv = torch.empty((2, 2048, 4, 32), dtype=torch.bfloat16,
+                         device="cuda")
+        seed = torch.empty((2,), dtype=torch.int32, device="cuda")
+        kw = dict(dropout_probability=0.1, dropout_seed=seed)
+        if how == "kernel":
+            o, lse = fa.flash_fwd(q, kv, kv, scale=0.2, causal=True, **kw)
+            fa.flash_bwd(q, kv, kv, o, lse, q, scale=0.2, causal=True, **kw)
+            fa.flash_fwd(q, kv, kv, scale=0.2, causal=True)
+        else:
+            fa.flash_attention(q, kv, kv, **kw)
+    assert sorted(seen) == (sorted(_MASK_ARGS) if how == "kernel"
+                            else ["te_flash_attention_fwd"])
+    inv = float(torch.tensor(1 / 0.9, dtype=torch.float32))
+    for name, calls in seen.items():
+        ptr, thr, got_inv, bq, bk = calls[0]
+        assert ptr.dtype == torch.int32 and tuple(ptr.shape) == (2,), name
+        assert ptr.device.type == "cuda", name
+        assert (thr, got_inv, bq, bk) == (429496730, inv, 256, 1024), name
+    if how == "kernel":
+        assert seen["te_flash_attention_fwd"][1] == (None, 0, 1.0, 0, 0)
+
+
+def test_a_dropout_launch_failure_raises(monkeypatch):
+    """A failed build or launch of a dropout instance raises to the
+    caller; the plain version never stands in for it."""
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    def fail(name, *args):
+        raise RuntimeError(f"{name} failed: CUDA error 1")
+
+    monkeypatch.setattr(fa, "flash_fwd_plain", plain)
+    monkeypatch.setattr(fa, "flash_bwd_plain", plain)
+    monkeypatch.setattr(_build, "stream", lambda t: None)
+    monkeypatch.setattr(_build, "launch", fail)
+    with warnings.catch_warnings(), FakeTensorMode():
+        warnings.simplefilter("ignore", UserWarning)
+        q = torch.empty((1, 64, 4, 32), dtype=torch.bfloat16, device="cuda")
+        kv = torch.empty((1, 64, 2, 32), dtype=torch.bfloat16, device="cuda")
+        kw = dict(scale=0.2, causal=True, dropout_probability=0.1,
+                  dropout_seed=torch.empty((2,), dtype=torch.int32,
+                                           device="cuda"))
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            fa.flash_fwd(q, kv, kv, **kw)
+        lse = torch.empty((1, 4, 64), dtype=torch.float32, device="cuda")
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            fa.flash_bwd(q, kv, kv, q, lse, q, **kw)

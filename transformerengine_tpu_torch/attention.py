@@ -15,8 +15,11 @@ backend also takes FP8 Q/K/V quantizers (``fp8_dpa``), which it drops
 under a bias or ALiBi, as the reference's ``fused_attn`` does. The QKV
 layouts of the reference (packed QKV, packed KV, THD) are unpacked to
 BSHD by :func:`canonicalize_qkv`; a THD batch is a BSHD one whose segment
-ids describe the packing (:func:`fused_attn_thd`). Dropout is not ported
-yet.
+ids describe the packing (:func:`fused_attn_thd`). Attention dropout takes
+the reference's ``seed`` (its two 32-bit words): the flash kernels drop
+by the reference's own hash of them, the unfused backend by a
+``torch.Generator`` seeded from them (the reference's ``bernoulli`` bits
+are JAX's and not copied).
 """
 from __future__ import annotations
 
@@ -258,17 +261,31 @@ def make_swa_mask(segment_pos_q: torch.Tensor, segment_pos_kv: torch.Tensor,
     return keep[..., None, :, :].to(dtype)
 
 
+def seed_generator(seed, device) -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` seeded from the two seed words
+    (a (2,) integer tensor or sequence): word 0 in the high 32 bits, word
+    1 in the low ones, each modulo 2^32. It reads the words on the host."""
+    from .ops.flash_attention import dropout_seed
+    hi, lo = (int(w) & 0xFFFFFFFF for w in dropout_seed(seed, "cpu").tolist())
+    return torch.Generator(device=device).manual_seed((hi << 32) | lo)
+
+
 def _unfused_attn(q, k, v, mask, *, scaling_factor: float,
                   softmax_type: SoftmaxType = SoftmaxType.VANILLA,
                   softmax_offset: Optional[torch.Tensor] = None,
                   bias: Optional[torch.Tensor] = None,
-                  attn_bias_type: AttnBiasType = AttnBiasType.NO_BIAS
+                  attn_bias_type: AttnBiasType = AttnBiasType.NO_BIAS,
+                  dropout_probability: float = 0.0, seed=None
                   ) -> torch.Tensor:
     """Softmax attention with the scores in f32: a pre-scale bias added
     before the scale and a post-scale one after it, masked logits at
     -1e30, and rows with no visible key set to 0. A sink type appends one
     logit column (0, or the per-head ``softmax_offset``) that takes its
-    share of the softmax and is dropped after it."""
+    share of the softmax and is dropped after it. With
+    ``dropout_probability`` > 0 the probabilities are then kept with
+    probability 1 - rate and divided by it, as the reference's
+    ``bernoulli`` mask does, the mask drawn from :func:`seed_generator` of
+    ``seed``."""
     group = q.shape[2] // k.shape[2]
     kf = k.float().repeat_interleave(group, dim=2)
     vf = v.float().repeat_interleave(group, dim=2)
@@ -293,6 +310,12 @@ def _unfused_attn(q, k, v, mask, *, scaling_factor: float,
     if mask is not None:
         probs = torch.where(mask.any(dim=-1, keepdim=True), probs,
                             torch.zeros((), device=q.device))
+    if dropout_probability > 0.0:
+        keep_prob = 1.0 - dropout_probability
+        u = torch.rand(probs.shape, generator=seed_generator(seed, q.device),
+                       device=q.device)
+        probs = torch.where(u < keep_prob, probs / keep_prob,
+                            torch.zeros((), device=q.device))
     return torch.einsum("bhqk,bkhd->bqhd", probs, vf).to(q.dtype)
 
 
@@ -310,7 +333,8 @@ def alibi_bias(num_heads: int, q_len: int, kv_len: int,
 
 
 def fused_attn(qkv: Sequence[torch.Tensor],
-               sequence_descriptor: Optional[SequenceDescriptor] = None, *,
+               sequence_descriptor: Optional[SequenceDescriptor] = None,
+               seed=None, *,
                bias: Optional[torch.Tensor] = None,
                attn_bias_type: AttnBiasType = AttnBiasType.NO_BIAS,
                attn_mask_type: AttnMaskType = AttnMaskType.NO_MASK,
@@ -321,7 +345,9 @@ def fused_attn(qkv: Sequence[torch.Tensor],
                softmax_offset: Optional[torch.Tensor] = None,
                qkv_quantizers=None,
                qkv_layout: QKVLayout = QKVLayout.BSHD_BSHD_BSHD,
-               backend: AttnBackend = AttnBackend.AUTO) -> torch.Tensor:
+               backend: AttnBackend = AttnBackend.AUTO,
+               dropout_probability: float = 0.0,
+               is_training: bool = True) -> torch.Tensor:
     """Scaled dot-product attention over ``qkv`` in ``qkv_layout`` (three
     BSHD tensors by default); returns (B, Sq, Hq, D). A descriptor with
     segment ids masks a packed batch in either backend. ``mask`` (bool,
@@ -333,8 +359,16 @@ def fused_attn(qkv: Sequence[torch.Tensor],
     ``attn_bias_type`` says (PRE_SCALE_BIAS takes the unfused backend);
     ALIBI takes no bias. ``qkv_quantizers`` (per-tensor quantizers of q, k
     and v) run the flash backend's FP8 branch, without a bias or ALiBi;
-    the unfused backend ignores them, as the reference's does."""
+    the unfused backend ignores them, as the reference's does.
+    ``dropout_probability`` applies when ``is_training``, and then (above
+    0) needs ``seed``, the reference's two seed words ((2,) int32, or a
+    sequence); the backend choice does not depend on it."""
     q, k, v = canonicalize_qkv(qkv, qkv_layout)
+    rate = float(dropout_probability) if is_training else 0.0
+    if rate > 0.0 and seed is None:
+        raise ValueError("attention dropout requires an explicit `seed`; a "
+                         "silent default would reuse the same mask every "
+                         "step")
     if scaling_factor is None:
         scaling_factor = 1.0 / (q.shape[-1] ** 0.5)
     if attn_bias_type is AttnBiasType.ALIBI and bias is not None:
@@ -372,7 +406,9 @@ def fused_attn(qkv: Sequence[torch.Tensor],
             bias=(bias if attn_bias_type is AttnBiasType.POST_SCALE_BIAS
                   else None),
             score_mod=score_mod,
-            qkv_quantizers=tuple(qkv_quantizers) if fp8_ok else None)
+            qkv_quantizers=tuple(qkv_quantizers) if fp8_ok else None,
+            dropout_probability=rate,
+            dropout_seed=seed if rate > 0.0 else None)
     if attn_bias_type is AttnBiasType.ALIBI:
         bias = alibi_bias(q.shape[2], q.shape[1], k.shape[1], q.device)
         attn_bias_type = AttnBiasType.POST_SCALE_BIAS
@@ -386,12 +422,13 @@ def fused_attn(qkv: Sequence[torch.Tensor],
     return _unfused_attn(q, k, v, full_mask, scaling_factor=scaling_factor,
                          softmax_type=softmax_type,
                          softmax_offset=softmax_offset, bias=bias,
-                         attn_bias_type=attn_bias_type)
+                         attn_bias_type=attn_bias_type,
+                         dropout_probability=rate, seed=seed)
 
 
 def fused_attn_thd(qkv: Sequence[torch.Tensor],
                    sequence_descriptor: Optional[SequenceDescriptor] = None,
-                   *, qkv_layout: QKVLayout = QKVLayout.THD_THD_THD,
+                   seed=None, *, qkv_layout: QKVLayout = QKVLayout.THD_THD_THD,
                    **kwargs) -> torch.Tensor:
     """:func:`fused_attn` with a THD layout: a packed batch, (B, S, ...)
     rows of documents that the descriptor's segment ids (and positions)
@@ -399,5 +436,5 @@ def fused_attn_thd(qkv: Sequence[torch.Tensor],
     if not qkv_layout.is_thd:
         raise ValueError(f"fused_attn_thd needs a THD layout, got "
                          f"{qkv_layout}")
-    return fused_attn(qkv, sequence_descriptor, qkv_layout=qkv_layout,
+    return fused_attn(qkv, sequence_descriptor, seed, qkv_layout=qkv_layout,
                       **kwargs)

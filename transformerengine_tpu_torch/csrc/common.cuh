@@ -238,15 +238,78 @@ inline cudaError_t allow_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// Attention dropout (the reference's `_dropout_keep`, its integer hash):
+// the score of query i, key j and query head h of batch b is kept when
+// hash(seed, b, h / G, the reference's tile origin (i - i % bq, j - j % bk),
+// row (h % G) * bq + i % bq, column j % bk) >= thr, with the reference's
+// tile sizes (bq, bk) (its `_effective_blocks`), never this kernel's; a
+// kept value is multiplied by `inv`. Every kernel derives the same bits
+// for a score, so the backward replays the forward's mask.
+struct Dropout {
+  const int* seed;  // the two seed words, (2,) int32 on the card, or null
+  unsigned thr;     // keep where the hash >= thr
+  float inv;        // 1 / (1 - rate), rounded to f32
+  int bq, bk;       // the reference's tile sizes
+};
+
+// A row's or a column's share of the hash: its index within the
+// reference's tile, multiplied, and its tile origin's term (for a row with
+// the seed, batch and kv head folded in).
+struct DropPart {
+  uint32_t idx, origin;
+};
+
+// The seed, batch and kv head terms of the hash, summed mod 2^32.
+__device__ __forceinline__ uint32_t drop_head(const Dropout& d, int b,
+                                              int hk) {
+  return (uint32_t)__ldg(d.seed) * 0xC2B2AE35u + (uint32_t)__ldg(d.seed + 1) +
+         (uint32_t)b * 0x27D4EB2Fu + (uint32_t)hk * 0x165667B1u;
+}
+
+// Query qi of the g-th query head of its GQA group.
+__device__ __forceinline__ DropPart drop_row(const Dropout& d, uint32_t head,
+                                             int g, int qi) {
+  const int r = qi % d.bq;
+  return {(uint32_t)(g * d.bq + r) * 0x9E3779B9u,
+          head + (uint32_t)(qi - r) * 0x9E3779B1u};
+}
+
+__device__ __forceinline__ DropPart drop_col(const Dropout& d, int kj) {
+  const int c = kj % d.bk;
+  return {(uint32_t)c * 0x85EBCA6Bu, (uint32_t)(kj - c) * 0x85EBCA77u};
+}
+
+// The reference's hash: its two index products, the terms' sum, then the
+// finalizer; uint32 arithmetic wraps as the reference's does.
+__device__ __forceinline__ bool drop_keep(const Dropout& d, DropPart row,
+                                          DropPart col) {
+  uint32_t x = (row.idx ^ col.idx) ^ (row.origin + col.origin);
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return x >= d.thr;
+}
+
+// where(keep, v * inv, 0), the product rounded on its own (no contraction
+// into a later add), as the reference's f32 operations.
+__device__ __forceinline__ float drop_apply(const Dropout& d, bool keep,
+                                            float v) {
+  return keep ? __fmul_rn(v, d.inv) : 0.f;
+}
+
 // The flash kernels' score terms (the reference's `_fwd_block_body`,
 // `_bwd_dq_block_body` and `_bwd_dkv_block_body`): a post-scale bias or
-// ALiBi. At most one of the two is set, and neither with FP8 Q/K/V.
+// ALiBi. At most one of the two is set, and neither with FP8 Q/K/V. The
+// dropout instances read `drop` too.
 struct ScoreTerms {
   const void* bias;     // (bias_b, Hq, Sq, Skv), f32 or bf16, or null
   int bias_code;        // its DTypeCode
   int bias_b;           // 1 (broadcast over the batch) or B
   const float* slopes;  // (Hq,) f32 ALiBi slopes, or null
   float scale;          // the softmax scale (ALiBi's q is not pre-scaled)
+  Dropout drop;         // dropout (its seed null without)
 };
 
 // Score s of query qi (bottom-right offset `offset`) and key kj in head h
@@ -281,11 +344,14 @@ __device__ __forceinline__ float add_score_terms(const ScoreTerms& t,
 }
 
 // The C entry points' check of the score terms: a bias of f32 or bf16
-// whose batch is 1 or B, not with slopes, and neither with FP8 Q/K/V.
+// whose batch is 1 or B, not with slopes, and neither with FP8 Q/K/V;
+// dropout with positive tile sizes, not with FP8 either.
 inline bool bad_terms(const ScoreTerms& t, int B, bool fp8) {
   const bool has_bias = t.bias != nullptr;
+  const bool has_drop = t.drop.seed != nullptr;
   return (has_bias && ((t.bias_code != kFloat32 && t.bias_code != kBFloat16) ||
                        (t.bias_b != 1 && t.bias_b != B))) ||
          (has_bias && t.slopes != nullptr) ||
-         (fp8 && (has_bias || t.slopes != nullptr));
+         (has_drop && (t.drop.bq < 1 || t.drop.bk < 1)) ||
+         (fp8 && (has_bias || t.slopes != nullptr || has_drop));
 }

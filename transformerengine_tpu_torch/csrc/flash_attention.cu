@@ -46,6 +46,22 @@
 // the bias's 512 MiB read once with Q, K, V, O and LSE (about 622 MB,
 // 0.19 ms): bytes.
 //
+// Dropout branch (the reference's `dropout_rate`, `_fwd_block_body` with
+// `_dropout_keep`): each visible score's weight p still joins the
+// denominator l, and the PV product takes where(keep, p * inv, 0), rounded
+// to V's dtype; keep is common.cuh's `drop_keep`, the reference's hash of
+// the score's place in the reference's tiles (not this kernel's), computed
+// where the weight is, so no mask is stored and the backward kernels
+// replay it. Each thread computes its rows' parts of the hash once and its
+// columns' once a tile, then some twelve integer operations a score. The
+// branch is a template instance of its own (bf16 and f32, built in
+// flash_attention_dropout.cu beside this file, composing with the bias,
+// ALiBi, the masks, the window and the sink); it adds no shared memory.
+// Bound at the LLAMA_8B training shape (B 2, S 2048, Hq 32, Hkv 8, D 128,
+// bf16, causal, rate 0.1): the products (68.7 GFLOP at the bf16 peak) plus
+// the hash's integer operations over the causal pairs (about 14 a score,
+// 1.9 G, at the 67 T/s of the CUDA cores): operations, about 0.1 ms.
+//
 // Numerics follow the reference: the caller folds scale * log2(e) into q
 // in q's dtype, scores run in the exp2 domain, masked scores are -2e30
 // under a running max that starts at -1e30 (so they underflow to exactly
@@ -106,10 +122,12 @@
 // against 4.3 us for its 8.6 GFLOP at the 1,979 TFLOP/s fp8 peak.
 #include "common.cuh"
 
-// flash_attention_terms.cu includes this file with TE_FLASH_TERMS 1 and
-// compiles the bias and ALiBi instances (bf16 and f32) beside this one.
-#ifndef TE_FLASH_TERMS
-#define TE_FLASH_TERMS 0
+// Which instances a translation unit compiles: 0 (this file) the C entry
+// point and the instances without the terms; 1 (flash_attention_terms.cu)
+// the bias and ALiBi instances; 2 (flash_attention_dropout.cu) the dropout
+// instances, which take the terms too. bf16 and f32 each.
+#ifndef TE_FLASH_UNIT
+#define TE_FLASH_UNIT 0
 #endif
 
 // The causal rule with its offset and the window's sides; shared by both
@@ -131,7 +149,7 @@ size_t smem_bytes(int D) {
                           (size_t)kBK * D + (size_t)kBQ * (kBK + 1));
 }
 
-template <typename T, int DMAX, bool kTerms>
+template <typename T, int DMAX, bool kTerms, bool kDropout>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, void* __restrict__ o,
@@ -195,6 +213,16 @@ __global__ void __launch_bounds__(kThreads)
     Qs[tid * ld + D] =
         __int_as_float(q0 + tid < Sq ? qseg[(size_t)b * Sq + q0 + tid] : 0);
 
+  // The dropout hash's parts of this thread's rows.
+  DropPart drow[4];
+  if constexpr (kDropout) {
+    const uint32_t head = drop_head(terms.drop, b, hk);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      drow[r] = drop_row(terms.drop, head, h - hk * (Hq / Hkv),
+                         q0 + ty * 4 + r);
+  }
+
   float m[4], l[4], acc[4][kCols];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
@@ -247,6 +275,11 @@ __global__ void __launch_bounds__(kThreads)
         for (int c = 0; c < 4; ++c) s[r][c] = fmaf(qv[r], kv[c], s[r][c]);
     }
 
+    DropPart dcol[4];
+    if constexpr (kDropout) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) dcol[c] = drop_col(terms.drop, k0 + tx + 16 * c);
+    }
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int qi = q0 + ty * 4 + r;
@@ -278,7 +311,14 @@ __global__ void __launch_bounds__(kThreads)
       for (int c = 0; c < 4; ++c) {
         const float p = exp2f(s[r][c] - m_new);
         rs += p;
-        Ps[(ty * 4 + r) * (kBK + 1) + tx + 16 * c] = round_to<RoundT<T>>(p);
+        if constexpr (kDropout) {
+          // l sums the undropped weight; PV takes the dropped one.
+          const float pd = drop_apply(
+              terms.drop, drop_keep(terms.drop, drow[r], dcol[c]), p);
+          Ps[(ty * 4 + r) * (kBK + 1) + tx + 16 * c] = round_to<RoundT<T>>(pd);
+        } else {
+          Ps[(ty * 4 + r) * (kBK + 1) + tx + 16 * c] = round_to<RoundT<T>>(p);
+        }
       }
       l[r] = l[r] * alpha + half_warp_sum(rs);
       m[r] = m_new;
@@ -343,7 +383,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int DMAX, bool kTerms>
+template <typename T, int DMAX, bool kTerms, bool kDropout>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int out_code, float* lse, const int* qlens,
                    const int* klens, const int* qseg, const int* kseg,
@@ -351,7 +391,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* o_amax, const ScoreTerms& terms, int B, int Sq,
                    int Skv, int Hq, int Hkv, int D, const Mask& mk,
                    cudaStream_t stream) {
-  auto kernel = flash_fwd_kernel<T, DMAX, kTerms>;
+  auto kernel = flash_fwd_kernel<T, DMAX, kTerms, kDropout>;
   const size_t smem = smem_bytes(D);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -364,7 +404,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <typename T, bool kTerms>
+template <typename T, bool kTerms, bool kDropout>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
                      int out_code, float* lse, const int* qlens,
                      const int* klens, const int* qseg, const int* kseg,
@@ -372,19 +412,19 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
                      const float* scales, float* o_amax,
                      const ScoreTerms& terms, int B, int Sq, int Skv, int Hq,
                      int Hkv, int D, const Mask& mk, cudaStream_t stream) {
-#define TE_FWD(DM)                                                          \
-  launch<T, DM, kTerms>(q, k, v, o, out_code, lse, qlens, klens, qseg, kseg, \
-                        sink, scales, o_amax, terms, B, Sq, Skv, Hq, Hkv, D,  \
-                        mk, stream)
+#define TE_FWD(DM)                                                         \
+  launch<T, DM, kTerms, kDropout>(q, k, v, o, out_code, lse, qlens, klens, \
+                                  qseg, kseg, sink, scales, o_amax, terms, \
+                                  B, Sq, Skv, Hq, Hkv, D, mk, stream)
   return D <= 64 ? TE_FWD(64) : D <= 128 ? TE_FWD(128) : TE_FWD(256);
 #undef TE_FWD
 }
 
 }  // namespace
 
-// The bias and ALiBi instances (`dtype` bf16 or f32), in a translation
-// unit of their own: the kernels without the terms compile as they did,
-// and nvcc builds the two units at once.
+// The bias and ALiBi instances, and the dropout instances (`dtype` bf16 or
+// f32), each in a translation unit of their own: the kernels without them
+// compile as they did, and nvcc builds the units at once.
 cudaError_t flash_fwd_terms(int dtype, const void* q, const void* k,
                             const void* v, void* o, float* lse,
                             const int* qlens, const int* klens,
@@ -392,36 +432,53 @@ cudaError_t flash_fwd_terms(int dtype, const void* q, const void* k,
                             const float* sink, const ScoreTerms& terms, int B,
                             int Sq, int Skv, int Hq, int Hkv, int D,
                             const Mask& mk, cudaStream_t stream);
+cudaError_t flash_fwd_dropout(int dtype, const void* q, const void* k,
+                              const void* v, void* o, float* lse,
+                              const int* qlens, const int* klens,
+                              const int* qseg, const int* kseg,
+                              const float* sink, const ScoreTerms& terms,
+                              int B, int Sq, int Skv, int Hq, int Hkv, int D,
+                              const Mask& mk, cudaStream_t stream);
 
-#if TE_FLASH_TERMS
-cudaError_t flash_fwd_terms(int dtype, const void* q, const void* k,
-                            const void* v, void* o, float* lse,
-                            const int* qlens, const int* klens,
-                            const int* qseg, const int* kseg,
-                            const float* sink, const ScoreTerms& terms, int B,
-                            int Sq, int Skv, int Hq, int Hkv, int D,
-                            const Mask& mk, cudaStream_t stream) {
+#if TE_FLASH_UNIT != 0
+#if TE_FLASH_UNIT == 1
+#define TE_FWD_UNIT flash_fwd_terms
+#define TE_FWD_DROPOUT false
+#else
+#define TE_FWD_UNIT flash_fwd_dropout
+#define TE_FWD_DROPOUT true
+#endif
+cudaError_t TE_FWD_UNIT(int dtype, const void* q, const void* k,
+                        const void* v, void* o, float* lse, const int* qlens,
+                        const int* klens, const int* qseg, const int* kseg,
+                        const float* sink, const ScoreTerms& terms, int B,
+                        int Sq, int Skv, int Hq, int Hkv, int D,
+                        const Mask& mk, cudaStream_t stream) {
   switch (dtype) {
     case kBFloat16:
-      return launch_d<__nv_bfloat16, true>(q, k, v, o, dtype, lse, qlens,
-                                           klens, qseg, kseg, sink, nullptr,
-                                           nullptr, terms, B, Sq, Skv, Hq,
-                                           Hkv, D, mk, stream);
+      return launch_d<__nv_bfloat16, true, TE_FWD_DROPOUT>(
+          q, k, v, o, dtype, lse, qlens, klens, qseg, kseg, sink, nullptr,
+          nullptr, terms, B, Sq, Skv, Hq, Hkv, D, mk, stream);
     case kFloat32:
-      return launch_d<float, true>(q, k, v, o, dtype, lse, qlens, klens,
-                                   qseg, kseg, sink, nullptr, nullptr, terms,
-                                   B, Sq, Skv, Hq, Hkv, D, mk, stream);
+      return launch_d<float, true, TE_FWD_DROPOUT>(
+          q, k, v, o, dtype, lse, qlens, klens, qseg, kseg, sink, nullptr,
+          nullptr, terms, B, Sq, Skv, Hq, Hkv, D, mk, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
+#undef TE_FWD_DROPOUT
+#undef TE_FWD_UNIT
 #else
 // `dtype` is Q/K/V's (f32, bf16, or e4m3 payloads with `scales`), O's is
 // `out_dtype`: Q's outside the FP8 branch; bf16, f32, or an fp8 type with
 // `o_amax` (zeroed by the caller) in it. `qlens`/`klens` and `qseg`/`kseg`
 // are each both given or both null. `bias` (`bias_b` = 1 or B, Hq, Sq,
 // Skv) of `bias_dtype` f32 or bf16, or the (Hq,) ALiBi `slopes` with the
-// softmax `scale` (q then unscaled), or neither; not with FP8.
+// softmax `scale` (q then unscaled), or neither; not with FP8. `seed`, the
+// (2,) int32 dropout seed words on the card, with the threshold `thr`,
+// `inv` = 1 / (1 - rate) and the reference's tile sizes `bq` and `bk`, or
+// a null seed without dropout; not with FP8.
 extern "C" int te_flash_attention_fwd(const void* q, const void* k,
                                       const void* v, int dtype, void* o,
                                       int out_dtype, float* lse,
@@ -433,8 +490,12 @@ extern "C" int te_flash_attention_fwd(const void* q, const void* k,
                                       const float* slopes, int B, int Sq,
                                       int Skv, int Hq, int Hkv, int D,
                                       int causal, int offset, int left,
-                                      int right, float scale, void* stream) {
-  const ScoreTerms terms{bias, bias_dtype, bias_b, slopes, scale};
+                                      int right, float scale,
+                                      const int* seed, unsigned thr,
+                                      float inv, int bq, int bk,
+                                      void* stream) {
+  const ScoreTerms terms{bias, bias_dtype, bias_b, slopes, scale,
+                         Dropout{seed, thr, inv, bq, bk}};
   if (bad_terms(terms, B, dtype == kFloat8E4M3)) return cudaErrorInvalidValue;
   if (B < 1 || Sq < 1 || Skv < 1 || Hkv < 1 || Hq % Hkv != 0 || D < 16 ||
       D > 256 || D % 16 != 0 || left < -1 || right < -1 ||
@@ -449,26 +510,28 @@ extern "C" int te_flash_attention_fwd(const void* q, const void* k,
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Mask mk{causal, offset, left, right};
+  if (seed != nullptr)
+    return flash_fwd_dropout(dtype, q, k, v, o, lse, qlens, klens, qseg,
+                             kseg, sink, terms, B, Sq, Skv, Hq, Hkv, D, mk,
+                             s);
   if (bias != nullptr || slopes != nullptr)
     return flash_fwd_terms(dtype, q, k, v, o, lse, qlens, klens, qseg, kseg,
                            sink, terms, B, Sq, Skv, Hq, Hkv, D, mk, s);
   switch (dtype) {
     case kBFloat16:
-      return launch_d<__nv_bfloat16, false>(q, k, v, o, out_dtype, lse, qlens,
-                                            klens, qseg, kseg, sink, scales,
-                                            o_amax, terms, B, Sq, Skv, Hq,
-                                            Hkv, D, mk, s);
+      return launch_d<__nv_bfloat16, false, false>(
+          q, k, v, o, out_dtype, lse, qlens, klens, qseg, kseg, sink, scales,
+          o_amax, terms, B, Sq, Skv, Hq, Hkv, D, mk, s);
     case kFloat32:
-      return launch_d<float, false>(q, k, v, o, out_dtype, lse, qlens, klens,
-                                    qseg, kseg, sink, scales, o_amax, terms,
-                                    B, Sq, Skv, Hq, Hkv, D, mk, s);
+      return launch_d<float, false, false>(
+          q, k, v, o, out_dtype, lse, qlens, klens, qseg, kseg, sink, scales,
+          o_amax, terms, B, Sq, Skv, Hq, Hkv, D, mk, s);
     case kFloat8E4M3:
-      return launch_d<__nv_fp8_e4m3, false>(q, k, v, o, out_dtype, lse,
-                                            qlens, klens, qseg, kseg, sink,
-                                            scales, o_amax, terms, B, Sq, Skv,
-                                            Hq, Hkv, D, mk, s);
+      return launch_d<__nv_fp8_e4m3, false, false>(
+          q, k, v, o, out_dtype, lse, qlens, klens, qseg, kseg, sink, scales,
+          o_amax, terms, B, Sq, Skv, Hq, Hkv, D, mk, s);
     default:
       return cudaErrorInvalidValue;
   }
 }
-#endif  // TE_FLASH_TERMS
+#endif  // TE_FLASH_UNIT

@@ -36,6 +36,21 @@
 // 0.27 ms at the bf16 peak) against the inputs, the bias's 512 MiB and
 // dbias's 1 GiB (about 1.78 GB, 0.53 ms): bytes.
 //
+// Dropout branch (the reference's `dropout_rate` in `_bwd_dq_block_body`
+// and `_bwd_dkv_block_body`): both kernels recompute the forward's keep
+// bit of each visible score (common.cuh `drop_keep`, the reference's hash
+// over its own tiles) and set dp to where(keep, dp * inv, 0) before
+// ds = p * (dp - delta); the dK/dV kernel also takes where(keep, p * inv,
+// 0) as dV's weights. With a bias, dbias is that ds. The mask is never
+// stored: the hash costs some twelve integer operations a score in each
+// kernel. Template instances of their own (bf16 and f32, built in
+// flash_attention_bwd_dropout.cu, composing with the bias, ALiBi and the
+// masks); no added shared memory. Bound at the LLAMA_8B training shape
+// (B 2, S 2048, Hq 32, Hkv 8, D 128, bf16, causal, rate 0.1): the five
+// products (172 GFLOP at the bf16 peak) and the hash twice over the
+// causal pairs (3.8 G integer operations at the CUDA cores' 67 T/s):
+// operations, about 0.23 ms.
+//
 // Numerics follow the reference: the caller passes q pre-scaled by
 // scale * log2(e) in q's dtype, LSE moved into the log2 domain
 // (lse2 = lse * log2(e), (B, Hq, Sq)) and delta = rowsum(dO * O) in f32
@@ -98,11 +113,13 @@
 // 92 MB of bytes with fp8 O and dO (0.027 ms).
 #include "common.cuh"
 
-// flash_attention_bwd_terms.cu includes this file with TE_FLASH_TERMS 1
-// and compiles the bias and ALiBi instances (bf16 and f32) beside this
-// one.
-#ifndef TE_FLASH_TERMS
-#define TE_FLASH_TERMS 0
+// Which instances a translation unit compiles: 0 (this file) the C entry
+// points and the instances without the terms; 1
+// (flash_attention_bwd_terms.cu) the bias and ALiBi instances; 2
+// (flash_attention_bwd_dropout.cu) the dropout instances, which take the
+// terms too. bf16 and f32 each.
+#ifndef TE_FLASH_UNIT
+#define TE_FLASH_UNIT 0
 #endif
 
 // The shape and mask of a call; shared by both translation units.
@@ -200,7 +217,7 @@ struct Tiles {
   static constexpr int kCols = DMAX / 16;           // columns a thread
 };
 
-template <typename T, int DMAX, bool kTerms>
+template <typename T, int DMAX, bool kTerms, bool kDropout>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v,
@@ -257,6 +274,16 @@ __global__ void __launch_bounds__(kThreads)
     Dl[i] = in ? delta[dat] : 0.f;
   }
 
+  // The dropout hash's parts of this thread's rows.
+  DropPart drow[kR];
+  if constexpr (kDropout) {
+    const uint32_t head = drop_head(terms.drop, b, hk);
+#pragma unroll
+    for (int r = 0; r < kR; ++r)
+      drow[r] = drop_row(terms.drop, head, h - hk * (sh.Hq / sh.Hkv),
+                         q0 + ty * kR + r);
+  }
+
   float acc[kR][kCols];
 #pragma unroll
   for (int r = 0; r < kR; ++r)
@@ -295,6 +322,12 @@ __global__ void __launch_bounds__(kThreads)
           dp[r][c] = fmaf(ov[r], vv[c], dp[r][c]);
         }
     }
+    DropPart dcol[kR];
+    if constexpr (kDropout) {
+#pragma unroll
+      for (int c = 0; c < kR; ++c)
+        dcol[c] = drop_col(terms.drop, k0 + tx + 16 * c);
+    }
 #pragma unroll
     for (int r = 0; r < kR; ++r) {
       const int row = ty * kR + r;
@@ -311,7 +344,14 @@ __global__ void __launch_bounds__(kThreads)
             sv = add_score_terms(terms, sv, b, h, sh.Hq, sh.Sq, sh.Skv, qi,
                                  kj, sh.offset);
           const float p = exp2f(sv - Ls[row]);
-          ds = p * (dp[r][c] * dp_mult - Dl[row]);
+          if constexpr (kDropout) {
+            const float dpd = drop_apply(
+                terms.drop, drop_keep(terms.drop, drow[r], dcol[c]),
+                dp[r][c] * dp_mult);
+            ds = p * (dpd - Dl[row]);
+          } else {
+            ds = p * (dp[r][c] * dp_mult - Dl[row]);
+          }
         }
         // dbias is ds before its rounding (the reference returns the f32
         // ds block); masked pairs write 0.
@@ -364,7 +404,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int DMAX, bool kTerms>
+template <typename T, int DMAX, bool kTerms, bool kDropout>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v,
@@ -416,6 +456,17 @@ __global__ void __launch_bounds__(kThreads)
   load_tile<T, kB>(v, b, k0, sh.Skv, sh.Hkv, hk, D, Vs, ld);
   load_seg<kB>(kseg, b, k0, sh.Skv, Ks, ld, D);
 
+  // The dropout hash's parts of this thread's keys, and its seed, batch
+  // and kv head terms.
+  DropPart dcol[kR];
+  uint32_t dhead = 0;
+  if constexpr (kDropout) {
+    dhead = drop_head(terms.drop, b, hk);
+#pragma unroll
+    for (int r = 0; r < kR; ++r)
+      dcol[r] = drop_col(terms.drop, k0 + ty * kR + r);
+  }
+
   float acc_k[kR][kCols], acc_v[kR][kCols];
 #pragma unroll
   for (int r = 0; r < kR; ++r)
@@ -463,6 +514,13 @@ __global__ void __launch_bounds__(kThreads)
             dpt[r][c] = fmaf(vv[r], ov[c], dpt[r][c]);
           }
       }
+      DropPart drow[kR];
+      if constexpr (kDropout) {
+#pragma unroll
+        for (int c = 0; c < kR; ++c)
+          drow[c] = drop_row(terms.drop, dhead, h - hk * group,
+                             q0 + tx + 16 * c);
+      }
 #pragma unroll
       for (int r = 0; r < kR; ++r) {
         const int key = ty * kR + r;
@@ -477,7 +535,15 @@ __global__ void __launch_bounds__(kThreads)
               sv = add_score_terms(terms, sv, b, h, sh.Hq, sh.Sq, sh.Skv,
                                    q0 + row, k0 + key, sh.offset);
             p = exp2f(sv - Ls[row]);
-            ds = p * (dpt[r][c] * dp_mult - Dl[row]);
+            if constexpr (kDropout) {
+              // dV takes the dropped weight, ds the dropped dp.
+              const bool keep = drop_keep(terms.drop, drow[c], dcol[r]);
+              ds = p * (drop_apply(terms.drop, keep, dpt[r][c] * dp_mult) -
+                        Dl[row]);
+              p = drop_apply(terms.drop, keep, p);
+            } else {
+              ds = p * (dpt[r][c] * dp_mult - Dl[row]);
+            }
           }
           Pt[key * (kB + 1) + row] = round_to<RoundT<T>>(p);
           dSt[key * (kB + 1) + row] = round_to<RoundT<T>>(ds);
@@ -541,7 +607,7 @@ size_t dkv_smem(int D) {
          (4 * (size_t)kB * (D + 1) + 2 * (size_t)kB * (kB + 1) + 2 * kB);
 }
 
-template <typename T, int DMAX, bool kTerms>
+template <typename T, int DMAX, bool kTerms, bool kDropout>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, int do_code, const float* lse2,
                       const float* delta, void* dq, int g_code,
@@ -550,7 +616,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const ScoreTerms& terms, float* dbias, int B,
                       const Shape& sh, cudaStream_t stream) {
   constexpr int kB = Tiles<DMAX>::kB;
-  auto kernel = flash_bwd_dq_kernel<T, DMAX, kTerms>;
+  auto kernel = flash_bwd_dq_kernel<T, DMAX, kTerms, kDropout>;
   const size_t smem = dq_smem<DMAX>(sh.D);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -562,7 +628,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T, int DMAX, bool kTerms>
+template <typename T, int DMAX, bool kTerms, bool kDropout>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, int do_code, const float* lse2,
                        const float* delta, void* dk, void* dv, int g_code,
@@ -571,7 +637,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const ScoreTerms& terms, int B, const Shape& sh,
                        cudaStream_t stream) {
   constexpr int kB = Tiles<DMAX>::kB;
-  auto kernel = flash_bwd_dkv_kernel<T, DMAX, kTerms>;
+  auto kernel = flash_bwd_dkv_kernel<T, DMAX, kTerms, kDropout>;
   const size_t smem = dkv_smem<DMAX>(sh.D);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -604,71 +670,79 @@ bool bad_args(int B, int Sq, int Skv, int Hq, int Hkv, int D, int left,
 
 }  // namespace
 
-#define TE_DQ(T, DM, TERMS)                                                 \
-  launch_dq<T, DM, TERMS>(q, k, v, dout, do_dtype, lse2, delta, dq,         \
-                          grad_dtype, qlens, klens, qseg, kseg, scales,     \
-                          terms, dbias, B, sh, s)
-#define TE_DKV(T, DM, TERMS)                                                \
-  launch_dkv<T, DM, TERMS>(q, k, v, dout, do_dtype, lse2, delta, dk, dv,    \
-                           grad_dtype, qlens, klens, qseg, kseg, scales,    \
-                           terms, B, sh, s)
-#define TE_BY_D(LAUNCH, T, TERMS)                                          \
-  (sh.D <= 64 ? LAUNCH(T, 64, TERMS)                                       \
-              : sh.D <= 128 ? LAUNCH(T, 128, TERMS) : LAUNCH(T, 256, TERMS))
+#define TE_DQ(T, DM, TERMS, DROP)                                           \
+  launch_dq<T, DM, TERMS, DROP>(q, k, v, dout, do_dtype, lse2, delta, dq,   \
+                                grad_dtype, qlens, klens, qseg, kseg,       \
+                                scales, terms, dbias, B, sh, s)
+#define TE_DKV(T, DM, TERMS, DROP)                                          \
+  launch_dkv<T, DM, TERMS, DROP>(q, k, v, dout, do_dtype, lse2, delta, dk,  \
+                                 dv, grad_dtype, qlens, klens, qseg, kseg,  \
+                                 scales, terms, B, sh, s)
+#define TE_BY_D(LAUNCH, T, TERMS, DROP)                                    \
+  (sh.D <= 64 ? LAUNCH(T, 64, TERMS, DROP)                                 \
+              : sh.D <= 128 ? LAUNCH(T, 128, TERMS, DROP)                  \
+                            : LAUNCH(T, 256, TERMS, DROP))
 
-// The bias and ALiBi instances (`dtype` bf16 or f32), in a translation
-// unit of their own: the kernels without the terms compile as they did,
-// and nvcc builds the two units at once.
-cudaError_t flash_bwd_dq_terms(
-    const void* q, const void* k, const void* v, int dtype, const void* dout,
-    int do_dtype, const float* lse2, const float* delta, void* dq,
-    int grad_dtype, const int* qlens, const int* klens, const int* qseg,
-    const int* kseg, const float* scales, const ScoreTerms& terms,
-    float* dbias, int B, const Shape& sh, cudaStream_t s);
-cudaError_t flash_bwd_dkv_terms(
-    const void* q, const void* k, const void* v, int dtype, const void* dout,
-    int do_dtype, const float* lse2, const float* delta, void* dk, void* dv,
-    int grad_dtype, const int* qlens, const int* klens, const int* qseg,
-    const int* kseg, const float* scales, const ScoreTerms& terms, int B,
-    const Shape& sh, cudaStream_t s);
+// The bias and ALiBi instances, and the dropout instances (`dtype` bf16 or
+// f32), each in a translation unit of their own: the kernels without them
+// compile as they did, and nvcc builds the units at once.
+#define TE_DQ_ARGS                                                          \
+  const void *q, const void *k, const void *v, int dtype, const void *dout, \
+      int do_dtype, const float *lse2, const float *delta, void *dq,       \
+      int grad_dtype, const int *qlens, const int *klens, const int *qseg, \
+      const int *kseg, const float *scales, const ScoreTerms &terms,       \
+      float *dbias, int B, const Shape &sh, cudaStream_t s
+#define TE_DKV_ARGS                                                         \
+  const void *q, const void *k, const void *v, int dtype, const void *dout, \
+      int do_dtype, const float *lse2, const float *delta, void *dk,       \
+      void *dv, int grad_dtype, const int *qlens, const int *klens,        \
+      const int *qseg, const int *kseg, const float *scales,               \
+      const ScoreTerms &terms, int B, const Shape &sh, cudaStream_t s
+cudaError_t flash_bwd_dq_terms(TE_DQ_ARGS);
+cudaError_t flash_bwd_dkv_terms(TE_DKV_ARGS);
+cudaError_t flash_bwd_dq_dropout(TE_DQ_ARGS);
+cudaError_t flash_bwd_dkv_dropout(TE_DKV_ARGS);
 
-#if TE_FLASH_TERMS
-cudaError_t flash_bwd_dq_terms(
-    const void* q, const void* k, const void* v, int dtype, const void* dout,
-    int do_dtype, const float* lse2, const float* delta, void* dq,
-    int grad_dtype, const int* qlens, const int* klens, const int* qseg,
-    const int* kseg, const float* scales, const ScoreTerms& terms,
-    float* dbias, int B, const Shape& sh, cudaStream_t s) {
+#if TE_FLASH_UNIT != 0
+#if TE_FLASH_UNIT == 1
+#define TE_UNIT_DQ flash_bwd_dq_terms
+#define TE_UNIT_DKV flash_bwd_dkv_terms
+#define TE_UNIT_DROPOUT false
+#else
+#define TE_UNIT_DQ flash_bwd_dq_dropout
+#define TE_UNIT_DKV flash_bwd_dkv_dropout
+#define TE_UNIT_DROPOUT true
+#endif
+cudaError_t TE_UNIT_DQ(TE_DQ_ARGS) {
   switch (dtype) {
     case kBFloat16:
-      return TE_BY_D(TE_DQ, __nv_bfloat16, true);
+      return TE_BY_D(TE_DQ, __nv_bfloat16, true, TE_UNIT_DROPOUT);
     case kFloat32:
-      return TE_BY_D(TE_DQ, float, true);
+      return TE_BY_D(TE_DQ, float, true, TE_UNIT_DROPOUT);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-cudaError_t flash_bwd_dkv_terms(
-    const void* q, const void* k, const void* v, int dtype, const void* dout,
-    int do_dtype, const float* lse2, const float* delta, void* dk, void* dv,
-    int grad_dtype, const int* qlens, const int* klens, const int* qseg,
-    const int* kseg, const float* scales, const ScoreTerms& terms, int B,
-    const Shape& sh, cudaStream_t s) {
+cudaError_t TE_UNIT_DKV(TE_DKV_ARGS) {
   switch (dtype) {
     case kBFloat16:
-      return TE_BY_D(TE_DKV, __nv_bfloat16, true);
+      return TE_BY_D(TE_DKV, __nv_bfloat16, true, TE_UNIT_DROPOUT);
     case kFloat32:
-      return TE_BY_D(TE_DKV, float, true);
+      return TE_BY_D(TE_DKV, float, true, TE_UNIT_DROPOUT);
     default:
       return cudaErrorInvalidValue;
   }
 }
+#undef TE_UNIT_DROPOUT
+#undef TE_UNIT_DKV
+#undef TE_UNIT_DQ
 #else
 // `bias` (`bias_b` = 1 or B, Hq, Sq, Skv) of `bias_dtype` f32 or bf16,
 // with `dbias` its per-batch f32 (B, Hq, Sq, Skv) gradient, every element
 // of which the dQ kernel writes; or the (Hq,) ALiBi `slopes` (q unscaled);
-// or neither. Not with FP8.
+// or neither. Not with FP8. `seed`, `thr`, `inv`, `bq` and `bk`: the
+// forward's dropout, or a null seed without; not with FP8.
 extern "C" int te_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, int dtype, const void* dout,
     int do_dtype, const float* lse2, const float* delta, void* dq,
@@ -676,8 +750,10 @@ extern "C" int te_flash_attention_bwd_dq(
     const int* kseg, const float* scales, const void* bias, int bias_dtype,
     int bias_b, const float* slopes, float* dbias, int B, int Sq, int Skv,
     int Hq, int Hkv, int D, int causal, int offset, int left, int right,
-    float scale, void* stream) {
-  const ScoreTerms terms{bias, bias_dtype, bias_b, slopes, scale};
+    float scale, const int* seed, unsigned thr, float inv, int bq, int bk,
+    void* stream) {
+  const ScoreTerms terms{bias, bias_dtype, bias_b, slopes, scale,
+                         Dropout{seed, thr, inv, bq, bk}};
   if (bad_args(B, Sq, Skv, Hq, Hkv, D, left, right, dtype, do_dtype,
                grad_dtype, scales, qlens, klens, qseg, kseg) ||
       bad_terms(terms, B, dtype == kFloat8E4M3) ||
@@ -685,17 +761,21 @@ extern "C" int te_flash_attention_bwd_dq(
     return cudaErrorInvalidValue;
   const Shape sh{Sq, Skv, Hq, Hkv, D, causal, offset, left, right};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (seed != nullptr)
+    return flash_bwd_dq_dropout(q, k, v, dtype, dout, do_dtype, lse2, delta,
+                                dq, grad_dtype, qlens, klens, qseg, kseg,
+                                scales, terms, dbias, B, sh, s);
   if (bias != nullptr || slopes != nullptr)
     return flash_bwd_dq_terms(q, k, v, dtype, dout, do_dtype, lse2, delta,
                               dq, grad_dtype, qlens, klens, qseg, kseg,
                               scales, terms, dbias, B, sh, s);
   switch (dtype) {
     case kBFloat16:
-      return TE_BY_D(TE_DQ, __nv_bfloat16, false);
+      return TE_BY_D(TE_DQ, __nv_bfloat16, false, false);
     case kFloat32:
-      return TE_BY_D(TE_DQ, float, false);
+      return TE_BY_D(TE_DQ, float, false, false);
     case kFloat8E4M3:
-      return TE_BY_D(TE_DQ, __nv_fp8_e4m3, false);
+      return TE_BY_D(TE_DQ, __nv_fp8_e4m3, false, false);
     default:
       return cudaErrorInvalidValue;
   }
@@ -708,30 +788,37 @@ extern "C" int te_flash_attention_bwd_dkv(
     const int* kseg, const float* scales, const void* bias, int bias_dtype,
     int bias_b, const float* slopes, int B, int Sq, int Skv, int Hq, int Hkv,
     int D, int causal, int offset, int left, int right, float scale,
-    void* stream) {
-  const ScoreTerms terms{bias, bias_dtype, bias_b, slopes, scale};
+    const int* seed, unsigned thr, float inv, int bq, int bk, void* stream) {
+  const ScoreTerms terms{bias, bias_dtype, bias_b, slopes, scale,
+                         Dropout{seed, thr, inv, bq, bk}};
   if (bad_args(B, Sq, Skv, Hq, Hkv, D, left, right, dtype, do_dtype,
                grad_dtype, scales, qlens, klens, qseg, kseg) ||
       bad_terms(terms, B, dtype == kFloat8E4M3))
     return cudaErrorInvalidValue;
   const Shape sh{Sq, Skv, Hq, Hkv, D, causal, offset, left, right};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (seed != nullptr)
+    return flash_bwd_dkv_dropout(q, k, v, dtype, dout, do_dtype, lse2, delta,
+                                 dk, dv, grad_dtype, qlens, klens, qseg, kseg,
+                                 scales, terms, B, sh, s);
   if (bias != nullptr || slopes != nullptr)
     return flash_bwd_dkv_terms(q, k, v, dtype, dout, do_dtype, lse2, delta,
                                dk, dv, grad_dtype, qlens, klens, qseg, kseg,
                                scales, terms, B, sh, s);
   switch (dtype) {
     case kBFloat16:
-      return TE_BY_D(TE_DKV, __nv_bfloat16, false);
+      return TE_BY_D(TE_DKV, __nv_bfloat16, false, false);
     case kFloat32:
-      return TE_BY_D(TE_DKV, float, false);
+      return TE_BY_D(TE_DKV, float, false, false);
     case kFloat8E4M3:
-      return TE_BY_D(TE_DKV, __nv_fp8_e4m3, false);
+      return TE_BY_D(TE_DKV, __nv_fp8_e4m3, false, false);
     default:
       return cudaErrorInvalidValue;
   }
 }
-#endif  // TE_FLASH_TERMS
+#endif  // TE_FLASH_UNIT
+#undef TE_DKV_ARGS
+#undef TE_DQ_ARGS
 #undef TE_BY_D
 #undef TE_DKV
 #undef TE_DQ

@@ -1,5 +1,5 @@
 // The flash forward's bias and ALiBi instances (bf16 and f32), compiled
 // from flash_attention.cu in a translation unit of their own, so that
 // nvcc builds them beside the instances without the terms.
-#define TE_FLASH_TERMS 1
+#define TE_FLASH_UNIT 1
 #include "flash_attention.cu"

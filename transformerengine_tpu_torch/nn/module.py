@@ -34,7 +34,7 @@ from ..dense import dense
 from ..layernorm import layernorm
 from ..layernorm_dense import layernorm_dense
 from ..layernorm_mlp import layernorm_mlp
-from ..ops.activation import normalize_activation_type, num_halves
+from ..ops.activation import act_lu, normalize_activation_type, num_halves
 from ..quantize.helper import QuantizerFactory, get_quantize_config
 from ..quantize.quantizer import (DelayedScaleQuantizer, QuantizerSet,
                                   noop_quantizer_set)
@@ -192,20 +192,46 @@ class LayerNormDenseGeneral(TransformerEngineBase):
                                quantizer_set=self.quantizer_set("ln_dense"))
 
 
+def dropout(x: torch.Tensor, rate: float,
+            generator: torch.Generator) -> torch.Tensor:
+    """Flax's ``nn.Dropout`` in training: each element kept with
+    probability 1 - ``rate`` (a uniform draw from ``generator`` on ``x``'s
+    device below it) and divided by it, in ``x``'s dtype; the reference's
+    bits are JAX's and not copied."""
+    keep = 1.0 - rate
+    u = torch.rand(x.shape, generator=generator, device=x.device)
+    return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype,
+                                                       device=x.device))
+
+
+def check_generator(training_rates, generator) -> None:
+    """A training call with any dropout rate above 0 needs an explicit
+    ``torch.Generator`` (the reference's ``dropout`` PRNG stream)."""
+    if generator is None and any(r > 0.0 for r in training_rates):
+        raise ValueError("dropout in training needs an explicit "
+                         "torch.Generator (generator=...)")
+
+
 class LayerNormMLP(TransformerEngineBase):
     """``dense(act(dense(norm(x))))`` with ``wi_kernel`` (hidden, n_act,
     intermediate) and ``wo_kernel`` (intermediate, hidden); quantizer
     sets "mlp1" and "mlp2". The activations default to the reference
-    module's ``("relu",)``; its biases are not ported."""
+    module's ``("relu",)``; its biases are not ported. With
+    ``intermediate_dropout_rate`` > 0 a training call
+    (``deterministic=False``) runs the reference's unfused chain (norm,
+    dense, activation, :func:`dropout` from ``generator``, dense) on the
+    same parameters and quantizer sets."""
 
     def __init__(self, hidden: int, intermediate_dim: int, *,
                  epsilon: float = 1e-6, norm_type: str = "layernorm",
                  zero_centered_gamma: bool = False,
                  activations: Union[str, Sequence[str]] = ("relu",),
+                 intermediate_dropout_rate: float = 0.0,
                  dtype: torch.dtype = torch.bfloat16, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.epsilon = epsilon
+        self.intermediate_dropout_rate = intermediate_dropout_rate
         self.activations = normalize_activation_type(activations)
         n_act = num_halves(self.activations)
         _norm_params(self, hidden, norm_type, zero_centered_gamma, device)
@@ -215,7 +241,20 @@ class LayerNormMLP(TransformerEngineBase):
                                      intermediate_dim, dtype, device,
                                      generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        rate = 0.0 if deterministic else self.intermediate_dropout_rate
+        check_generator((rate,), generator)
+        if rate > 0.0:
+            h, n_act, ffn = self.wi_kernel.shape
+            y = layernorm(x, self.scale, self.ln_bias, self.norm_type,
+                          self.zero_centered_gamma, epsilon=self.epsilon)
+            a = dense(y, self.wi_kernel.reshape(h, n_act * ffn),
+                      quantizer_set=self.quantizer_set("mlp1"))
+            a = a.reshape(*a.shape[:-1], n_act, ffn) if n_act > 1 else a
+            act = dropout(act_lu(a, self.activations), rate, generator)
+            return dense(act, self.wo_kernel,
+                         quantizer_set=self.quantizer_set("mlp2"))
         return layernorm_mlp(x, self.scale, self.wi_kernel, self.wo_kernel,
                              beta=self.ln_bias, norm_type=self.norm_type,
                              zero_centered_gamma=self.zero_centered_gamma,

@@ -2,7 +2,8 @@
 transformer.py): self-attention with LayerNorm or RMSNorm, optional RoPE,
 GQA, a post-scale bias or ALiBi and the contiguous or paged KV cache; the
 T5-style trained relative-position bias (:class:`RelativePositionBiases`);
-and a pre-norm TransformerLayer (by the reference's defaults: RMSNorm,
+the attention core alone (:class:`DotProductAttention`); and a pre-norm
+TransformerLayer (by the reference's defaults: RMSNorm,
 GELU, a causal mask and no RoPE; the port's models pass their own, and
 an encoder takes LayerNorm, a padding mask and the relative bias), whose
 MLP is dense or, with
@@ -15,11 +16,20 @@ Under a recipe with ``fp8_dpa`` the cache-free attention runs on FP8
 Q/K/V, and with ``fp8_mha`` too (per-tensor recipes, no biases) the
 attention and the output projection run as one FP8 function; a bias or
 ALiBi keeps the attention in the inputs' precision, as the reference's
-gates do. A packed batch (a descriptor with segment ids) and its
-per-document ``positions`` run through the same cache-free path. Not
-ported yet: expert parallelism, cross-attention, dropout, and a relative
-bias or ALiBi on a KV cache (the reference computes another function
-there: ROADMAP.md, Queue 3)."""
+gates do, and so does attention dropout in training. A packed batch (a
+descriptor with segment ids) and its per-document ``positions`` run
+through the same cache-free path.
+
+Dropout, as the reference's modules take it: ``attention_dropout`` (in
+the flash kernels, from two seed words drawn once per call),
+``hidden_dropout`` on each branch's output and ``drop_path`` (stochastic
+depth, whole samples of a branch) in :class:`TransformerLayer`. They act
+in a training call (``deterministic=False``; the default True is the
+reference's), which then needs an explicit ``torch.Generator`` on the
+activations' device: the reference draws from flax's ``dropout`` PRNG
+stream, whose bits the port does not copy. Not ported yet: expert
+parallelism, cross-attention, and a relative bias or ALiBi on a KV cache
+(the reference computes another function there: ROADMAP.md, Queue 3)."""
 from __future__ import annotations
 
 import math
@@ -42,7 +52,8 @@ from ..ops.paged_attention import paged_decode_attention
 from ..ops.rope import apply_rope, rope_frequencies
 from ..quantize.helper import get_quantize_config
 from ..quantize.quantizer import CurrentScaleQuantizer, QuantizeLayout
-from .module import DenseGeneral, LayerNormDenseGeneral, LayerNormMLP
+from .module import (DenseGeneral, LayerNormDenseGeneral, LayerNormMLP,
+                     check_generator, dropout)
 from .moe import MoELayerNormMLP
 
 
@@ -54,23 +65,122 @@ def _fp8_qkv_quantizers():
                  for _ in range(3))
 
 
-def _fp8_dpa_active(recipe, bias) -> bool:
-    """The reference's fp8_dpa gate: any active recipe with the flag and
-    no bias (the port's attention has no dropout or context parallelism,
-    which close it there too). ALiBi passes it, and ``fused_attn`` then
-    drops the quantizers, as the reference's does."""
+def _fp8_dpa_active(recipe, bias, dropout: float) -> bool:
+    """The reference's fp8_dpa gate: any active recipe with the flag, no
+    bias and no dropout in this call (the port has no context
+    parallelism, which closes it there too). ALiBi passes it, and
+    ``fused_attn`` then drops the quantizers, as the reference's does."""
     return (recipe is not None and getattr(recipe, "fp8_dpa", False)
-            and bias is None)
+            and bias is None and dropout == 0.0)
 
 
-def _fp8_mha_active(recipe, use_bias: bool, bias, score_mod_like: bool
-                    ) -> bool:
+def _fp8_mha_active(recipe, use_bias: bool, bias, score_mod_like: bool,
+                    dropout: float) -> bool:
     """The reference's fp8_mha gate (``_fp8_mha_active``): a per-tensor
-    recipe with both flags, no biased projections, no attention bias and
-    no ALiBi."""
+    recipe with both flags, no biased projections, no attention bias, no
+    ALiBi and no dropout in this call."""
     return (isinstance(recipe, (DelayedScaling, Float8CurrentScaling))
             and recipe.fp8_mha and recipe.fp8_dpa and not use_bias
-            and bias is None and not score_mod_like)
+            and bias is None and not score_mod_like and dropout == 0.0)
+
+
+def draw_seed(generator: torch.Generator) -> torch.Tensor:
+    """Two 32-bit seed words, (2,) int32 on the generator's device, drawn
+    from it (on the card for a card generator: no host read)."""
+    w = torch.randint(0, 2 ** 32, (2,), generator=generator,
+                      device=generator.device, dtype=torch.int64)
+    return torch.where(w >= 2 ** 31, w - 2 ** 32, w).to(torch.int32)
+
+
+def _core_attention(q, k, v, sequence_descriptor, bias, *, mask_type,
+                    bias_type, rate: float, window, scale, softmax_type,
+                    softmax_offset, generator) -> torch.Tensor:
+    """The reference's DotProductAttention body: the seed words drawn
+    from ``generator`` when ``rate`` (this call's attention dropout) is
+    above 0, FP8 Q/K/V under its gate, and ``fused_attn``; (B, Sq, Hq,
+    D)."""
+    cfg = get_quantize_config()
+    recipe = cfg.recipe if cfg.enabled else None
+    seed = draw_seed(generator).to(q.device) if rate > 0.0 else None
+    return fused_attn(
+        (q, k, v), sequence_descriptor, seed, bias=bias,
+        attn_bias_type=bias_type, attn_mask_type=mask_type,
+        scaling_factor=scale, window_size=window, softmax_type=softmax_type,
+        softmax_offset=softmax_offset, dropout_probability=rate,
+        is_training=rate > 0.0,
+        qkv_quantizers=(_fp8_qkv_quantizers()
+                        if _fp8_dpa_active(recipe, bias, rate) else None))
+
+
+def _drop_path(branch: torch.Tensor, rate: float,
+               generator: torch.Generator) -> torch.Tensor:
+    """Stochastic depth (the reference's ``_drop_path``): the whole
+    branch of each sample kept with probability 1 - ``rate`` and divided
+    by it, in the branch's dtype."""
+    keep = 1.0 - rate
+    shape = (branch.shape[0],) + (1,) * (branch.dim() - 1)
+    u = torch.rand(shape, generator=generator, device=branch.device)
+    return torch.where(u < keep, branch / keep,
+                       torch.zeros((), dtype=branch.dtype,
+                                   device=branch.device))
+
+
+class DotProductAttention(nn.Module):
+    """The attention core (the reference's ``DotProductAttention``): BSHD
+    query, key and value to (B, Sq, Hq * D) through ``fused_attn``, under
+    ``attn_mask_type`` as given (a padding type without a descriptor
+    drops its padding, as ``fused_attn`` does), ``attn_bias_type``,
+    ``window_size``, ``scale_factor`` (1 / sqrt(D) by default) and
+    ``softmax_type``; LEARNABLE owns an f32 ``softmax_offset`` (Hq,),
+    zeros at init, unless the call passes one. ``attention_dropout``
+    acts in a training call, from two seed words drawn from the call's
+    ``generator``; the ``fp8_dpa`` gate closes under a bias and under
+    dropout."""
+
+    def __init__(self, head_dim: int, num_attention_heads: int, *,
+                 num_gqa_groups: Optional[int] = None,
+                 attn_mask_type: AttnMaskType = AttnMaskType.CAUSAL,
+                 attn_bias_type: AttnBiasType = AttnBiasType.NO_BIAS,
+                 attention_dropout: float = 0.0,
+                 window_size: Optional[Tuple[int, int]] = None,
+                 scale_factor: Optional[float] = None,
+                 softmax_type: Optional[SoftmaxType] = None, device=None):
+        super().__init__()
+        self.head_dim = head_dim
+        self.num_heads = num_attention_heads
+        self.num_kv_heads = num_gqa_groups or num_attention_heads
+        self.attn_mask_type = attn_mask_type
+        self.attn_bias_type = attn_bias_type
+        self.attention_dropout = attention_dropout
+        self.window_size = (tuple(window_size) if window_size is not None
+                            else None)
+        self.scale_factor = scale_factor
+        self.softmax_type = softmax_type or SoftmaxType.VANILLA
+        self.softmax_offset = (
+            nn.Parameter(torch.zeros(num_attention_heads, dtype=torch.float32,
+                                     device=device))
+            if self.softmax_type is SoftmaxType.LEARNABLE else None)
+
+    def forward(self, query: torch.Tensor, key: torch.Tensor,
+                value: torch.Tensor,
+                sequence_descriptor: Optional[SequenceDescriptor] = None,
+                bias: Optional[torch.Tensor] = None, *,
+                deterministic: bool = True,
+                softmax_offset: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        rate = 0.0 if deterministic else self.attention_dropout
+        check_generator((rate,), generator)
+        out = _core_attention(
+            query, key, value, sequence_descriptor, bias,
+            mask_type=self.attn_mask_type, bias_type=self.attn_bias_type,
+            rate=rate, window=self.window_size, scale=self.scale_factor,
+            softmax_type=self.softmax_type,
+            softmax_offset=(softmax_offset if softmax_offset is not None
+                            else self.softmax_offset),
+            generator=generator)
+        b, s, h, d = out.shape
+        return out.reshape(b, s, h * d)
 
 
 def _mask_type(mask: AttnMaskType, sequence_descriptor) -> AttnMaskType:
@@ -189,9 +299,10 @@ class MultiHeadAttention(nn.Module):
     choose PADDING_CAUSAL then). ``attn_bias_type`` POST_SCALE_BIAS takes
     the ``bias`` of ``forward``, ALIBI runs ALiBi. ``window_size`` (left,
     right) bands the attention; ``softmax_type`` LEARNABLE owns an f32
-    ``softmax_offset`` (Hq,), zeros at init. ``attention_dropout`` is
-    taken at 0.0 only until dropout is ported. Defaults are the
-    reference's."""
+    ``softmax_offset`` (Hq,), zeros at init. ``attention_dropout`` acts
+    in a training call (``deterministic=False``), with the call's
+    ``generator``; it closes the ``fp8_dpa`` and ``fp8_mha`` gates there.
+    Defaults are the reference's."""
 
     def __init__(self, hidden_size: int, num_attention_heads: int, *,
                  head_dim: Optional[int] = None,
@@ -211,8 +322,6 @@ class MultiHeadAttention(nn.Module):
                  dtype: torch.dtype = torch.bfloat16, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if attention_dropout != 0.0:
-            raise NotImplementedError("attention dropout is not ported yet")
         if attn_bias_type is AttnBiasType.PRE_SCALE_BIAS:
             raise NotImplementedError(
                 "a pre-scale bias in MultiHeadAttention is not ported; "
@@ -222,6 +331,7 @@ class MultiHeadAttention(nn.Module):
         self.num_kv_heads = num_gqa_groups or num_attention_heads
         self.attn_mask_type = attn_mask_type
         self.attn_bias_type = attn_bias_type
+        self.attention_dropout = attention_dropout
         self.window_size = (tuple(window_size) if window_size is not None
                             else None)
         self.softmax_type = softmax_type or SoftmaxType.VANILLA
@@ -249,7 +359,9 @@ class MultiHeadAttention(nn.Module):
                 sequence_descriptor: Optional[SequenceDescriptor] = None,
                 positions: Optional[torch.Tensor] = None, *,
                 bias: Optional[torch.Tensor] = None,
-                kv_cache: Optional[Union[KVCache, PagedKVCache]] = None
+                kv_cache: Optional[Union[KVCache, PagedKVCache]] = None,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
         """Attention under ``attn_mask_type``, with the padding of
         ``sequence_descriptor``'s lengths or the segment ids of a packed
@@ -260,10 +372,15 @@ class MultiHeadAttention(nn.Module):
         lengths. ``kv_cache``: the layer's cache. A call with S > 1
         tokens is a prefill into an empty cache; S == 1 is a decode step;
         the cached path reads only the descriptor's lengths, as the
-        reference's does, and takes no bias or ALiBi."""
+        reference's does, and takes no bias, ALiBi or dropout.
+        ``deterministic=False`` makes a training call: attention dropout
+        then draws its seed words from ``generator``."""
         b, s = x.shape[:2]
         d, hq, hkv = self.head_dim, self.num_heads, self.num_kv_heads
         alibi = self.attn_bias_type is AttnBiasType.ALIBI
+        rate = 0.0 if deterministic or kv_cache is not None \
+            else self.attention_dropout
+        check_generator((rate,), generator)
         if bias is not None and \
                 self.attn_bias_type is not AttnBiasType.POST_SCALE_BIAS:
             raise ValueError(f"a bias needs attn_bias_type POST_SCALE_BIAS, "
@@ -294,17 +411,16 @@ class MultiHeadAttention(nn.Module):
             recipe = cfg.recipe if cfg.enabled else None
             mask = _mask_type(self.attn_mask_type, sequence_descriptor)
             if _fp8_mha_active(recipe, self.out.bias is not None, bias,
-                               alibi):
+                               alibi, rate):
                 return self._fp8_mha(q, k, v, sequence_descriptor, mask)
             # Training and cache-free forward: the reference's
             # DotProductAttention through fused_attn (flash backend).
-            ctx = fused_attn(
-                (q, k, v), sequence_descriptor, bias=bias,
-                attn_bias_type=self.attn_bias_type, attn_mask_type=mask,
-                window_size=self.window_size, softmax_type=self.softmax_type,
-                softmax_offset=self.softmax_offset,
-                qkv_quantizers=(_fp8_qkv_quantizers()
-                                if _fp8_dpa_active(recipe, bias) else None))
+            ctx = _core_attention(
+                q, k, v, sequence_descriptor, bias, mask_type=mask,
+                bias_type=self.attn_bias_type, rate=rate,
+                window=self.window_size, scale=None,
+                softmax_type=self.softmax_type,
+                softmax_offset=self.softmax_offset, generator=generator)
         return self.out(ctx.reshape(b, s, hq * d))
 
     def _fp8_mha(self, q, k, v, sequence_descriptor, mask) -> torch.Tensor:
@@ -400,15 +516,23 @@ class TransformerLayer(nn.Module):
     :class:`MoELayerNormMLP` (RMSNorm only) and the forward returns (x,
     the router's aux loss). ``use_bias``, ``window_size`` and
     ``softmax_type`` go to the attention, as the reference routes them
-    (the MoE's experts take no bias). Defaults are the reference's:
-    RMSNorm, ``("gelu",)``, a causal mask, no RoPE."""
+    (the MoE's experts take no bias). ``attention_dropout``,
+    ``hidden_dropout`` (on each branch's output) and ``drop_path`` (each
+    branch dropped per sample) act in a training call
+    (``deterministic=False``) and draw from its ``generator``, in the
+    reference's order: the attention's seed words, the attention branch's
+    hidden dropout and drop path, then the MLP branch's. Defaults are the
+    reference's: RMSNorm, ``("gelu",)``, a causal mask, no RoPE, no
+    dropout."""
 
     def __init__(self, hidden_size: int, mlp_hidden_size: int,
                  num_attention_heads: int, *, head_dim: Optional[int] = None,
                  num_gqa_groups: Optional[int] = None,
                  layernorm_epsilon: float = 1e-6, norm_type: str = "rmsnorm",
                  zero_centered_gamma: bool = False,
+                 hidden_dropout: float = 0.0,
                  attention_dropout: float = 0.0,
+                 drop_path: float = 0.0,
                  mlp_activations: Union[str, Sequence[str]] = ("gelu",),
                  use_bias: bool = False,
                  self_attn_mask_type: AttnMaskType = AttnMaskType.CAUSAL,
@@ -426,6 +550,8 @@ class TransformerLayer(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.self_attn_mask_type = self_attn_mask_type
+        self.hidden_dropout = hidden_dropout
+        self.drop_path = drop_path
         self.relpos_bias = (
             RelativePositionBiases(relative_embedding_buckets,
                                    relative_embedding_max_distance,
@@ -473,12 +599,20 @@ class TransformerLayer(nn.Module):
     def forward(self, x: torch.Tensor,
                 sequence_descriptor: Optional[SequenceDescriptor] = None,
                 positions: Optional[torch.Tensor] = None, *,
-                kv_cache: Optional[Union[KVCache, PagedKVCache]] = None):
+                kv_cache: Optional[Union[KVCache, PagedKVCache]] = None,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
         """``positions`` (B, S): the tokens' RoPE positions, as the
         attention takes them. A relative-bias layer refuses a cache: the
         reference builds no bias there, so its cached layer computes
         another function than the one it trained (ROADMAP.md, Queue
-        3)."""
+        3). ``deterministic=False`` makes a training call, whose dropout
+        draws from ``generator`` (needed when any rate is above 0)."""
+        train = not deterministic
+        hidden = self.hidden_dropout if train else 0.0
+        path = self.drop_path if train else 0.0
+        check_generator((hidden, path, self.self_attention.attention_dropout
+                         if train else 0.0), generator)
         bias = None
         if self.relpos_bias is not None:
             if kv_cache is not None:
@@ -489,12 +623,24 @@ class TransformerLayer(nn.Module):
             s = x.shape[1]
             bias = self.relpos_bias(
                 s, s, bidirectional=not self.self_attn_mask_type.is_causal)
-        x = x + self.self_attention(x, sequence_descriptor, positions,
-                                    bias=bias, kv_cache=kv_cache)
+        attn = self.self_attention(x, sequence_descriptor, positions,
+                                   bias=bias, kv_cache=kv_cache,
+                                   deterministic=deterministic,
+                                   generator=generator)
+        x = x + self._branch(attn, hidden, path, generator)
         if self.is_moe:
             out, aux_loss = self.mlp(x)
-            return x + out, aux_loss
-        return x + self.mlp(x)
+            return x + self._branch(out, hidden, path, generator), aux_loss
+        return x + self._branch(self.mlp(x), hidden, path, generator)
+
+    @staticmethod
+    def _branch(out, hidden: float, path: float, generator):
+        """A branch's output after hidden dropout and drop path."""
+        if hidden > 0.0:
+            out = dropout(out, hidden, generator)
+        if path > 0.0:
+            out = _drop_path(out, path, generator)
+        return out
 
 
 # Parameters kept in f32 whatever the model's dtype: norm scales and

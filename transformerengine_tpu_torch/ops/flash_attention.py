@@ -73,17 +73,33 @@ take ``scale`` as their multiplier (the mod's VJP is the identity). A
 bias or ALiBi composes with the masks, the window and the sink, and with
 neither FP8 branch; no other score mod is ported.
 
+Dropout (the reference's ``dropout_rate`` branch, ``_dropout_keep``): with
+``dropout_probability`` > 0 and ``dropout_seed``, the two 32-bit words of
+the reference's seed as a (2,) int32 tensor that the kernels read on the
+card, each visible score keeps or drops by the reference's integer hash of
+(seed, batch, kv head, the reference's tile origin and the score's row
+and column within that tile). The tiles are the reference's
+(``_effective_blocks`` of ``block_q`` and ``block_k``); they decide the
+bits alone, never the CUDA tiles. The denominator sums the undropped
+weights; the PV product takes ``where(keep, p * inv, 0)`` with ``inv =
+1 / (1 - rate)`` rounded to f32, and the backward applies the same mask
+to dp (dQ, dK) and to the weights of dV, so the forward's mask is replayed
+and never stored. :func:`dropout_keep` is the plain mask. FP8 Q/K/V with
+dropout raise: the reference's layers close their FP8 gates under it.
+
 A launch counts under a name that says its branch: ``_fp8`` for FP8
 Q/K/V, ``_fp8_mha`` for the fp8 O epilogue and for a backward from fp8 O
-and dO, ``_bias`` with a bias and ``_alibi`` with ALiBi, then ``_sw``
-with a window or a sink (``flash_attention_fwd_sw``,
-``flash_attention_bwd_dq_fp8_sw``, ``flash_attention_bwd_dkv_fp8_mha``,
-``flash_attention_fwd_bias_sw``), and ``_seg`` last with segment ids
+and dO, ``_bias`` with a bias and ``_alibi`` with ALiBi, ``_dropout``
+with dropout, then ``_sw`` with a window or a sink
+(``flash_attention_fwd_sw``, ``flash_attention_bwd_dq_fp8_sw``,
+``flash_attention_bwd_dkv_fp8_mha``, ``flash_attention_fwd_bias_sw``,
+``flash_attention_fwd_bias_dropout``), and ``_seg`` last with segment ids
 (``flash_attention_fwd_seg``, ``flash_attention_bwd_dq_fp8_mha_seg``), so
 a path can show which branch it ran.
 """
 from __future__ import annotations
 
+import dataclasses
 import numbers
 from typing import Optional, Tuple
 
@@ -105,10 +121,136 @@ LN2 = 0.6931471805599453
 
 NO_WINDOW = (-1, -1)
 
+# The reference's tile geometry (its DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K and
+# MAX_ROWS defaults): the port's kernels tile otherwise, and these decide
+# the dropout bits alone.
+DEFAULT_BLOCK_Q = 512
+DEFAULT_BLOCK_K = 1024
+MAX_ROWS = 1024
+
 # Arguments of the reference function that this port does not take yet
 # (ROADMAP.md lists them); passing any of them raises.
-_UNPORTED = ("q_position_offset", "block_q", "block_k",
-             "dropout_probability", "dropout_seed")
+_UNPORTED = ("q_position_offset",)
+
+
+def _ceil_to(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _effective_blocks(sq: int, skv: int, group: int, block_q: int,
+                      block_k: int) -> Tuple[int, int]:
+    """The reference's tile sizes for (Sq, Skv) and a GQA group: the
+    group's packed rows are capped at MAX_ROWS."""
+    block_q = min(block_q, _ceil_to(sq, 8), max(8, MAX_ROWS // max(group, 1)))
+    block_k = min(block_k, _ceil_to(skv, 8))
+    return block_q, block_k
+
+
+@dataclasses.dataclass(frozen=True)
+class Dropout:
+    """Attention dropout at ``rate`` (0 < rate < 1) from ``seed``, the (2,)
+    int32 words on the attention's device, with the reference's
+    ``block_q`` and ``block_k`` (before :func:`_effective_blocks`)."""
+    seed: torch.Tensor
+    rate: float
+    block_q: int = DEFAULT_BLOCK_Q
+    block_k: int = DEFAULT_BLOCK_K
+
+    @property
+    def threshold(self) -> int:
+        """The reference's keep threshold: keep where bits >= it."""
+        return min(4294967295, int(round(self.rate * 4294967296.0)))
+
+    @property
+    def inv(self) -> float:
+        """1 / (1 - rate) rounded to f32, as the reference's f32 kernel
+        takes the Python constant."""
+        return float(torch.tensor(1.0 / (1.0 - self.rate),
+                                  dtype=torch.float32))
+
+    def blocks(self, sq: int, skv: int, group: int) -> Tuple[int, int]:
+        return _effective_blocks(sq, skv, group, self.block_q, self.block_k)
+
+
+def dropout_seed(seed, device=None) -> torch.Tensor:
+    """The reference's two seed words as a contiguous (2,) int32 tensor on
+    ``device``: the first two elements of ``seed`` (an integer tensor or
+    sequence, zero-padded to two), each taken modulo 2^32."""
+    t = seed if isinstance(seed, torch.Tensor) else torch.tensor(seed)
+    if t.is_floating_point() or t.is_complex() or t.dtype == torch.bool:
+        raise TypeError(f"dropout_seed must hold integers, got {t.dtype}")
+    if t.shape != (2,):
+        t = t.reshape(-1)[:2]
+    if t.dtype != torch.int32:
+        t = t.to(torch.int64) & 0xFFFFFFFF
+        t = torch.where(t >= 2 ** 31, t - 2 ** 32, t).to(torch.int32)
+    if t.numel() < 2:
+        t = torch.cat([t, t.new_zeros(2 - t.numel())])
+    if device is not None and t.device != torch.device(device):
+        t = t.to(device)
+    return t.contiguous()
+
+
+def _dropout(rate, seed, block_q, block_k, device) -> Optional[Dropout]:
+    """The Dropout of a call, or None at rate 0; a rate above 0 needs a
+    seed, as the reference's wrapper asks."""
+    rate = float(rate or 0.0)
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout_probability must lie in [0, 1), got {rate}")
+    if rate == 0.0:
+        return None
+    if seed is None:
+        raise ValueError("flash attention dropout requires an explicit "
+                         "dropout_seed (a silent default would reuse the same "
+                         "mask every step)")
+    return Dropout(dropout_seed(seed, device), rate, int(block_q),
+                   int(block_k))
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """(a * c) mod 2^32 for int64 ``a`` in [0, 2^32) and a 32-bit constant,
+    each partial product below 2^49."""
+    return (a * (c & 0xFFFF) + (((a * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def dropout_keep(seed: torch.Tensor, b: int, hq: int, hkv: int, sq: int,
+                 skv: int, rate: float, block_q: int = DEFAULT_BLOCK_Q,
+                 block_k: int = DEFAULT_BLOCK_K) -> torch.Tensor:
+    """The plain keep mask (B, Hq, Sq, Skv) bool on ``seed``'s device:
+    the reference's ``_dropout_keep`` hash (its off-TPU branch) of query i,
+    key j and query head h, with group G = Hq / Hkv and its tiles (bq, bk)
+    = ``_effective_blocks(Sq, Skv, G, block_q, block_k)``: row (h % G) *
+    bq + i % bq and column j % bk of the tile at (i - i % bq, j - j % bk)
+    of (batch, h / G). Computed one (batch, kv head) at a time in int64,
+    every product kept exact below 2^63 and taken modulo 2^32."""
+    g = hq // hkv
+    bq, bk = _effective_blocks(sq, skv, g, block_q, block_k)
+    thr = Dropout(seed, rate).threshold
+    dev = seed.device
+    words = seed.to(torch.int64) & _M32
+    i = torch.arange(sq, dtype=torch.int64, device=dev)
+    j = torch.arange(skv, dtype=torch.int64, device=dev)
+    rows = (torch.arange(g, dtype=torch.int64, device=dev)[:, None] * bq
+            + (i % bq)[None, :])
+    r_hash = _mul32(rows, 0x9E3779B9)[:, :, None]                # (G, Sq, 1)
+    c_hash = _mul32(j % bk, 0x85EBCA6B)[None, None, :]           # (1, 1, Skv)
+    q_part = _mul32(i - i % bq, 0x9E3779B1)[None, :, None]
+    k_part = _mul32(j - j % bk, 0x85EBCA77)[None, None, :]
+    seed_part = _mul32(words[0], 0xC2B2AE35) + words[1]
+    keep = torch.empty((b, hkv, g, sq, skv), dtype=torch.bool, device=dev)
+    for bi in range(b):
+        for hk in range(hkv):
+            base = (seed_part + bi * 0x27D4EB2F + hk * 0x165667B1) & _M32
+            x = (r_hash ^ c_hash) ^ ((base + q_part + k_part) & _M32)
+            x = x ^ (x >> 16)
+            x = _mul32(x, 0x7FEB352D)
+            x = x ^ (x >> 15)
+            x = _mul32(x, 0x846CA68B)
+            keep[bi, hk] = (x ^ (x >> 16)) >= thr
+    return keep.reshape(b, hq, sq, skv)
 
 
 def _visible(sq, skv, q_seqlens, kv_seqlens, causal, offset, window,
@@ -151,11 +293,22 @@ def _score_terms(s, bias, alibi_slopes, scale, offset):
     return s
 
 
+def _drop(x, dropout: Dropout, b, hq, hkv, sq, skv):
+    """``where(keep, x * inv, 0)`` over (B, Hkv, G, Sq, Skv) f32 ``x``."""
+    keep = dropout_keep(dropout.seed, b, hq, hkv, sq, skv, dropout.rate,
+                        dropout.block_q, dropout.block_k)
+    # inv is an f32 value, so the f32 product rounds once, as the
+    # reference's; no host-to-card copy (the card's timer captures this).
+    return torch.where(keep.reshape(x.shape), x * dropout.inv,
+                       torch.zeros((), device=x.device))
+
+
 def flash_fwd_plain(q, k, v, q_seqlens=None, kv_seqlens=None, *,
                     causal: bool, offset: int = 0, window=NO_WINDOW,
                     softmax_sink=None, fp8_scales=None, out_dtype=None,
                     q_segment_ids=None, kv_segment_ids=None, bias=None,
-                    alibi_slopes=None, scale: float = 1.0):
+                    alibi_slopes=None, scale: float = 1.0,
+                    dropout: Optional[Dropout] = None):
     """Reference forward. Without ``fp8_scales`` ``q`` arrives pre-scaled
     by scale * log2(e) and O takes q's dtype. With them (the FP8 branch)
     q, k and v are payloads and ``fp8_scales`` is :func:`fp8_fwd_scales`'
@@ -163,7 +316,9 @@ def flash_fwd_plain(q, k, v, q_seqlens=None, kv_seqlens=None, *,
     ``out_dtype`` casts O * out_scale and returns the amax of O as a
     third output. ``bias`` (B or 1, Hq, Sq, Skv) is added to the
     pre-scaled scores; with ``alibi_slopes`` (Hq,) q arrives unscaled and
-    ``scale`` is the softmax scale."""
+    ``scale`` is the softmax scale. With ``dropout`` the denominator sums
+    the undropped weights and the PV product takes ``where(keep, p * inv,
+    0)`` (:func:`dropout_keep`)."""
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -179,6 +334,8 @@ def flash_fwd_plain(q, k, v, q_seqlens=None, kv_seqlens=None, *,
     m = s.amax(dim=-1, keepdim=True).clamp_min(NEG_INF)
     p = torch.exp2(s - m)
     l = p.sum(dim=-1, keepdim=True)
+    if dropout is not None:
+        p = _drop(p, dropout, b, hq, hkv, sq, skv)
     p_dtype = torch.bfloat16 if fp8 else v.dtype
     acc = torch.einsum("bhgqk,bkhd->bhgqd", p.to(p_dtype).float(), v.float())
     if fp8:
@@ -223,14 +380,26 @@ def _sw(window, softmax_sink) -> str:
 
 
 def _branch(fp8: bool, fp8_mha: bool, window, softmax_sink,
-            segments: bool, bias=None, slopes=None) -> str:
+            segments: bool, bias=None, slopes=None, dropout=None) -> str:
     """The launch count's suffix of a branch: "_fp8" for FP8 Q/K/V,
     "_fp8_mha" with fp8 O (and dO), "_bias" with a bias and "_alibi" with
-    ALiBi, then :func:`_sw`'s, then "_seg" with segment ids."""
+    ALiBi, "_dropout" with dropout, then :func:`_sw`'s, then "_seg" with
+    segment ids."""
     return (("_fp8_mha" if fp8_mha else "_fp8" if fp8 else "")
             + ("_bias" if bias is not None else "")
             + ("_alibi" if slopes is not None else "")
+            + ("_dropout" if dropout is not None else "")
             + _sw(window, softmax_sink) + ("_seg" if segments else ""))
+
+
+def _dropout_args(dropout: Optional[Dropout], sq: int, skv: int,
+                  group: int) -> tuple:
+    """The kernels' (seed, threshold, inv, block_q, block_k), or a null
+    seed without dropout."""
+    if dropout is None:
+        return (_build.ptr(None), 0, 1.0, 0, 0)
+    return (_build.ptr(dropout.seed), dropout.threshold, dropout.inv,
+            *dropout.blocks(sq, skv, group))
 
 
 def _check_score_terms(q, k, bias, score_mod, fp8: bool):
@@ -259,6 +428,13 @@ def _check_score_terms(q, k, bias, score_mod, fp8: bool):
     if score_mod is None:
         return None
     return score_mod.slopes(q.shape[2], q.device)
+
+
+def _check_dropout(drop: Optional[Dropout], fp8: bool) -> None:
+    if drop is not None and fp8:
+        raise NotImplementedError(
+            "dropout on FP8 Q/K/V is not ported yet (the reference's layers "
+            "close their FP8 gates under dropout; ROADMAP.md, Queue 2)")
 
 
 def fp8_fwd_scales(scale_invs: torch.Tensor, scale: float,
@@ -344,7 +520,10 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               out_scale: Optional[torch.Tensor] = None,
               q_segment_ids: Optional[torch.Tensor] = None,
               kv_segment_ids: Optional[torch.Tensor] = None,
-              bias: Optional[torch.Tensor] = None, score_mod=None):
+              bias: Optional[torch.Tensor] = None, score_mod=None,
+              dropout_probability: float = 0.0,
+              dropout_seed: Optional[torch.Tensor] = None,
+              block_q: int = DEFAULT_BLOCK_Q, block_k: int = DEFAULT_BLOCK_K):
     """O (B, Sq, Hq, D) and LSE (B, Hq, Sq) f32.
 
     ``q_seqlens`` / ``kv_seqlens`` (B,) give each sequence's valid
@@ -358,6 +537,9 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``softmax_sink`` the (Hq,) sink logits, or None. ``bias`` (B or 1,
     Hq, Sq, Skv), f32 or bf16, is a post-scale bias; ``score_mod`` an
     :class:`~..flex_attention.AlibiMod` (ALiBi), or None.
+    ``dropout_probability`` > 0 drops attention weights by the hash of
+    ``dropout_seed`` (the reference's two words, (2,) int32) over the
+    reference's ``block_q`` x ``block_k`` tiles; not with FP8.
 
     FP8 (the reference's ``_flash_fwd`` with ``scale_invs``): q, k and v
     are e4m3 payloads and ``scale_invs`` their (3,) f32 dequant scales;
@@ -376,6 +558,9 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     fp8 = scale_invs is not None
     fp8_out = out_scale is not None
     slopes = _check_score_terms(q, k, bias, score_mod, fp8)
+    drop = _dropout(dropout_probability, dropout_seed, block_q, block_k,
+                    q.device)
+    _check_dropout(drop, fp8)
     if fp8_out and not fp8:
         raise ValueError("the fp8 O epilogue takes FP8 Q/K/V payloads")
     if fp8:
@@ -395,14 +580,15 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             (q.float() * (scale * LOG2E)).to(q.dtype)
     if _build.on_cpu(q, k, v, q_seqlens, kv_seqlens, softmax_sink,
                      scale_invs, out_scale, q_segment_ids, kv_segment_ids,
-                     bias):
+                     bias, drop and drop.seed):
         return flash_fwd_plain(qs, k, v, q_seqlens, kv_seqlens,
                                causal=causal, offset=offset, window=window,
                                softmax_sink=softmax_sink, fp8_scales=sc,
                                out_dtype=out_dtype,
                                q_segment_ids=q_segment_ids,
                                kv_segment_ids=kv_segment_ids, bias=bias,
-                               alibi_slopes=slopes, scale=scale)
+                               alibi_slopes=slopes, scale=scale,
+                               dropout=drop)
     code = _build.dtype_code(q, (torch.float32, torch.bfloat16,
                                  torch.float8_e4m3fn))
     out_code = _build.DTYPE_CODES[out_dtype]
@@ -424,9 +610,10 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   P(kseg), P(sink), P(sc), P(amax), P(bias),
                   *_bias_args(bias), P(slopes), b, sq, skv, hq, hkv, d,
                   int(causal), offset, window[0], window[1], float(scale),
-                  _build.stream(q))
+                  *_dropout_args(drop, sq, skv, hq // hkv), _build.stream(q))
     _build.LAUNCHES["flash_attention_fwd" + _branch(
-        fp8, fp8_out, window, sink, qseg is not None, bias, slopes)] += 1
+        fp8, fp8_out, window, sink, qseg is not None, bias, slopes,
+        drop)] += 1
     if fp8_out:
         return o, lse, amax.reshape(())
     return o, lse
@@ -443,7 +630,8 @@ def flash_bwd_plain(qs, k, v, do, lse, delta, q_seqlens=None,
                     kv_seqlens=None, *, scale: float, causal: bool,
                     offset: int = 0, window=NO_WINDOW, fp8_scales=None,
                     grad_dtype=None, q_segment_ids=None,
-                    kv_segment_ids=None, bias=None, alibi_slopes=None):
+                    kv_segment_ids=None, bias=None, alibi_slopes=None,
+                    dropout: Optional[Dropout] = None):
     """Reference backward; ``delta`` is rowsum(dO * O) (B, Sq, Hq) f32.
     Without ``fp8_scales`` ``qs`` arrives pre-scaled by scale * log2(e)
     and each gradient takes its input's dtype. With them (the FP8 branch)
@@ -451,7 +639,9 @@ def flash_bwd_plain(qs, k, v, do, lse, delta, q_seqlens=None,
     tensor, ``fp8_scales`` :func:`fp8_bwd_scales`' five multipliers, and
     the gradients take ``grad_dtype``. With ``bias`` (q pre-scaled) a
     fourth output is dbias, the per-batch f32 ds (B, Hq, Sq, Skv); with
-    ``alibi_slopes`` q arrives unscaled and dK takes ``scale``."""
+    ``alibi_slopes`` q arrives unscaled and dK takes ``scale``. With
+    ``dropout`` the forward's mask applies to dp and to the weights of
+    dV."""
     b, sq, hq, d = qs.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -470,6 +660,10 @@ def flash_bwd_plain(qs, k, v, do, lse, delta, q_seqlens=None,
     dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, v.float())
     if fp8:
         dp = dp * fp8_scales[1]
+    pd = p
+    if dropout is not None:
+        pd = _drop(p, dropout, b, hq, hkv, sq, skv)
+        dp = _drop(dp, dropout, b, hq, hkv, sq, skv)
     dl = delta.float().permute(0, 2, 1).reshape(b, hkv, g, sq, 1)
     ds = p * (dp - dl)
     if fp8:
@@ -483,7 +677,7 @@ def flash_bwd_plain(qs, k, v, do, lse, delta, q_seqlens=None,
     dq = torch.einsum("bhgqk,bkhd->bqhgd", ds.to(ds_t).float(),
                       k.float()) * dq_mult
     dk = torch.einsum("bhgqk,bqhgd->bkhd", ds.to(ds_t).float(), qf) * dk_mult
-    dv = torch.einsum("bhgqk,bqhgd->bkhd", p.to(p_t).float(), dof) * dv_mult
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", pd.to(p_t).float(), dof) * dv_mult
     dq = dq.reshape(b, sq, hq, d)
     if fp8:
         return dq.to(grad_dtype), dk.to(grad_dtype), dv.to(grad_dtype)
@@ -505,7 +699,10 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               do_scale_inv: Optional[torch.Tensor] = None,
               q_segment_ids: Optional[torch.Tensor] = None,
               kv_segment_ids: Optional[torch.Tensor] = None,
-              bias: Optional[torch.Tensor] = None, score_mod=None):
+              bias: Optional[torch.Tensor] = None, score_mod=None,
+              dropout_probability: float = 0.0,
+              dropout_seed: Optional[torch.Tensor] = None,
+              block_q: int = DEFAULT_BLOCK_Q, block_k: int = DEFAULT_BLOCK_K):
     """(dQ, dK, dV) of :func:`flash_fwd` for the output gradient ``do``,
     from its inputs (q unscaled), O and LSE and the forward's mask
     (lengths or segment ids); each in its input's dtype and shape. A
@@ -515,7 +712,8 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (:func:`sink_grad` gives its gradient). With the forward's ``bias``
     a fourth output is dbias, the per-batch f32 ``ds`` (B, Hq, Sq, Skv),
     0 wherever a pair is masked or its tile skipped; ``score_mod`` is the
-    forward's ALiBi.
+    forward's ALiBi, and the dropout arguments the forward's (its mask is
+    recomputed, not stored).
 
     FP8 (the reference's ``_flash_bwd`` with ``scale_invs``): q, k and v
     are the forward's e4m3 payloads; O and dO are high-precision, or
@@ -534,6 +732,9 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     fp8 = scale_invs is not None
     fp8_mha = o_scale_inv is not None or do_scale_inv is not None
     slopes = _check_score_terms(q, k, bias, score_mod, fp8)
+    drop = _dropout(dropout_probability, dropout_seed, block_q, block_k,
+                    q.device)
+    _check_dropout(drop, fp8)
     if fp8_mha and not fp8:
         raise ValueError("fp8 O and dO payloads take FP8 Q/K/V payloads")
     delta = (do.float() * o.float()).sum(dim=-1)
@@ -555,14 +756,14 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             (q.float() * (scale * LOG2E)).to(q.dtype)
     if _build.on_cpu(q, k, v, o, lse, do, q_seqlens, kv_seqlens, scale_invs,
                      o_scale_inv, do_scale_inv, q_segment_ids,
-                     kv_segment_ids, bias):
+                     kv_segment_ids, bias, drop and drop.seed):
         return flash_bwd_plain(qs, k, v, do, lse, delta, q_seqlens,
                                kv_seqlens, scale=scale, causal=causal,
                                offset=offset, window=window, fp8_scales=sc,
                                grad_dtype=grad_dtype,
                                q_segment_ids=q_segment_ids,
                                kv_segment_ids=kv_segment_ids, bias=bias,
-                               alibi_slopes=slopes)
+                               alibi_slopes=slopes, dropout=drop)
     code = _build.dtype_code(q, (torch.float32, torch.bfloat16,
                                  torch.float8_e4m3fn))
     _check_head_dim(d)
@@ -589,19 +790,20 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     P, st = _build.ptr, _build.stream(q)
     left, right = window
     name = _branch(fp8, fp8_mha, window, softmax_sink, qseg is not None,
-                   bias, slopes)
+                   bias, slopes, drop)
     terms = (P(bias), *_bias_args(bias), P(slopes))
+    drop_args = _dropout_args(drop, sq, skv, hq // hkv)
     _build.launch("te_flash_attention_bwd_dq", P(qs), P(k), P(v), code,
                   P(do), do_code, P(lse2), P(delta), P(dq), g_code,
                   P(q_seqlens), P(kv_seqlens), P(qseg), P(kseg), P(sc),
                   *terms, P(dbias), b, sq, skv, hq, hkv, d, int(causal),
-                  offset, left, right, float(scale), st)
+                  offset, left, right, float(scale), *drop_args, st)
     _build.LAUNCHES["flash_attention_bwd_dq" + name] += 1
     _build.launch("te_flash_attention_bwd_dkv", P(qs), P(k), P(v), code,
                   P(do), do_code, P(lse2), P(delta), P(dk), P(dv), g_code,
                   P(q_seqlens), P(kv_seqlens), P(qseg), P(kseg), P(sc),
                   *terms, b, sq, skv, hq, hkv, d, int(causal), offset, left,
-                  right, float(scale), st)
+                  right, float(scale), *drop_args, st)
     _build.LAUNCHES["flash_attention_bwd_dkv" + name] += 1
     if dbias is not None:
         return dq, dk, dv, dbias
@@ -630,32 +832,42 @@ def _mask_kw(masks) -> dict:
                      "kv_segment_ids"), masks))
 
 
+def _dropout_kw(drop: Optional[Dropout]) -> dict:
+    """flash_fwd's and flash_bwd's dropout arguments from a Dropout."""
+    if drop is None:
+        return {}
+    return dict(dropout_probability=drop.rate, dropout_seed=drop.seed,
+                block_q=drop.block_q, block_k=drop.block_k)
+
+
 class _FlashAttention(torch.autograd.Function):
     """O = flash_fwd(q, k, v); the backward runs :func:`flash_bwd` from
-    the saved q, k, v, O, LSE, bias and mask, :func:`sink_grad` for a
-    sink, and reduces dbias over a broadcast batch in the bias's dtype
-    (the reference's ``_flash_core_bwd``)."""
+    the saved q, k, v, O, LSE, bias and mask (and the dropout seed, whose
+    mask it replays), :func:`sink_grad` for a sink, and reduces dbias over
+    a broadcast batch in the bias's dtype (the reference's
+    ``_flash_core_bwd``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, sink, bias, q_seqlens, kv_seqlens,
                 q_segment_ids, kv_segment_ids, scale, causal, offset, window,
-                score_mod):
+                score_mod, drop):
         masks = (q_seqlens, kv_seqlens, q_segment_ids, kv_segment_ids)
         o, lse = flash_fwd(q, k, v, scale=scale, causal=causal,
                            offset=offset, window=window, softmax_sink=sink,
-                           bias=bias, score_mod=score_mod, **_mask_kw(masks))
+                           bias=bias, score_mod=score_mod, **_mask_kw(masks),
+                           **_dropout_kw(drop))
         ctx.save_for_backward(q, k, v, o, lse, sink, bias, *masks)
-        ctx.cfg = (scale, causal, offset, window, score_mod)
+        ctx.cfg = (scale, causal, offset, window, score_mod, drop)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse, sink, bias, *masks = ctx.saved_tensors
-        scale, causal, offset, window, score_mod = ctx.cfg
+        scale, causal, offset, window, score_mod, drop = ctx.cfg
         dq, dk, dv, *dbias = flash_bwd(
             q, k, v, o, lse, do, scale=scale, causal=causal, offset=offset,
             window=window, softmax_sink=sink, bias=bias, score_mod=score_mod,
-            **_mask_kw(masks))
+            **_mask_kw(masks), **_dropout_kw(drop))
         dsink = (sink_grad(sink, o, lse, do)
                  if sink is not None and ctx.needs_input_grad[3] else None)
         dbias = dbias[0] if dbias and ctx.needs_input_grad[4] else None
@@ -663,7 +875,7 @@ class _FlashAttention(torch.autograd.Function):
             if bias.shape[0] == 1:
                 dbias = dbias.sum(dim=0, keepdim=True)
             dbias = dbias.to(bias.dtype)
-        return (dq, dk, dv, dsink, dbias) + (None,) * 9
+        return (dq, dk, dv, dsink, dbias) + (None,) * 10
 
 
 def _quantize_qkv(quantizers, q, k, v):
@@ -822,6 +1034,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     softmax_offset: Optional[torch.Tensor] = None,
                     bias: Optional[torch.Tensor] = None, score_mod=None,
                     qkv_quantizers=None, mha_proj=None,
+                    dropout_probability: float = 0.0, dropout_seed=None,
+                    block_q: int = DEFAULT_BLOCK_Q,
+                    block_k: int = DEFAULT_BLOCK_K,
                     **unported) -> torch.Tensor:
     """Flash attention over BSHD inputs; returns O (B, Sq, Hq, D),
     differentiable in q, k, v, the learnable sink and the bias.
@@ -842,9 +1057,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     projection's (Hq * D, N) kernel and the seven per-tensor quantizers
     (q, k, v, o, w, g, do), runs the attention and the projection on fp8
     O and dO and returns (B, Sq, N), differentiable in w too. Either way
-    a delayed quantizer's state is updated by the backward. The
-    reference's dynamic window, ``q_position_offset``, dropout and score
-    mods other than ALiBi are not ported yet and raise."""
+    a delayed quantizer's state is updated by the backward.
+
+    ``dropout_probability`` > 0 needs ``dropout_seed``: a (2,) int32
+    tensor of the reference's two words (``jax.random.key_data`` of its
+    key), or a sequence of them. ``block_q`` and ``block_k`` are the
+    reference's tile sizes, which decide the dropout bits (and nothing
+    else here). Dropout with FP8 Q/K/V (``qkv_quantizers``, ``mha_proj``)
+    raises. The reference's dynamic window, ``q_position_offset``, and
+    score mods other than ALiBi are not ported yet and raise."""
     for name, value in unported.items():
         if name not in _UNPORTED:
             raise TypeError(f"flash_attention() got an unexpected argument "
@@ -875,6 +1096,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError("LEARNABLE softmax requires softmax_offset (Hq,)")
         sink = softmax_offset.reshape(hq)
     cfg = (float(scale), mask_type.is_causal, offset, window)
+    drop = _dropout(dropout_probability, dropout_seed, block_q, block_k,
+                    q.device)
+    _check_dropout(drop, qkv_quantizers is not None or mha_proj is not None)
     grad = torch.is_grad_enabled()
     if score_mod is not None and qkv_quantizers is not None:
         raise ValueError("score_mod is not supported on the FP8 flash path")
@@ -907,7 +1131,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if grad and any(t is not None and t.requires_grad
                     for t in (q, k, v, sink, bias)):
         return _FlashAttention.apply(q, k, v, sink, bias, *masks, *cfg,
-                                     score_mod)
+                                     score_mod, drop)
     return flash_fwd(q, k, v, scale=scale, causal=mask_type.is_causal,
                      offset=offset, window=window, softmax_sink=sink,
-                     bias=bias, score_mod=score_mod, **_mask_kw(masks))[0]
+                     bias=bias, score_mod=score_mod, **_mask_kw(masks),
+                     **_dropout_kw(drop))[0]
