@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases 3,4,5,...,24] [--train-seeds 21]
+    python3 chip_smoke.py [--phases 3,4,5,...,25] [--train-seeds 21]
                           [--moe-seeds 31] [--gptoss-seeds 51]
 
 Phases, each of which raises (and so exits non-zero) on failure:
@@ -59,7 +59,20 @@ Phases, each of which raises (and so exits non-zero) on failure:
      keep share, each timed beside SDPA at dropout_p 0.1; then f32, D 64
      and 256, GQA groups of 4, 8 and 16, padding, segment ids, a window
      with a sink, the bottom-right offset, a bias, ALiBi, the reference's
-     small explicit tiles and rate 0.5 at small shapes;
+     small explicit tiles and rate 0.5 at small shapes; the flash kernels'
+     soft-cap branch (Gemma-2's cap of 50, scores of std 20) at phase 6's
+     causal training shape, forward and backward against their plain
+     versions, with a planted wrong cap that must fail, each timed beside
+     PyTorch's compiled flex_attention with the cap as its score mod;
+     dropout on FP8 Q/K/V at row 2f's shape (O in
+     bf16 and through the fp8 O epilogue, a bf16 dO and e4m3 O with an
+     e5m2 dO) with a planted wrong seed word and the keep share, each
+     timed beside SDPA at dropout_p 0.1 on the dequantized tensors; then
+     f32, D 64, 128 and 256, GQA groups of 4, 8 and 16, padding with fully
+     masked rows, segment ids, a window with a sink, the bottom-right
+     offset, dropout with the cap, caps of 1 and 1e4, ALiBi with explicit
+     slopes, and FP8 dropout with padding and with a window and a sink at
+     small shapes;
   4. FP8-resident serving at LLAMA_8B width (seeded random weights, FP8
      KV cache, B = 8, prompts of 512 and 384 tokens, 32 new tokens)
      through prefill and decode_steps, with TTFT, decode ms/step, tok/s
@@ -194,11 +207,23 @@ Phases, each of which raises (and so exits non-zero) on failure:
      layers with attention dropout at 0.1 on the same seed words on both
      sides, held to phase 22's limits, with planted faults (the card's
      seed words off by one, the mask not replayed in the backward) that
-     the check must catch.
+     the check must catch;
+ 25. ``flex_attention`` at LLAMA_8B width (phase 6's attention shape: B 2,
+     S 2048, Hq 32, Hkv 8, D 128, bf16), forward and backward:
+     ``impl="flash"`` with ``soft_cap_mod(50)`` and ``causal_mask_mod``
+     over three timed calls with exact launch counts of the soft-cap
+     branch, ``impl="chunked"`` with the same mods against it,
+     ``impl="chunked"`` with ``relative_position_bias_mod`` (the table's
+     gradient nonzero) under a stated peak, ms per call, busy share and
+     peak GiB; dropout on FP8 Q/K/V through ``flash_attention``
+     (``qkv_quantizers`` and ``mha_proj``, the entry point; the layers
+     close their FP8 gates under dropout) with exact launch counts; then
+     the card against the CPU at a small shape for each impl and for FP8
+     Q/K/V with dropout.
 Then one ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 A kernel's ``launches`` is the sum of its counts over the runs of the
-paths (phases 4, 6, 8, 9, 10, 11, 12, 13, 14, 16, 17, 19, 20, 21 and
-23, phase 9's load included), each counted from zero; comparisons with the
+paths (phases 4, 6, 8, 9, 10, 11, 12, 13, 14, 16, 17, 19, 20, 21, 23
+and 25, phase 9's load included), each counted from zero; comparisons with the
 plain versions do not count.
 ``--phases`` runs a subset (for iterating on one path); the default runs
 all. ``--train-seeds`` gives phase 7 other seeds (``21,22,23`` reads
@@ -2995,6 +3020,7 @@ def train_vs_cpu_recipes() -> tuple:
 
 def train_card_vs_cpu(torch, seed: int = TRAIN_VS_CPU_SEED) -> list:
     """Phase 7 for one seed; returns what failed."""
+    import copy
     import os
     from transformerengine_tpu_torch import DelayedScaling
     from transformerengine_tpu_torch.models.llama import LLAMA_8B, LlamaModel
@@ -3009,11 +3035,16 @@ def train_card_vs_cpu(torch, seed: int = TRAIN_VS_CPU_SEED) -> list:
         f"(the flash kernels' FP8 branches), seed {seed}")
     tokens, targets = train_batch(torch, cfg.vocab_size, b, s, "cpu", seed)
     failures = []
+    # Each recipe starts from a copy of one fresh CPU model: the copy is
+    # what a new model of the seed would be (the delayed state registers
+    # on a model's first step under a recipe), without drawing its 1e9
+    # weights again (about 7 s of the CPU's generator a model).
+    fresh = LlamaModel(cfg, device="cpu", seed=seed)
+    shrink_embedding(fresh)
     for rname, recipe in train_vs_cpu_recipes():
         t0 = time.perf_counter()
         limits = TRAIN_VS_CPU_LIMITS[rname]
-        cpu = LlamaModel(cfg, device="cpu", seed=seed)
-        shrink_embedding(cpu)
+        cpu = copy.deepcopy(fresh)
         if isinstance(recipe, DelayedScaling):
             # A warm-up step on the CPU sets the delayed state from real
             # amaxes (no SGD): at the initial scale 1 the gradients would
@@ -4307,13 +4338,16 @@ def check_flash_bwd_fp8(torch, timer, results):
     del out, deq
 
 
-def fp8_variants(torch, cases, seed: int) -> None:
+def fp8_variants(torch, cases, seed: int, dropout=None) -> None:
     """Each case (Sq, D, Hq, Hkv, window, sink, mask, O scale: the fp8
     epilogue's scale over 448 / amax(O), above 1 saturating) through the
     FP8 branches, forward (bf16 O and the fp8 O epilogue: O, LSE, the O
     amax) and backward (bf16 dO, and e4m3 O with e5m2 dO), each against
     its plain version; ``mask`` as :func:`variant_mask` takes it (Sq =
-    Skv), its queries that see nothing writing O = 0."""
+    Skv), its queries that see nothing writing O = 0. ``dropout``: the
+    kernels' dropout kwargs and the plain versions' Dropout
+    (:func:`drop_kw`), or None."""
+    dkw, drop = dropout if dropout is not None else ({}, None)
     from transformerengine_tpu_torch.ops.flash_attention import (
         flash_bwd, flash_bwd_plain, flash_fwd, flash_fwd_plain,
         fp8_bwd_scales, fp8_fwd_scales)
@@ -4328,9 +4362,10 @@ def fp8_variants(torch, cases, seed: int) -> None:
         scale = d ** -0.5
         pkw = dict(causal=True, window=window or (-1, -1), softmax_sink=s0,
                    **mk)
-        kw = dict(scale=scale, scale_invs=sinv, **pkw)
+        kw = dict(scale=scale, scale_invs=sinv, **pkw, **dkw)
+        pkw["dropout"] = drop
         name = f"Sq={sq} D={d} G={hq // hkv} window={window} sink={sink} " \
-               f"mask={mask}"
+               f"mask={mask}" + (" dropout" if drop is not None else "")
         o, lse = flash_fwd(qd, kd, vd, **kw)
         o_ref, lse_ref = flash_fwd_plain(
             qd, kd, vd, fp8_scales=fp8_fwd_scales(sinv, scale),
@@ -4366,7 +4401,7 @@ def fp8_variants(torch, cases, seed: int) -> None:
                                   causal=True, window=window or (-1, -1),
                                   fp8_scales=fp8_bwd_scales(sinv, scale,
                                                             sdo_t),
-                                  grad_dtype=bf16, **mk)
+                                  grad_dtype=bf16, dropout=drop, **mk)
             for gname, a, r in zip(("dQ", "dK", "dV"), got, ref):
                 check(f"bwd {name} {bname} {gname}", a, r,
                       BWD_RTOL * float(r.float().abs().max()))
@@ -5671,7 +5706,9 @@ DROP_WORDS = (0x9ABCDEF0 - 2 ** 32, 0x2468ACE1)
 # index terms' xor and the origins' sum, the finalizer's three shifts,
 # three xors and two multiplies, the compare and the select): the bound
 # counts them at F32_FLOPS, the rate of the CUDA cores (the card's table
-# gives no other for 32-bit integer work). The backward pays them twice.
+# gives no other for 32-bit integer work). The backward's bound counts
+# them once a score, as the function needs; that its dQ and dK/dV
+# kernels each hash every score again is a cost of their design.
 HASH_OPS = 14
 
 
@@ -5708,15 +5745,16 @@ def check_keep_rate(torch, b, hq, hkv, s, visible, what: str) -> None:
         raise AssertionError(f"{what}: keep share {share}")
 
 
-def must_differ(name: str, got, wrong, atol) -> None:
-    """A planted fault: ``got`` held against a plain version on a wrong
-    seed must fail the tolerance that it meets on the right one."""
+def must_differ(name: str, got, wrong, atol,
+                what: str = "a wrong seed") -> None:
+    """A planted fault: ``got`` held against a plain version with
+    ``what`` must fail the tolerance that it meets on the right one."""
     diff = (got.float() - wrong.float()).abs()
     if bool((diff <= atol).all()):
-        raise AssertionError(f"{name}: the wrong seed's plain version was "
+        raise AssertionError(f"{name}: the plain version with {what} was "
                              f"not caught")
-    log(f"  {name} against the plain version on a wrong seed: "
-        f"max_abs_err {float(diff.max()):.3e}, caught ok")
+    log(f"  {name} against the plain version with {what}: max_abs_err "
+        f"{float(diff.max()):.3e}, caught ok")
 
 
 def drop_inputs(torch, term: str, seed: int):
@@ -5881,7 +5919,7 @@ def check_flash_bwd_dropout(torch, timer, results):
         del out, leaves, dot, skw, o, lse
         pairs = int(visible.sum()) * hq
         rows = int(visible.any(dim=2).sum())
-        flops, ops = 10 * d * pairs, 2 * HASH_OPS * pairs
+        flops, ops = 10 * d * pairs, HASH_OPS * pairs
         # Read Q, K, V over the valid rows, O and dO in full, LSE, the bias
         # once (4db); write dQ, dK, dV and (4db) the per-batch f32 dbias.
         nbytes = 2 * (rows * hq * d + 2 * rows * hkv * d) \
@@ -6213,6 +6251,769 @@ def dropout_card_vs_cpu(torch) -> list:
     return failures
 
 
+# ---------------------------------------------------------------------------
+# The soft cap and FP8 dropout: phase 3's rows [3I]-[3M] and phase 25
+# (flex_attention at LLAMA_8B width)
+# ---------------------------------------------------------------------------
+
+# Gemma-2's published attention logit cap, at phase 6's causal training
+# attention (rows 2c and 4c); dropout on FP8 Q/K/V (rows 2fd, 2od, 4fd,
+# 4od) takes row 2f's shape and DROP_RATE from DROP_WORDS.
+SOFT_CAP = 50.0
+# The standard deviation of the rows' scores q . k * scale: q and k are
+# drawn with CAP_SPREAD ** 0.5 where tanh bends (scores of std 1 would
+# leave a cap of 50 all but linear, and a wrong cap would go unseen).
+CAP_SPREAD = 20.0
+# f32 operations of the cap per visited score, each counted as one at the
+# CUDA cores' rate (the product with the scale, the division, tanh, the
+# products with the cap and log2(e)): the least the forward does. The
+# backward needs them once a score and the derivative's six (cap * ds,
+# 1 - t, two products, the sum and the division); that its dQ and dK/dV
+# kernels each compute them again is a cost of their design, which the
+# bound does not count.
+CAP_OPS = 5
+CAP_GRAD_OPS = 6
+
+
+def cap_inputs(torch, seed: int, shape=None, dtype=None):
+    """Seeded Q, K (scores of std CAP_SPREAD), V and dO at ``shape`` (B,
+    S, Hq, Hkv, D; FP8_SHAPE by default), bf16 by default."""
+    b, s, hq, hkv, d = shape or FP8_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    spread = CAP_SPREAD ** 0.5
+
+    def randn(*sh, m=1.0):
+        return (torch.randn(sh, generator=g, device="cuda") * m).to(
+            dtype or torch.bfloat16)
+    return (randn(b, s, hq, d, m=spread), randn(b, s, hkv, d, m=spread),
+            randn(b, s, hkv, d), randn(b, s, hq, d))
+
+
+_FLEX_LIBRARY = []
+
+
+def flex_library(torch, q, k, v, scale):
+    """PyTorch's own ``flex_attention`` on rows 2c and 4c's inputs: the
+    soft cap as its score mod, a causal block mask, GQA, compiled by
+    ``torch.compile`` (its Triton kernels; eager it would materialize the
+    scores). The library column of those rows, timed here and used
+    nowhere in the port. Returns a call on (B, H, S, D) copies of q, k, v
+    that require a gradient, and the copies; the compiled function is
+    built once (inductor's caches under the build directory, compiled in
+    this process)."""
+    import os
+    from torch.nn.attention.flex_attention import (
+        create_block_mask, flex_attention)
+    if not _FLEX_LIBRARY:
+        cache = HERE / "transformerengine_tpu_torch" / "_build"
+        os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
+                              str(cache / "inductor"))
+        os.environ.setdefault("TRITON_CACHE_DIR", str(cache / "triton"))
+        import torch._inductor.config as inductor_config
+        inductor_config.compile_threads = 1
+        s = q.shape[1]
+        mask = create_block_mask(lambda b, h, qi, ki: ki <= qi, None, None,
+                                 s, s, device="cuda")
+        _FLEX_LIBRARY.append((torch.compile(flex_attention, dynamic=False),
+                              mask))
+    fn, mask = _FLEX_LIBRARY[0]
+
+    def soft_cap(score, b, h, qi, ki):
+        return SOFT_CAP * torch.tanh(score / SOFT_CAP)
+    ts = [t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v)]
+    return (lambda: fn(*ts, score_mod=soft_cap, block_mask=mask,
+                       scale=scale, enable_gqa=True)), ts
+
+
+def check_flash_softcap(torch, timer, results):
+    """[3I] row 2c: the forward's soft-cap branch at phase 6's causal
+    training shape (B 2, S 2048, Hq 32, Hkv 8, D 128, bf16) with the cap
+    at 50, against its plain version (tanhf on both sides, so O meets row
+    2's bf16 tolerance), a planted wrong cap (45) that must fail; timed
+    with the plain version and PyTorch's compiled ``flex_attention``
+    (:func:`flex_library`), whose O is held to the same tolerance."""
+    from transformerengine_tpu_torch.flex_attention import SoftCapMod
+    from transformerengine_tpu_torch.ops.flash_attention import (
+        flash_fwd, flash_fwd_plain)
+    b, s, hq, hkv, d = FP8_SHAPE
+    scale = d ** -0.5
+    name = "flash_attention_fwd_softcap"
+    log(f"[3I] flash_attention fwd, soft-cap branch (row 2c): B={b} S={s} "
+        f"Hq={hq} Hkv={hkv} D={d} bf16, causal, cap {SOFT_CAP}, scores of "
+        f"std {CAP_SPREAD}")
+    q, k, v, _ = cap_inputs(torch, 77)
+    kw = dict(scale=scale, causal=True, score_mod=SoftCapMod(SOFT_CAP))
+    o, lse = flash_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = flash_fwd_plain(q, k, v, causal=True, scale=scale,
+                                     soft_cap=SOFT_CAP)
+    tol = row_tol(o_ref, BF16_ROW_RTOL)
+    err = check(f"{name} O", o, o_ref, tol)
+    check(f"{name} LSE", lse, lse_ref, LSE_ATOL)
+    wrong = flash_fwd_plain(q, k, v, causal=True, scale=scale,
+                            soft_cap=0.9 * SOFT_CAP)[0]
+    must_differ(f"{name} O", o, wrong, tol, f"the cap {0.9 * SOFT_CAP}")
+    t0 = time.perf_counter()
+    lib, _ = flex_library(torch, q, k, v, scale)
+    o_lib = lib().detach().transpose(1, 2)
+    torch.cuda.synchronize()
+    log(f"  PyTorch's flex_attention compiled and run in "
+        f"{time.perf_counter() - t0:.1f} s")
+    check("flex_attention (PyTorch's, compiled) O", o_lib, o_ref, tol)
+    del o, lse, o_ref, lse_ref, wrong, o_lib
+    # With the inputs' gradients on, as row 4c's backward needs: one
+    # compiled graph for both rows.
+    library_ms = timer.events(lib)
+    ms = timer(lambda: flash_fwd(q, k, v, **kw))
+    plain_ms = timer(lambda: flash_fwd_plain(
+        q, k, v, causal=True, scale=scale, soft_cap=SOFT_CAP), reps=3)
+    pairs = b * hq * s * (s + 1) // 2
+    flops, ops = 4 * d * pairs, CAP_OPS * pairs
+    # Q, K and V read once; O and LSE written.
+    nbytes = 2 * (2 * b * s * hq * d + 2 * b * s * hkv * d) + 4 * b * hq * s
+    b_ms, b_by = bound_ms_mixed(nbytes, [(flops, BF16_FLOPS),
+                                         (ops, F32_FLOPS)])
+    log(f"  {name} (row 2c): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"PyTorch's compiled flex_attention {library_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}: {flops / 1e9:.1f} GFLOP at the bf16 peak "
+        f"and {ops / 1e9:.2f} G cap operations at the CUDA cores' rate; "
+        f"{nbytes / 1e6:.1f} MB)")
+    results[name] = dict(
+        name=name, route="cuda",
+        source="transformerengine_tpu_torch/csrc/flash_attention.cu",
+        replaces="transformerengine_tpu/ops/flash_attention.py:724",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=library_ms,
+        shape=f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} bf16 causal, soft cap "
+              f"{SOFT_CAP}")
+
+
+def check_flash_bwd_softcap(torch, timer, results):
+    """[3J] row 4c: the backward's soft-cap branch (dQ and dK/dV kernels)
+    at row 2c's shape, against its plain version; a planted wrong cap
+    must fail (the derivative's form, which the bf16 tolerance cannot
+    see, is held bit for bit on the CPU by
+    tests/test_torch_softcap_kernels.py); timed with the plain version and
+    the backward of PyTorch's compiled ``flex_attention``
+    (:func:`flex_library`), whose gradients are held to the same
+    tolerances."""
+    from transformerengine_tpu_torch.flex_attention import SoftCapMod
+    from transformerengine_tpu_torch.ops import flash_attention as fa
+    b, s, hq, hkv, d = FP8_SHAPE
+    scale = d ** -0.5
+    name = "flash_attention_bwd_softcap"
+    log(f"[3J] flash_attention bwd, soft-cap branch (row 4c, dQ and dK/dV "
+        f"kernels): the shape of row 2c")
+    q, k, v, do = cap_inputs(torch, 78)
+    kw = dict(scale=scale, causal=True, score_mod=SoftCapMod(SOFT_CAP))
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    got = fa.flash_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    delta = (do.float() * o.float()).sum(dim=-1)
+
+    def plain(cap=SOFT_CAP):
+        return fa.flash_bwd_plain(q, k, v, do, lse, delta, scale=scale,
+                                  causal=True, soft_cap=cap)
+    ref = plain()
+    err, tols = 0.0, []
+    for gname, a, r in zip(("dQ", "dK", "dV"), got, ref):
+        tols.append(BWD_RTOL * float(r.float().abs().max()))
+        err = max(err, check(f"{name} {gname} ({int((a != r).sum())} of "
+                             f"{r.numel()} elements differ)", a, r, tols[-1]))
+    must_differ(f"{name} dQ", got[0], plain(0.9 * SOFT_CAP)[0], tols[0],
+            f"the cap {0.9 * SOFT_CAP}")
+    lib, leaves = flex_library(torch, q, k, v, scale)
+    out = lib()
+    dot = do.transpose(1, 2).contiguous()
+    for gname, a, r, t in zip(("dQ", "dK", "dV"), torch.autograd.grad(
+            out, leaves, dot, retain_graph=True), ref, tols):
+        check(f"flex_attention (PyTorch's, compiled) {gname}",
+              a.transpose(1, 2), r, t)
+    library_ms = timer.events(lambda: torch.autograd.grad(
+        out, leaves, dot, retain_graph=True))
+    del got, ref, out, leaves, dot
+    ms = timer(lambda: fa.flash_bwd(q, k, v, o, lse, do, **kw))
+    plain_ms = timer(plain, reps=3)
+    pairs = b * hq * s * (s + 1) // 2
+    flops = 10 * d * pairs
+    ops = (CAP_OPS + CAP_GRAD_OPS) * pairs
+    # Read Q, K, V, O, dO and LSE; write dQ, dK and dV.
+    nbytes = 2 * (4 * b * s * hq * d + 4 * b * s * hkv * d) + 4 * b * hq * s
+    b_ms, b_by = bound_ms_mixed(nbytes, [(flops, BF16_FLOPS),
+                                         (ops, F32_FLOPS)])
+    log(f"  {name} (row 4c): kernels {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"the backward of PyTorch's compiled flex_attention {library_ms:.4f} "
+        f"ms, bound {b_ms:.4f} ms ({b_by}: {flops / 1e9:.1f} "
+        f"GFLOP, {ops / 1e9:.2f} G cap operations; {nbytes / 1e6:.1f} MB)")
+    results[name] = dict(
+        name=name, route="cuda",
+        source="transformerengine_tpu_torch/csrc/flash_attention_bwd.cu",
+        replaces="transformerengine_tpu/ops/flash_attention.py:1477",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=library_ms,
+        shape=f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} bf16 causal, soft cap "
+              f"{SOFT_CAP}")
+
+
+def check_flash_fp8_dropout(torch, timer, results):
+    """[3K] rows 2fd and 2od: the FP8 forward with dropout at row 2f's
+    shape (e4m3 Q/K/V, causal, rate 0.1 on DROP_WORDS), O in bf16 and
+    through the fp8 O epilogue, each against its plain version on the same
+    seed words, a planted wrong seed word that must fail, the keep share;
+    timed with the plain version and SDPA at dropout_p 0.1 on the
+    dequantized bf16 Q/K/V."""
+    import torch.nn.functional as F
+    from transformerengine_tpu_torch.ops.flash_attention import (
+        flash_fwd, flash_fwd_plain, fp8_fwd_scales)
+    from transformerengine_tpu_torch.quantize.qmath import (
+        compute_scale_from_amax)
+    b, s, hq, hkv, d = FP8_SHAPE
+    scale = d ** -0.5
+    kw_d, drop = drop_kw(torch)
+    bad = planted_seed(torch)[1]
+    log(f"[3K] flash_attention fwd, FP8 with dropout (rows 2fd and 2od): "
+        f"B={b} S={s} Hq={hq} Hkv={hkv} D={d}, causal, e4m3 Q/K/V, rate "
+        f"{DROP_RATE}, seed words {DROP_WORDS}; O in bf16 and through the "
+        f"fp8 O epilogue")
+    _, (qd, kd, vd), sinv = fp8_inputs(torch, 33)
+    kw = dict(scale=scale, causal=True, scale_invs=sinv, **kw_d)
+    sc = fp8_fwd_scales(sinv, scale)
+    o, lse = flash_fwd(qd, kd, vd, **kw)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = flash_fwd_plain(qd, kd, vd, causal=True, fp8_scales=sc,
+                                     out_dtype=torch.bfloat16, dropout=drop)
+    tol = row_tol(o_ref, BF16_ROW_RTOL)
+    err_f = check("flash_attention_fwd_fp8_dropout O (bf16)", o, o_ref, tol)
+    check("flash_attention_fwd_fp8_dropout LSE", lse, lse_ref, LSE_ATOL)
+    must_differ("flash_attention_fwd_fp8_dropout O", o, flash_fwd_plain(
+        qd, kd, vd, causal=True, fp8_scales=sc, out_dtype=torch.bfloat16,
+        dropout=bad)[0], tol, "a seed word off by one")
+    amax = o_ref.float().abs().amax() * FP8_O_HEADROOM
+    oscale = compute_scale_from_amax(amax, torch.float8_e4m3fn).reshape(1)
+    sc8 = fp8_fwd_scales(sinv, scale, oscale)
+    o8, _, am = flash_fwd(qd, kd, vd, out_dtype=torch.float8_e4m3fn,
+                          out_scale=oscale, **kw)
+    torch.cuda.synchronize()
+    o8_ref, _, am_ref = flash_fwd_plain(qd, kd, vd, causal=True,
+                                        fp8_scales=sc8,
+                                        out_dtype=torch.float8_e4m3fn,
+                                        dropout=drop)
+    err_o = check_fp8_o(torch, "flash_attention_fwd_fp8_mha_dropout O", o8,
+                        o8_ref)
+    check("flash_attention_fwd_fp8_mha_dropout O amax", am, am_ref,
+          2 ** -8 * float(am_ref))
+    del o, lse, o_ref, lse_ref, o8, o8_ref
+    pos = torch.arange(s, device="cuda")
+    check_keep_rate(torch, b, hq, hkv, s,
+                    (pos[:, None] >= pos[None, :]).expand(b, s, s),
+                    "flash_attention_fwd_fp8_dropout")
+    ms_f = timer(lambda: flash_fwd(qd, kd, vd, **kw))
+    ms_o = timer(lambda: flash_fwd(qd, kd, vd, out_dtype=torch.float8_e4m3fn,
+                                   out_scale=oscale, **kw))
+    plain_f = timer(lambda: flash_fwd_plain(
+        qd, kd, vd, causal=True, fp8_scales=sc, out_dtype=torch.bfloat16,
+        dropout=drop), reps=3)
+    plain_o = timer(lambda: flash_fwd_plain(
+        qd, kd, vd, causal=True, fp8_scales=sc8,
+        out_dtype=torch.float8_e4m3fn, dropout=drop), reps=3)
+    deq = [(t.float() * si).to(torch.bfloat16).transpose(1, 2).contiguous()
+           for t, si in zip((qd, kd, vd), sinv.unbind())]
+    library_ms = timer.events(lambda: F.scaled_dot_product_attention(
+        *deq, is_causal=True, dropout_p=DROP_RATE, scale=scale,
+        enable_gqa=True))
+    del deq
+    pairs = b * hq * s * (s + 1) // 2
+    q_el, kv_el = b * s * hq * d, b * s * hkv * d
+    prods = [(2 * d * pairs, FP8_FLOPS), (2 * d * pairs, BF16_FLOPS),
+             (HASH_OPS * pairs, F32_FLOPS)]
+    for name, ms, plain_ms, o_bytes, err, row in (
+            ("flash_attention_fwd_fp8_dropout", ms_f, plain_f, 2, err_f,
+             "2fd"),
+            ("flash_attention_fwd_fp8_mha_dropout", ms_o, plain_o, 1, err_o,
+             "2od")):
+        nbytes = q_el + 2 * kv_el + o_bytes * q_el + 4 * b * hq * s
+        b_ms, b_by = bound_ms_mixed(nbytes, prods)
+        log(f"  {name} (row {row}): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms, SDPA with dropout_p {DROP_RATE} on the dequantized bf16 "
+            f"Q/K/V {library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+            f"{4 * d * pairs / 1e9:.2f} GFLOP, {HASH_OPS * pairs / 1e9:.2f} G "
+            f"hash operations, {nbytes / 1e6:.1f} MB)")
+        results[name] = dict(
+            name=name, route="cuda",
+            source="transformerengine_tpu_torch/csrc/flash_attention.cu",
+            replaces="transformerengine_tpu/ops/flash_attention.py:2057",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=library_ms,
+            shape=f"training B={b} S={s} Hq={hq} Hkv={hkv} D={d} e4m3 causal,"
+                  f" O {'bf16' if o_bytes == 2 else 'e4m3'}, dropout "
+                  f"{DROP_RATE}")
+
+
+def check_flash_bwd_fp8_dropout(torch, timer, results):
+    """[3L] rows 4fd and 4od: the FP8 backward with dropout at row 2fd's
+    shape, a bf16 dO and e4m3 O with an e5m2 dO, each against its plain
+    version on the same seed words, a planted wrong seed word that must
+    fail; timed with the plain version and SDPA's backward at dropout_p
+    0.1 on the dequantized bf16 tensors."""
+    import torch.nn.functional as F
+    from transformerengine_tpu_torch.ops.flash_attention import (
+        flash_bwd, flash_bwd_plain, flash_fwd, fp8_bwd_scales)
+    from transformerengine_tpu_torch.quantize.qmath import (
+        compute_scale_from_amax)
+    b, s, hq, hkv, d = FP8_SHAPE
+    scale = d ** -0.5
+    kw_d, drop = drop_kw(torch)
+    bad = planted_seed(torch)[1]
+    log(f"[3L] flash_attention bwd, FP8 with dropout (rows 4fd and 4od, dQ "
+        f"and dK/dV kernels): the shape of row 2fd; bf16 dO, and e4m3 O with "
+        f"e5m2 dO")
+    (_, _, _, do), (qd, kd, vd), sinv = fp8_inputs(torch, 34)
+    o, lse = flash_fwd(qd, kd, vd, scale=scale, causal=True, scale_invs=sinv,
+                       **kw_d)
+    oscale = compute_scale_from_amax(o.float().abs().amax(),
+                                     torch.float8_e4m3fn).reshape(1)
+    o8, _, _ = flash_fwd(qd, kd, vd, scale=scale, causal=True,
+                         scale_invs=sinv, out_dtype=torch.float8_e4m3fn,
+                         out_scale=oscale, **kw_d)
+    (do8,), sdo = fp8_payloads(torch, (do,), torch.float8_e5m2)
+    so = (1.0 / oscale).reshape(1)
+    one = torch.ones((), device="cuda")
+    kw = dict(scale=scale, causal=True, scale_invs=sinv,
+              grad_dtype=torch.bfloat16, **kw_d)
+    deq = [(t.float() * si).to(torch.bfloat16).transpose(1, 2).contiguous()
+           .requires_grad_() for t, si in zip((qd, kd, vd), sinv.unbind())]
+    out = F.scaled_dot_product_attention(*deq, is_causal=True,
+                                         dropout_p=DROP_RATE, scale=scale,
+                                         enable_gqa=True)
+    dot = do.transpose(1, 2).contiguous()
+    library_ms = timer.events(lambda: torch.autograd.grad(
+        out, deq, dot, retain_graph=True))
+    del out, deq, dot
+    pairs = b * hq * s * (s + 1) // 2
+    q_el, kv_el = b * s * hq * d, b * s * hkv * d
+    for name, row, o_in, do_in, extra, sdo_t, so_t in (
+            ("flash_attention_bwd_fp8_dropout", "4fd", o, do, {}, one, None),
+            ("flash_attention_bwd_fp8_mha_dropout", "4od", o8, do8,
+             dict(o_scale_inv=so, do_scale_inv=sdo), sdo, so)):
+        got = flash_bwd(qd, kd, vd, o_in, lse, do_in, **kw, **extra)
+        torch.cuda.synchronize()
+        delta = (do_in.float() * o_in.float()).sum(dim=-1)
+        if so_t is not None:
+            delta = delta * (so_t.reshape(()) * sdo_t.reshape(()))
+        sc = fp8_bwd_scales(sinv, scale, sdo_t)
+
+        def plain(dropout=drop):
+            return flash_bwd_plain(qd, kd, vd, do_in, lse, delta, scale=scale,
+                                   causal=True, fp8_scales=sc,
+                                   grad_dtype=torch.bfloat16, dropout=dropout)
+        ref = plain()
+        err = 0.0
+        for gname, a, r in zip(("dQ", "dK", "dV"), got, ref):
+            err = max(err, check(
+                f"{name} {gname} ({int((a != r).sum())} of {r.numel()} "
+                f"elements differ)", a, r,
+                BWD_RTOL * float(r.float().abs().max())))
+        must_differ(f"{name} dV", got[2], plain(bad)[2],
+                BWD_RTOL * float(ref[2].float().abs().max()),
+                "a seed word off by one")
+        del got, ref
+        ms = timer(lambda: flash_bwd(qd, kd, vd, o_in, lse, do_in, **kw,
+                                     **extra))
+        plain_ms = timer(plain, reps=3)
+        fp8_do = so_t is not None
+        n_fp8 = 2 if fp8_do else 1
+        prods = [(n_fp8 * 2 * d * pairs, FP8_FLOPS),
+                 ((5 - n_fp8) * 2 * d * pairs, BF16_FLOPS),
+                 (HASH_OPS * pairs, F32_FLOPS)]
+        io_bytes = 1 if fp8_do else 2
+        nbytes = q_el + 2 * kv_el + 2 * io_bytes * q_el + 4 * b * hq * s \
+            + 2 * (q_el + 2 * kv_el)
+        b_ms, b_by = bound_ms_mixed(nbytes, prods)
+        log(f"  {name} (row {row}): kernels {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms, SDPA backward with dropout_p {DROP_RATE} on dequantized "
+            f"bf16 {library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+            f"{10 * d * pairs / 1e9:.1f} GFLOP, "
+            f"{HASH_OPS * pairs / 1e9:.2f} G hash operations, "
+            f"{nbytes / 1e6:.1f} MB)")
+        results[name] = dict(
+            name=name, route="cuda",
+            source="transformerengine_tpu_torch/csrc/flash_attention_bwd.cu",
+            replaces="transformerengine_tpu/ops/flash_attention.py:1477",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=library_ms,
+            shape=f"training B={b} S={s} Hq={hq} Hkv={hkv} D={d} e4m3 causal,"
+                  f" dO {'e5m2' if fp8_do else 'bf16'}, dropout {DROP_RATE}")
+
+
+def check_softcap_variants(torch) -> None:
+    """[3M] the soft cap at small shapes, forward (O, LSE) and backward
+    (dQ, dK, dV) against the plain versions: f32, D 64, 128 and 256, GQA
+    groups of 4, 8 and 16, padding with fully masked rows, segment ids, a
+    window with a sink, the bottom-right offset, dropout with the cap,
+    caps of 1 (saturated) and 1e4 (linear), and ALiBi with explicit
+    slopes; then FP8 Q/K/V with dropout at small shapes (padding with
+    fully masked rows, a window with a sink, GQA 8)."""
+    from transformerengine_tpu_torch.flex_attention import (
+        AlibiSlopesMod, SoftCapMod)
+    from transformerengine_tpu_torch.ops.flash_attention import (
+        Dropout, flash_bwd, flash_bwd_plain, flash_fwd, flash_fwd_plain)
+    log("[3M] flash attention's soft cap and explicit ALiBi slopes at small "
+        "shapes, forward and backward; FP8 Q/K/V with dropout")
+    g = torch.Generator(device="cuda").manual_seed(79)
+    f32, bf16 = torch.float32, torch.bfloat16
+    # (dtype, Sq, Skv, D, Hq, Hkv, causal, window, sink, mask, term,
+    # dropout (rate, block_q, block_k) or None)
+    cases = (
+        (f32, 96, 96, 64, 4, 1, True, None, None, None, 50.0, None),
+        (bf16, 130, 130, 256, 8, 1, True, (24, 0), "learnable", (130, 70),
+         30.0, None),
+        (bf16, 80, 80, 128, 16, 1, True, None, None, "packed", 50.0,
+         (0.1, 32, 64)),
+        (f32, 64, 64, 64, 4, 2, False, None, None, (64, 17), 1.0, None),
+        (bf16, 70, 90, 128, 8, 2, True, None, "off_by_one", None, 1e4,
+         (0.2, 512, 1024)),
+        (bf16, 96, 96, 64, 8, 2, True, None, None, None, "slopes", None))
+    for (dt, sq, skv, d, hq, hkv, causal, window, sink, mask, term,
+         dro) in cases:
+        spread = CAP_SPREAD ** 0.5
+
+        def randn(*shape, m=1.0):
+            return (torch.randn(shape, generator=g, device="cuda") * m).to(dt)
+        q, do = randn(2, sq, hq, d, m=spread), randn(2, sq, hq, d)
+        k, v = randn(2, skv, hkv, d, m=spread), randn(2, skv, hkv, d)
+        s0 = (None if sink is None else torch.zeros(hq, device="cuda")
+              if sink == "off_by_one" else
+              torch.randn(hq, generator=g, device="cuda") * 2)
+        mk, qzero, kzero = variant_mask(torch, g, mask, 2, sq, skv)
+        scale = d ** -0.5
+        if term == "slopes":
+            slopes = torch.rand(hq, generator=g, device="cuda") * 0.5
+            kw, pkw = dict(score_mod=AlibiSlopesMod(slopes)), \
+                dict(alibi_slopes=slopes)
+        else:
+            kw, pkw = dict(score_mod=SoftCapMod(term)), dict(soft_cap=term)
+        dkw = {}
+        if dro is not None:
+            seed = drop_seed(torch)
+            dkw = dict(dropout_probability=dro[0], dropout_seed=seed,
+                       block_q=dro[1], block_k=dro[2])
+            pkw["dropout"] = Dropout(seed, *dro)
+        base = dict(causal=causal, offset=skv - sq if causal else 0,
+                    window=window or (-1, -1), **mk)
+        o, lse = flash_fwd(q, k, v, scale=scale, softmax_sink=s0, **base,
+                           **kw, **dkw)
+        o_ref, lse_ref = flash_fwd_plain(q, k, v, softmax_sink=s0,
+                                         scale=scale, **base, **pkw)
+        name = (f"{dt} Sq={sq} Skv={skv} D={d} G={hq // hkv} causal="
+                f"{causal} window={window} sink={sink} mask={mask} term="
+                f"{term} dropout={dro}")
+        tol = 1e-4 if dt == f32 else row_tol(o_ref, BF16_ROW_RTOL)
+        check(f"fwd {name} O", o, o_ref, tol)
+        check(f"fwd {name} LSE", lse, lse_ref, LSE_ATOL)
+        check_masked_rows(torch, f"fwd {name}", qzero, o, lse, s0)
+        delta = (do.float() * o.float()).sum(dim=-1)
+        got = flash_bwd(q, k, v, o, lse, do, scale=scale, softmax_sink=s0,
+                        **base, **kw, **dkw)
+        ref = flash_bwd_plain(q, k, v, do, lse, delta, scale=scale, **base,
+                              **pkw)
+        for gname, a, r in zip(("dQ", "dK", "dV"), got, ref):
+            check(f"bwd {name} {gname}", a, r,
+                  (1e-4 if dt == f32 else BWD_RTOL)
+                  * float(r.float().abs().max()))
+        check_zero_grads(f"bwd {name}", got, qzero, kzero)
+    # (Sq, D, Hq, Hkv, window, sink, lengths, O scale ratio)
+    fp8_variants(torch, ((160, 64, 8, 2, None, False, (160, 77), 0.5),
+                         (192, 64, 8, 1, (32, 0), True, (192, 50), 2.0)),
+                 44, dropout=drop_kw(torch))
+
+
+# Phase 25: flex_attention at LLAMA_8B width, phase 6's attention shape
+# (B 2, S 2048, Hq 32, Hkv 8, D 128, bf16), forward and backward.
+FLEX_CALLS = 3
+# The chunked impl's KV block in phase 25 (its smallest): the backward's
+# per-block temporaries are (B, Hkv, G, S, block_k) f32, 64 MiB each.
+FLEX_BLOCK_K = 128
+# The relative bias's table: the T5 encoder's 32 heads and a reach of 128
+# keys each way.
+FLEX_REL_DIST = 128
+# The chunked relative-bias call's peak above what was allocated before
+# it (q, k, v, dO and the table in bf16): a materialized backward would
+# hold the (2, 32, 2048, 2048) f32 scores, 1 GiB, and several tensors of
+# that size beside them.
+FLEX_PEAK_GIB = 0.75
+# Chunked (f32 throughout) against flash (p and ds rounded to bf16 before
+# their products), relative to each output's largest |value|: the flash
+# row's bf16 tolerance of O, and 2^-5 for the gradients, whose bf16 ds of
+# both kernels meet 2^-6 against their own plain version.
+FLEX_RTOL, FLEX_GRAD_RTOL = 2 ** -6, 2 ** -5
+# Card against CPU at a small shape (B 1, S 256, Hq 8, Hkv 2, D 64, the
+# scores' spread of the rows): f32 impls 1e-4 of the largest |value|
+# (summation order, tanh's few ulps); the flash impl and the FP8 op in
+# bf16 at the bf16 rows' tolerance.
+FLEX_VS_CPU = (1, 256, 8, 2, 64)
+FLEX_VS_CPU_RTOL = 1e-4
+
+
+def flex_call(torch, leaves, do, impl, mod, mask, **kw):
+    """One forward and backward of ``flex_attention``: (O, [dQ, dK, dV,
+    the mod's tensors' gradients])."""
+    from transformerengine_tpu_torch.flex_attention import flex_attention
+    tensors = mod.tensors() if hasattr(mod, "tensors") else ()
+    for t in (*leaves, *tensors):
+        t.grad = None
+    o = flex_attention(*leaves, score_mod=mod, mask_mod=mask, impl=impl,
+                       **kw)
+    o.backward(do)
+    return o.detach(), [t.grad for t in (*leaves, *tensors)]
+
+
+def train_flex(torch, results) -> None:
+    """Phase 25: ``flex_attention`` at LLAMA_8B width (phase 6's
+    attention shape) forward and backward: ``impl="flash"`` with
+    ``soft_cap_mod(50)`` and ``causal_mask_mod`` over FLEX_CALLS timed
+    calls with exact launch counts (one soft-cap forward, dQ and dK/dV
+    launch a call); ``impl="chunked"`` with the same mods against the
+    flash impl on the card; ``impl="chunked"`` with
+    ``relative_position_bias_mod`` (the table's gradient nonzero) under
+    FLEX_PEAK_GIB; dropout on FP8 Q/K/V through ``flash_attention``
+    (:func:`fp8_dropout_path`); then the card against the CPU at a small
+    shape for each impl and for the FP8 op with dropout. ms per call, busy
+    share and peak GiB."""
+    from transformerengine_tpu_torch.flex_attention import (
+        causal_mask_mod, relative_position_bias_mod, soft_cap_mod)
+    b, s, hq, hkv, d = FP8_SHAPE
+    log(f"[25] flex_attention at LLAMA_8B width: B={b} S={s} Hq={hq} "
+        f"Hkv={hkv} D={d} bf16, scores of std {CAP_SPREAD}, forward and "
+        f"backward: flash and chunked with soft_cap_mod({SOFT_CAP}) and "
+        f"causal_mask_mod, chunked with relative_position_bias_mod "
+        f"(block_k {FLEX_BLOCK_K})")
+    q, k, v, do = cap_inputs(torch, 25)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    cap = soft_cap_mod(SOFT_CAP)
+    expect = {f"flash_attention_{n}_softcap": 1
+              for n in ("fwd", "bwd_dq", "bwd_dkv")}
+    outs, times, counts = timed_steps(
+        torch, lambda: flex_call(torch, leaves, do, "flash", cap,
+                                 causal_mask_mod), expect, FLEX_CALLS,
+        "flex_attention(impl=\"flash\") call")
+    for kernel, n in counts.items():
+        add_launches(results, bwd_row(kernel), n)
+    stats = dict(flash_ms=statistics.median(times[1:]) * 1e3)
+    o_f, g_f = outs[-1]
+    log(f"  flash: call times {[round(t * 1e3, 2) for t in times]} ms, "
+        f"median of calls 2-{FLEX_CALLS} {stats['flash_ms']:.2f} ms; "
+        f"launches per call {expect} in every call ok")
+
+    def profiled(label, key, fn, held=()):
+        """ms and peak of a call of ``fn`` after a first one (first-use
+        costs; its gradients on ``leaves`` and ``held`` are let go before
+        the peak's base), then the busy share of a third; returns the
+        timed call's outputs."""
+        fn()
+        for t in (*leaves, *held):
+            t.grad = None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stats[key + "_ms"] = (time.perf_counter() - t0) * 1e3
+        stats[key + "_peak_gib"] = \
+            (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        busy, wall, kernels = device_profile(torch, fn, 1)
+        prof = {}
+        log_profile(f"{label} call", prof, busy, wall, kernels, 1)
+        stats[key + "_profile"] = prof.get("profile")
+        return out
+
+    profiled("flash", "flash", lambda: flex_call(
+        torch, leaves, do, "flash", cap, causal_mask_mod))
+    o_c, g_c = profiled("chunked", "chunked", lambda: flex_call(
+        torch, leaves, do, "chunked", cap, causal_mask_mod,
+        block_k=FLEX_BLOCK_K))
+    check("chunked against flash O", o_c, o_f, row_tol(o_f, FLEX_RTOL))
+    for gname, a, r in zip(("dQ", "dK", "dV"), g_c, g_f):
+        check(f"chunked against flash {gname}", a, r,
+              FLEX_GRAD_RTOL * float(r.float().abs().max()))
+    del outs, o_f, g_f, o_c, g_c
+    g = torch.Generator(device="cuda").manual_seed(26)
+    table = (torch.randn((hq, 2 * FLEX_REL_DIST + 1), generator=g,
+                         device="cuda") * 2).to(torch.bfloat16)
+    table.requires_grad_()
+    rel = relative_position_bias_mod(table)
+    torch.cuda.empty_cache()
+    o_r, g_r = profiled("chunked relative-bias", "chunked_rel",
+                        lambda: flex_call(torch, leaves, do, "chunked", rel,
+                                          causal_mask_mod,
+                                          block_k=FLEX_BLOCK_K), (table,))
+    peak, dtab = stats["chunked_rel_peak_gib"], g_r[3]
+    finite = all(bool(torch.isfinite(t.float()).all()) for t in (o_r, *g_r))
+    ok = finite and float(dtab.float().abs().max()) > 0 and \
+        peak <= FLEX_PEAK_GIB
+    log(f"  chunked, relative bias: peak {peak:.3f} GiB above its inputs "
+        f"(limit {FLEX_PEAK_GIB}), the table's gradient largest "
+        f"{float(dtab.float().abs().max()):.3e}, all finite {finite} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the chunked relative-bias call failed its "
+                             "checks")
+    del o_r, g_r, dtab
+    log(f"  ms per call (forward and backward, after a first call): flash "
+        f"{stats['flash_ms']:.2f}, chunked {stats['chunked_ms']:.2f}, "
+        f"chunked with the relative bias {stats['chunked_rel_ms']:.2f}; "
+        f"peak GiB above the inputs: flash {stats['flash_peak_gib']:.3f}, "
+        f"chunked {stats['chunked_peak_gib']:.3f}, relative bias "
+        f"{peak:.3f}")
+    fp8_dropout_path(torch, results, q, k, v, do, stats)
+    failures = flex_card_vs_cpu(torch)
+    if failures:
+        raise AssertionError(f"flex_attention, card against CPU: {failures}")
+    results["_train_flex"] = stats
+
+
+def fp8_dropout_path(torch, results, q, k, v, do, stats) -> None:
+    """Phase 25's run of dropout on FP8 Q/K/V through ``flash_attention``
+    (the entry point; the layers close their FP8 gates under dropout, as
+    the reference's do) at phase 6's attention shape, causal, rate
+    DROP_RATE on DROP_WORDS: ``qkv_quantizers`` under current scaling,
+    then ``mha_proj`` under delayed scaling (the fp8 O epilogue, e5m2 dO),
+    forward and backward, FLEX_CALLS calls each with exact launch counts."""
+    from transformerengine_tpu_torch.attention import AttnMaskType
+    from transformerengine_tpu_torch.ops.flash_attention import (
+        dropout_seed, flash_attention)
+    from transformerengine_tpu_torch.quantize.quantizer import (
+        CurrentScaleQuantizer, DelayedScaleQuantizer, QuantizeLayout)
+    e4m3, e5m2 = torch.float8_e4m3fn, torch.float8_e5m2
+    rowwise = QuantizeLayout.ROWWISE
+    b, s, hq, hkv, d = FP8_SHAPE
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    g = torch.Generator(device="cuda").manual_seed(28)
+    w = (torch.randn((hq * d, hq * d), generator=g, device="cuda")
+         / (hq * d) ** 0.5).to(torch.bfloat16).requires_grad_()
+    dout = torch.randn((b, s, hq * d), generator=g, device="cuda").to(
+        torch.bfloat16)
+    delayed = [DelayedScaleQuantizer(
+        dt, rowwise, scale=torch.ones((1,), device="cuda"),
+        amax_history=torch.zeros((16,), device="cuda"))
+        for dt in (e4m3, e4m3, e4m3, e4m3, e4m3, e5m2, e5m2)]
+    kw = dict(attn_mask_type=AttnMaskType.CAUSAL,
+              dropout_probability=DROP_RATE,
+              dropout_seed=dropout_seed(DROP_WORDS, "cuda"))
+    runs = (("fp8_dpa", "qkv_quantizers", "_fp8_dropout",
+             dict(qkv_quantizers=[CurrentScaleQuantizer(e4m3, rowwise)
+                                  for _ in range(3)]), do),
+            ("fp8_mha", "mha_proj", "_fp8_mha_dropout",
+             dict(mha_proj=(w, delayed)), dout))
+    for name, arg, branch, extra, grad in runs:
+        def call():
+            for t in (*leaves, w):
+                t.grad = None
+            out = flash_attention(*leaves, **kw, **extra)
+            out.backward(grad)
+            return out.detach()
+        expect = {f"flash_attention_{n}{branch}": 1
+                  for n in ("fwd", "bwd_dq", "bwd_dkv")}
+        outs, times, counts = timed_steps(torch, call, expect, FLEX_CALLS,
+                                          f"{name} with dropout call")
+        finite = all(bool(torch.isfinite(t.float()).all())
+                     for t in (outs[-1], *(x.grad for x in leaves)))
+        if not finite:
+            raise AssertionError(f"{name} with dropout: not finite")
+        for kernel, n in counts.items():
+            add_launches(results, bwd_row(kernel), n)
+        stats[name + "_dropout_ms"] = statistics.median(times[1:]) * 1e3
+        log(f"  flash_attention({arg}=..., dropout {DROP_RATE}) ({name}), "
+            f"forward and backward: "
+            f"call times {[round(t * 1e3, 2) for t in times]} ms, launches "
+            f"per call {expect} in every call, finite ok")
+
+
+def flex_card_vs_cpu(torch) -> list:
+    """Phase 25's card against CPU at FLEX_VS_CPU: each impl (flash with
+    the cap and the causal mask, and with the causal mask alone; chunked
+    and reference with the relative bias, the table's gradient included),
+    and ``flash_attention`` on FP8
+    Q/K/V (current scaling) with dropout at DROP_RATE on DROP_WORDS; O and
+    every gradient. Returns what failed."""
+    from transformerengine_tpu_torch.flex_attention import (
+        causal_mask_mod, relative_position_bias_mod, soft_cap_mod)
+    from transformerengine_tpu_torch.ops.flash_attention import (
+        flash_attention)
+    from transformerengine_tpu_torch.quantize.quantizer import (
+        CurrentScaleQuantizer, QuantizeLayout)
+    b, s, hq, hkv, d = FLEX_VS_CPU
+    log(f"  card against CPU: B={b} S={s} Hq={hq} Hkv={hkv} D={d}")
+    g = torch.Generator(device="cpu").manual_seed(27)
+    spread = CAP_SPREAD ** 0.5
+    base = [torch.randn(sh, generator=g) * m for sh, m in (
+        ((b, s, hq, d), spread), ((b, s, hkv, d), spread), ((b, s, hkv, d), 1),
+        ((b, s, hq, d), 1))]
+    table = torch.randn((hq, 2 * 32 + 1), generator=g)
+    failures = []
+
+    def run(dev, dtype, fn):
+        ts = [t.to(device=dev, dtype=dtype, copy=True) for t in base]
+        leaves = [t.requires_grad_() for t in ts[:3]]
+        o = fn(leaves, dev)
+        o.backward(ts[3].to(o.dtype))
+        return [o.detach()] + [t.grad for t in leaves]
+
+    def flex(lv, impl, mod, **kw):
+        from transformerengine_tpu_torch.flex_attention import flex_attention
+        return flex_attention(*lv, score_mod=mod, mask_mod=causal_mask_mod,
+                              impl=impl, **kw)
+
+    tabs = {}
+
+    def rel_case(impl):
+        def fn(lv, dev):
+            tabs[dev] = table.to(device=dev, copy=True).requires_grad_()
+            return flex(lv, impl, relative_position_bias_mod(tabs[dev]),
+                        block_k=128)
+        return fn
+
+    def fp8_case(lv, dev):
+        from transformerengine_tpu_torch.attention import AttnMaskType
+        from transformerengine_tpu_torch.ops.flash_attention import (
+            dropout_seed)
+        zs = [CurrentScaleQuantizer(torch.float8_e4m3fn,
+                                    QuantizeLayout.ROWWISE)
+              for _ in range(3)]
+        return flash_attention(*lv, attn_mask_type=AttnMaskType.CAUSAL,
+                               qkv_quantizers=zs,
+                               dropout_probability=DROP_RATE,
+                               dropout_seed=dropout_seed(DROP_WORDS, dev))
+
+    # (what, dtype, tolerance, call)
+    cases = (
+        ("flash, soft cap and causal", torch.bfloat16, BWD_RTOL,
+         lambda lv, dev: flex(lv, "flash", soft_cap_mod(SOFT_CAP))),
+        ("flash, causal mask alone (ALiBi branch, zero slopes)",
+         torch.bfloat16, BWD_RTOL, lambda lv, dev: flex(lv, "flash", None)),
+        ("chunked, relative bias and causal", torch.float32,
+         FLEX_VS_CPU_RTOL, rel_case("chunked")),
+        ("reference, relative bias and causal", torch.float32,
+         FLEX_VS_CPU_RTOL, rel_case("reference")),
+        ("FP8 Q/K/V with dropout", torch.bfloat16, BWD_RTOL, fp8_case))
+    for what, dtype, rtol, fn in cases:
+        cpu = run("cpu", dtype, fn)
+        card = run("cuda", dtype, fn)
+        if "relative bias" in what:
+            cpu.append(tabs["cpu"].grad)
+            card.append(tabs["cuda"].grad)
+        for gname, a, r in zip(("O", "dQ", "dK", "dV", "dtable"), card, cpu):
+            r = r.float()
+            used = float((a.float().cpu() - r).abs().max()
+                         / r.abs().max().clamp_min(1e-30))
+            ok = used <= rtol
+            log(f"    {what} {gname}: {used:.3e} of the largest |CPU value| "
+                f"(limit {rtol:.1e}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"{what} {gname}")
+    return failures
+
+
 def bwd_row(kernel: str) -> str:
     """The results row of a launch name: a branch's dQ and dK/dV kernels
     share one row."""
@@ -6223,7 +7024,7 @@ def bwd_row(kernel: str) -> str:
 
 
 PHASES = ("3", "4", "5", "6", "7", "8", "9", "10", "11", "12", "13", "14",
-          "15", "16", "17", "18", "19", "20", "21", "22", "23", "24")
+          "15", "16", "17", "18", "19", "20", "21", "22", "23", "24", "25")
 
 
 def main() -> int:
@@ -6234,7 +7035,7 @@ def main() -> int:
     import argparse
     parser = argparse.ArgumentParser()
     parser.add_argument("--phases", default=",".join(PHASES),
-                        help="comma-separated subset of 3-24")
+                        help="comma-separated subset of 3-25")
     parser.add_argument("--train-seeds", default=str(TRAIN_VS_CPU_SEED),
                         help="comma-separated seeds of phase 7 (its limits "
                         "were set from the readings of 21,22,23)")
@@ -6315,6 +7116,11 @@ def main() -> int:
     run("3", check_flash_dropout, timer, results)
     run("3", check_flash_bwd_dropout, timer, results)
     run("3", check_dropout_variants)
+    run("3", check_flash_softcap, timer, results)
+    run("3", check_flash_bwd_softcap, timer, results)
+    run("3", check_flash_fp8_dropout, timer, results)
+    run("3", check_flash_bwd_fp8_dropout, timer, results)
+    run("3", check_softcap_variants)
     run("4", serve, results)
     run("9", serve_paged_mxfp8, results)
     run("12", serve_paged_nvfp4, results)
@@ -6331,6 +7137,7 @@ def main() -> int:
     run("20", train_packed, results)
     run("21", train_encoder, results)
     run("23", train_dropout, results)
+    run("25", train_flex, results)
     failed = []
     for seed in map(int, args.train_seeds.split(",")):
         run("7", lambda torch, seed=seed: failed.extend(
@@ -6354,7 +7161,7 @@ def main() -> int:
                                          "_train_gptoss", "_serve_gptoss",
                                          "_train_fp8_attention",
                                          "_train_packed", "_train_encoder",
-                                         "_train_dropout")
+                                         "_train_dropout", "_train_flex")
              if k in results}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

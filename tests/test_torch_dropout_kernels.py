@@ -298,10 +298,11 @@ def _current():
 
 
 def test_refusals_follow_the_reference():
-    """A rate without a seed raises as the reference's wrapper does; FP8
-    Q/K/V with dropout (``qkv_quantizers``, ``mha_proj``, the wrappers'
-    ``scale_invs``) is not ported and raises; a rate outside [0, 1)
-    raises."""
+    """A rate without a seed raises as the reference's wrapper does, FP8
+    Q/K/V included; FP8 Q/K/V take dropout (``qkv_quantizers``,
+    ``mha_proj``, the wrappers' ``scale_invs``: tests/
+    test_torch_fp8_dropout.py holds them to the reference) and its seed
+    moves their output; a rate outside [0, 1) raises."""
     rng = np.random.default_rng(5)
     q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
                .to(torch.bfloat16) for s in ((1, 16, 4, 32), (1, 16, 2, 32),
@@ -311,17 +312,22 @@ def test_refusals_follow_the_reference():
         flash_attention(q, k, v, dropout_probability=0.1)
     with pytest.raises(ValueError, match="dropout_seed"):
         flash_fwd(q, k, v, scale=0.2, causal=True, dropout_probability=0.1)
-    with pytest.raises(NotImplementedError, match="FP8"):
+    with pytest.raises(ValueError, match="dropout_seed"):
         flash_attention(q, k, v, qkv_quantizers=[_current() for _ in range(3)],
-                        dropout_probability=0.1, dropout_seed=seed)
+                        dropout_probability=0.1)
+    outs = [flash_attention(q, k, v,
+                            qkv_quantizers=[_current() for _ in range(3)],
+                            dropout_probability=0.1, dropout_seed=s)
+            for s in (seed, seed + 1)]
+    assert not torch.equal(*outs)
     w = torch.zeros((128, 64), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="FP8"):
-        flash_attention(q, k, v, mha_proj=(w, [_current()] * 7),
-                        dropout_probability=0.1, dropout_seed=seed)
+    assert flash_attention(q, k, v, mha_proj=(w, [_current()] * 7),
+                           dropout_probability=0.1,
+                           dropout_seed=seed).shape == (1, 16, 64)
     e4m3 = [t.to(torch.float8_e4m3fn) for t in (q, k, v)]
-    with pytest.raises(NotImplementedError, match="FP8"):
-        flash_fwd(*e4m3, scale=0.2, causal=True, scale_invs=torch.ones(3),
-                  dropout_probability=0.1, dropout_seed=seed)
+    o8, _ = flash_fwd(*e4m3, scale=0.2, causal=True, scale_invs=torch.ones(3),
+                      dropout_probability=0.1, dropout_seed=seed)
+    assert o8.dtype == torch.bfloat16
     for rate in (-0.1, 1.0):
         with pytest.raises(ValueError, match=r"\[0, 1\)"):
             flash_attention(q, k, v, dropout_probability=rate,

@@ -15,7 +15,7 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from transformerengine_tpu_torch import _build
-from transformerengine_tpu_torch.flex_attention import AlibiMod
+from transformerengine_tpu_torch.flex_attention import AlibiMod, SoftCapMod
 from transformerengine_tpu_torch.inference import (
     ContinuousBatchingEngine, InferenceParams, generate, prefill)
 from transformerengine_tpu_torch.models.llama import LLAMA_TINY, LlamaModel
@@ -325,6 +325,29 @@ def _calls():
             cuda(2, 64, 4, 32), scale=0.2, causal=False,
             bias=cuda(2, 4, 64, 64), dropout_probability=0.3,
             dropout_seed=cuda(2, dtype=i32)),
+        # The soft cap counts under "_softcap"; dropout on FP8 Q/K/V under
+        # the FP8 branch's name and "_dropout".
+        "flash_fwd_softcap": lambda: fa.flash_fwd(
+            cuda(2, 64, 4, 32), cuda(2, 64, 2, 32), cuda(2, 64, 2, 32),
+            scale=0.2, causal=True, score_mod=SoftCapMod(50.0)),
+        "flash_bwd_softcap": lambda: fa.flash_bwd(
+            cuda(2, 64, 4, 32), cuda(2, 64, 2, 32), cuda(2, 64, 2, 32),
+            cuda(2, 64, 4, 32), cuda(2, 4, 64, dtype=f32),
+            cuda(2, 64, 4, 32), scale=0.2, causal=True,
+            score_mod=SoftCapMod(50.0)),
+        "flash_fwd_fp8_dropout": lambda: fa.flash_fwd(
+            cuda(2, 64, 4, 32, dtype=e4m3), cuda(2, 64, 2, 32, dtype=e4m3),
+            cuda(2, 64, 2, 32, dtype=e4m3), scale=0.2, causal=True,
+            scale_invs=cuda(3, dtype=f32), dropout_probability=0.1,
+            dropout_seed=cuda(2, dtype=i32)),
+        "flash_bwd_fp8_mha_dropout": lambda: fa.flash_bwd(
+            cuda(2, 64, 4, 32, dtype=e4m3), cuda(2, 64, 2, 32, dtype=e4m3),
+            cuda(2, 64, 2, 32, dtype=e4m3), cuda(2, 64, 4, 32, dtype=e4m3),
+            cuda(2, 4, 64, dtype=f32),
+            cuda(2, 64, 4, 32, dtype=torch.float8_e5m2), scale=0.2,
+            causal=True, scale_invs=cuda(3, dtype=f32),
+            o_scale_inv=cuda(1, dtype=f32), do_scale_inv=cuda(1, dtype=f32),
+            dropout_probability=0.1, dropout_seed=cuda(2, dtype=i32)),
         "te_paged_decode_attention": lambda: pa.paged_decode_attention(
             cuda(2, 1, 4, 32), cuda(6, 8, 2, 32, dtype=torch.float8_e4m3fn),
             cuda(6, 8, 2, 32, dtype=torch.float8_e4m3fn),
@@ -424,6 +447,12 @@ _LAUNCHED = {"te_flash_attention_bwd": ["te_flash_attention_bwd_dq",
                                    "te_flash_attention_bwd_dkv"],
              "flash_bwd_bias_dropout": ["te_flash_attention_bwd_dq",
                                         "te_flash_attention_bwd_dkv"],
+             "flash_fwd_softcap": ["te_flash_attention_fwd"],
+             "flash_bwd_softcap": ["te_flash_attention_bwd_dq",
+                                   "te_flash_attention_bwd_dkv"],
+             "flash_fwd_fp8_dropout": ["te_flash_attention_fwd"],
+             "flash_bwd_fp8_mha_dropout": ["te_flash_attention_bwd_dq",
+                                           "te_flash_attention_bwd_dkv"],
              "delayed_quantize_2x": ["te_cast_transpose"],
              "current_quantize_2x": ["te_cast_transpose"],
              "quantize_normed": ["te_norm_cast_transpose"],
@@ -451,6 +480,9 @@ _LAUNCHED = {"te_flash_attention_bwd": ["te_flash_attention_bwd_dq",
                                    "flash_fwd_dropout", "flash_bwd_dropout",
                                    "flash_fwd_bias_dropout",
                                    "flash_bwd_bias_dropout",
+                                   "flash_fwd_softcap", "flash_bwd_softcap",
+                                   "flash_fwd_fp8_dropout",
+                                   "flash_bwd_fp8_mha_dropout",
                                    "te_decode_attention",
                                    "te_paged_decode_attention",
                                    "te_decode_kn_matvec",
@@ -520,7 +552,8 @@ def test_wrappers_on_the_card_launch_or_raise(entry, monkeypatch):
     assert launched == expected
     grown = _build.LAUNCHES - before
     assert sum(grown.values()) == len(expected)
-    if entry.endswith(("_sw", "_seg", "_bias", "_alibi", "_dropout")):
+    if entry.endswith(("_sw", "_seg", "_bias", "_alibi", "_softcap",
+                       "_dropout")):
         suffix = entry[entry.rindex("_"):]
         assert all(name.endswith(suffix) for name in grown), grown
     if entry.endswith("_bias_dropout"):
@@ -725,3 +758,124 @@ def test_a_dropout_launch_failure_raises(monkeypatch):
         lse = torch.empty((1, 4, 64), dtype=torch.float32, device="cuda")
         with pytest.raises(RuntimeError, match="CUDA error"):
             fa.flash_bwd(q, kv, kv, q, lse, q, **kw)
+
+
+@pytest.mark.parametrize("how", ["kernel", "flex_attention"])
+def test_soft_cap_reaches_the_kernels(how, monkeypatch):
+    """On CUDA tensors the forward, dQ and dK/dV kernels get the cap as a
+    float beside the scale, q unscaled (the tensor itself), no bias and
+    no slopes; ``flex_attention(impl="flash")`` passes ``soft_cap_mod``
+    and ``causal_mask_mod`` on as the cap and the causal rule with offset
+    0 (its forward without autograd: fake tensors here cannot record a
+    graph). Without a cap the kernels get 0. The plain versions never
+    run."""
+    from transformerengine_tpu_torch.flex_attention import (
+        causal_mask_mod, flex_attention, soft_cap_mod)
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(fa, "flash_fwd_plain", plain)
+    monkeypatch.setattr(fa, "flash_bwd_plain", plain)
+    monkeypatch.setattr(_build, "stream", lambda t: None)
+    monkeypatch.setattr(_build, "ptr", lambda t: t)
+    seen = {}
+    monkeypatch.setattr(_build, "launch", lambda name, *args: seen.setdefault(
+        name, []).append(args))
+    with warnings.catch_warnings(), FakeTensorMode():
+        warnings.simplefilter("ignore", UserWarning)
+        q = torch.empty((2, 96, 4, 32), dtype=torch.bfloat16, device="cuda")
+        kv = torch.empty((2, 128, 2, 32), dtype=torch.bfloat16,
+                         device="cuda")
+        if how == "kernel":
+            kw = dict(scale=0.2, causal=True, score_mod=SoftCapMod(30.0))
+            o, lse = fa.flash_fwd(q, kv, kv, **kw)
+            fa.flash_bwd(q, kv, kv, o, lse, q, **kw)
+            fa.flash_fwd(q, kv, kv, scale=0.2, causal=True)
+        else:
+            with torch.no_grad():
+                flex_attention(q, kv, kv, score_mod=soft_cap_mod(30.0),
+                               mask_mod=causal_mask_mod,
+                               scaling_factor=0.2, impl="flash")
+    assert sorted(seen) == (sorted(_MASK_ARGS) if how == "kernel"
+                            else ["te_flash_attention_fwd"])
+    for name, calls in seen.items():
+        args = calls[0]
+        assert args[0] is q, name                  # q not pre-scaled
+        assert args[_TERM_ARGS[name]][0] is None, name      # no bias
+        scale, cap = args[-8:-6]
+        assert (scale, cap) == (0.2, 30.0), name
+        causal, offset = args[-12:-10]
+        assert (causal, offset) == (1, 0), name
+    if how == "kernel":
+        assert seen["te_flash_attention_fwd"][1][-7] == 0.0
+
+
+def test_flex_causal_mask_alone_reaches_the_alibi_branch(monkeypatch):
+    """``flex_attention(impl="flash")`` with ``causal_mask_mod`` and no
+    score mod launches the forward's ALiBi branch: q unscaled (the tensor
+    itself), an (Hq,) f32 slopes vector (zeros, which the CPU tests hold
+    by their numbers), no cap, and the causal rule with offset 0."""
+    from transformerengine_tpu_torch.flex_attention import (
+        causal_mask_mod, flex_attention)
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(fa, "flash_fwd_plain", plain)
+    monkeypatch.setattr(_build, "stream", lambda t: None)
+    monkeypatch.setattr(_build, "ptr", lambda t: t)
+    seen = {}
+    monkeypatch.setattr(_build, "launch", lambda name, *args: seen.setdefault(
+        name, args))
+    with warnings.catch_warnings(), FakeTensorMode():
+        warnings.simplefilter("ignore", UserWarning)
+        q = torch.empty((2, 96, 4, 32), dtype=torch.bfloat16, device="cuda")
+        kv = torch.empty((2, 128, 2, 32), dtype=torch.bfloat16,
+                         device="cuda")
+        with torch.no_grad():
+            flex_attention(q, kv, kv, mask_mod=causal_mask_mod,
+                           scaling_factor=0.2, impl="flash")
+    args = seen["te_flash_attention_fwd"]
+    assert list(seen) == ["te_flash_attention_fwd"]
+    assert args[0] is q
+    bias, _, _, slopes = args[_TERM_ARGS["te_flash_attention_fwd"]]
+    assert bias is None
+    assert slopes.dtype == torch.float32 and tuple(slopes.shape) == (4,)
+    assert tuple(args[-8:-6]) == (0.2, 0.0)
+    assert tuple(args[-12:-10]) == (1, 0)
+
+
+def test_soft_cap_and_fp8_dropout_arguments(monkeypatch):
+    """The cap's exclusions, before any launch: with a bias, with FP8
+    Q/K/V, and a cap that is not finite and positive raise; FP8 Q/K/V
+    with dropout now launch, with the seed words' pointer."""
+    monkeypatch.setattr(_build, "stream", lambda t: None)
+    monkeypatch.setattr(_build, "ptr", lambda t: t)
+    launched = []
+    monkeypatch.setattr(_build, "launch",
+                        lambda name, *args: launched.append((name, args)))
+    e4m3 = torch.float8_e4m3fn
+    with warnings.catch_warnings(), FakeTensorMode():
+        warnings.simplefilter("ignore", UserWarning)
+        q = torch.empty((1, 64, 4, 32), dtype=torch.bfloat16, device="cuda")
+        kv = torch.empty((1, 64, 2, 32), dtype=torch.bfloat16, device="cuda")
+        q8, kv8 = q.to(e4m3), kv.to(e4m3)
+        sinv = torch.empty((3,), dtype=torch.float32, device="cuda")
+        cap = SoftCapMod(20.0)
+        with pytest.raises(ValueError, match="mutually exclusive"):
+            fa.flash_fwd(q, kv, kv, scale=0.2, causal=True, score_mod=cap,
+                         bias=torch.empty((1, 4, 64, 64), device="cuda"))
+        with pytest.raises(ValueError, match="FP8"):
+            fa.flash_fwd(q8, kv8, kv8, scale=0.2, causal=True,
+                         scale_invs=sinv, score_mod=cap)
+        for bad in (0.0, -1.0, float("inf")):
+            with pytest.raises(ValueError, match="finite soft cap"):
+                fa.flash_fwd(q, kv, kv, scale=0.2, causal=True,
+                             score_mod=SoftCapMod(bad))
+        assert not launched
+        seed = torch.empty((2,), dtype=torch.int32, device="cuda")
+        fa.flash_fwd(q8, kv8, kv8, scale=0.2, causal=True, scale_invs=sinv,
+                     dropout_probability=0.1, dropout_seed=seed)
+    (name, args), = launched
+    assert name == "te_flash_attention_fwd" and args[-6] is seed
+

@@ -8,6 +8,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cmath>
 #include <type_traits>
 
 // Dtype codes; keep in step with DTYPE_CODES in _build.py.
@@ -300,29 +301,51 @@ __device__ __forceinline__ float drop_apply(const Dropout& d, bool keep,
 }
 
 // The flash kernels' score terms (the reference's `_fwd_block_body`,
-// `_bwd_dq_block_body` and `_bwd_dkv_block_body`): a post-scale bias or
-// ALiBi. At most one of the two is set, and neither with FP8 Q/K/V. The
-// dropout instances read `drop` too.
+// `_bwd_dq_block_body` and `_bwd_dkv_block_body`): a post-scale bias, ALiBi
+// or the soft cap. At most one of the three is set, and none with FP8 Q/K/V.
+// The dropout instances read `drop` too.
 struct ScoreTerms {
   const void* bias;     // (bias_b, Hq, Sq, Skv), f32 or bf16, or null
   int bias_code;        // its DTypeCode
   int bias_b;           // 1 (broadcast over the batch) or B
   const float* slopes;  // (Hq,) f32 ALiBi slopes, or null
-  float scale;          // the softmax scale (ALiBi's q is not pre-scaled)
+  float scale;          // the softmax scale (ALiBi's and the cap's q is
+                        // not pre-scaled)
+  float cap;            // the soft cap (> 0), or 0 for none
   Dropout drop;         // dropout (its seed null without)
 };
 
+// Which score terms a flash kernel instance computes, a template argument
+// of each kernel: none, a bias or ALiBi (chosen at run time by which
+// pointer is set), or the soft cap. Each kind is an instance of its own,
+// so a kernel without a kind compiles as it would without the code.
+enum TermsKind { kNoTerms = 0, kBiasAlibi = 1, kSoftCap = 2 };
+
 // Score s of query qi (bottom-right offset `offset`) and key kj in head h
-// of sequence b, in the exp2 domain. With a bias, s comes from pre-scaled
-// q and becomes s + bias * log2(e); with ALiBi, s is the unscaled q . k
-// and becomes (s * scale - slope_h * |qi + offset - kj|) * log2(e); each
-// operation rounded as the reference's f32 ops (no contraction into an
-// FMA). Positions past Sq or Skv read no bias: the mask replaces them.
+// of sequence b, in the exp2 domain.
+// - kBiasAlibi, with a bias: s comes from pre-scaled q and becomes
+//   s + bias * log2(e); with ALiBi, s is the unscaled q . k and becomes
+//   (s * scale - slope_h * |qi + offset - kj|) * log2(e). Positions past
+//   Sq or Skv read no bias: the mask replaces them.
+// - kSoftCap (the reference's `soft_cap_mod`, Gemma-2's logit cap): s is
+//   the unscaled q . k and becomes cap * tanh(s * scale / cap) * log2(e),
+//   and `th` takes tanh(...) for the backward's derivative. The order is
+//   the reference's jaxpr (`score_mod(s * scale) * LOG2E` with the mod
+//   `cap * jnp.tanh(score / cap)`): a true division (not a product with
+//   1 / cap) and CUDA's tanhf (no fast math).
+// Each operation rounds on its own as the reference's f32 ops (no
+// contraction into an FMA).
+template <int kKind>
 __device__ __forceinline__ float add_score_terms(const ScoreTerms& t,
                                                  float s, int b, int h,
                                                  int Hq, int Sq, int Skv,
-                                                 int qi, int kj, int offset) {
+                                                 int qi, int kj, int offset,
+                                                 float& th) {
   constexpr float kLog2eF = 1.4426950408889634f;
+  if constexpr (kKind == kSoftCap) {
+    th = tanhf(__fdiv_rn(__fmul_rn(s, t.scale), t.cap));
+    return __fmul_rn(__fmul_rn(t.cap, th), kLog2eF);
+  }
   if (t.bias != nullptr) {
     float bv = 0.f;
     if (qi < Sq && kj < Skv) {
@@ -343,15 +366,31 @@ __device__ __forceinline__ float add_score_terms(const ScoreTerms& t,
   return s;
 }
 
+// The soft cap's VJP applied to the score gradient ds (before ds is
+// rounded), from th = tanh(s * scale / cap) of add_score_terms: JAX's
+// transpose of tanh's JVP `(g + g * t) * (1 - t)` between the mod's product
+// with cap and its division by cap, in that order: g = cap * ds,
+// w = g * (1 - t), then (w + w * t) / cap, each operation rounded on its
+// own. 1 - t is exact near saturation (|t| -> 1), where 1 - t^2 cancels.
+__device__ __forceinline__ float soft_cap_grad(float cap, float th,
+                                               float ds) {
+  const float w = __fmul_rn(__fmul_rn(cap, ds), __fsub_rn(1.f, th));
+  return __fdiv_rn(__fadd_rn(w, __fmul_rn(w, th)), cap);
+}
+
 // The C entry points' check of the score terms: a bias of f32 or bf16
-// whose batch is 1 or B, not with slopes, and neither with FP8 Q/K/V;
-// dropout with positive tile sizes, not with FP8 either.
+// whose batch is 1 or B; a finite positive cap; at most one of a bias,
+// slopes and a cap, and none with FP8 Q/K/V; dropout with positive tile
+// sizes (FP8 Q/K/V included).
 inline bool bad_terms(const ScoreTerms& t, int B, bool fp8) {
   const bool has_bias = t.bias != nullptr;
+  const bool has_slopes = t.slopes != nullptr;
+  const bool has_cap = t.cap != 0.f;
   const bool has_drop = t.drop.seed != nullptr;
   return (has_bias && ((t.bias_code != kFloat32 && t.bias_code != kBFloat16) ||
                        (t.bias_b != 1 && t.bias_b != B))) ||
-         (has_bias && t.slopes != nullptr) ||
+         (has_cap && !(t.cap > 0.f && std::isfinite(t.cap))) ||
+         (int(has_bias) + int(has_slopes) + int(has_cap) > 1) ||
          (has_drop && (t.drop.bq < 1 || t.drop.bk < 1)) ||
-         (fp8 && (has_bias || t.slopes != nullptr || has_drop));
+         (fp8 && (has_bias || has_slopes || has_cap));
 }

@@ -62,6 +62,25 @@
 // the hash's integer operations over the causal pairs (about 14 a score,
 // 1.9 G, at the 67 T/s of the CUDA cores): operations, about 0.1 ms.
 //
+// Soft-cap branch (the reference's `score_mod` with `soft_cap_mod`, which
+// its `flex_attention(impl="flash")` traces into `_fwd_block_body`): q
+// arrives unscaled and each score becomes cap * tanh(s * scale / cap) *
+// log2(e) before the mask (common.cuh `add_score_terms`, in the reference
+// jaxpr's order: a true division, CUDA's tanhf, no FMA contraction). Its
+// own template instances (bf16 and f32, with and without dropout, built in
+// flash_attention_softcap.cu and flash_attention_softcap_dropout.cu
+// beside this file), so the other instances compile as they did; no added
+// shared memory. Bound at the LLAMA_8B training shape (B 2, S 2048, Hq 32,
+// Hkv 8, D 128, bf16, causal, cap 50): the products (68.8 GFLOP at the
+// bf16 peak) plus five cap operations per visited score at the CUDA
+// cores' rate: operations, about 0.08 ms.
+//
+// FP8 with dropout (the reference's `_fp8_core` and `_fp8_mha_core` with a
+// dropout rate): the dropout instances also take e4m3 Q/K/V payloads
+// (built in flash_attention_dropout.cu), O in bf16, f32 or through the
+// fp8 O epilogue; the weights round to bf16 after the mask, as the
+// reference's (`p.astype(bf16)` after the keep select).
+//
 // Numerics follow the reference: the caller folds scale * log2(e) into q
 // in q's dtype, scores run in the exp2 domain, masked scores are -2e30
 // under a running max that starts at -1e30 (so they underflow to exactly
@@ -125,7 +144,10 @@
 // Which instances a translation unit compiles: 0 (this file) the C entry
 // point and the instances without the terms; 1 (flash_attention_terms.cu)
 // the bias and ALiBi instances; 2 (flash_attention_dropout.cu) the dropout
-// instances, which take the terms too. bf16 and f32 each.
+// instances, which take the terms too, and e4m3 Q/K/V; 3
+// (flash_attention_softcap.cu) the soft-cap instances; 4
+// (flash_attention_softcap_dropout.cu) the soft-cap instances with
+// dropout. bf16 and f32 each.
 #ifndef TE_FLASH_UNIT
 #define TE_FLASH_UNIT 0
 #endif
@@ -149,7 +171,7 @@ size_t smem_bytes(int D) {
                           (size_t)kBK * D + (size_t)kBQ * (kBK + 1));
 }
 
-template <typename T, int DMAX, bool kTerms, bool kDropout>
+template <typename T, int DMAX, int kTerms, bool kDropout>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, void* __restrict__ o,
@@ -298,9 +320,11 @@ __global__ void __launch_bounds__(kThreads)
                     qs == __float_as_int(Ks[(tx + 16 * c) * ld + D]);
         }
         if (kFp8) s[r][c] *= smult;
-        if constexpr (kTerms)
-          s[r][c] = add_score_terms(terms, s[r][c], b, h, Hq, Sq, Skv, qi, kj,
-                                    offset);
+        if constexpr (kTerms != kNoTerms) {
+          float th;  // the soft cap's tanh, which the forward does not need
+          s[r][c] = add_score_terms<kTerms>(terms, s[r][c], b, h, Hq, Sq,
+                                            Skv, qi, kj, offset, th);
+        }
         if (!visible) s[r][c] = kMasked;
         mx = fmaxf(mx, s[r][c]);
       }
@@ -383,7 +407,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int DMAX, bool kTerms, bool kDropout>
+template <typename T, int DMAX, int kTerms, bool kDropout>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int out_code, float* lse, const int* qlens,
                    const int* klens, const int* qseg, const int* kseg,
@@ -404,7 +428,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <typename T, bool kTerms, bool kDropout>
+template <typename T, int kTerms, bool kDropout>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
                      int out_code, float* lse, const int* qlens,
                      const int* klens, const int* qseg, const int* kseg,
@@ -422,63 +446,76 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// The bias and ALiBi instances, and the dropout instances (`dtype` bf16 or
-// f32), each in a translation unit of their own: the kernels without them
-// compile as they did, and nvcc builds the units at once.
-cudaError_t flash_fwd_terms(int dtype, const void* q, const void* k,
-                            const void* v, void* o, float* lse,
-                            const int* qlens, const int* klens,
-                            const int* qseg, const int* kseg,
-                            const float* sink, const ScoreTerms& terms, int B,
-                            int Sq, int Skv, int Hq, int Hkv, int D,
-                            const Mask& mk, cudaStream_t stream);
-cudaError_t flash_fwd_dropout(int dtype, const void* q, const void* k,
-                              const void* v, void* o, float* lse,
-                              const int* qlens, const int* klens,
-                              const int* qseg, const int* kseg,
-                              const float* sink, const ScoreTerms& terms,
-                              int B, int Sq, int Skv, int Hq, int Hkv, int D,
-                              const Mask& mk, cudaStream_t stream);
+// The instances of the other translation units, each a function of this
+// signature (`dtype` Q/K/V's DTypeCode): the bias and ALiBi instances
+// (bf16, f32), the dropout instances (bf16 and f32 with the bias and ALiBi
+// terms, and e4m3 payloads), the soft-cap instances (bf16, f32) and the
+// soft-cap instances with dropout (bf16, f32). nvcc builds the units at
+// once, and the kernels without them compile as they did.
+#define TE_FWD_ARGS                                                           \
+  int dtype, const void *q, const void *k, const void *v, void *o,           \
+      int out_code, float *lse, const int *qlens, const int *klens,          \
+      const int *qseg, const int *kseg, const float *sink,                   \
+      const float *scales, float *o_amax, const ScoreTerms &terms, int B,    \
+      int Sq, int Skv, int Hq, int Hkv, int D, const Mask &mk,               \
+      cudaStream_t stream
+cudaError_t flash_fwd_terms(TE_FWD_ARGS);
+cudaError_t flash_fwd_dropout(TE_FWD_ARGS);
+cudaError_t flash_fwd_softcap(TE_FWD_ARGS);
+cudaError_t flash_fwd_softcap_dropout(TE_FWD_ARGS);
 
 #if TE_FLASH_UNIT != 0
 #if TE_FLASH_UNIT == 1
 #define TE_FWD_UNIT flash_fwd_terms
+#define TE_FWD_KIND kBiasAlibi
+#define TE_FWD_DROPOUT false
+#elif TE_FLASH_UNIT == 2
+#define TE_FWD_UNIT flash_fwd_dropout
+#define TE_FWD_KIND kBiasAlibi
+#define TE_FWD_DROPOUT true
+#elif TE_FLASH_UNIT == 3
+#define TE_FWD_UNIT flash_fwd_softcap
+#define TE_FWD_KIND kSoftCap
 #define TE_FWD_DROPOUT false
 #else
-#define TE_FWD_UNIT flash_fwd_dropout
+#define TE_FWD_UNIT flash_fwd_softcap_dropout
+#define TE_FWD_KIND kSoftCap
 #define TE_FWD_DROPOUT true
 #endif
-cudaError_t TE_FWD_UNIT(int dtype, const void* q, const void* k,
-                        const void* v, void* o, float* lse, const int* qlens,
-                        const int* klens, const int* qseg, const int* kseg,
-                        const float* sink, const ScoreTerms& terms, int B,
-                        int Sq, int Skv, int Hq, int Hkv, int D,
-                        const Mask& mk, cudaStream_t stream) {
+cudaError_t TE_FWD_UNIT(TE_FWD_ARGS) {
+#define TE_FWD_AS(T, KIND)                                                  \
+  launch_d<T, KIND, TE_FWD_DROPOUT>(q, k, v, o, out_code, lse, qlens, klens, \
+                                    qseg, kseg, sink, scales, o_amax, terms, \
+                                    B, Sq, Skv, Hq, Hkv, D, mk, stream)
   switch (dtype) {
     case kBFloat16:
-      return launch_d<__nv_bfloat16, true, TE_FWD_DROPOUT>(
-          q, k, v, o, dtype, lse, qlens, klens, qseg, kseg, sink, nullptr,
-          nullptr, terms, B, Sq, Skv, Hq, Hkv, D, mk, stream);
+      return TE_FWD_AS(__nv_bfloat16, TE_FWD_KIND);
     case kFloat32:
-      return launch_d<float, true, TE_FWD_DROPOUT>(
-          q, k, v, o, dtype, lse, qlens, klens, qseg, kseg, sink, nullptr,
-          nullptr, terms, B, Sq, Skv, Hq, Hkv, D, mk, stream);
+      return TE_FWD_AS(float, TE_FWD_KIND);
+#if TE_FLASH_UNIT == 2
+    // FP8 Q/K/V with dropout: no score terms, O through any epilogue.
+    case kFloat8E4M3:
+      return TE_FWD_AS(__nv_fp8_e4m3, kNoTerms);
+#endif
     default:
       return cudaErrorInvalidValue;
   }
+#undef TE_FWD_AS
 }
 #undef TE_FWD_DROPOUT
+#undef TE_FWD_KIND
 #undef TE_FWD_UNIT
 #else
 // `dtype` is Q/K/V's (f32, bf16, or e4m3 payloads with `scales`), O's is
 // `out_dtype`: Q's outside the FP8 branch; bf16, f32, or an fp8 type with
 // `o_amax` (zeroed by the caller) in it. `qlens`/`klens` and `qseg`/`kseg`
 // are each both given or both null. `bias` (`bias_b` = 1 or B, Hq, Sq,
-// Skv) of `bias_dtype` f32 or bf16, or the (Hq,) ALiBi `slopes` with the
-// softmax `scale` (q then unscaled), or neither; not with FP8. `seed`, the
-// (2,) int32 dropout seed words on the card, with the threshold `thr`,
-// `inv` = 1 / (1 - rate) and the reference's tile sizes `bq` and `bk`, or
-// a null seed without dropout; not with FP8.
+// Skv) of `bias_dtype` f32 or bf16, or the (Hq,) ALiBi `slopes`, or the
+// soft cap `cap` > 0 (0 for none), at most one of them, with the softmax
+// `scale` (q then unscaled for the slopes and the cap); none with FP8.
+// `seed`, the (2,) int32 dropout seed words on the card, with the
+// threshold `thr`, `inv` = 1 / (1 - rate) and the reference's tile sizes
+// `bq` and `bk`, or a null seed without dropout; FP8 included.
 extern "C" int te_flash_attention_fwd(const void* q, const void* k,
                                       const void* v, int dtype, void* o,
                                       int out_dtype, float* lse,
@@ -490,11 +527,11 @@ extern "C" int te_flash_attention_fwd(const void* q, const void* k,
                                       const float* slopes, int B, int Sq,
                                       int Skv, int Hq, int Hkv, int D,
                                       int causal, int offset, int left,
-                                      int right, float scale,
+                                      int right, float scale, float cap,
                                       const int* seed, unsigned thr,
                                       float inv, int bq, int bk,
                                       void* stream) {
-  const ScoreTerms terms{bias, bias_dtype, bias_b, slopes, scale,
+  const ScoreTerms terms{bias, bias_dtype, bias_b, slopes, scale, cap,
                          Dropout{seed, thr, inv, bq, bk}};
   if (bad_terms(terms, B, dtype == kFloat8E4M3)) return cudaErrorInvalidValue;
   if (B < 1 || Sq < 1 || Skv < 1 || Hkv < 1 || Hq % Hkv != 0 || D < 16 ||
@@ -510,24 +547,27 @@ extern "C" int te_flash_attention_fwd(const void* q, const void* k,
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Mask mk{causal, offset, left, right};
-  if (seed != nullptr)
-    return flash_fwd_dropout(dtype, q, k, v, o, lse, qlens, klens, qseg,
-                             kseg, sink, terms, B, Sq, Skv, Hq, Hkv, D, mk,
-                             s);
+#define TE_FWD_UNIT_CALL(UNIT)                                              \
+  UNIT(dtype, q, k, v, o, out_dtype, lse, qlens, klens, qseg, kseg, sink,  \
+       scales, o_amax, terms, B, Sq, Skv, Hq, Hkv, D, mk, s)
+  if (cap != 0.f)
+    return seed != nullptr ? TE_FWD_UNIT_CALL(flash_fwd_softcap_dropout)
+                           : TE_FWD_UNIT_CALL(flash_fwd_softcap);
+  if (seed != nullptr) return TE_FWD_UNIT_CALL(flash_fwd_dropout);
   if (bias != nullptr || slopes != nullptr)
-    return flash_fwd_terms(dtype, q, k, v, o, lse, qlens, klens, qseg, kseg,
-                           sink, terms, B, Sq, Skv, Hq, Hkv, D, mk, s);
+    return TE_FWD_UNIT_CALL(flash_fwd_terms);
+#undef TE_FWD_UNIT_CALL
   switch (dtype) {
     case kBFloat16:
-      return launch_d<__nv_bfloat16, false, false>(
+      return launch_d<__nv_bfloat16, kNoTerms, false>(
           q, k, v, o, out_dtype, lse, qlens, klens, qseg, kseg, sink, scales,
           o_amax, terms, B, Sq, Skv, Hq, Hkv, D, mk, s);
     case kFloat32:
-      return launch_d<float, false, false>(
+      return launch_d<float, kNoTerms, false>(
           q, k, v, o, out_dtype, lse, qlens, klens, qseg, kseg, sink, scales,
           o_amax, terms, B, Sq, Skv, Hq, Hkv, D, mk, s);
     case kFloat8E4M3:
-      return launch_d<__nv_fp8_e4m3, false, false>(
+      return launch_d<__nv_fp8_e4m3, kNoTerms, false>(
           q, k, v, o, out_dtype, lse, qlens, klens, qseg, kseg, sink, scales,
           o_amax, terms, B, Sq, Skv, Hq, Hkv, D, mk, s);
     default:
@@ -535,3 +575,4 @@ extern "C" int te_flash_attention_fwd(const void* q, const void* k,
   }
 }
 #endif  // TE_FLASH_UNIT
+#undef TE_FWD_ARGS

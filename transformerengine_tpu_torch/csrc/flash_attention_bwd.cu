@@ -51,6 +51,25 @@
 // causal pairs (3.8 G integer operations at the CUDA cores' 67 T/s):
 // operations, about 0.23 ms.
 //
+// Soft-cap branch (the reference's `score_mod` with `soft_cap_mod` in
+// `_bwd_dq_block_body` and `_bwd_dkv_block_body`, its `jax.vjp` of the
+// mod): q arrives unscaled, both kernels recompute t = tanh(s * scale /
+// cap) with the forward's score, and multiply ds by the mod's VJP before
+// ds is rounded (common.cuh `soft_cap_grad`: w = (cap * ds) * (1 - t),
+// then (w + w * t) / cap, the order of JAX's transpose of its tanh rule;
+// 1 - t stays exact where t saturates, where 1 - t^2 would cancel); dQ
+// and dK take `scale` as their multiplier. Template instances of their own
+// (bf16 and f32, with and without dropout, built in
+// flash_attention_bwd_softcap.cu and flash_attention_bwd_softcap_dropout.cu).
+// Bound at the LLAMA_8B training shape with the cap at 50: the five
+// products (171.9 GFLOP at the bf16 peak) plus the cap's eleven operations
+// per visited score in each kernel (2.95 G at the CUDA cores' rate):
+// operations, about 0.22 ms.
+//
+// FP8 with dropout: the dropout instances also take e4m3 Q/K/V payloads
+// with a bf16 or f32 dO, or e4m3 O and an e5m2 dO (built in
+// flash_attention_bwd_dropout.cu); p and ds round to bf16 after the mask.
+//
 // Numerics follow the reference: the caller passes q pre-scaled by
 // scale * log2(e) in q's dtype, LSE moved into the log2 domain
 // (lse2 = lse * log2(e), (B, Hq, Sq)) and delta = rowsum(dO * O) in f32
@@ -117,7 +136,9 @@
 // points and the instances without the terms; 1
 // (flash_attention_bwd_terms.cu) the bias and ALiBi instances; 2
 // (flash_attention_bwd_dropout.cu) the dropout instances, which take the
-// terms too. bf16 and f32 each.
+// terms too, and e4m3 Q/K/V; 3 (flash_attention_bwd_softcap.cu) the
+// soft-cap instances; 4 (flash_attention_bwd_softcap_dropout.cu) the
+// soft-cap instances with dropout. bf16 and f32 each.
 #ifndef TE_FLASH_UNIT
 #define TE_FLASH_UNIT 0
 #endif
@@ -217,7 +238,7 @@ struct Tiles {
   static constexpr int kCols = DMAX / 16;           // columns a thread
 };
 
-template <typename T, int DMAX, bool kTerms, bool kDropout>
+template <typename T, int DMAX, int kTerms, bool kDropout>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v,
@@ -340,9 +361,10 @@ __global__ void __launch_bounds__(kThreads)
         if (visible(sh, qi, kj, qlen, klen, seg_of(Qs, ld, D, row),
                     seg_of(Ks, ld, D, key))) {
           float sv = s[r][c] * smult;
-          if constexpr (kTerms)
-            sv = add_score_terms(terms, sv, b, h, sh.Hq, sh.Sq, sh.Skv, qi,
-                                 kj, sh.offset);
+          float th = 0.f;  // the soft cap's tanh
+          if constexpr (kTerms != kNoTerms)
+            sv = add_score_terms<kTerms>(terms, sv, b, h, sh.Hq, sh.Sq,
+                                         sh.Skv, qi, kj, sh.offset, th);
           const float p = exp2f(sv - Ls[row]);
           if constexpr (kDropout) {
             const float dpd = drop_apply(
@@ -352,10 +374,12 @@ __global__ void __launch_bounds__(kThreads)
           } else {
             ds = p * (dp[r][c] * dp_mult - Dl[row]);
           }
+          if constexpr (kTerms == kSoftCap)
+            ds = soft_cap_grad(terms.cap, th, ds);
         }
         // dbias is ds before its rounding (the reference returns the f32
         // ds block); masked pairs write 0.
-        if constexpr (kTerms)
+        if constexpr (kTerms == kBiasAlibi)
           if (dbias != nullptr && qi < sh.Sq && kj < sh.Skv)
             dbias[dbias_row + (size_t)row * sh.Skv + kj] = ds;
         dSs[row * (kB + 1) + key] = round_to<RoundT<T>>(ds);
@@ -378,7 +402,7 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  if (kTerms && dbias != nullptr) {
+  if (kTerms == kBiasAlibi && dbias != nullptr) {
     // The keys of the tiles the loop skipped (before kbeg, and from the
     // end of its last tile on) get exact zeros, as the reference's
     // skipped dbias blocks.
@@ -404,7 +428,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int DMAX, bool kTerms, bool kDropout>
+template <typename T, int DMAX, int kTerms, bool kDropout>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v,
@@ -531,9 +555,11 @@ __global__ void __launch_bounds__(kThreads)
           if (visible(sh, q0 + row, k0 + key, qlen, klen,
                       seg_of(Qs, ld, D, row), seg_of(Ks, ld, D, key))) {
             float sv = st[r][c] * smult;
-            if constexpr (kTerms)
-              sv = add_score_terms(terms, sv, b, h, sh.Hq, sh.Sq, sh.Skv,
-                                   q0 + row, k0 + key, sh.offset);
+            float th = 0.f;  // the soft cap's tanh
+            if constexpr (kTerms != kNoTerms)
+              sv = add_score_terms<kTerms>(terms, sv, b, h, sh.Hq, sh.Sq,
+                                           sh.Skv, q0 + row, k0 + key,
+                                           sh.offset, th);
             p = exp2f(sv - Ls[row]);
             if constexpr (kDropout) {
               // dV takes the dropped weight, ds the dropped dp.
@@ -544,6 +570,8 @@ __global__ void __launch_bounds__(kThreads)
             } else {
               ds = p * (dpt[r][c] * dp_mult - Dl[row]);
             }
+            if constexpr (kTerms == kSoftCap)
+              ds = soft_cap_grad(terms.cap, th, ds);
           }
           Pt[key * (kB + 1) + row] = round_to<RoundT<T>>(p);
           dSt[key * (kB + 1) + row] = round_to<RoundT<T>>(ds);
@@ -574,9 +602,12 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  // q carries scale * log2(e), except under ALiBi, where it is unscaled.
-  const float dk_mult =
-      kFp8 ? scales[3] : terms.slopes != nullptr ? terms.scale : kLn2;
+  // q carries scale * log2(e), except under ALiBi and the soft cap, where
+  // it is unscaled.
+  const float dk_mult = kFp8 ? scales[3]
+                        : (kTerms == kSoftCap || terms.slopes != nullptr)
+                            ? terms.scale
+                            : kLn2;
   const float dv_mult = kFp8 ? scales[4] : 1.f;
 #pragma unroll
   for (int r = 0; r < kR; ++r) {
@@ -607,7 +638,7 @@ size_t dkv_smem(int D) {
          (4 * (size_t)kB * (D + 1) + 2 * (size_t)kB * (kB + 1) + 2 * kB);
 }
 
-template <typename T, int DMAX, bool kTerms, bool kDropout>
+template <typename T, int DMAX, int kTerms, bool kDropout>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, int do_code, const float* lse2,
                       const float* delta, void* dq, int g_code,
@@ -628,7 +659,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T, int DMAX, bool kTerms, bool kDropout>
+template <typename T, int DMAX, int kTerms, bool kDropout>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, int do_code, const float* lse2,
                        const float* delta, void* dk, void* dv, int g_code,
@@ -683,9 +714,13 @@ bool bad_args(int B, int Sq, int Skv, int Hq, int Hkv, int D, int left,
               : sh.D <= 128 ? LAUNCH(T, 128, TERMS, DROP)                  \
                             : LAUNCH(T, 256, TERMS, DROP))
 
-// The bias and ALiBi instances, and the dropout instances (`dtype` bf16 or
-// f32), each in a translation unit of their own: the kernels without them
-// compile as they did, and nvcc builds the units at once.
+// The instances of the other translation units, each a pair of functions
+// of these signatures (`dtype` Q/K/V's DTypeCode): the bias and ALiBi
+// instances (bf16, f32), the dropout instances (bf16 and f32 with the bias
+// and ALiBi terms, and e4m3 payloads with any dO), the soft-cap instances
+// (bf16, f32) and the soft-cap instances with dropout (bf16, f32). nvcc
+// builds the units at once, and the kernels without them compile as they
+// did.
 #define TE_DQ_ARGS                                                          \
   const void *q, const void *k, const void *v, int dtype, const void *dout, \
       int do_dtype, const float *lse2, const float *delta, void *dq,       \
@@ -702,23 +737,43 @@ cudaError_t flash_bwd_dq_terms(TE_DQ_ARGS);
 cudaError_t flash_bwd_dkv_terms(TE_DKV_ARGS);
 cudaError_t flash_bwd_dq_dropout(TE_DQ_ARGS);
 cudaError_t flash_bwd_dkv_dropout(TE_DKV_ARGS);
+cudaError_t flash_bwd_dq_softcap(TE_DQ_ARGS);
+cudaError_t flash_bwd_dkv_softcap(TE_DKV_ARGS);
+cudaError_t flash_bwd_dq_softcap_dropout(TE_DQ_ARGS);
+cudaError_t flash_bwd_dkv_softcap_dropout(TE_DKV_ARGS);
 
 #if TE_FLASH_UNIT != 0
 #if TE_FLASH_UNIT == 1
 #define TE_UNIT_DQ flash_bwd_dq_terms
 #define TE_UNIT_DKV flash_bwd_dkv_terms
+#define TE_UNIT_KIND kBiasAlibi
 #define TE_UNIT_DROPOUT false
-#else
+#elif TE_FLASH_UNIT == 2
 #define TE_UNIT_DQ flash_bwd_dq_dropout
 #define TE_UNIT_DKV flash_bwd_dkv_dropout
+#define TE_UNIT_KIND kBiasAlibi
+#define TE_UNIT_DROPOUT true
+#elif TE_FLASH_UNIT == 3
+#define TE_UNIT_DQ flash_bwd_dq_softcap
+#define TE_UNIT_DKV flash_bwd_dkv_softcap
+#define TE_UNIT_KIND kSoftCap
+#define TE_UNIT_DROPOUT false
+#else
+#define TE_UNIT_DQ flash_bwd_dq_softcap_dropout
+#define TE_UNIT_DKV flash_bwd_dkv_softcap_dropout
+#define TE_UNIT_KIND kSoftCap
 #define TE_UNIT_DROPOUT true
 #endif
 cudaError_t TE_UNIT_DQ(TE_DQ_ARGS) {
   switch (dtype) {
     case kBFloat16:
-      return TE_BY_D(TE_DQ, __nv_bfloat16, true, TE_UNIT_DROPOUT);
+      return TE_BY_D(TE_DQ, __nv_bfloat16, TE_UNIT_KIND, TE_UNIT_DROPOUT);
     case kFloat32:
-      return TE_BY_D(TE_DQ, float, true, TE_UNIT_DROPOUT);
+      return TE_BY_D(TE_DQ, float, TE_UNIT_KIND, TE_UNIT_DROPOUT);
+#if TE_FLASH_UNIT == 2
+    case kFloat8E4M3:  // FP8 Q/K/V with dropout: no score terms
+      return TE_BY_D(TE_DQ, __nv_fp8_e4m3, kNoTerms, true);
+#endif
     default:
       return cudaErrorInvalidValue;
   }
@@ -727,22 +782,28 @@ cudaError_t TE_UNIT_DQ(TE_DQ_ARGS) {
 cudaError_t TE_UNIT_DKV(TE_DKV_ARGS) {
   switch (dtype) {
     case kBFloat16:
-      return TE_BY_D(TE_DKV, __nv_bfloat16, true, TE_UNIT_DROPOUT);
+      return TE_BY_D(TE_DKV, __nv_bfloat16, TE_UNIT_KIND, TE_UNIT_DROPOUT);
     case kFloat32:
-      return TE_BY_D(TE_DKV, float, true, TE_UNIT_DROPOUT);
+      return TE_BY_D(TE_DKV, float, TE_UNIT_KIND, TE_UNIT_DROPOUT);
+#if TE_FLASH_UNIT == 2
+    case kFloat8E4M3:
+      return TE_BY_D(TE_DKV, __nv_fp8_e4m3, kNoTerms, true);
+#endif
     default:
       return cudaErrorInvalidValue;
   }
 }
 #undef TE_UNIT_DROPOUT
+#undef TE_UNIT_KIND
 #undef TE_UNIT_DKV
 #undef TE_UNIT_DQ
 #else
 // `bias` (`bias_b` = 1 or B, Hq, Sq, Skv) of `bias_dtype` f32 or bf16,
 // with `dbias` its per-batch f32 (B, Hq, Sq, Skv) gradient, every element
 // of which the dQ kernel writes; or the (Hq,) ALiBi `slopes` (q unscaled);
-// or neither. Not with FP8. `seed`, `thr`, `inv`, `bq` and `bk`: the
-// forward's dropout, or a null seed without; not with FP8.
+// or the soft cap `cap` > 0 (q unscaled; 0 for none); at most one, and
+// none with FP8. `seed`, `thr`, `inv`, `bq` and `bk`: the forward's
+// dropout, or a null seed without; FP8 included.
 extern "C" int te_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, int dtype, const void* dout,
     int do_dtype, const float* lse2, const float* delta, void* dq,
@@ -750,9 +811,9 @@ extern "C" int te_flash_attention_bwd_dq(
     const int* kseg, const float* scales, const void* bias, int bias_dtype,
     int bias_b, const float* slopes, float* dbias, int B, int Sq, int Skv,
     int Hq, int Hkv, int D, int causal, int offset, int left, int right,
-    float scale, const int* seed, unsigned thr, float inv, int bq, int bk,
-    void* stream) {
-  const ScoreTerms terms{bias, bias_dtype, bias_b, slopes, scale,
+    float scale, float cap, const int* seed, unsigned thr, float inv, int bq,
+    int bk, void* stream) {
+  const ScoreTerms terms{bias, bias_dtype, bias_b, slopes, scale, cap,
                          Dropout{seed, thr, inv, bq, bk}};
   if (bad_args(B, Sq, Skv, Hq, Hkv, D, left, right, dtype, do_dtype,
                grad_dtype, scales, qlens, klens, qseg, kseg) ||
@@ -761,21 +822,23 @@ extern "C" int te_flash_attention_bwd_dq(
     return cudaErrorInvalidValue;
   const Shape sh{Sq, Skv, Hq, Hkv, D, causal, offset, left, right};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (seed != nullptr)
-    return flash_bwd_dq_dropout(q, k, v, dtype, dout, do_dtype, lse2, delta,
-                                dq, grad_dtype, qlens, klens, qseg, kseg,
-                                scales, terms, dbias, B, sh, s);
+#define TE_DQ_UNIT(UNIT)                                                    \
+  UNIT(q, k, v, dtype, dout, do_dtype, lse2, delta, dq, grad_dtype, qlens, \
+       klens, qseg, kseg, scales, terms, dbias, B, sh, s)
+  if (cap != 0.f)
+    return seed != nullptr ? TE_DQ_UNIT(flash_bwd_dq_softcap_dropout)
+                           : TE_DQ_UNIT(flash_bwd_dq_softcap);
+  if (seed != nullptr) return TE_DQ_UNIT(flash_bwd_dq_dropout);
   if (bias != nullptr || slopes != nullptr)
-    return flash_bwd_dq_terms(q, k, v, dtype, dout, do_dtype, lse2, delta,
-                              dq, grad_dtype, qlens, klens, qseg, kseg,
-                              scales, terms, dbias, B, sh, s);
+    return TE_DQ_UNIT(flash_bwd_dq_terms);
+#undef TE_DQ_UNIT
   switch (dtype) {
     case kBFloat16:
-      return TE_BY_D(TE_DQ, __nv_bfloat16, false, false);
+      return TE_BY_D(TE_DQ, __nv_bfloat16, kNoTerms, false);
     case kFloat32:
-      return TE_BY_D(TE_DQ, float, false, false);
+      return TE_BY_D(TE_DQ, float, kNoTerms, false);
     case kFloat8E4M3:
-      return TE_BY_D(TE_DQ, __nv_fp8_e4m3, false, false);
+      return TE_BY_D(TE_DQ, __nv_fp8_e4m3, kNoTerms, false);
     default:
       return cudaErrorInvalidValue;
   }
@@ -788,8 +851,9 @@ extern "C" int te_flash_attention_bwd_dkv(
     const int* kseg, const float* scales, const void* bias, int bias_dtype,
     int bias_b, const float* slopes, int B, int Sq, int Skv, int Hq, int Hkv,
     int D, int causal, int offset, int left, int right, float scale,
-    const int* seed, unsigned thr, float inv, int bq, int bk, void* stream) {
-  const ScoreTerms terms{bias, bias_dtype, bias_b, slopes, scale,
+    float cap, const int* seed, unsigned thr, float inv, int bq, int bk,
+    void* stream) {
+  const ScoreTerms terms{bias, bias_dtype, bias_b, slopes, scale, cap,
                          Dropout{seed, thr, inv, bq, bk}};
   if (bad_args(B, Sq, Skv, Hq, Hkv, D, left, right, dtype, do_dtype,
                grad_dtype, scales, qlens, klens, qseg, kseg) ||
@@ -797,21 +861,23 @@ extern "C" int te_flash_attention_bwd_dkv(
     return cudaErrorInvalidValue;
   const Shape sh{Sq, Skv, Hq, Hkv, D, causal, offset, left, right};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (seed != nullptr)
-    return flash_bwd_dkv_dropout(q, k, v, dtype, dout, do_dtype, lse2, delta,
-                                 dk, dv, grad_dtype, qlens, klens, qseg, kseg,
-                                 scales, terms, B, sh, s);
+#define TE_DKV_UNIT(UNIT)                                                   \
+  UNIT(q, k, v, dtype, dout, do_dtype, lse2, delta, dk, dv, grad_dtype,    \
+       qlens, klens, qseg, kseg, scales, terms, B, sh, s)
+  if (cap != 0.f)
+    return seed != nullptr ? TE_DKV_UNIT(flash_bwd_dkv_softcap_dropout)
+                           : TE_DKV_UNIT(flash_bwd_dkv_softcap);
+  if (seed != nullptr) return TE_DKV_UNIT(flash_bwd_dkv_dropout);
   if (bias != nullptr || slopes != nullptr)
-    return flash_bwd_dkv_terms(q, k, v, dtype, dout, do_dtype, lse2, delta,
-                               dk, dv, grad_dtype, qlens, klens, qseg, kseg,
-                               scales, terms, B, sh, s);
+    return TE_DKV_UNIT(flash_bwd_dkv_terms);
+#undef TE_DKV_UNIT
   switch (dtype) {
     case kBFloat16:
-      return TE_BY_D(TE_DKV, __nv_bfloat16, false, false);
+      return TE_BY_D(TE_DKV, __nv_bfloat16, kNoTerms, false);
     case kFloat32:
-      return TE_BY_D(TE_DKV, float, false, false);
+      return TE_BY_D(TE_DKV, float, kNoTerms, false);
     case kFloat8E4M3:
-      return TE_BY_D(TE_DKV, __nv_fp8_e4m3, false, false);
+      return TE_BY_D(TE_DKV, __nv_fp8_e4m3, kNoTerms, false);
     default:
       return cudaErrorInvalidValue;
   }

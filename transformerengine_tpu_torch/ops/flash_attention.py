@@ -65,13 +65,24 @@ dimension of 1 broadcasts over the batch. The backward also returns dbias,
 the per-batch f32 ``ds`` (B, Hq, Sq, Skv) before its rounding, 0 wherever
 a pair is masked; the autograd function sums it over a broadcast batch and
 casts it to the bias's dtype, as the reference's ``_flash_core_bwd``
-does. ALiBi (``score_mod=``:class:`~..flex_attention.AlibiMod`): q is not
-pre-scaled; the kernels compute ``(s * scale - slope_h * |i + offset -
+does. ALiBi (``score_mod=``:class:`~..flex_attention.AlibiMod`, or an
+:class:`~..flex_attention.AlibiSlopesMod` with explicit (Hq,) slopes): q is
+not pre-scaled; the kernels compute ``(s * scale - slope_h * |i + offset -
 j|) * log2(e)`` from an (Hq,) f32 slopes vector that the wrapper makes
 once and both the kernels and the plain versions read, and dQ and dK both
-take ``scale`` as their multiplier (the mod's VJP is the identity). A
-bias or ALiBi composes with the masks, the window and the sink, and with
-neither FP8 branch; no other score mod is ported.
+take ``scale`` as their multiplier (the mod's VJP is the identity).
+
+Soft cap (``score_mod=``:class:`~..flex_attention.SoftCapMod`, the
+reference's ``soft_cap_mod``, Gemma-2's logit cap): q is not pre-scaled;
+each score becomes ``cap * tanh(s * scale / cap) * log2(e)`` in the order
+of the reference's jaxpr (a true division by ``cap``, then ``tanh``), and
+the backward multiplies ds by the mod's VJP before ds is rounded, in the
+order of JAX's transpose of its ``tanh`` rule: ``w = (cap * ds) * (1 - t)``,
+then ``(w + w * t) / cap`` with ``t`` the forward's tanh (never ``1 -
+t^2``, which cancels where t saturates); dQ and dK take ``scale``. A bias,
+ALiBi or the cap (one of them) composes with the masks, the window, the
+sink and dropout, and with neither FP8 branch; no other score mod runs in
+the kernels (:func:`~..flex_attention.flex_attention` runs the others).
 
 Dropout (the reference's ``dropout_rate`` branch, ``_dropout_keep``): with
 ``dropout_probability`` > 0 and ``dropout_seed``, the two 32-bit words of
@@ -84,13 +95,15 @@ bits alone, never the CUDA tiles. The denominator sums the undropped
 weights; the PV product takes ``where(keep, p * inv, 0)`` with ``inv =
 1 / (1 - rate)`` rounded to f32, and the backward applies the same mask
 to dp (dQ, dK) and to the weights of dV, so the forward's mask is replayed
-and never stored. :func:`dropout_keep` is the plain mask. FP8 Q/K/V with
-dropout raise: the reference's layers close their FP8 gates under it.
+and never stored. :func:`dropout_keep` is the plain mask. FP8 Q/K/V take
+dropout too (the reference's ``_fp8_core`` and ``_fp8_mha_core`` pass the
+seed through): the weights round to bf16 after the mask, and the autograd
+functions pass the forward's seed and tiles to the backward.
 
 A launch counts under a name that says its branch: ``_fp8`` for FP8
 Q/K/V, ``_fp8_mha`` for the fp8 O epilogue and for a backward from fp8 O
-and dO, ``_bias`` with a bias and ``_alibi`` with ALiBi, ``_dropout``
-with dropout, then ``_sw`` with a window or a sink
+and dO, ``_bias`` with a bias, ``_alibi`` with ALiBi and ``_softcap`` with
+the soft cap, ``_dropout`` with dropout, then ``_sw`` with a window or a sink
 (``flash_attention_fwd_sw``, ``flash_attention_bwd_dq_fp8_sw``,
 ``flash_attention_bwd_dkv_fp8_mha``, ``flash_attention_fwd_bias_sw``,
 ``flash_attention_fwd_bias_dropout``), and ``_seg`` last with segment ids
@@ -100,6 +113,7 @@ a path can show which branch it ran.
 from __future__ import annotations
 
 import dataclasses
+import math
 import numbers
 from typing import Optional, Tuple
 
@@ -107,7 +121,7 @@ import torch
 
 from .. import _build
 from ..attention import AttnMaskType, SoftmaxType
-from ..flex_attention import AlibiMod
+from ..flex_attention import AlibiMod, SoftCapMod
 from ..quantize.dtypes import is_fp8_dtype
 from ..quantize.qmath import saturate_cast
 from ..quantize.quantizer import DelayedScaleQuantizer, QuantizeLayout
@@ -129,7 +143,8 @@ DEFAULT_BLOCK_K = 1024
 MAX_ROWS = 1024
 
 # Arguments of the reference function that this port does not take yet
-# (ROADMAP.md lists them); passing any of them raises.
+# (ROADMAP.md lists them; with the dynamic window they wait for ring
+# attention, their one consumer); passing any of them raises.
 _UNPORTED = ("q_position_offset",)
 
 
@@ -275,22 +290,42 @@ def _visible(sq, skv, q_seqlens, kv_seqlens, causal, offset, window,
     return mask
 
 
-def _score_terms(s, bias, alibi_slopes, scale, offset):
-    """The exp2-domain scores (B, Hkv, G, Sq, Skv) after a bias (``s``
-    from pre-scaled q: ``s + bias * log2(e)``) or ALiBi (``s`` from
-    unscaled q: ``(s * scale - slope_h * |i + offset - j|) * log2(e)``),
-    in the reference's order of f32 operations."""
+def _score_terms(s, bias, alibi_slopes, scale, offset, soft_cap=None):
+    """(the exp2-domain scores (B, Hkv, G, Sq, Skv), the soft cap's tanh
+    or None) after a bias (``s`` from pre-scaled q: ``s + bias *
+    log2(e)``), ALiBi (``s`` from unscaled q: ``(s * scale - slope_h * |i
+    + offset - j|) * log2(e)``) or the soft cap (``s`` from unscaled q:
+    ``cap * tanh(s * scale / cap) * log2(e)``), in the reference's order of
+    f32 operations."""
     b, hkv, g, sq, skv = s.shape
     if bias is not None:
         bb = bias.float().reshape(bias.shape[0], hkv, g, sq, skv)
-        return s + bb * LOG2E
+        return s + bb * LOG2E, None
     if alibi_slopes is not None:
         qpos = torch.arange(sq, device=s.device)[:, None] + offset
         kpos = torch.arange(skv, device=s.device)[None, :]
         dist = (qpos - kpos).abs().to(torch.float32)
         slope = alibi_slopes.float().reshape(1, hkv, g, 1, 1)
-        return (s * scale - slope * dist) * LOG2E
-    return s
+        return (s * scale - slope * dist) * LOG2E, None
+    if soft_cap is not None:
+        # A true division by a tensor on s's device (a Python number would
+        # take CUDA's product with its reciprocal).
+        th = torch.tanh(s * scale / _cap_tensor(soft_cap, s.device))
+        return soft_cap * th * LOG2E, th
+    return s, None
+
+
+def _cap_tensor(cap: float, device) -> torch.Tensor:
+    return torch.full((), cap, dtype=torch.float32, device=device)
+
+
+def _soft_cap_grad(ds, th, cap: float):
+    """The soft cap's VJP of f32 ``ds`` from the forward's tanh ``th``, in
+    the order of JAX's transpose of its tanh rule: ``w = (cap * ds) * (1 -
+    t)``, then ``(w + w * t) / cap``, each product and sum rounded on its
+    own."""
+    w = (ds * cap) * (1.0 - th)
+    return (w + w * th) / _cap_tensor(cap, ds.device)
 
 
 def _drop(x, dropout: Dropout, b, hq, hkv, sq, skv):
@@ -308,15 +343,17 @@ def flash_fwd_plain(q, k, v, q_seqlens=None, kv_seqlens=None, *,
                     softmax_sink=None, fp8_scales=None, out_dtype=None,
                     q_segment_ids=None, kv_segment_ids=None, bias=None,
                     alibi_slopes=None, scale: float = 1.0,
-                    dropout: Optional[Dropout] = None):
+                    dropout: Optional[Dropout] = None,
+                    soft_cap: Optional[float] = None):
     """Reference forward. Without ``fp8_scales`` ``q`` arrives pre-scaled
     by scale * log2(e) and O takes q's dtype. With them (the FP8 branch)
     q, k and v are payloads and ``fp8_scales`` is :func:`fp8_fwd_scales`'
     [smult, sv_inv, out_scale]; O takes ``out_dtype``, and an fp8
     ``out_dtype`` casts O * out_scale and returns the amax of O as a
     third output. ``bias`` (B or 1, Hq, Sq, Skv) is added to the
-    pre-scaled scores; with ``alibi_slopes`` (Hq,) q arrives unscaled and
-    ``scale`` is the softmax scale. With ``dropout`` the denominator sums
+    pre-scaled scores; with ``alibi_slopes`` (Hq,) or ``soft_cap`` q
+    arrives unscaled and ``scale`` is the softmax scale. With ``dropout``
+    the denominator sums
     the undropped weights and the PV product takes ``where(keep, p * inv,
     0)`` (:func:`dropout_keep`)."""
     b, sq, hq, d = q.shape
@@ -327,7 +364,7 @@ def flash_fwd_plain(q, k, v, q_seqlens=None, kv_seqlens=None, *,
                      q.float().reshape(b, sq, hkv, g, d), k.float())
     if fp8:
         s = s * fp8_scales[0]
-    s = _score_terms(s, bias, alibi_slopes, scale, offset)
+    s, _ = _score_terms(s, bias, alibi_slopes, scale, offset, soft_cap)
     mask = _visible(sq, skv, q_seqlens, kv_seqlens, causal, offset, window,
                     q.device, q_segment_ids, kv_segment_ids)
     s = torch.where(mask[:, None, None], s, MASKED)
@@ -380,14 +417,16 @@ def _sw(window, softmax_sink) -> str:
 
 
 def _branch(fp8: bool, fp8_mha: bool, window, softmax_sink,
-            segments: bool, bias=None, slopes=None, dropout=None) -> str:
+            segments: bool, bias=None, slopes=None, dropout=None,
+            cap=None) -> str:
     """The launch count's suffix of a branch: "_fp8" for FP8 Q/K/V,
-    "_fp8_mha" with fp8 O (and dO), "_bias" with a bias and "_alibi" with
-    ALiBi, "_dropout" with dropout, then :func:`_sw`'s, then "_seg" with
-    segment ids."""
+    "_fp8_mha" with fp8 O (and dO), "_bias" with a bias, "_alibi" with
+    ALiBi and "_softcap" with the soft cap, "_dropout" with dropout, then
+    :func:`_sw`'s, then "_seg" with segment ids."""
     return (("_fp8_mha" if fp8_mha else "_fp8" if fp8 else "")
             + ("_bias" if bias is not None else "")
             + ("_alibi" if slopes is not None else "")
+            + ("_softcap" if cap is not None else "")
             + ("_dropout" if dropout is not None else "")
             + _sw(window, softmax_sink) + ("_seg" if segments else ""))
 
@@ -403,14 +442,19 @@ def _dropout_args(dropout: Optional[Dropout], sq: int, skv: int,
 
 
 def _check_score_terms(q, k, bias, score_mod, fp8: bool):
-    """The ALiBi slopes (Hq,) f32 on q's device, or None; raises for what
-    the kernels do not take: a bias not (B or 1, Hq, Sq, Skv) in f32 or
-    bf16, a bias with a score mod, either with FP8 Q/K/V, and any score
-    mod other than ALiBi."""
-    if score_mod is not None and not isinstance(score_mod, AlibiMod):
+    """(the ALiBi slopes (Hq,) f32 on q's device or None, the soft cap or
+    None); raises for what the kernels do not take: a bias not (B or 1,
+    Hq, Sq, Skv) in f32 or bf16, a bias with a score mod, either with FP8
+    Q/K/V, a cap that is not finite and positive, and any score mod other
+    than ALiBi and the soft cap (``flex_attention(impl="chunked")`` runs
+    any mod)."""
+    if score_mod is not None and not isinstance(score_mod,
+                                                (AlibiMod, SoftCapMod)):
         raise NotImplementedError(
-            "flash attention runs ALiBi (flex_attention.alibi_arith_mod) "
-            "as its one score_mod; other score mods are not ported yet")
+            "the flash kernels run ALiBi and the soft cap (flex_attention's "
+            "alibi_arith_mod, alibi_mod and soft_cap_mod); other score mods "
+            "are not ported to them: flex_attention(impl=\"chunked\") runs "
+            "any mod")
     if bias is not None and score_mod is not None:
         raise ValueError("score_mod and bias are mutually exclusive")
     if fp8 and (bias is not None or score_mod is not None):
@@ -426,15 +470,14 @@ def _check_score_terms(q, k, bias, score_mod, fp8: bool):
         if bias.dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"the bias must be f32 or bf16, got {bias.dtype}")
     if score_mod is None:
-        return None
-    return score_mod.slopes(q.shape[2], q.device)
-
-
-def _check_dropout(drop: Optional[Dropout], fp8: bool) -> None:
-    if drop is not None and fp8:
-        raise NotImplementedError(
-            "dropout on FP8 Q/K/V is not ported yet (the reference's layers "
-            "close their FP8 gates under dropout; ROADMAP.md, Queue 2)")
+        return None, None
+    if isinstance(score_mod, SoftCapMod):
+        cap = score_mod.cap
+        if not (math.isfinite(cap) and cap > 0.0):
+            raise ValueError(f"the flash kernels take a finite soft cap "
+                             f"above 0, got {cap}")
+        return None, cap
+    return score_mod.slopes(q.shape[2], q.device), None
 
 
 def fp8_fwd_scales(scale_invs: torch.Tensor, scale: float,
@@ -536,10 +579,11 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``window`` is a static (left, right), -1 for an inactive side;
     ``softmax_sink`` the (Hq,) sink logits, or None. ``bias`` (B or 1,
     Hq, Sq, Skv), f32 or bf16, is a post-scale bias; ``score_mod`` an
-    :class:`~..flex_attention.AlibiMod` (ALiBi), or None.
+    :class:`~..flex_attention.AlibiMod` (ALiBi) or
+    :class:`~..flex_attention.SoftCapMod` (the soft cap), or None.
     ``dropout_probability`` > 0 drops attention weights by the hash of
     ``dropout_seed`` (the reference's two words, (2,) int32) over the
-    reference's ``block_q`` x ``block_k`` tiles; not with FP8.
+    reference's ``block_q`` x ``block_k`` tiles, FP8 included.
 
     FP8 (the reference's ``_flash_fwd`` with ``scale_invs``): q, k and v
     are e4m3 payloads and ``scale_invs`` their (3,) f32 dequant scales;
@@ -557,10 +601,9 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(softmax_sink.shape)}")
     fp8 = scale_invs is not None
     fp8_out = out_scale is not None
-    slopes = _check_score_terms(q, k, bias, score_mod, fp8)
+    slopes, cap = _check_score_terms(q, k, bias, score_mod, fp8)
     drop = _dropout(dropout_probability, dropout_seed, block_q, block_k,
                     q.device)
-    _check_dropout(drop, fp8)
     if fp8_out and not fp8:
         raise ValueError("the fp8 O epilogue takes FP8 Q/K/V payloads")
     if fp8:
@@ -576,7 +619,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError("O takes q's dtype outside the FP8 branch")
         out_dtype = q.dtype
         sc = None
-        qs = q if slopes is not None else \
+        qs = q if slopes is not None or cap is not None else \
             (q.float() * (scale * LOG2E)).to(q.dtype)
     if _build.on_cpu(q, k, v, q_seqlens, kv_seqlens, softmax_sink,
                      scale_invs, out_scale, q_segment_ids, kv_segment_ids,
@@ -588,7 +631,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                q_segment_ids=q_segment_ids,
                                kv_segment_ids=kv_segment_ids, bias=bias,
                                alibi_slopes=slopes, scale=scale,
-                               dropout=drop)
+                               dropout=drop, soft_cap=cap)
     code = _build.dtype_code(q, (torch.float32, torch.bfloat16,
                                  torch.float8_e4m3fn))
     out_code = _build.DTYPE_CODES[out_dtype]
@@ -610,10 +653,11 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   P(kseg), P(sink), P(sc), P(amax), P(bias),
                   *_bias_args(bias), P(slopes), b, sq, skv, hq, hkv, d,
                   int(causal), offset, window[0], window[1], float(scale),
-                  *_dropout_args(drop, sq, skv, hq // hkv), _build.stream(q))
+                  float(cap or 0.0), *_dropout_args(drop, sq, skv, hq // hkv),
+                  _build.stream(q))
     _build.LAUNCHES["flash_attention_fwd" + _branch(
         fp8, fp8_out, window, sink, qseg is not None, bias, slopes,
-        drop)] += 1
+        drop, cap)] += 1
     if fp8_out:
         return o, lse, amax.reshape(())
     return o, lse
@@ -631,7 +675,8 @@ def flash_bwd_plain(qs, k, v, do, lse, delta, q_seqlens=None,
                     offset: int = 0, window=NO_WINDOW, fp8_scales=None,
                     grad_dtype=None, q_segment_ids=None,
                     kv_segment_ids=None, bias=None, alibi_slopes=None,
-                    dropout: Optional[Dropout] = None):
+                    dropout: Optional[Dropout] = None,
+                    soft_cap: Optional[float] = None):
     """Reference backward; ``delta`` is rowsum(dO * O) (B, Sq, Hq) f32.
     Without ``fp8_scales`` ``qs`` arrives pre-scaled by scale * log2(e)
     and each gradient takes its input's dtype. With them (the FP8 branch)
@@ -639,7 +684,8 @@ def flash_bwd_plain(qs, k, v, do, lse, delta, q_seqlens=None,
     tensor, ``fp8_scales`` :func:`fp8_bwd_scales`' five multipliers, and
     the gradients take ``grad_dtype``. With ``bias`` (q pre-scaled) a
     fourth output is dbias, the per-batch f32 ds (B, Hq, Sq, Skv); with
-    ``alibi_slopes`` q arrives unscaled and dK takes ``scale``. With
+    ``alibi_slopes`` or ``soft_cap`` q arrives unscaled and dK takes
+    ``scale``, and the cap's VJP multiplies ds before its rounding. With
     ``dropout`` the forward's mask applies to dp and to the weights of
     dV."""
     b, sq, hq, d = qs.shape
@@ -651,7 +697,7 @@ def flash_bwd_plain(qs, k, v, do, lse, delta, q_seqlens=None,
     s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float())
     if fp8:
         s = s * fp8_scales[0]
-    s = _score_terms(s, bias, alibi_slopes, scale, offset)
+    s, th = _score_terms(s, bias, alibi_slopes, scale, offset, soft_cap)
     mask = _visible(sq, skv, q_seqlens, kv_seqlens, causal, offset, window,
                     qs.device, q_segment_ids, kv_segment_ids)
     lse2 = (lse.float() * LOG2E).reshape(b, hkv, g, sq, 1)
@@ -666,6 +712,8 @@ def flash_bwd_plain(qs, k, v, do, lse, delta, q_seqlens=None,
         dp = _drop(dp, dropout, b, hq, hkv, sq, skv)
     dl = delta.float().permute(0, 2, 1).reshape(b, hkv, g, sq, 1)
     ds = p * (dp - dl)
+    if th is not None:
+        ds = _soft_cap_grad(ds, th, soft_cap)
     if fp8:
         ds_t = p_t = torch.bfloat16
         dq_mult, dk_mult, dv_mult = fp8_scales[2], fp8_scales[3], \
@@ -673,7 +721,8 @@ def flash_bwd_plain(qs, k, v, do, lse, delta, q_seqlens=None,
     else:
         ds_t, p_t = qs.dtype, v.dtype
         dq_mult, dv_mult = scale, 1.0
-        dk_mult = scale if alibi_slopes is not None else LN2
+        dk_mult = scale if alibi_slopes is not None or \
+            soft_cap is not None else LN2
     dq = torch.einsum("bhgqk,bkhd->bqhgd", ds.to(ds_t).float(),
                       k.float()) * dq_mult
     dk = torch.einsum("bhgqk,bqhgd->bkhd", ds.to(ds_t).float(), qf) * dk_mult
@@ -712,8 +761,8 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (:func:`sink_grad` gives its gradient). With the forward's ``bias``
     a fourth output is dbias, the per-batch f32 ``ds`` (B, Hq, Sq, Skv),
     0 wherever a pair is masked or its tile skipped; ``score_mod`` is the
-    forward's ALiBi, and the dropout arguments the forward's (its mask is
-    recomputed, not stored).
+    forward's ALiBi or soft cap, and the dropout arguments the forward's
+    (its mask is recomputed, not stored), FP8 included.
 
     FP8 (the reference's ``_flash_bwd`` with ``scale_invs``): q, k and v
     are the forward's e4m3 payloads; O and dO are high-precision, or
@@ -731,10 +780,9 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     window = _window(window)
     fp8 = scale_invs is not None
     fp8_mha = o_scale_inv is not None or do_scale_inv is not None
-    slopes = _check_score_terms(q, k, bias, score_mod, fp8)
+    slopes, cap = _check_score_terms(q, k, bias, score_mod, fp8)
     drop = _dropout(dropout_probability, dropout_seed, block_q, block_k,
                     q.device)
-    _check_dropout(drop, fp8)
     if fp8_mha and not fp8:
         raise ValueError("fp8 O and dO payloads take FP8 Q/K/V payloads")
     delta = (do.float() * o.float()).sum(dim=-1)
@@ -752,7 +800,7 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         qs, sc = q, fp8_bwd_scales(scale_invs, scale, sdo)
     else:
         sc, grad_dtype = None, q.dtype
-        qs = q if slopes is not None else \
+        qs = q if slopes is not None or cap is not None else \
             (q.float() * (scale * LOG2E)).to(q.dtype)
     if _build.on_cpu(q, k, v, o, lse, do, q_seqlens, kv_seqlens, scale_invs,
                      o_scale_inv, do_scale_inv, q_segment_ids,
@@ -763,7 +811,8 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                grad_dtype=grad_dtype,
                                q_segment_ids=q_segment_ids,
                                kv_segment_ids=kv_segment_ids, bias=bias,
-                               alibi_slopes=slopes, dropout=drop)
+                               alibi_slopes=slopes, dropout=drop,
+                               soft_cap=cap)
     code = _build.dtype_code(q, (torch.float32, torch.bfloat16,
                                  torch.float8_e4m3fn))
     _check_head_dim(d)
@@ -790,20 +839,21 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     P, st = _build.ptr, _build.stream(q)
     left, right = window
     name = _branch(fp8, fp8_mha, window, softmax_sink, qseg is not None,
-                   bias, slopes, drop)
+                   bias, slopes, drop, cap)
     terms = (P(bias), *_bias_args(bias), P(slopes))
     drop_args = _dropout_args(drop, sq, skv, hq // hkv)
     _build.launch("te_flash_attention_bwd_dq", P(qs), P(k), P(v), code,
                   P(do), do_code, P(lse2), P(delta), P(dq), g_code,
                   P(q_seqlens), P(kv_seqlens), P(qseg), P(kseg), P(sc),
                   *terms, P(dbias), b, sq, skv, hq, hkv, d, int(causal),
-                  offset, left, right, float(scale), *drop_args, st)
+                  offset, left, right, float(scale), float(cap or 0.0),
+                  *drop_args, st)
     _build.LAUNCHES["flash_attention_bwd_dq" + name] += 1
     _build.launch("te_flash_attention_bwd_dkv", P(qs), P(k), P(v), code,
                   P(do), do_code, P(lse2), P(delta), P(dk), P(dv), g_code,
                   P(q_seqlens), P(kv_seqlens), P(qseg), P(kseg), P(sc),
                   *terms, b, sq, skv, hq, hkv, d, int(causal), offset, left,
-                  right, float(scale), *drop_args, st)
+                  right, float(scale), float(cap or 0.0), *drop_args, st)
     _build.LAUNCHES["flash_attention_bwd_dkv" + name] += 1
     if dbias is not None:
         return dq, dk, dv, dbias
@@ -896,15 +946,16 @@ def _write_back(quantizers, amaxes) -> None:
             z.write_back(z.update(a))
 
 
-def _fp8_fwd(q, k, v, sink, masks, quantizers, cfg):
+def _fp8_fwd(q, k, v, sink, masks, quantizers, cfg, drop=None):
     """The reference's ``_fp8_core_fwd``: O in q's dtype, and the
-    residuals (payloads, dequant scales, O, LSE, amaxes)."""
+    residuals (payloads, dequant scales, O, LSE, amaxes); ``drop`` the
+    dropout, or None."""
     scale, causal, offset, window = cfg
     (qq, qk, qv), sinv = _quantize_qkv(quantizers, q, k, v)
     o, lse = flash_fwd(qq.data, qk.data, qv.data, scale=scale,
                        causal=causal, offset=offset, window=window,
                        softmax_sink=sink, scale_invs=sinv, out_dtype=q.dtype,
-                       **_mask_kw(masks))
+                       **_mask_kw(masks), **_dropout_kw(drop))
     return o, (qq.data, qk.data, qv.data, sinv, o, lse,
                qq.amax, qk.amax, qv.amax)
 
@@ -913,15 +964,16 @@ class _FP8Attention(torch.autograd.Function):
     """Flash attention on FP8 Q/K/V (the reference's ``_fp8_core``): Q, K
     and V are quantized per tensor inside the function, the kernels take
     the payloads, and the backward writes each delayed quantizer's
-    updated state back (a current-scaling one keeps none)."""
+    updated state back (a current-scaling one keeps none). With dropout
+    the backward replays the forward's mask from its seed."""
 
     @staticmethod
     def forward(ctx, q, k, v, sink, q_seqlens, kv_seqlens, q_segment_ids,
-                kv_segment_ids, quantizers, cfg):
+                kv_segment_ids, quantizers, cfg, drop):
         masks = (q_seqlens, kv_seqlens, q_segment_ids, kv_segment_ids)
-        o, res = _fp8_fwd(q, k, v, sink, masks, quantizers, cfg)
+        o, res = _fp8_fwd(q, k, v, sink, masks, quantizers, cfg, drop)
         ctx.save_for_backward(*res, sink, *masks)
-        ctx.quantizers, ctx.cfg = quantizers, cfg
+        ctx.quantizers, ctx.cfg, ctx.drop = quantizers, cfg, drop
         return o
 
     @staticmethod
@@ -932,23 +984,26 @@ class _FP8Attention(torch.autograd.Function):
         dq, dk, dv = flash_bwd(qd, kd, vd, o, lse, do, scale=scale,
                                causal=causal, offset=offset, window=window,
                                softmax_sink=sink, scale_invs=sinv,
-                               grad_dtype=do.dtype, **_mask_kw(masks))
+                               grad_dtype=do.dtype, **_mask_kw(masks),
+                               **_dropout_kw(ctx.drop))
         dsink = (sink_grad(sink, o, lse, do)
                  if sink is not None and ctx.needs_input_grad[3] else None)
         _write_back(ctx.quantizers, amaxes)
-        return (dq, dk, dv, dsink) + (None,) * 6
+        return (dq, dk, dv, dsink) + (None,) * 7
 
 
-def _fp8_mha_fwd(q, k, v, w, sink, masks, quantizers, cfg):
+def _fp8_mha_fwd(q, k, v, w, sink, masks, quantizers, cfg, drop=None):
     """The reference's ``_fp8_mha_core_fwd``: the attention on FP8 Q/K/V
     with an fp8 O (cast in the kernel's epilogue under delayed scaling,
     quantized after it under current scaling), then the output projection
-    of the O payload, (B, Sq, N) in q's dtype; and the residuals."""
+    of the O payload, (B, Sq, N) in q's dtype; and the residuals. ``drop``
+    is the dropout, or None."""
     scale, causal, offset, window = cfg
     qq_z, qk_z, qv_z, qo_z, qw_z, _, _ = quantizers
     (qq, qk, qv), sinv = _quantize_qkv((qq_z, qk_z, qv_z), q, k, v)
     kw = dict(scale=scale, causal=causal, offset=offset, window=window,
-              softmax_sink=sink, scale_invs=sinv, **_mask_kw(masks))
+              softmax_sink=sink, scale_invs=sinv, **_mask_kw(masks),
+              **_dropout_kw(drop))
     if isinstance(qo_z, DelayedScaleQuantizer):
         o_pay, lse, o_amax = flash_fwd(qq.data, qk.data, qv.data,
                                        out_dtype=qo_z.q_dtype,
@@ -976,15 +1031,17 @@ class _FP8MHA(torch.autograd.Function):
     and its wgrad take the fp8 O payload, the backward quantizes dO once
     and the flash backward kernels read the fp8 O and dO payloads. The
     quantizers are (q, k, v, o, w, g, do); the backward writes each
-    delayed one's updated state back."""
+    delayed one's updated state back, and replays the forward's dropout
+    mask from its seed."""
 
     @staticmethod
     def forward(ctx, q, k, v, w, sink, q_seqlens, kv_seqlens, q_segment_ids,
-                kv_segment_ids, quantizers, cfg):
+                kv_segment_ids, quantizers, cfg, drop):
         masks = (q_seqlens, kv_seqlens, q_segment_ids, kv_segment_ids)
-        out, res = _fp8_mha_fwd(q, k, v, w, sink, masks, quantizers, cfg)
+        out, res = _fp8_mha_fwd(q, k, v, w, sink, masks, quantizers, cfg,
+                                drop)
         ctx.save_for_backward(*res, sink, *masks)
-        ctx.quantizers, ctx.cfg = quantizers, cfg
+        ctx.quantizers, ctx.cfg, ctx.drop = quantizers, cfg, drop
         ctx.meta = (q.dtype, tuple(w.shape), w.dtype)
         return out
 
@@ -1009,14 +1066,15 @@ class _FP8MHA(torch.autograd.Function):
                                causal=causal, offset=offset, window=window,
                                softmax_sink=sink, scale_invs=sinv,
                                grad_dtype=q_dtype, o_scale_inv=so_inv,
-                               do_scale_inv=qdo.scale_inv, **_mask_kw(masks))
+                               do_scale_inv=qdo.scale_inv, **_mask_kw(masks),
+                               **_dropout_kw(ctx.drop))
         dsink = None
         if sink is not None and ctx.needs_input_grad[4]:
             dsink = sink_grad(sink, o_pay, lse, qdo.data,
                               so_inv.float().reshape(())
                               * qdo.scale_inv.float().reshape(()))
         _write_back(ctx.quantizers, (*amaxes, qg.amax, qdo.amax))
-        return (dq, dk, dv, dw, dsink) + (None,) * 6
+        return (dq, dk, dv, dw, dsink) + (None,) * 7
 
 
 def _check_tensor_scaling(quantizers, what: str) -> None:
@@ -1049,8 +1107,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     OFF_BY_ONE adds a sink of logit 0 to every head, LEARNABLE the (Hq,)
     logits ``softmax_offset``. ``bias`` (B or 1, Hq, Sq, Skv) is a
     post-scale bias; ``score_mod`` ALiBi
-    (:func:`~..flex_attention.alibi_arith_mod`), not with a bias, and
-    neither with FP8.
+    (:func:`~..flex_attention.alibi_arith_mod`, or
+    :func:`~..flex_attention.alibi_mod` with (Hq,) slopes) or the soft cap
+    (:func:`~..flex_attention.soft_cap_mod`), not with a bias, and neither
+    with FP8; any other mod raises (``flex_attention(impl="chunked")``
+    runs it).
 
     ``qkv_quantizers``: a (q, k, v) tuple of per-tensor quantizers (e4m3)
     runs the FP8 branch. ``mha_proj``: ``(w, quantizers)``, the output
@@ -1063,9 +1124,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensor of the reference's two words (``jax.random.key_data`` of its
     key), or a sequence of them. ``block_q`` and ``block_k`` are the
     reference's tile sizes, which decide the dropout bits (and nothing
-    else here). Dropout with FP8 Q/K/V (``qkv_quantizers``, ``mha_proj``)
-    raises. The reference's dynamic window, ``q_position_offset``, and
-    score mods other than ALiBi are not ported yet and raise."""
+    else here); FP8 Q/K/V (``qkv_quantizers``, ``mha_proj``) take dropout
+    too. The reference's dynamic window (a traced ``window_size``) and
+    ``q_position_offset`` are not ported yet and raise: ring attention,
+    their one consumer, comes with the parallelism slice."""
     for name, value in unported.items():
         if name not in _UNPORTED:
             raise TypeError(f"flash_attention() got an unexpected argument "
@@ -1098,7 +1160,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     cfg = (float(scale), mask_type.is_causal, offset, window)
     drop = _dropout(dropout_probability, dropout_seed, block_q, block_k,
                     q.device)
-    _check_dropout(drop, qkv_quantizers is not None or mha_proj is not None)
     grad = torch.is_grad_enabled()
     if score_mod is not None and qkv_quantizers is not None:
         raise ValueError("score_mod is not supported on the FP8 flash path")
@@ -1118,16 +1179,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _check_tensor_scaling(quantizers, "fp8_mha")
         if grad and any(t is not None and t.requires_grad
                         for t in (q, k, v, w, sink)):
-            return _FP8MHA.apply(q, k, v, w, sink, *masks, quantizers, cfg)
-        return _fp8_mha_fwd(q, k, v, w, sink, masks, quantizers, cfg)[0]
+            return _FP8MHA.apply(q, k, v, w, sink, *masks, quantizers, cfg,
+                                 drop)
+        return _fp8_mha_fwd(q, k, v, w, sink, masks, quantizers, cfg,
+                            drop)[0]
     if qkv_quantizers is not None:
         quantizers = tuple(qkv_quantizers)
         _check_tensor_scaling(quantizers, "FP8 flash attention")
         if grad and any(t is not None and t.requires_grad
                         for t in (q, k, v, sink)):
             return _FP8Attention.apply(q, k, v, sink, *masks, quantizers,
-                                       cfg)
-        return _fp8_fwd(q, k, v, sink, masks, quantizers, cfg)[0]
+                                       cfg, drop)
+        return _fp8_fwd(q, k, v, sink, masks, quantizers, cfg, drop)[0]
     if grad and any(t is not None and t.requires_grad
                     for t in (q, k, v, sink, bias)):
         return _FlashAttention.apply(q, k, v, sink, bias, *masks, *cfg,
