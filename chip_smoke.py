@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases 3,4,5,...,25] [--train-seeds 21]
+    python3 chip_smoke.py [--phases 3,4,5,...,26] [--train-seeds 21]
                           [--moe-seeds 31] [--gptoss-seeds 51]
 
 Phases, each of which raises (and so exits non-zero) on failure:
@@ -72,7 +72,17 @@ Phases, each of which raises (and so exits non-zero) on failure:
      masked rows, segment ids, a window with a sink, the bottom-right
      offset, dropout with the cap, caps of 1 and 1e4, ALiBi with explicit
      slopes, and FP8 dropout with padding and with a window and a sink at
-     small shapes;
+     small shapes; the flash kernels' runtime positions (the ring's
+     q-position offset, read on the card from a row of a (cp, 3) table)
+     at one rank's shard of LLAMA_8B over S 8192 (B 1, L 2048, qoff
+     +2048: every key visible), bf16 and e4m3 Q/K/V, forward and
+     backward, each timed beside SDPA without a mask, then every (rank,
+     step) of a cp-4 ring, contiguous and striped, with the windows
+     (-1, -1), (37, 0) and (2, 0), against the plain versions, with two
+     planted faults (the striped ring's live -1 left bound read as an
+     inactive side, an offset one tile off) that must fail, and offsets
+     at the edges of the kernels' 64-row tiles (rows masked whole write
+     O = 0 and LSE = -1e30);
   4. FP8-resident serving at LLAMA_8B width (seeded random weights, FP8
      KV cache, B = 8, prompts of 512 and 384 tokens, 32 new tokens)
      through prefill and decode_steps, with TTFT, decode ms/step, tok/s
@@ -219,12 +229,28 @@ Phases, each of which raises (and so exits non-zero) on failure:
      (``qkv_quantizers`` and ``mha_proj``, the entry point; the layers
      close their FP8 gates under dropout) with exact launch counts; then
      the card against the CPU at a small shape for each impl and for FP8
-     Q/K/V with dropout.
+     Q/K/V with dropout;
+ 26. context parallelism on one card: the parent computes its references
+     at full width (one flash call and one 2-layer LlamaModel step on the
+     whole sequence), moves them to the host and frees the card, then
+     spawns 4 ranks (``torch.multiprocessing``, a gloo group with a short
+     timeout; gloo takes host tensors, so the exchanged tensors cross
+     through the host). Each rank runs LLAMA_8B's attention over S 8192
+     (B 1, 32/8 heads of 128, bf16, causal) through ``fused_attn`` with
+     RING, RING_STRIPED (the striped reorder), ALL_GATHER, ULYSSES_A2A,
+     the hierarchical 2 x 2 form and the FP8 ring under
+     DelayedScaling(fp8_dpa=True), forward and backward, held to the
+     parent's call (the FP8 ring to the bf16 ring), then one training
+     step of the 2-layer model on its shard (global RoPE positions, the
+     loss and gradients summed over the group, SGD), held to the
+     parent's step; exact launches per rank and layer, ms a call and a
+     step, the bytes staged through the host.
 Then one ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 A kernel's ``launches`` is the sum of its counts over the runs of the
-paths (phases 4, 6, 8, 9, 10, 11, 12, 13, 14, 16, 17, 19, 20, 21, 23
-and 25, phase 9's load included), each counted from zero; comparisons with the
-plain versions do not count.
+paths (phases 4, 6, 8, 9, 10, 11, 12, 13, 14, 16, 17, 19, 20, 21, 23,
+25 and 26, phase 9's load included; phase 26's summed over its ranks),
+each counted from zero; comparisons with the plain versions do not
+count.
 ``--phases`` runs a subset (for iterating on one path); the default runs
 all. ``--train-seeds`` gives phase 7 other seeds (``21,22,23`` reads
 what its limits were set from), ``--moe-seeds`` phase 15 (``31,32,33``),
@@ -7014,6 +7040,774 @@ def flex_card_vs_cpu(torch) -> list:
     return failures
 
 
+# ---------------------------------------------------------------------------
+# Context parallelism: the flash kernels' runtime positions (phase 3,
+# [3N]-[3P]) and the ring, all-gather, Ulysses and hierarchical attention
+# and the LlamaModel step on 4 gloo ranks of one card (phase 26)
+# ---------------------------------------------------------------------------
+
+# One rank's shard of LLAMA_8B's attention over S 8192 split 4 ways: B 1,
+# L 2048, Hq 32, Hkv 8, D 128.
+QOFF_SHAPE = (1, 2048, 32, 8, 128)
+# A ring step on an earlier chunk: qoff = +2048, every key visible.
+QOFF = 2048
+
+
+def positions_row(torch, qoff: int, left: int = 0, right: int = 0):
+    """The runtime positions as the ring passes them: the offset view of
+    a (1, 3) int32 table [qoff, left, right] on the card."""
+    table = torch.tensor([[qoff, left, right]], dtype=torch.int32,
+                         device="cuda")
+    return dict(q_position_offset=table[0, 0:1])
+
+
+def qoff_inputs(torch, seed: int):
+    """Row 2q's and 2fq's inputs: seeded bf16 Q, K, V and dO at
+    QOFF_SHAPE, their e4m3 payloads and scales, and the dequantized bf16
+    Q, K, V (BHSD) that SDPA takes for the FP8 rows."""
+    (q, k, v, do), pays, sinv = fp8_inputs(torch, seed, QOFF_SHAPE)
+    deq = [(t.float() * si).to(torch.bfloat16).transpose(1, 2).contiguous()
+           for t, si in zip(pays, sinv.unbind())]
+    return (q, k, v, do), pays, sinv, deq
+
+
+def check_flash_qoff(torch, timer, results):
+    """[3N] rows 2q and 2fq: the forward's runtime-position branch at one
+    rank's shard of LLAMA_8B over S 8192 (B 1, L 2048, Hq 32, Hkv 8, D
+    128, causal, qoff +2048 read on the card: every key visible), on bf16
+    and on e4m3 Q/K/V (the FP8 ring's step), against its plain version
+    with the same tensor offset, and O against the no-mask plain version;
+    timed with the plain version and SDPA without a mask (on the
+    dequantized tensors for 2fq)."""
+    import torch.nn.functional as F
+    from transformerengine_tpu_torch.ops.flash_attention import (
+        LOG2E, flash_fwd, flash_fwd_plain, fp8_fwd_scales)
+    b, s, hq, hkv, d = QOFF_SHAPE
+    scale = d ** -0.5
+    log(f"[3N] flash_attention fwd, runtime positions (rows 2q, 2fq): B={b} "
+        f"L={s} Hq={hq} Hkv={hkv} D={d}, causal, qoff +{QOFF} on the card "
+        f"(a ring step on an earlier chunk); bf16 and e4m3 Q/K/V")
+    (q, k, v, _), (qd, kd, vd), sinv, deq = qoff_inputs(torch, 91)
+    pos = positions_row(torch, QOFF)
+    qs = (q.float() * (scale * LOG2E)).to(q.dtype)
+    sc = fp8_fwd_scales(sinv, scale)
+    bf16 = dict(fwd=lambda: flash_fwd(q, k, v, scale=scale, causal=True,
+                                      **pos),
+                plain=lambda **kw: flash_fwd_plain(qs, k, v, **kw),
+                lib=[t.transpose(1, 2).contiguous() for t in (q, k, v)],
+                in_bytes=2, what="bf16")
+    fp8 = dict(fwd=lambda: flash_fwd(qd, kd, vd, scale=scale, causal=True,
+                                     scale_invs=sinv, **pos),
+               plain=lambda **kw: flash_fwd_plain(
+                   qd, kd, vd, fp8_scales=sc, out_dtype=torch.bfloat16, **kw),
+               lib=deq, in_bytes=1, what="e4m3")
+    pairs = b * hq * s * s
+    q_el, kv_el = b * s * hq * d, b * s * hkv * d
+    for name, c in (("flash_attention_fwd_qoff", bf16),
+                    ("flash_attention_fwd_fp8_qoff", fp8)):
+        o, lse = c["fwd"]()
+        torch.cuda.synchronize()
+        o_ref, lse_ref = c["plain"](causal=True, **pos)
+        tol = row_tol(o_ref, BF16_ROW_RTOL)
+        err = check(f"{name} O", o, o_ref, tol)
+        check(f"{name} LSE", lse, lse_ref, LSE_ATOL)
+        # Every key is visible: the plain version without a mask agrees.
+        check(f"{name} O against no mask", o, c["plain"](causal=False)[0],
+              tol)
+        del o, lse, o_ref, lse_ref
+        ms = timer(c["fwd"])
+        plain_ms = timer(lambda: c["plain"](causal=True, **pos), reps=5)
+        library_ms = timer(lambda: F.scaled_dot_product_attention(
+            *c["lib"], scale=scale, enable_gqa=True))
+        # Q, K and V read once; O (bf16) and LSE written.
+        nbytes = c["in_bytes"] * (q_el + 2 * kv_el) + 2 * q_el \
+            + 4 * b * hq * s
+        prods = ([(4 * d * pairs, BF16_FLOPS)] if c["in_bytes"] == 2 else
+                 [(2 * d * pairs, FP8_FLOPS), (2 * d * pairs, BF16_FLOPS)])
+        b_ms, b_by = bound_ms_mixed(nbytes, prods)
+        log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+            f"without a mask {library_ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}, {4 * d * pairs / 1e9:.1f} GFLOP, "
+            f"{nbytes / 1e6:.1f} MB)")
+        results[name] = dict(
+            name=name, route="cuda",
+            source="transformerengine_tpu_torch/csrc/flash_attention.cu",
+            replaces="transformerengine_tpu/ops/flash_attention.py:478",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=library_ms,
+            shape=f"B={b} L={s} Hq={hq} Hkv={hkv} D={d} {c['what']} causal,"
+                  f" qoff +{QOFF} on the card")
+
+
+def check_flash_bwd_qoff(torch, timer, results):
+    """[3O] rows 4q and 4fq: the backward's runtime-position branch (dQ
+    and dK/dV kernels) at row 2q's shape and offset, bf16 and e4m3 Q/K/V
+    with a bf16 dO (the FP8 ring's step), against its plain version;
+    timed with the plain version and SDPA's backward without a mask."""
+    import torch.nn.functional as F
+    from transformerengine_tpu_torch.ops.flash_attention import (
+        LOG2E, flash_bwd, flash_bwd_plain, flash_fwd, fp8_bwd_scales)
+    b, s, hq, hkv, d = QOFF_SHAPE
+    scale = d ** -0.5
+    log(f"[3O] flash_attention bwd, runtime positions (rows 4q, 4fq; dQ and "
+        f"dK/dV kernels): the shape and offset of row 2q")
+    (q, k, v, do), (qd, kd, vd), sinv, deq = qoff_inputs(torch, 92)
+    pos = positions_row(torch, QOFF)
+    qs = (q.float() * (scale * LOG2E)).to(q.dtype)
+    one = torch.ones((), device="cuda")
+    pairs = b * hq * s * s
+    q_el, kv_el = b * s * hq * d, b * s * hkv * d
+    for name, (qq, kk, vv), fp8_kw, plain_q, lib_in in (
+            ("flash_attention_bwd_qoff", (q, k, v), {}, qs,
+             [t.transpose(1, 2).contiguous() for t in (q, k, v)]),
+            ("flash_attention_bwd_fp8_qoff", (qd, kd, vd),
+             dict(scale_invs=sinv), qd, deq)):
+        o, lse = flash_fwd(qq, kk, vv, scale=scale, causal=True, **pos,
+                           **fp8_kw)
+        kw = dict(scale=scale, causal=True, **pos, **fp8_kw,
+                  **(dict(grad_dtype=torch.bfloat16) if fp8_kw else {}))
+        got = flash_bwd(qq, kk, vv, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        delta = (do.float() * o.float()).sum(dim=-1)
+        plain_kw = dict(scale=scale, causal=True, **pos)
+        if fp8_kw:
+            plain_kw.update(fp8_scales=fp8_bwd_scales(sinv, scale, one),
+                            grad_dtype=torch.bfloat16)
+        ref = flash_bwd_plain(plain_q, kk, vv, do, lse, delta, **plain_kw)
+        err = 0.0
+        for gname, a, r in zip(("dQ", "dK", "dV"), got, ref):
+            err = max(err, check(
+                f"{name} {gname} ({int((a != r).sum())} of {r.numel()} "
+                f"elements differ)", a, r,
+                BWD_RTOL * float(r.float().abs().max())))
+        del got, ref
+        ms = timer(lambda: flash_bwd(qq, kk, vv, o, lse, do, **kw))
+        plain_ms = timer(lambda: flash_bwd_plain(
+            plain_q, kk, vv, do, lse, delta, **plain_kw), reps=5)
+        leaves = [t.detach().requires_grad_() for t in lib_in]
+        out = F.scaled_dot_product_attention(*leaves, scale=scale,
+                                             enable_gqa=True)
+        dot = do.transpose(1, 2).contiguous()
+        library_ms = timer.events(lambda: torch.autograd.grad(
+            out, leaves, dot, retain_graph=True))
+        del out, leaves
+        in_bytes = 1 if fp8_kw else 2
+        # Five products over every pair: s = Q K^T at the fp8 peak on
+        # e4m3 Q/K/V, the other four (dO V^T with a bf16 dO, p and ds in
+        # bf16) at bf16's.
+        n_fp8 = 1 if fp8_kw else 0
+        prods = [(n_fp8 * 2 * d * pairs, FP8_FLOPS),
+                 ((5 - n_fp8) * 2 * d * pairs, BF16_FLOPS)]
+        # Read Q, K, V, O, dO and LSE; write dQ, dK, dV (bf16).
+        nbytes = in_bytes * (q_el + 2 * kv_el) + 2 * 2 * q_el \
+            + 4 * b * hq * s + 2 * (q_el + 2 * kv_el)
+        b_ms, b_by = bound_ms_mixed(nbytes, prods)
+        log(f"  {name}: kernels {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+            f"backward without a mask {library_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}, {10 * d * pairs / 1e9:.1f} GFLOP, "
+            f"{nbytes / 1e6:.1f} MB)")
+        results[name] = dict(
+            name=name, route="cuda",
+            source="transformerengine_tpu_torch/csrc/flash_attention_bwd.cu",
+            replaces="transformerengine_tpu/ops/flash_attention.py:1124",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=library_ms,
+            shape=f"B={b} L={s} Hq={hq} Hkv={hkv} D={d} "
+                  f"{'e4m3' if fp8_kw else 'bf16'} causal, qoff +{QOFF} on "
+                  f"the card, dO bf16")
+
+
+# The variants check's shape (B 1, L 256 a rank, Hq 4, Hkv 2, D 64) and
+# its ring: cp 4, the windows (-1, -1), (37, 0) and (2, 0) (the last one
+# makes the striped layout's live -1 left bound).
+QOFF_VARIANT = (1, 256, 4, 2, 64)
+QOFF_CP = 4
+QOFF_WINDOWS = ((-1, -1), (37, 0), (2, 0))
+# Offsets at the edges of the kernels' 64-row and 64-key tiles, and a
+# step masked whole.
+QOFF_EDGES = (-1, -63, -64, -65, -127, 63, 65, -256)
+
+
+def check_qoff_variants(torch) -> None:
+    """[3P] every (rank, step) of a cp-4 ring, contiguous and striped, for
+    each of QOFF_WINDOWS: the step's runtime positions, a row of the
+    ring's own (cp, 3) table on the card, through the forward and
+    backward kernels in bf16 against their plain versions with the same
+    row. Two planted faults must fail: the live -1 left bound read as an
+    inactive side, and an offset one tile (64) off. Then QOFF_EDGES, the
+    offsets at the edges of the kernels' tiles, with the rows they mask
+    whole held to O = 0, LSE = -1e30 and a zero dQ."""
+    from transformerengine_tpu_torch.ops.flash_attention import (
+        LOG2E, NEG_INF, flash_bwd, flash_bwd_plain, flash_fwd,
+        flash_fwd_plain)
+    from transformerengine_tpu_torch.parallel.ring_attention import (
+        _ring_table, _step_positions)
+    b, L, hq, hkv, d = QOFF_VARIANT
+    scale = d ** -0.5
+    log(f"[3P] runtime positions, every (rank, step) of a cp {QOFF_CP} ring, "
+        f"contiguous and striped, windows {QOFF_WINDOWS}: B={b} L={L} "
+        f"Hq={hq} Hkv={hkv} D={d} bf16, causal")
+    g = torch.Generator(device="cuda").manual_seed(93)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(
+            torch.bfloat16)
+
+    q, k, v, do = randn(b, L, hq, d), randn(b, L, hkv, d), \
+        randn(b, L, hkv, d), randn(b, L, hq, d)
+    qs = (q.float() * (scale * LOG2E)).to(q.dtype)
+    kw = dict(scale=scale, causal=True)
+    n, planted = 0, {"live": 0, "tile": 0}
+    for striped in (False, True):
+        for window in QOFF_WINDOWS:
+            for idx in range(QOFF_CP):
+                table = _ring_table(idx, QOFF_CP, L, striped, window, "cuda")
+                rows = table.tolist()
+                for s in range(QOFF_CP):
+                    pos = _step_positions(table, s, window)
+                    name = (f"{'striped' if striped else 'contiguous'} "
+                            f"window={window} rank {idx} step {s} "
+                            f"{rows[s]}")
+                    o, lse = flash_fwd(q, k, v, **kw, **pos)
+                    o_ref, lse_ref = flash_fwd_plain(qs, k, v, causal=True,
+                                                     **pos)
+                    tol = row_tol(o_ref, BF16_ROW_RTOL)
+                    check(f"fwd {name} O", o, o_ref, tol)
+                    check(f"fwd {name} LSE", lse, lse_ref, LSE_ATOL)
+                    got = flash_bwd(q, k, v, o, lse, do, **kw, **pos)
+                    delta = (do.float() * o.float()).sum(dim=-1)
+                    ref = flash_bwd_plain(qs, k, v, do, lse, delta, **kw,
+                                          **pos)
+                    for gname, a, r in zip(("dQ", "dK", "dV"), got, ref):
+                        check(f"bwd {name} {gname}", a, r,
+                              BWD_RTOL * max(float(r.float().abs().max()),
+                                             1e-30))
+                    n += 1
+                    if window[0] >= 0 and rows[s][1] == -1:
+                        # The live -1 left bound read as inactive.
+                        wrong = dict(pos, window=(-1, pos["window"][1]))
+                        must_differ(f"fwd {name} LSE", lse, flash_fwd_plain(
+                            qs, k, v, causal=True, **wrong)[1], LSE_ATOL,
+                            "the live -1 left bound read as inactive")
+                        planted["live"] += 1
+                    if not striped and rows[s][0] == 0 and window[0] < 0:
+                        # The diagonal step's offset one tile off.
+                        off = torch.full((1,), 64, dtype=torch.int32,
+                                         device="cuda")
+                        must_differ(f"fwd {name} O", o, flash_fwd_plain(
+                            qs, k, v, causal=True, q_position_offset=off,
+                            window=pos["window"])[0], tol,
+                            "the offset one tile (64) off")
+                        planted["tile"] += 1
+    if not (planted["live"] and planted["tile"]):
+        raise AssertionError(f"the planted faults did not run: {planted}")
+    log(f"  {n} (rank, step, layout, window) cases forward and backward ok; "
+        f"planted faults caught: the live -1 read as inactive "
+        f"{planted['live']} times, the offset one tile off "
+        f"{planted['tile']} times")
+    # Offsets at the edges of the kernels' 64-row and 64-key tiles: rows
+    # masked whole write O = 0 and LSE = -1e30 and get zero gradients.
+    for qoff in QOFF_EDGES:
+        pos = positions_row(torch, qoff)
+        o, lse = flash_fwd(q, k, v, **kw, **pos)
+        o_ref, lse_ref = flash_fwd_plain(qs, k, v, causal=True, **pos)
+        check(f"fwd qoff {qoff} O", o, o_ref, row_tol(o_ref, BF16_ROW_RTOL))
+        check(f"fwd qoff {qoff} LSE", lse, lse_ref, LSE_ATOL)
+        # (B, L): a query sees the same keys in every head.
+        dead = (lse_ref <= NEG_INF / 2)[:, 0]
+        check_masked_rows(torch, f"fwd qoff {qoff}", dead, o, lse)
+        got = flash_bwd(q, k, v, o, lse, do, **kw, **pos)
+        ref = flash_bwd_plain(qs, k, v, do, lse,
+                              (do.float() * o.float()).sum(dim=-1), **kw,
+                              **pos)
+        for gname, a, r in zip(("dQ", "dK", "dV"), got, ref):
+            check(f"bwd qoff {qoff} {gname}", a, r,
+                  BWD_RTOL * max(float(r.float().abs().max()), 1e-30))
+        check_zero_grads(f"bwd qoff {qoff}", got, dead, None)
+    log(f"  offsets {QOFF_EDGES} at the tiles' edges forward and backward "
+        f"ok, fully masked rows zero")
+
+
+# Phase 26: LLAMA_8B's attention over S 8192 split over 4 ranks on one
+# card, and a 2-layer LlamaModel step at LLAMA_8B width (cut for time, as
+# phase 6 cuts to 4).
+CP_SIZE = 4
+CP_S = 8192
+CP_LAYERS = 2
+CP_SEED = 101
+CP_LR = 1e-3
+# The gloo group's timeout and the phase's deadline: a rank that hangs
+# fails the phase instead of eating the run.
+CP_TIMEOUT_S = 240
+# Limits, each about twice the largest reading of the first run on an
+# H100 (PERF.md section 6): O against each row's largest |ref| (9.95e-3:
+# the ring rounds each step's O to bf16 before its f32 merge), a gradient
+# against its largest |ref| (7.6e-3: the ring sums cp bf16-rounded step
+# gradients in f32 where the one flash call rounds once), the FP8 ring
+# against the bf16 ring on the same e4m3 payloads dequantized, O per row
+# (2.84e-2: the dequantized values and scales round to bf16, the FP8
+# kernels' products do not) and the gradients per tensor (1.52e-2), the
+# step's loss (1.06e-4 of 12.58, absolute) and each gradient's norm of
+# the difference over its norm (1.06e-2, the embedding's).
+CP_LIMITS = dict(o=2e-2, grad=1.5e-2, fp8_o=6e-2, fp8_grad=3e-2,
+                 loss=2e-4, gnorm=2e-2)
+# The FP8 ring's K and V, chunk j (rank j's) times the j-th factor: each
+# chunk's scale differs, so a step that dequantizes a chunk with another
+# chunk's scale (the planted fault: the scales left behind as the
+# payloads rotate) is off by a factor of 2 to 8.
+CP_FP8_CHUNK_SCALES = (1.0, 0.5, 2.0, 0.25)
+CP_STRATEGIES = ("RING", "RING_STRIPED", "ALL_GATHER", "ULYSSES_A2A",
+                 "HIERARCHICAL", "FP8_RING")
+
+
+def cp_launches(strategy: str, layers: int = 1) -> dict:
+    """The exact launches of one rank's forward and backward: the ring's
+    cp steps each way (2 over the hierarchical form's outer ring of 2),
+    one of each for ALL_GATHER (all with the runtime positions) and
+    ULYSSES_A2A (without)."""
+    n = {"RING": CP_SIZE, "RING_STRIPED": CP_SIZE, "FP8_RING": CP_SIZE,
+         "HIERARCHICAL": 2, "ALL_GATHER": 1, "ULYSSES_A2A": 1}[strategy]
+    suffix = ("" if strategy == "ULYSSES_A2A" else
+              "_fp8_qoff" if strategy == "FP8_RING" else "_qoff")
+    return {f"flash_attention_{k}{suffix}": n * layers
+            for k in ("fwd", "bwd_dq", "bwd_dkv")}
+
+
+def cp_inputs(torch, spec):
+    """The seeded bf16 Q, K, V and dO of the whole sequence (B, S, H, D)."""
+    b, s, hq, hkv, d = spec["shape"]
+    g = torch.Generator(device=spec["device"]).manual_seed(spec["seed"])
+
+    def randn(*sh):
+        return torch.randn(sh, generator=g, device=spec["device"]).to(
+            torch.bfloat16)
+    return randn(b, s, hq, d), randn(b, s, hkv, d), randn(b, s, hkv, d), \
+        randn(b, s, hq, d)
+
+
+def cp_reference(torch, spec) -> dict:
+    """The parent's references on the whole sequence, on the host: one
+    flash forward and backward of cp_inputs (O, dQ, dK, dV), and one
+    bf16 step of the model (the loss and every gradient), before the
+    step's update."""
+    from transformerengine_tpu_torch.models.llama import (
+        LlamaModel, cross_entropy_loss)
+    from transformerengine_tpu_torch.ops.flash_attention import (
+        flash_bwd, flash_fwd)
+    dev = spec["device"]
+    if dev != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    q, k, v, do = cp_inputs(torch, spec)
+    scale = q.shape[-1] ** -0.5
+    t0 = time.perf_counter()
+    o, lse = flash_fwd(q, k, v, scale=scale, causal=True)
+    dq, dk, dv = flash_bwd(q, k, v, o, lse, do, scale=scale, causal=True)
+    ref = {"o": o.cpu(), "dq": dq.cpu(), "dk": dk.cpu(), "dv": dv.cpu()}
+    del q, k, v, do, o, lse, dq, dk, dv
+    model = LlamaModel(spec["cfg"], device=dev, seed=spec["seed"])
+    shrink_embedding(model)
+    tokens, targets = train_batch(torch, spec["cfg"].vocab_size, 1,
+                                  spec["shape"][1], dev, spec["seed"])
+    loss = cross_entropy_loss(model(tokens), targets)
+    loss.backward()
+    ref["loss"] = float(loss.detach())
+    ref["grads"] = {n: p.grad.cpu() for n, p in model.named_parameters()}
+    if dev != "cpu":
+        torch.cuda.synchronize()
+        ref["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    ref["seconds"] = time.perf_counter() - t0
+    del model, loss
+    return ref
+
+
+def cp_shard(torch, x, idx: int, striped: bool):
+    """Rank ``idx``'s shard of a (B, S, ...) tensor: its contiguous
+    chunk, or of the striped reorder."""
+    from transformerengine_tpu_torch.parallel.cp_utils import (
+        reorder_causal_striped)
+    if striped:
+        x = reorder_causal_striped(x, CP_SIZE)
+    n = x.shape[1] // CP_SIZE
+    return x[:, idx * n:(idx + 1) * n]
+
+
+def cp_held(got, ref, rows: bool) -> float:
+    """The largest |got - ref| over ``ref``'s largest element of each row
+    (``rows``) or of the whole tensor, which the caller holds to its
+    limit."""
+    diff = (got.float() - ref.float()).abs()
+    if rows:
+        den = ref.float().abs().amax(dim=-1, keepdim=True).clamp_min(1e-30)
+    else:
+        den = ref.float().abs().max().clamp_min(1e-30)
+    return float((diff / den).max())
+
+
+def cp_fp8_inputs(torch, full):
+    """The FP8 ring's inputs: cp_inputs with K and V scaled chunk by chunk
+    (CP_FP8_CHUNK_SCALES)."""
+    q, k, v, do = full
+    f = torch.tensor(CP_FP8_CHUNK_SCALES, device=k.device).repeat_interleave(
+        k.shape[1] // CP_SIZE).reshape(1, -1, 1, 1)
+    return q, (k.float() * f).to(k.dtype), (v.float() * f).to(v.dtype), do
+
+
+def cp_run(torch, strategy: str, q, k, v, do, world, inner, outer):
+    """One forward and backward of ``strategy`` on this rank's shard
+    through the entry points (``fused_attn`` with the group; the
+    hierarchical form through ``hierarchical_attn``): O, dQ, dK, dV."""
+    from transformerengine_tpu_torch import DelayedScaling, autocast
+    from transformerengine_tpu_torch.attention import (
+        AttnMaskType, CPStrategy, fused_attn)
+    from transformerengine_tpu_torch.parallel.ring_attention import (
+        hierarchical_attn)
+    if strategy == "HIERARCHICAL":
+        o = hierarchical_attn(q, k, v, inner, outer, causal=True)
+    else:
+        cp = CPStrategy[strategy if strategy != "FP8_RING" else "RING"]
+        with autocast(enabled=strategy == "FP8_RING",
+                      recipe=DelayedScaling(fp8_dpa=True)):
+            o = fused_attn((q, k, v), attn_mask_type=AttnMaskType.CAUSAL,
+                           context_parallel_strategy=cp,
+                           context_parallel_group=world)
+    if do is None:
+        return o
+    o.backward(do)
+    return dict(o=o.detach(), dq=q.grad, dk=k.grad, dv=v.grad)
+
+
+def cp_fp8_target(torch, q, k, v, do, world) -> dict:
+    """The FP8 ring's reference on this rank: the bf16 ring on the same
+    e4m3 payloads dequantized (q against this rank's amax, K and V chunk
+    by chunk, as the FP8 ring quantizes them)."""
+    from transformerengine_tpu_torch.parallel.ring_attention import (
+        _kv_dq, _kv_q)
+    deq = [_kv_dq(*_kv_q(t.detach()), t.dtype).requires_grad_()
+           for t in (q, k, v)]
+    return cp_run(torch, "RING", *deq, do, world, None, None)
+
+
+def cp_fp8_fault(torch, q, k, v, world):
+    """The FP8 ring's forward with a planted fault: the K/V scales stay
+    behind as their payloads rotate, so each step scales the resident
+    chunk's scores and values by this rank's own K/V scales."""
+    from transformerengine_tpu_torch.parallel import ring_attention as ra
+    rotate = ra._rotate
+
+    def stale_scales(kv, group):
+        moved = rotate(kv, group)
+        return {**moved, "ks": kv["ks"], "vs": kv["vs"]} \
+            if "ks" in kv else moved
+    ra._rotate = stale_scales
+    try:
+        with torch.no_grad():
+            return cp_run(torch, "FP8_RING", q, k, v, None, world, None,
+                          None)
+    finally:
+        ra._rotate = rotate
+
+
+def cp_attention(torch, spec, idx: int, world, inner, outer, ref) -> dict:
+    """Each strategy's forward and backward on this rank's shard through
+    the entry points, held to the parent's single flash call, with exact
+    launches, the ms of a call and the bytes staged through the host. The
+    FP8 ring runs on chunk-scaled K and V (cp_fp8_inputs) and is held to
+    the bf16 ring on its payloads dequantized (cp_fp8_target), and its
+    planted fault (cp_fp8_fault) must fail that check."""
+    from transformerengine_tpu_torch import _build
+    from transformerengine_tpu_torch.attention import (
+        AttnMaskType, CPStrategy, fused_attn)
+    from transformerengine_tpu_torch.parallel import group as grp
+    dev = spec["device"]
+    full = cp_inputs(torch, spec)
+    # A first call (the kernels' first loads, the group's first sends)
+    # outside the timed ones.
+    leaves = [cp_shard(torch, t, idx, False).contiguous().requires_grad_()
+              for t in full[:3]]
+    fused_attn(leaves, attn_mask_type=AttnMaskType.CAUSAL,
+               context_parallel_strategy=CPStrategy.RING,
+               context_parallel_group=world).backward(
+                   cp_shard(torch, full[3], idx, False))
+    sync(torch, dev)
+    out = {}
+    for strategy in CP_STRATEGIES:
+        striped = strategy == "RING_STRIPED"
+        fp8 = strategy == "FP8_RING"
+        inputs = cp_fp8_inputs(torch, full) if fp8 else full
+        leaves = [cp_shard(torch, t, idx, striped).contiguous()
+                  .requires_grad_(i < 3) for i, t in enumerate(inputs)]
+        sync(torch, dev)
+        _build.LAUNCHES.clear()
+        staged = sum(grp.STAGED.values())
+        t0 = time.perf_counter()
+        got = cp_run(torch, strategy, *leaves, world, inner, outer)
+        sync(torch, dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(_build.LAUNCHES)
+        reading = dict(ms=ms, launches=launches,
+                       staged=sum(grp.STAGED.values()) - staged,
+                       ok_launches=launches == cp_launches(strategy))
+        if fp8:
+            target = cp_fp8_target(torch, *leaves, world)
+            lims = ("fp8_o", "fp8_grad")
+            fault = cp_fp8_fault(torch, *leaves[:3], world)
+            reading["fault_err"] = cp_held(fault, target["o"], rows=True)
+        else:
+            target = {n: cp_shard(torch, ref[n], idx, striped).to(dev)
+                      for n in ("o", "dq", "dk", "dv")}
+            lims = ("o", "grad")
+        _build.LAUNCHES.clear()
+        errs = {n: cp_held(got[n], target[n], rows=n == "o") for n in got}
+        out[strategy] = dict(
+            reading, errs=errs,
+            ok=all(errs[n] <= CP_LIMITS[lims[n != "o"]] for n in errs))
+    return out
+
+
+def cp_step(torch, spec, idx: int, world, ref_grads, ref_loss) -> dict:
+    """One bf16 training step of the model on this rank's shard: the
+    forward with the tokens' global RoPE positions, this rank's summed
+    cross entropy over the global token count, the backward, every
+    gradient and the loss summed over the group, SGD, and the update
+    read back (every rank's weights must agree); held to the parent's
+    step (rank 0 reads the gradients)."""
+    import torch.distributed as dist
+    from transformerengine_tpu_torch import _build
+    from transformerengine_tpu_torch.models.llama import (
+        LlamaModel, cross_entropy_loss)
+    from transformerengine_tpu_torch.parallel import group as grp
+    dev = spec["device"]
+    cfg = dataclasses.replace(spec["cfg"], context_parallel_group=world)
+    model = LlamaModel(cfg, device=dev, seed=spec["seed"])
+    shrink_embedding(model)
+    s = spec["shape"][1]
+    L = s // CP_SIZE
+    tokens, targets = train_batch(torch, cfg.vocab_size, 1, s, dev,
+                                  spec["seed"])
+    positions = torch.arange(idx * L, (idx + 1) * L, device=dev)[None]
+    sync(torch, dev)
+    _build.LAUNCHES.clear()
+    staged = sum(grp.STAGED.values())
+    t0 = time.perf_counter()
+    logits = model(tokens[:, idx * L:(idx + 1) * L], positions=positions)
+    loss = cross_entropy_loss(logits, targets[:, idx * L:(idx + 1) * L]) \
+        * (L / s)
+    del logits
+    loss.backward()
+    sync(torch, dev)
+    t_grad = time.perf_counter()
+    launches = dict(_build.LAUNCHES)
+    _build.LAUNCHES.clear()
+    params = list(model.parameters())
+    for p in params:
+        p.grad = grp.all_reduce_sum(p.grad, world)
+    total = float(grp.all_reduce_sum(loss.detach(), world))
+    with torch.no_grad():
+        for p in params:
+            p.sub_(CP_LR * p.grad.to(p.dtype))
+    sync(torch, dev)
+    step_ms = (time.perf_counter() - t0) * 1e3
+    # The update read back: every rank must hold the same weights after
+    # the step (each parameter's f64 sum, gathered over the group).
+    sums = torch.stack([p.detach().sum(dtype=torch.float64)
+                        for p in params]).cpu()
+    every = [torch.empty_like(sums) for _ in range(CP_SIZE)]
+    dist.all_gather(every, sums, group=world)
+    out = dict(loss=total, step_ms=step_ms,
+               fwd_bwd_ms=(t_grad - t0) * 1e3, launches=launches,
+               staged=sum(grp.STAGED.values()) - staged,
+               ok_launches=launches == cp_launches("RING", cfg.num_layers),
+               replicas_agree=all(torch.equal(every[0], e) for e in every))
+    if idx == 0:
+        gnorm = {}
+        for n, p in model.named_parameters():
+            r = ref_grads[n].to(dev).float()
+            gnorm[n] = float((p.grad.float() - r).norm()
+                             / r.norm().clamp_min(1e-30))
+        out["gnorm"] = gnorm
+        out["loss_err"] = abs(total - ref_loss)
+    if dev != "cpu":
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
+def sync(torch, dev) -> None:
+    if dev != "cpu":
+        torch.cuda.synchronize()
+
+
+def cp_rank(rank: int, spec: dict, results) -> None:
+    """One rank of phase 26 (a process of its own): the gloo group, the
+    hierarchical form's inner and outer groups, then cp_attention and
+    cp_step; puts (rank, its readings) or (rank, the traceback)."""
+    import datetime
+    import traceback
+    try:
+        import torch
+        import torch.distributed as dist
+        torch.set_num_threads(2)
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://localhost:{spec['port']}", rank=rank,
+            world_size=CP_SIZE,
+            timeout=datetime.timedelta(seconds=spec["timeout"]))
+        # Inner pairs {0, 1}, {2, 3} and outer pairs {0, 2}, {1, 3}: every
+        # rank makes each group, in one order.
+        inner = [dist.new_group([0, 1]), dist.new_group([2, 3])][rank // 2]
+        outer = [dist.new_group([0, 2]), dist.new_group([1, 3])][rank % 2]
+        ref = torch.load(spec["ref"], mmap=True)
+        world = dist.group.WORLD
+        out = dict(attention=cp_attention(torch, spec, rank, world, inner,
+                                          outer, ref))
+        if spec["device"] != "cpu":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        out["step"] = cp_step(torch, spec, rank, world, ref["grads"],
+                              ref["loss"])
+        dist.barrier()
+        dist.destroy_process_group()
+        results.put((rank, out))
+    except Exception:
+        # The parent reports it and fails the phase.
+        results.put((rank, traceback.format_exc()))
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def train_cp(torch, results) -> None:
+    """[26] context parallelism over 4 gloo ranks on one card: the parent
+    computes its references at full width and moves them to the host,
+    frees the card, then spawns the ranks (cp_rank) and holds their
+    readings: each strategy's O and gradients, the model step's loss and
+    gradients, exact launches per rank and layer, ms and staged bytes."""
+    import torch.multiprocessing as multiprocessing
+    from transformerengine_tpu_torch import _build
+    from transformerengine_tpu_torch.models.llama import LLAMA_8B
+    b, s, hq, hkv, d = 1, CP_S, LLAMA_8B.num_attention_heads, \
+        LLAMA_8B.num_kv_heads, LLAMA_8B.hidden_size // \
+        LLAMA_8B.num_attention_heads
+    spec = dict(device=CARD, shape=(b, s, hq, hkv, d), seed=CP_SEED,
+                cfg=dataclasses.replace(LLAMA_8B, num_layers=CP_LAYERS),
+                timeout=CP_TIMEOUT_S, port=free_port(),
+                ref=str(_build.BUILD_DIR / "cp_reference.pt"))
+    log(f"[26] context parallelism: {CP_SIZE} gloo ranks on one card "
+        f"(CUDA tensors cross through the host: gloo takes host tensors), "
+        f"LLAMA_8B attention B={b} S={s} Hq={hq} Hkv={hkv} D={d} bf16 "
+        f"causal through {', '.join(CP_STRATEGIES)}, and a {CP_LAYERS}-layer "
+        f"LlamaModel step at LLAMA_8B width over the same {s} tokens")
+    t0 = time.perf_counter()
+    ref = cp_reference(torch, spec)
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    torch.save(ref, spec["ref"])
+    log(f"  the parent's references (one flash call, one step on the whole "
+        f"sequence): {ref['seconds']:.1f} s, peak "
+        f"{ref.get('peak_gib', 0.0):.2f} GiB, loss {ref['loss']:.6f}; saved "
+        f"in {time.perf_counter() - t0:.1f} s")
+    ref_loss = ref["loss"]
+    del ref
+    if CARD != "cpu":
+        torch.cuda.empty_cache()
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=cp_rank, args=(r, spec, queue))
+             for r in range(CP_SIZE)]
+    t0 = time.perf_counter()
+    readings = {}
+    try:
+        for p in procs:
+            p.start()
+        while len(readings) < CP_SIZE:
+            left = CP_TIMEOUT_S + 60 - (time.perf_counter() - t0)
+            if left <= 0:
+                late = sorted(set(range(CP_SIZE)) - set(readings))
+                raise AssertionError(f"phase 26: ranks {late} did not "
+                                     f"finish in time")
+            try:
+                rank, got = queue.get(timeout=min(left, 5.0))
+            except Exception:
+                dead = [r for r, p in enumerate(procs)
+                        if r not in readings and p.exitcode not in (None, 0)]
+                if dead:
+                    raise AssertionError(f"phase 26: ranks {dead} died "
+                                         f"without a result")
+                continue
+            if isinstance(got, str):
+                raise AssertionError(f"phase 26: rank {rank} failed:\n{got}")
+            readings[rank] = got
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.terminate()
+                p.join()
+        Path(spec["ref"]).unlink(missing_ok=True)
+    log(f"  ranks ran in {time.perf_counter() - t0:.1f} s (spawn, the group, "
+        f"the strategies and the step)")
+    failures = []
+    totals = collections.Counter()
+    for strategy in CP_STRATEGIES:
+        for r in range(CP_SIZE):
+            a = readings[r]["attention"][strategy]
+            totals.update(a["launches"])
+            log(f"  {strategy:13s} rank {r}: "
+                + ", ".join(f"{n} {e:.3e}" for n, e in a["errs"].items())
+                + f"; {a['ms']:.1f} ms a call (forward and backward), "
+                f"{a['staged'] / 1e6:.1f} MB staged; launches "
+                f"{a['launches']} {'ok' if a['ok_launches'] else 'FAIL'}")
+            if not (a["ok"] and a["ok_launches"]):
+                failures.append(f"{strategy} rank {r}")
+            if "fault_err" in a:
+                # Rank 0's causal steps see only its own chunk, so only
+                # the later ranks can read a stale scale.
+                caught = a["fault_err"] > CP_LIMITS["fp8_o"]
+                log(f"  {strategy:13s} rank {r}: planted fault (the K/V "
+                    f"scales not rotated) O {a['fault_err']:.3e} "
+                    f"{'fails, as it must' if caught else 'passes'}")
+                if r > 0 and not caught:
+                    failures.append(f"{strategy} rank {r} planted fault "
+                                    f"passed")
+    for r in range(CP_SIZE):
+        st = readings[r]["step"]
+        totals.update(st["launches"])
+        log(f"  step rank {r}: {st['step_ms']:.1f} ms (forward and backward "
+            f"{st['fwd_bwd_ms']:.1f} ms, then the gradients summed over the "
+            f"group and SGD), {st['staged'] / 1e6:.1f} MB staged, peak "
+            f"{st.get('peak_gib', 0.0):.2f} GiB; launches {st['launches']} "
+            f"{'ok' if st['ok_launches'] else 'FAIL'}; weights after the "
+            f"update {'agree' if st['replicas_agree'] else 'DIFFER'}")
+        if not st["ok_launches"]:
+            failures.append(f"step rank {r} launches")
+        if not st["replicas_agree"]:
+            failures.append(f"step rank {r} weights after the update")
+    st = readings[0]["step"]
+    worst = max(st["gnorm"], key=st["gnorm"].get)
+    ok = st["loss_err"] <= CP_LIMITS["loss"] and \
+        st["gnorm"][worst] <= CP_LIMITS["gnorm"]
+    log(f"  step against the whole-sequence step: loss {st['loss']:.6f} "
+        f"against {ref_loss:.6f} ({st['loss_err']:.3e}); the worst gradient "
+        f"{worst} {st['gnorm'][worst]:.3e} (norm of the difference over its "
+        f"norm; median {statistics.median(st['gnorm'].values()):.3e}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("step against the whole-sequence step")
+    if failures:
+        raise AssertionError(f"phase 26: {failures}")
+    for name, n in totals.items():
+        add_launches(results, bwd_row(name), n)
+    results["_train_cp"] = dict(
+        ms={k: statistics.median(readings[r]["attention"][k]["ms"]
+                                 for r in range(CP_SIZE))
+            for k in CP_STRATEGIES},
+        step_ms=statistics.median(readings[r]["step"]["step_ms"]
+                                  for r in range(CP_SIZE)),
+        loss=st["loss"], loss_err=st["loss_err"],
+        gnorm_worst=st["gnorm"][worst])
+
+
 def bwd_row(kernel: str) -> str:
     """The results row of a launch name: a branch's dQ and dK/dV kernels
     share one row."""
@@ -7024,7 +7818,8 @@ def bwd_row(kernel: str) -> str:
 
 
 PHASES = ("3", "4", "5", "6", "7", "8", "9", "10", "11", "12", "13", "14",
-          "15", "16", "17", "18", "19", "20", "21", "22", "23", "24", "25")
+          "15", "16", "17", "18", "19", "20", "21", "22", "23", "24", "25",
+          "26")
 
 
 def main() -> int:
@@ -7035,7 +7830,7 @@ def main() -> int:
     import argparse
     parser = argparse.ArgumentParser()
     parser.add_argument("--phases", default=",".join(PHASES),
-                        help="comma-separated subset of 3-25")
+                        help="comma-separated subset of 3-26")
     parser.add_argument("--train-seeds", default=str(TRAIN_VS_CPU_SEED),
                         help="comma-separated seeds of phase 7 (its limits "
                         "were set from the readings of 21,22,23)")
@@ -7121,6 +7916,9 @@ def main() -> int:
     run("3", check_flash_fp8_dropout, timer, results)
     run("3", check_flash_bwd_fp8_dropout, timer, results)
     run("3", check_softcap_variants)
+    run("3", check_flash_qoff, timer, results)
+    run("3", check_flash_bwd_qoff, timer, results)
+    run("3", check_qoff_variants)
     run("4", serve, results)
     run("9", serve_paged_mxfp8, results)
     run("12", serve_paged_nvfp4, results)
@@ -7138,6 +7936,7 @@ def main() -> int:
     run("21", train_encoder, results)
     run("23", train_dropout, results)
     run("25", train_flex, results)
+    run("26", train_cp, results)
     failed = []
     for seed in map(int, args.train_seeds.split(",")):
         run("7", lambda torch, seed=seed: failed.extend(
@@ -7161,7 +7960,8 @@ def main() -> int:
                                          "_train_gptoss", "_serve_gptoss",
                                          "_train_fp8_attention",
                                          "_train_packed", "_train_encoder",
-                                         "_train_dropout", "_train_flex")
+                                         "_train_dropout", "_train_flex",
+                                         "_train_cp")
              if k in results}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -300,7 +300,9 @@ def test_refusals_follow_the_reference():
     with pytest.raises(TypeError, match="f32 or bf16"):
         flash_fwd(q, k, v, scale=0.2, causal=False,
                   bias=torch.zeros((1, 4, 16, 16), dtype=torch.float16))
-    with pytest.raises(NotImplementedError, match="not ported"):
+    # The q-position offset is ported: an int or a one-element integer
+    # tensor, anything else raises.
+    with pytest.raises(TypeError, match="q_position_offset"):
         flash_attention(q, k, v, q_position_offset=0.1)
     # Dropout is ported: a rate without a seed raises, as the reference's
     # wrapper does.

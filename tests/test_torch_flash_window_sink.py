@@ -248,10 +248,11 @@ def test_unfused_window_sink_matches_reference(window, sink):
 
 
 def test_wrapper_arguments():
-    """The window and the sink types are taken; the rest of the
-    reference's arguments (score mods other than ALiBi among them), a
-    dynamic window and a learnable sink without its logits still raise;
-    a bias is taken at its (B or 1, Hq, Sq, Skv) shape only."""
+    """The window, the sink types, the q-position offset and a runtime
+    window side are taken; score mods other than ALiBi and the soft cap,
+    a window side or offset that is not an integer, and a learnable sink
+    without its logits still raise; a bias is taken at its (B or 1, Hq,
+    Sq, Skv) shape only."""
     q = torch.zeros((1, 8, 2, 32))
     k = v = torch.zeros((1, 8, 1, 32))
     flash_attention(q, k, v, attn_mask_type=AttnMaskType.CAUSAL,
@@ -260,9 +261,10 @@ def test_wrapper_arguments():
                     softmax_type=SoftmaxType.LEARNABLE,
                     softmax_offset=torch.zeros(2))
     assert AttnSoftmaxType is SoftmaxType
-    for name, value in (("q_position_offset", 3), ("score_mod", abs)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            flash_attention(q, k, v, **{name: value})
+    flash_attention(q, k, v, q_position_offset=3)
+    flash_attention(q, k, v, q_position_offset=torch.tensor([3]))
+    with pytest.raises(NotImplementedError, match="not ported"):
+        flash_attention(q, k, v, score_mod=abs)
     # Dropout and the reference's tile sizes are taken; a rate needs a
     # seed, as in the reference.
     flash_attention(q, k, v, block_q=64, block_k=32)
@@ -270,8 +272,9 @@ def test_wrapper_arguments():
         flash_attention(q, k, v, dropout_probability=0.1)
     with pytest.raises(ValueError, match="bias must be"):
         flash_attention(q, k, v, bias=q)
-    with pytest.raises(NotImplementedError, match="dynamic"):
-        flash_attention(q, k, v, window_size=(torch.tensor(4), 0))
+    flash_attention(q, k, v, window_size=(torch.tensor(4), 0))
+    with pytest.raises(TypeError, match="window side"):
+        flash_attention(q, k, v, window_size=(4.0, 0))
     with pytest.raises(ValueError, match="softmax_offset"):
         flash_attention(q, k, v, softmax_type=SoftmaxType.LEARNABLE)
     with pytest.raises(TypeError, match="unexpected"):

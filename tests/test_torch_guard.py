@@ -805,7 +805,7 @@ def test_soft_cap_reaches_the_kernels(how, monkeypatch):
         assert args[_TERM_ARGS[name]][0] is None, name      # no bias
         scale, cap = args[-8:-6]
         assert (scale, cap) == (0.2, 30.0), name
-        causal, offset = args[-12:-10]
+        causal, offset = args[-13:-11]
         assert (causal, offset) == (1, 0), name
     if how == "kernel":
         assert seen["te_flash_attention_fwd"][1][-7] == 0.0
@@ -842,7 +842,7 @@ def test_flex_causal_mask_alone_reaches_the_alibi_branch(monkeypatch):
     assert bias is None
     assert slopes.dtype == torch.float32 and tuple(slopes.shape) == (4,)
     assert tuple(args[-8:-6]) == (0.2, 0.0)
-    assert tuple(args[-12:-10]) == (1, 0)
+    assert tuple(args[-13:-11]) == (1, 0)
 
 
 def test_soft_cap_and_fp8_dropout_arguments(monkeypatch):
@@ -879,3 +879,80 @@ def test_soft_cap_and_fp8_dropout_arguments(monkeypatch):
     (name, args), = launched
     assert name == "te_flash_attention_fwd" and args[-6] is seed
 
+
+
+def test_parallel_modules_load_no_jax():
+    """Context parallelism (``parallel/``: the collectives, the reorders,
+    the ring, all-gather, Ulysses and hierarchical attention) imports
+    nothing of JAX or of the JAX package, loaded alone and read as
+    source."""
+    code = _IMPORT_ALL.split("import transformerengine_tpu_torch as pkg")[0] \
+        + """
+from transformerengine_tpu_torch.parallel import (
+    cp_utils, group, ring_attention)
+from transformerengine_tpu_torch.attention import CPStrategy
+left = sorted(n for n in sys.modules if forbidden(n))
+print(len(CPStrategy), left)
+assert not left, left
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split(" ", 1) == ["5", "[]\n"]
+    files = sorted((PORT / "parallel").rglob("*.py"))
+    assert [f.name for f in files] == ["__init__.py", "cp_utils.py",
+                                       "group.py", "ring_attention.py"]
+    for path in files:
+        assert not set(_imported_roots(path)) & set(FORBIDDEN), path
+
+
+@pytest.mark.parametrize("form", ["table_row", "int"])
+def test_runtime_positions_reach_the_kernels(form, monkeypatch):
+    """On CUDA tensors the forward, dQ and dK/dV kernels get the runtime
+    positions of a ring table's row, one int32 vector [qoff, left, right]
+    on the card (no host read), the static offset, and the window's
+    placeholders (0 for the active runtime side, -1 for the inactive
+    one); the launches count as ``_sw_qoff``. An int offset
+    joins the static offset and no pointer is passed. The plain versions
+    never run."""
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(fa, "flash_fwd_plain", plain)
+    monkeypatch.setattr(fa, "flash_bwd_plain", plain)
+    monkeypatch.setattr(_build, "stream", lambda t: None)
+    monkeypatch.setattr(_build, "ptr", lambda t: t)
+    seen = {}
+    monkeypatch.setattr(_build, "launch", lambda name, *args: seen.setdefault(
+        name, args))
+    before = _build.LAUNCHES.copy()
+    with warnings.catch_warnings(), FakeTensorMode():
+        warnings.simplefilter("ignore", UserWarning)
+        q = torch.empty((1, 64, 4, 32), dtype=torch.bfloat16, device="cuda")
+        kv = torch.empty((1, 64, 2, 32), dtype=torch.bfloat16,
+                         device="cuda")
+        table = torch.empty((4, 3), dtype=torch.int32, device="cuda")
+        row = table.narrow(0, 2, 1).reshape(3)
+        if form == "table_row":
+            kw = dict(q_position_offset=row.narrow(0, 0, 1),
+                      window=(row.narrow(0, 1, 1), -1))
+        else:
+            kw = dict(q_position_offset=-64, window=(5, -1))
+        o, lse = fa.flash_fwd(q, kv, kv, scale=0.2, causal=True, offset=3,
+                              **kw)
+        fa.flash_bwd(q, kv, kv, o, lse, q, scale=0.2, causal=True, offset=3,
+                     **kw)
+    assert sorted(seen) == sorted(_MASK_ARGS)
+    for name, args in seen.items():
+        causal, offset, left, right, pos = args[-13:-8]
+        if form == "table_row":
+            assert (causal, offset, left, right) == (1, 3, 0, -1), name
+            assert tuple(pos.shape) == (3,) and pos.dtype == torch.int32
+            assert pos.device.type == "cuda"
+        else:
+            assert (causal, offset, left, right, pos) == (1, -61, 5, -1,
+                                                          None), name
+    grown = _build.LAUNCHES - before
+    suffix = "_sw_qoff" if form == "table_row" else "_sw"
+    assert sorted(grown) == sorted(n.replace("te_", "") + suffix
+                                   for n in _MASK_ARGS), grown

@@ -42,26 +42,27 @@ _F = ctypes.c_float
 _U = ctypes.c_uint
 # The flash kernels' dropout arguments: the seed words' pointer, the
 # threshold, 1 / (1 - rate) and the reference's two tile sizes. Before
-# them each flash entry point takes the softmax scale and the soft cap (0
-# for none), two floats.
+# them each flash entry point takes the runtime positions' pointer (after
+# the static offset and window), the softmax scale and the soft cap (0 for
+# none).
 _DROPOUT = (_P, _U, _F, _I, _I)
 # C entry points: name -> argument types (all return int).
 _SIGNATURES = {
     "te_decode_tn_matvec": (_P, _I, _P, _I, _P, _P, _I, _I, _I, _P),
     "te_flash_attention_fwd": (_P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P,
                                _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I,
-                               _I, _I, _I, _I, _I, _I, _F, _F, *_DROPOUT,
-                               _P),
+                               _I, _I, _I, _I, _I, _I, _P, _F, _F,
+                               *_DROPOUT, _P),
     "te_decode_attention": (_P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I,
                             _I, _I, _I, _F, _I, _P),
     "te_flash_attention_bwd_dq": (_P, _P, _P, _I, _P, _I, _P, _P, _P, _I,
                                   _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I,
-                                  _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-                                  _F, *_DROPOUT, _P),
+                                  _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+                                  _F, _F, *_DROPOUT, _P),
     "te_flash_attention_bwd_dkv": (_P, _P, _P, _I, _P, _I, _P, _P, _P, _P,
                                    _I, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I,
-                                   _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-                                   _F, *_DROPOUT, _P),
+                                   _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+                                   _F, _F, *_DROPOUT, _P),
     "te_cast_transpose": (_P, _I, _P, _I, _P, _P, _P, _I, _I, _P),
     "te_norm_cast_transpose": (_P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _F, _P),

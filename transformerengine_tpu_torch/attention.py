@@ -19,7 +19,10 @@ ids describe the packing (:func:`fused_attn_thd`). Attention dropout takes
 the reference's ``seed`` (its two 32-bit words): the flash kernels drop
 by the reference's own hash of them, the unfused backend by a
 ``torch.Generator`` seeded from them (the reference's ``bernoulli`` bits
-are JAX's and not copied).
+are JAX's and not copied). Context parallelism (:class:`CPStrategy`,
+``context_parallel_group``, the load-balancing reorders) runs the
+flash kernels on each rank's shard of a sequence split over a
+``torch.distributed`` process group (``parallel/``).
 """
 from __future__ import annotations
 
@@ -153,6 +156,59 @@ class AttnBackend(enum.Enum):
     AUTO = "auto"
     FLASH = "flash"
     UNFUSED = "unfused"
+
+
+class CPStrategy(enum.Enum):
+    """Context-parallel strategy of :func:`fused_attn` over a process
+    group: K/V gathered (ALL_GATHER), rotated around a ring (RING, or
+    RING_STRIPED on the striped layout), or heads and sequence swapped by
+    all-to-alls (ULYSSES_A2A)."""
+    DEFAULT = 0
+    ALL_GATHER = 1
+    RING = 2
+    ULYSSES_A2A = 3
+    RING_STRIPED = 4
+
+
+class ReorderStrategy(enum.Enum):
+    """Load-balancing reorder of causal context parallelism: chunk i with
+    chunk 2 * cp - 1 - i on each rank (DUAL_CHUNK_SWAP), or tokens (or
+    stripes of them) dealt round-robin (STRIPED)."""
+    DUAL_CHUNK_SWAP = 0
+    STRIPED = 1
+
+
+def reorder_causal_load_balancing(tensor: torch.Tensor,
+                                  strategy: ReorderStrategy, cp_size: int,
+                                  seq_dim: int = 1,
+                                  stripe_size: Optional[int] = None
+                                  ) -> torch.Tensor:
+    """The global sequence reordered for balanced causal work, before it
+    is split over the ranks; the inverse restores the output's order."""
+    from .parallel import cp_utils
+    if strategy is ReorderStrategy.DUAL_CHUNK_SWAP:
+        if stripe_size is not None:
+            raise ValueError("stripe_size applies to STRIPED only")
+        return cp_utils.reorder_causal_dual_chunk_swap(tensor, cp_size,
+                                                       seq_dim)
+    return cp_utils.reorder_causal_striped(tensor, cp_size, seq_dim,
+                                           stripe_size or 1)
+
+
+def inverse_reorder_causal_load_balancing(tensor: torch.Tensor,
+                                          strategy: ReorderStrategy,
+                                          cp_size: int, seq_dim: int = 1,
+                                          stripe_size: Optional[int] = None
+                                          ) -> torch.Tensor:
+    """Inverse of :func:`reorder_causal_load_balancing`."""
+    from .parallel import cp_utils
+    if strategy is ReorderStrategy.DUAL_CHUNK_SWAP:
+        if stripe_size is not None:
+            raise ValueError("stripe_size applies to STRIPED only")
+        return cp_utils.inverse_reorder_causal_dual_chunk_swap(
+            tensor, cp_size, seq_dim)
+    return cp_utils.inverse_reorder_causal_striped(tensor, cp_size, seq_dim,
+                                                   stripe_size or 1)
 
 
 def get_attention_backend(*, attn_bias_type: AttnBiasType =
@@ -347,7 +403,9 @@ def fused_attn(qkv: Sequence[torch.Tensor],
                qkv_layout: QKVLayout = QKVLayout.BSHD_BSHD_BSHD,
                backend: AttnBackend = AttnBackend.AUTO,
                dropout_probability: float = 0.0,
-               is_training: bool = True) -> torch.Tensor:
+               is_training: bool = True,
+               context_parallel_strategy: CPStrategy = CPStrategy.DEFAULT,
+               context_parallel_group=None) -> torch.Tensor:
     """Scaled dot-product attention over ``qkv`` in ``qkv_layout`` (three
     BSHD tensors by default); returns (B, Sq, Hq, D). A descriptor with
     segment ids masks a packed batch in either backend. ``mask`` (bool,
@@ -362,7 +420,13 @@ def fused_attn(qkv: Sequence[torch.Tensor],
     the unfused backend ignores them, as the reference's does.
     ``dropout_probability`` applies when ``is_training``, and then (above
     0) needs ``seed``, the reference's two seed words ((2,) int32, or a
-    sequence); the backend choice does not depend on it."""
+    sequence); the backend choice does not depend on it.
+
+    Context parallelism: with ``context_parallel_group`` (a
+    ``torch.distributed`` process group, the counterpart of the
+    reference's ``context_parallel_axis``) and a strategy other than
+    DEFAULT, q, k and v are this rank's shard of a sequence split over
+    the group, and :func:`_cp_attention` runs the strategy."""
     q, k, v = canonicalize_qkv(qkv, qkv_layout)
     rate = float(dropout_probability) if is_training else 0.0
     if rate > 0.0 and seed is None:
@@ -378,6 +442,20 @@ def fused_attn(qkv: Sequence[torch.Tensor],
         # Nothing marks any token invalid: drop the padding component.
         attn_mask_type = (AttnMaskType.CAUSAL if attn_mask_type.is_causal
                           else AttnMaskType.NO_MASK)
+    if context_parallel_group is not None and \
+            context_parallel_strategy is not CPStrategy.DEFAULT:
+        if rate > 0.0 or mask is not None:
+            # The reference's CP branch returns before it reads them, so
+            # its layers train without attention dropout under CP.
+            raise NotImplementedError(
+                "attention dropout and an explicit mask under context "
+                "parallelism are not ported (the reference drops them "
+                "silently: ROADMAP.md, Queue 3)")
+        return _cp_attention(
+            q, k, v, sequence_descriptor, bias, attn_bias_type,
+            attn_mask_type, scaling_factor, window_size, softmax_type,
+            softmax_offset, context_parallel_strategy,
+            context_parallel_group)
     chosen = backend
     if chosen is AttnBackend.AUTO:
         chosen = get_attention_backend(attn_bias_type=attn_bias_type,
@@ -424,6 +502,68 @@ def fused_attn(qkv: Sequence[torch.Tensor],
                          softmax_offset=softmax_offset, bias=bias,
                          attn_bias_type=attn_bias_type,
                          dropout_probability=rate, seed=seed)
+
+
+def _cp_attention(q, k, v, sequence_descriptor, bias, attn_bias_type,
+                  attn_mask_type, scaling_factor, window_size, softmax_type,
+                  softmax_offset, strategy: CPStrategy, group):
+    """The reference's ``fused_attn`` CP branch. A sink type becomes (Hq,)
+    logits (zeros for OFF_BY_ONE), which the ring merges once after its
+    rotation and the others pass into their flash call. ALiBi (the
+    step's or rank's offset reaches its positions) and a post-scale bias
+    (this rank's rows over the whole key length, (B or 1, Hq, L,
+    S_total)) take RING or ALL_GATHER only. Under an active recipe with
+    ``fp8_dpa`` the ring rotates e4m3 K/V and runs the FP8 kernels, and
+    ALL_GATHER and ULYSSES_A2A send e4m3 payloads."""
+    from .flex_attention import alibi_arith_mod
+    from .parallel.ring_attention import (all_gather_attn,
+                                          ring_attn_in_group, ulysses_attn)
+    from .quantize.helper import get_quantize_config
+    hq = q.shape[2]
+    sink = None
+    if softmax_type is SoftmaxType.OFF_BY_ONE:
+        sink = torch.zeros((hq,), dtype=torch.float32, device=q.device)
+    elif softmax_type is SoftmaxType.LEARNABLE:
+        if softmax_offset is None:
+            raise ValueError("LEARNABLE softmax requires softmax_offset (Hq,)")
+        sink = softmax_offset.float().reshape(hq)
+    contiguous = (CPStrategy.RING, CPStrategy.ALL_GATHER)
+    score_mod = None
+    if attn_bias_type is AttnBiasType.ALIBI:
+        if strategy not in contiguous:
+            raise NotImplementedError(
+                "ALiBi under CP: RING (contiguous) or ALL_GATHER only")
+        score_mod = alibi_arith_mod(hq)
+    if attn_bias_type is AttnBiasType.PRE_SCALE_BIAS:
+        raise NotImplementedError("a pre-scale bias under CP is not ported")
+    cp_bias = None
+    if attn_bias_type is AttnBiasType.POST_SCALE_BIAS and bias is not None:
+        if strategy not in contiguous:
+            raise NotImplementedError(
+                "a bias under CP: RING (contiguous) or ALL_GATHER only (the "
+                "striped layout breaks the column chunks; Ulysses would need "
+                "a head-sliced bias)")
+        cp_bias = bias
+    cfg = get_quantize_config()
+    fp8 = bool(cfg.enabled and getattr(cfg.recipe, "fp8_dpa", False))
+    if strategy in (CPStrategy.RING, CPStrategy.RING_STRIPED):
+        return ring_attn_in_group(
+            q, k, v, sequence_descriptor, group=group,
+            attn_mask_type=attn_mask_type, scaling_factor=scaling_factor,
+            window_size=window_size,
+            striped=strategy is CPStrategy.RING_STRIPED, fp8_kv=fp8,
+            softmax_sink=sink, bias=cp_bias, score_mod=score_mod)
+    if strategy is CPStrategy.ALL_GATHER:
+        return all_gather_attn(
+            q, k, v, group, causal=attn_mask_type.is_causal,
+            scaling_factor=scaling_factor, window_size=window_size,
+            sequence_descriptor=sequence_descriptor, softmax_sink=sink,
+            bias=cp_bias, score_mod=score_mod, fp8_dpa=fp8)
+    return ulysses_attn(
+        q, k, v, group, causal=attn_mask_type.is_causal,
+        scaling_factor=scaling_factor, window_size=window_size,
+        sequence_descriptor=sequence_descriptor, softmax_sink=sink,
+        fp8_dpa=fp8)
 
 
 def fused_attn_thd(qkv: Sequence[torch.Tensor],

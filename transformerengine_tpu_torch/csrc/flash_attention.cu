@@ -75,6 +75,20 @@
 // bf16 peak) plus five cap operations per visited score at the CUDA
 // cores' rate: operations, about 0.08 ms.
 //
+// Runtime positions (the reference's `qoff` scalar-prefetch operand, with
+// its dynamic window under `_win_dynamic`; ring and all-gather context
+// parallelism pass them): every instance takes an optional int32 vector
+// [qoff, left, right] on the card. Each block reads it once at its start;
+// qoff adds to the static offset (`off = offset + qoff_ref[0]`), and the
+// sides the static window makes active take their bounds from it. The tile
+// loop's bounds come from the values read, so a step whose queries sit
+// before every key (a negative qoff) visits no tile and writes O = 0 and
+// LSE = -1e30. A side's activity is the static bound's sign, never the
+// value read: a striped ring step's left bound may be a live -1 (keys at
+// or after the query's own index + 1). Nothing is read back to the host,
+// so a ring step can be captured in a CUDA graph. One load a block, no
+// per-score branch beyond the static window's own.
+//
 // FP8 with dropout (the reference's `_fp8_core` and `_fp8_mha_core` with a
 // dropout rate): the dropout instances also take e4m3 Q/K/V payloads
 // (built in flash_attention_dropout.cu), O in bf16, f32 or through the
@@ -154,8 +168,11 @@
 
 // The causal rule with its offset and the window's sides; shared by both
 // translation units.
+// `pos`, the runtime positions [qoff, left, right] on the card or null:
+// see te_flash_attention_fwd.
 struct Mask {
   int causal, offset, left, right;
+  const int* pos;
 };
 
 namespace {
@@ -184,7 +201,7 @@ __global__ void __launch_bounds__(kThreads)
                      const float* __restrict__ scales,
                      float* __restrict__ o_amax, ScoreTerms terms, int Sq,
                      int Skv, int Hq, int Hkv, int D, int causal, int offset,
-                     int left, int right) {
+                     int left, int right, const int* __restrict__ pos) {
   constexpr int kCols = DMAX / 16;
   constexpr bool kFp8 = kIsFp8<T>;
   extern __shared__ float smem[];
@@ -203,16 +220,24 @@ __global__ void __launch_bounds__(kThreads)
   const int tx = tid & 15;
   const int ty = tid >> 4;
   const float smult = kFp8 ? scales[0] : 1.f;
+  // A side of the window is active where the caller's static bound is
+  // >= 0; the runtime positions may then set it to any value, -1 included.
+  const bool left_on = left >= 0, right_on = right >= 0;
+  if (pos != nullptr) {
+    offset += __ldg(pos);
+    if (left_on) left = __ldg(pos + 1);
+    if (right_on) right = __ldg(pos + 2);
+  }
 
   const int qlen = qlens != nullptr ? qlens[b] : Sq;
   const int klen = klens != nullptr ? klens[b] : Skv;
   // Keys past kend are masked for every row of this tile.
   int kend = min(Skv, klen);
   if (causal) kend = min(kend, q0 + kBQ + offset);
-  if (right >= 0) kend = min(kend, q0 + kBQ + offset + right);
+  if (right_on) kend = min(kend, q0 + kBQ + offset + right);
   if (q0 >= qlen) kend = 0;
   // Keys before kbeg are outside the window of every row of this tile.
-  const int kbeg = left >= 0 ? max(0, q0 + offset - left) / kBK * kBK : 0;
+  const int kbeg = left_on ? max(0, q0 + offset - left) / kBK * kBK : 0;
 
   // Tiles move with 16-byte loads of kVec values (D % 16 == 0).
   constexpr int kVec = 16 / sizeof(T);
@@ -311,8 +336,8 @@ __global__ void __launch_bounds__(kThreads)
         const int kj = k0 + tx + 16 * c;
         bool visible = kj < Skv;
         if (causal) visible = visible && kj <= qi + offset;
-        if (left >= 0) visible = visible && kj >= qi + offset - left;
-        if (right >= 0) visible = visible && kj <= qi + offset + right;
+        if (left_on) visible = visible && kj >= qi + offset - left;
+        if (right_on) visible = visible && kj <= qi + offset + right;
         if (qlens != nullptr) visible = visible && qi < qlen && kj < klen;
         if (qseg != nullptr) {
           const int qs = __float_as_int(Qs[(ty * 4 + r) * ld + D]);
@@ -424,7 +449,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), o, out_code, lse, qlens, klens, qseg, kseg,
       sink, scales, o_amax, terms, Sq, Skv, Hq, Hkv, D, mk.causal, mk.offset,
-      mk.left, mk.right);
+      mk.left, mk.right, mk.pos);
   return cudaGetLastError();
 }
 
@@ -516,6 +541,13 @@ cudaError_t TE_FWD_UNIT(TE_FWD_ARGS) {
 // `seed`, the (2,) int32 dropout seed words on the card, with the
 // threshold `thr`, `inv` = 1 / (1 - rate) and the reference's tile sizes
 // `bq` and `bk`, or a null seed without dropout; FP8 included.
+// `offset`, `left` and `right` are static, -1 for an inactive side. `pos`,
+// the runtime positions (the reference's `qoff` operand with its dynamic
+// window), is null or an int32 vector [qoff, left, right] on the card that
+// each block reads once at its start: qoff adds to `offset`, and each side
+// that `left` or `right` makes active (>= 0; its value is then a
+// placeholder) takes its bound from the vector, which may be any int, -1
+// included. No bound crosses to the host.
 extern "C" int te_flash_attention_fwd(const void* q, const void* k,
                                       const void* v, int dtype, void* o,
                                       int out_dtype, float* lse,
@@ -527,7 +559,8 @@ extern "C" int te_flash_attention_fwd(const void* q, const void* k,
                                       const float* slopes, int B, int Sq,
                                       int Skv, int Hq, int Hkv, int D,
                                       int causal, int offset, int left,
-                                      int right, float scale, float cap,
+                                      int right, const int* pos, float scale,
+                                      float cap,
                                       const int* seed, unsigned thr,
                                       float inv, int bq, int bk,
                                       void* stream) {
@@ -546,7 +579,7 @@ extern "C" int te_flash_attention_fwd(const void* q, const void* k,
       out_dtype > kFloat8E5M2)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Mask mk{causal, offset, left, right};
+  const Mask mk{causal, offset, left, right, pos};
 #define TE_FWD_UNIT_CALL(UNIT)                                              \
   UNIT(dtype, q, k, v, o, out_dtype, lse, qlens, klens, qseg, kseg, sink,  \
        scales, o_amax, terms, B, Sq, Skv, Hq, Hkv, D, mk, s)

@@ -66,6 +66,13 @@
 // per visited score in each kernel (2.95 G at the CUDA cores' rate):
 // operations, about 0.22 ms.
 //
+// Runtime positions (the reference's `qoff` operand in `_bwd_dq_kernel`
+// and `_bwd_dkv_kernel`): the forward's optional [qoff, left, right] on the
+// card, read once by each block of both kernels (at_positions), with the
+// window's activity from the static bounds as in the forward. The tile
+// ranges (kbeg/kend of the dQ kernel, qbeg/qend of the dK/dV kernel) come
+// from the values read.
+//
 // FP8 with dropout: the dropout instances also take e4m3 Q/K/V payloads
 // with a bf16 or f32 dO, or e4m3 O and an e5m2 dO (built in
 // flash_attention_bwd_dropout.cu); p and ds round to bf16 after the mask.
@@ -143,9 +150,14 @@
 #define TE_FLASH_UNIT 0
 #endif
 
-// The shape and mask of a call; shared by both translation units.
+// The shape and mask of a call; shared by both translation units. A
+// side of the window is active where its static bound is >= 0 (`left_on`,
+// `right_on`); `pos`, the runtime positions [qoff, left, right] on the card
+// or null, is read by each block at its start (at_positions).
 struct Shape {
   int Sq, Skv, Hq, Hkv, D, causal, offset, left, right;
+  bool left_on, right_on;
+  const int* pos;
 };
 
 namespace {
@@ -220,14 +232,26 @@ __device__ __forceinline__ void load_tile_as(const void* src, int code,
   }
 }
 
+// The block's mask: qoff added to the static offset and the active sides'
+// bounds from the runtime positions, as the forward reads them; the
+// activity stays the static one, so a bound read as -1 stays live.
+__device__ __forceinline__ Shape at_positions(Shape sh) {
+  if (sh.pos != nullptr) {
+    sh.offset += __ldg(sh.pos);
+    if (sh.left_on) sh.left = __ldg(sh.pos + 1);
+    if (sh.right_on) sh.right = __ldg(sh.pos + 2);
+  }
+  return sh;
+}
+
 // `qs` and `ks`: the pair's segment ids, both 1 without segments.
 __device__ __forceinline__ bool visible(const Shape& sh, int qi, int kj,
                                         int qlen, int klen, int qs, int ks) {
   bool ok = qi < sh.Sq && kj < sh.Skv && qi < qlen && kj < klen &&
             qs != 0 && qs == ks;
   if (sh.causal) ok = ok && kj <= qi + sh.offset;
-  if (sh.left >= 0) ok = ok && kj >= qi + sh.offset - sh.left;
-  if (sh.right >= 0) ok = ok && kj <= qi + sh.offset + sh.right;
+  if (sh.left_on) ok = ok && kj >= qi + sh.offset - sh.left;
+  if (sh.right_on) ok = ok && kj <= qi + sh.offset + sh.right;
   return ok;
 }
 
@@ -251,7 +275,8 @@ __global__ void __launch_bounds__(kThreads)
                         const int* __restrict__ qseg,
                         const int* __restrict__ kseg,
                         const float* __restrict__ scales, ScoreTerms terms,
-                        float* __restrict__ dbias, Shape sh) {
+                        float* __restrict__ dbias, Shape shape) {
+  const Shape sh = at_positions(shape);
   constexpr int kB = Tiles<DMAX>::kB, kR = Tiles<DMAX>::kR;
   constexpr int kCols = Tiles<DMAX>::kCols;
   constexpr bool kFp8 = kIsFp8<T>;
@@ -277,10 +302,10 @@ __global__ void __launch_bounds__(kThreads)
   const int klen = klens != nullptr ? klens[b] : sh.Skv;
   int kend = min(sh.Skv, klen);
   if (sh.causal) kend = min(kend, q0 + kB + sh.offset);
-  if (sh.right >= 0) kend = min(kend, q0 + kB + sh.offset + sh.right);
+  if (sh.right_on) kend = min(kend, q0 + kB + sh.offset + sh.right);
   if (q0 >= qlen) kend = 0;
   const int kbeg =
-      sh.left >= 0 ? max(0, q0 + sh.offset - sh.left) / kB * kB : 0;
+      sh.left_on ? max(0, q0 + sh.offset - sh.left) / kB * kB : 0;
   // dbias's row q0 of this (batch, head).
   const size_t dbias_row = (((size_t)b * sh.Hq + h) * sh.Sq + q0) * sh.Skv;
 
@@ -441,7 +466,8 @@ __global__ void __launch_bounds__(kThreads)
                          const int* __restrict__ qseg,
                          const int* __restrict__ kseg,
                          const float* __restrict__ scales, ScoreTerms terms,
-                         Shape sh) {
+                         Shape shape) {
+  const Shape sh = at_positions(shape);
   constexpr int kB = Tiles<DMAX>::kB, kR = Tiles<DMAX>::kR;
   constexpr int kCols = Tiles<DMAX>::kCols;
   constexpr bool kFp8 = kIsFp8<T>;
@@ -469,10 +495,10 @@ __global__ void __launch_bounds__(kThreads)
   // Queries past qend see none of this tile's keys: padded rows, and rows
   // whose window's left edge lies past the tile's last key.
   int qend = min(sh.Sq, qlen);
-  if (sh.left >= 0) qend = min(qend, k0 + kB + sh.left - sh.offset);
+  if (sh.left_on) qend = min(qend, k0 + kB + sh.left - sh.offset);
   // Queries before qbeg see none of them either (causal, right edge).
   int qbeg = sh.causal ? max(0, k0 - sh.offset) : 0;
-  if (sh.right >= 0) qbeg = max(qbeg, k0 - sh.offset - sh.right);
+  if (sh.right_on) qbeg = max(qbeg, k0 - sh.offset - sh.right);
   qbeg = (qbeg / kB) * kB;
   const bool live = k0 < min(sh.Skv, klen);
 
@@ -803,7 +829,9 @@ cudaError_t TE_UNIT_DKV(TE_DKV_ARGS) {
 // of which the dQ kernel writes; or the (Hq,) ALiBi `slopes` (q unscaled);
 // or the soft cap `cap` > 0 (q unscaled; 0 for none); at most one, and
 // none with FP8. `seed`, `thr`, `inv`, `bq` and `bk`: the forward's
-// dropout, or a null seed without; FP8 included.
+// dropout, or a null seed without; FP8 included. `offset`, `left`,
+// `right` and `pos`: the forward's (te_flash_attention_fwd), read the same
+// way by each block of both kernels.
 extern "C" int te_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, int dtype, const void* dout,
     int do_dtype, const float* lse2, const float* delta, void* dq,
@@ -811,8 +839,8 @@ extern "C" int te_flash_attention_bwd_dq(
     const int* kseg, const float* scales, const void* bias, int bias_dtype,
     int bias_b, const float* slopes, float* dbias, int B, int Sq, int Skv,
     int Hq, int Hkv, int D, int causal, int offset, int left, int right,
-    float scale, float cap, const int* seed, unsigned thr, float inv, int bq,
-    int bk, void* stream) {
+    const int* pos, float scale, float cap, const int* seed, unsigned thr,
+    float inv, int bq, int bk, void* stream) {
   const ScoreTerms terms{bias, bias_dtype, bias_b, slopes, scale, cap,
                          Dropout{seed, thr, inv, bq, bk}};
   if (bad_args(B, Sq, Skv, Hq, Hkv, D, left, right, dtype, do_dtype,
@@ -820,7 +848,8 @@ extern "C" int te_flash_attention_bwd_dq(
       bad_terms(terms, B, dtype == kFloat8E4M3) ||
       (bias != nullptr) != (dbias != nullptr))
     return cudaErrorInvalidValue;
-  const Shape sh{Sq, Skv, Hq, Hkv, D, causal, offset, left, right};
+  const Shape sh{Sq, Skv, Hq, Hkv, D, causal, offset, left, right,
+                 left >= 0, right >= 0, pos};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define TE_DQ_UNIT(UNIT)                                                    \
   UNIT(q, k, v, dtype, dout, do_dtype, lse2, delta, dq, grad_dtype, qlens, \
@@ -850,16 +879,17 @@ extern "C" int te_flash_attention_bwd_dkv(
     int grad_dtype, const int* qlens, const int* klens, const int* qseg,
     const int* kseg, const float* scales, const void* bias, int bias_dtype,
     int bias_b, const float* slopes, int B, int Sq, int Skv, int Hq, int Hkv,
-    int D, int causal, int offset, int left, int right, float scale,
-    float cap, const int* seed, unsigned thr, float inv, int bq, int bk,
-    void* stream) {
+    int D, int causal, int offset, int left, int right, const int* pos,
+    float scale, float cap, const int* seed, unsigned thr, float inv, int bq,
+    int bk, void* stream) {
   const ScoreTerms terms{bias, bias_dtype, bias_b, slopes, scale, cap,
                          Dropout{seed, thr, inv, bq, bk}};
   if (bad_args(B, Sq, Skv, Hq, Hkv, D, left, right, dtype, do_dtype,
                grad_dtype, scales, qlens, klens, qseg, kseg) ||
       bad_terms(terms, B, dtype == kFloat8E4M3))
     return cudaErrorInvalidValue;
-  const Shape sh{Sq, Skv, Hq, Hkv, D, causal, offset, left, right};
+  const Shape sh{Sq, Skv, Hq, Hkv, D, causal, offset, left, right,
+                 left >= 0, right >= 0, pos};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define TE_DKV_UNIT(UNIT)                                                   \
   UNIT(q, k, v, dtype, dout, do_dtype, lse2, delta, dk, dv, grad_dtype,    \

@@ -5,7 +5,17 @@ tied input/output embeddings, and its token-level cross-entropy loss.
 A training step is the model's forward (no caches), ``cross_entropy_loss``
 and ``loss.backward()``; under ``autocast`` with ``DelayedScaling`` the
 backward also rolls every GEMM's quantizer state in the modules' buffers
-(the reference's ``quantize_meta`` collection)."""
+(the reference's ``quantize_meta`` collection).
+
+Context parallelism (``LlamaConfig.context_parallel_group``, a
+``torch.distributed`` process group: the reference's
+``context_parallel_axis``): every layer's attention runs the ring over
+the group, each rank feeding its shard of the sequence (B, S / cp) and
+its tokens' global RoPE positions (``positions``). The step's sums over
+the group are the caller's, as under the reference's ``shard_map`` they
+come from its transpose: each rank's loss is its tokens' summed cross
+entropy over the global token count, and the weights' gradients are
+summed over the group (``parallel.group.all_reduce_sum``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -38,6 +48,7 @@ class LlamaConfig:
     rope_base: float = 500000.0
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
+    context_parallel_group: Optional[object] = None
 
 
 LLAMA_TINY = LlamaConfig(vocab_size=256, hidden_size=128,
@@ -74,7 +85,8 @@ class LlamaModel(nn.Module):
                 enable_rotary_pos_emb=True,
                 rotary_pos_emb_base=cfg.rope_base,
                 max_seq_len=cfg.max_seq_len, dtype=cfg.dtype, device=dev,
-                generator=gen)
+                generator=gen,
+                context_parallel_group=cfg.context_parallel_group)
             for _ in range(cfg.num_layers))
         self.final_norm = LayerNorm(cfg.hidden_size, epsilon=cfg.norm_eps,
                                     norm_type="rmsnorm",

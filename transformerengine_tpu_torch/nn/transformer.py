@@ -18,7 +18,10 @@ attention and the output projection run as one FP8 function; a bias or
 ALiBi keeps the attention in the inputs' precision, as the reference's
 gates do, and so does attention dropout in training. A packed batch (a
 descriptor with segment ids) and its per-document ``positions`` run
-through the same cache-free path.
+through the same cache-free path, and so does context parallelism: a
+``context_parallel_group`` (a ``torch.distributed`` process group) runs
+the cache-free attention as a ring over it, each rank on its shard of
+the sequence.
 
 Dropout, as the reference's modules take it: ``attention_dropout`` (in
 the flash kernels, from two seed words drawn once per call),
@@ -39,8 +42,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..attention import (AttnBiasType, AttnMaskType, SequenceDescriptor,
-                         SoftmaxType, fused_attn)
+from ..attention import (AttnBiasType, AttnMaskType, CPStrategy,
+                         SequenceDescriptor, SoftmaxType, fused_attn)
 from ..common.recipe import DelayedScaling, Float8CurrentScaling
 from ..device import resolve_device
 from ..inference.kv_cache import (KVCache, PagedKVCache, cache_append,
@@ -65,23 +68,25 @@ def _fp8_qkv_quantizers():
                  for _ in range(3))
 
 
-def _fp8_dpa_active(recipe, bias, dropout: float) -> bool:
+def _fp8_dpa_active(recipe, bias, dropout: float, cp_group=None) -> bool:
     """The reference's fp8_dpa gate: any active recipe with the flag, no
-    bias and no dropout in this call (the port has no context
-    parallelism, which closes it there too). ALiBi passes it, and
-    ``fused_attn`` then drops the quantizers, as the reference's does."""
+    bias, no dropout in this call and no context parallelism (whose
+    ``fused_attn`` branch reads the recipe itself and runs the FP8 ring).
+    ALiBi passes it, and ``fused_attn`` then drops the quantizers, as the
+    reference's does."""
     return (recipe is not None and getattr(recipe, "fp8_dpa", False)
-            and bias is None and dropout == 0.0)
+            and bias is None and dropout == 0.0 and cp_group is None)
 
 
 def _fp8_mha_active(recipe, use_bias: bool, bias, score_mod_like: bool,
-                    dropout: float) -> bool:
+                    dropout: float, cp_group=None) -> bool:
     """The reference's fp8_mha gate (``_fp8_mha_active``): a per-tensor
     recipe with both flags, no biased projections, no attention bias, no
-    ALiBi and no dropout in this call."""
+    ALiBi, no dropout in this call and no context parallelism."""
     return (isinstance(recipe, (DelayedScaling, Float8CurrentScaling))
             and recipe.fp8_mha and recipe.fp8_dpa and not use_bias
-            and bias is None and not score_mod_like and dropout == 0.0)
+            and bias is None and not score_mod_like and dropout == 0.0
+            and cp_group is None)
 
 
 def draw_seed(generator: torch.Generator) -> torch.Tensor:
@@ -94,11 +99,11 @@ def draw_seed(generator: torch.Generator) -> torch.Tensor:
 
 def _core_attention(q, k, v, sequence_descriptor, bias, *, mask_type,
                     bias_type, rate: float, window, scale, softmax_type,
-                    softmax_offset, generator) -> torch.Tensor:
+                    softmax_offset, generator, cp_group=None) -> torch.Tensor:
     """The reference's DotProductAttention body: the seed words drawn
     from ``generator`` when ``rate`` (this call's attention dropout) is
-    above 0, FP8 Q/K/V under its gate, and ``fused_attn``; (B, Sq, Hq,
-    D)."""
+    above 0, FP8 Q/K/V under its gate, and ``fused_attn``, through the
+    ring over ``cp_group`` where one is set; (B, Sq, Hq, D)."""
     cfg = get_quantize_config()
     recipe = cfg.recipe if cfg.enabled else None
     seed = draw_seed(generator).to(q.device) if rate > 0.0 else None
@@ -109,7 +114,11 @@ def _core_attention(q, k, v, sequence_descriptor, bias, *, mask_type,
         softmax_offset=softmax_offset, dropout_probability=rate,
         is_training=rate > 0.0,
         qkv_quantizers=(_fp8_qkv_quantizers()
-                        if _fp8_dpa_active(recipe, bias, rate) else None))
+                        if _fp8_dpa_active(recipe, bias, rate, cp_group)
+                        else None),
+        context_parallel_strategy=(CPStrategy.RING if cp_group is not None
+                                   else CPStrategy.DEFAULT),
+        context_parallel_group=cp_group)
 
 
 def _drop_path(branch: torch.Tensor, rate: float,
@@ -134,8 +143,11 @@ class DotProductAttention(nn.Module):
     ``softmax_type``; LEARNABLE owns an f32 ``softmax_offset`` (Hq,),
     zeros at init, unless the call passes one. ``attention_dropout``
     acts in a training call, from two seed words drawn from the call's
-    ``generator``; the ``fp8_dpa`` gate closes under a bias and under
-    dropout."""
+    ``generator``; the ``fp8_dpa`` gate closes under a bias, under
+    dropout and under context parallelism. ``context_parallel_group``, a
+    ``torch.distributed`` process group (the reference's
+    ``context_parallel_axis``), runs the ring over it: the inputs are
+    this rank's shard of the sequence."""
 
     def __init__(self, head_dim: int, num_attention_heads: int, *,
                  num_gqa_groups: Optional[int] = None,
@@ -144,8 +156,10 @@ class DotProductAttention(nn.Module):
                  attention_dropout: float = 0.0,
                  window_size: Optional[Tuple[int, int]] = None,
                  scale_factor: Optional[float] = None,
-                 softmax_type: Optional[SoftmaxType] = None, device=None):
+                 softmax_type: Optional[SoftmaxType] = None, device=None,
+                 context_parallel_group=None):
         super().__init__()
+        self.context_parallel_group = context_parallel_group
         self.head_dim = head_dim
         self.num_heads = num_attention_heads
         self.num_kv_heads = num_gqa_groups or num_attention_heads
@@ -178,7 +192,7 @@ class DotProductAttention(nn.Module):
             softmax_type=self.softmax_type,
             softmax_offset=(softmax_offset if softmax_offset is not None
                             else self.softmax_offset),
-            generator=generator)
+            generator=generator, cp_group=self.context_parallel_group)
         b, s, h, d = out.shape
         return out.reshape(b, s, h * d)
 
@@ -302,7 +316,11 @@ class MultiHeadAttention(nn.Module):
     ``softmax_offset`` (Hq,), zeros at init. ``attention_dropout`` acts
     in a training call (``deterministic=False``), with the call's
     ``generator``; it closes the ``fp8_dpa`` and ``fp8_mha`` gates there.
-    Defaults are the reference's."""
+    ``context_parallel_group`` (a process group) runs the cache-free
+    attention as a ring over it, on this rank's shard of the sequence
+    (its RoPE positions, the shard's global ones, come through
+    ``positions``); it closes both FP8 gates. Defaults are the
+    reference's."""
 
     def __init__(self, hidden_size: int, num_attention_heads: int, *,
                  head_dim: Optional[int] = None,
@@ -320,8 +338,10 @@ class MultiHeadAttention(nn.Module):
                  rotary_pos_emb_base: float = 10000.0,
                  max_seq_len: int = 8192,
                  dtype: torch.dtype = torch.bfloat16, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 context_parallel_group=None):
         super().__init__()
+        self.context_parallel_group = context_parallel_group
         if attn_bias_type is AttnBiasType.PRE_SCALE_BIAS:
             raise NotImplementedError(
                 "a pre-scale bias in MultiHeadAttention is not ported; "
@@ -410,8 +430,9 @@ class MultiHeadAttention(nn.Module):
             cfg = get_quantize_config()
             recipe = cfg.recipe if cfg.enabled else None
             mask = _mask_type(self.attn_mask_type, sequence_descriptor)
+            cp_group = self.context_parallel_group
             if _fp8_mha_active(recipe, self.out.bias is not None, bias,
-                               alibi, rate):
+                               alibi, rate, cp_group):
                 return self._fp8_mha(q, k, v, sequence_descriptor, mask)
             # Training and cache-free forward: the reference's
             # DotProductAttention through fused_attn (flash backend).
@@ -420,7 +441,8 @@ class MultiHeadAttention(nn.Module):
                 bias_type=self.attn_bias_type, rate=rate,
                 window=self.window_size, scale=None,
                 softmax_type=self.softmax_type,
-                softmax_offset=self.softmax_offset, generator=generator)
+                softmax_offset=self.softmax_offset, generator=generator,
+                cp_group=cp_group)
         return self.out(ctx.reshape(b, s, hq * d))
 
     def _fp8_mha(self, q, k, v, sequence_descriptor, mask) -> torch.Tensor:
@@ -521,9 +543,10 @@ class TransformerLayer(nn.Module):
     branch dropped per sample) act in a training call
     (``deterministic=False``) and draw from its ``generator``, in the
     reference's order: the attention's seed words, the attention branch's
-    hidden dropout and drop path, then the MLP branch's. Defaults are the
-    reference's: RMSNorm, ``("gelu",)``, a causal mask, no RoPE, no
-    dropout."""
+    hidden dropout and drop path, then the MLP branch's.
+    ``context_parallel_group`` goes to the attention (the ring over it).
+    Defaults are the reference's: RMSNorm, ``("gelu",)``, a causal mask,
+    no RoPE, no dropout."""
 
     def __init__(self, hidden_size: int, mlp_hidden_size: int,
                  num_attention_heads: int, *, head_dim: Optional[int] = None,
@@ -547,7 +570,8 @@ class TransformerLayer(nn.Module):
                  relative_embedding_buckets: int = 32,
                  relative_embedding_max_distance: int = 128,
                  dtype: torch.dtype = torch.bfloat16, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 context_parallel_group=None):
         super().__init__()
         self.self_attn_mask_type = self_attn_mask_type
         self.hidden_dropout = hidden_dropout
@@ -572,7 +596,7 @@ class TransformerLayer(nn.Module):
             enable_rotary_pos_emb=enable_rotary_pos_emb,
             rotary_pos_emb_base=rotary_pos_emb_base,
             max_seq_len=max_seq_len, dtype=dtype, device=device,
-            generator=generator)
+            generator=generator, context_parallel_group=context_parallel_group)
         self.is_moe = num_moe_experts > 0
         if self.is_moe:
             if norm_type != "rmsnorm" or zero_centered_gamma:

@@ -142,12 +142,6 @@ DEFAULT_BLOCK_Q = 512
 DEFAULT_BLOCK_K = 1024
 MAX_ROWS = 1024
 
-# Arguments of the reference function that this port does not take yet
-# (ROADMAP.md lists them; with the dynamic window they wait for ring
-# attention, their one consumer); passing any of them raises.
-_UNPORTED = ("q_position_offset",)
-
-
 def _ceil_to(x: int, m: int) -> int:
     return -(-x // m) * m
 
@@ -270,15 +264,19 @@ def dropout_keep(seed: torch.Tensor, b: int, hq: int, hkv: int, sq: int,
 
 def _visible(sq, skv, q_seqlens, kv_seqlens, causal, offset, window,
              device, q_segment_ids=None, kv_segment_ids=None):
-    """(B or 1, Sq, Skv) bool: which keys each query sees."""
+    """(B or 1, Sq, Skv) bool: which keys each query sees. ``offset`` is an
+    int or a 0-dim int tensor (:func:`_plain_offset`), each side of
+    ``window`` an int (active where >= 0) or a 0-dim int tensor (active
+    whatever its value)."""
     qpos = torch.arange(sq, device=device)[:, None] + offset
     kpos = torch.arange(skv, device=device)[None, :]
     mask = torch.ones((1, sq, skv), dtype=torch.bool, device=device)
+    left, right = _win_active(window)
     if causal:
         mask = mask & (kpos <= qpos)
-    if window[0] >= 0:
+    if left:
         mask = mask & (kpos >= qpos - window[0])
-    if window[1] >= 0:
+    if right:
         mask = mask & (kpos <= qpos + window[1])
     if q_seqlens is not None:
         rows = torch.arange(sq, device=device)[:, None]
@@ -344,7 +342,8 @@ def flash_fwd_plain(q, k, v, q_seqlens=None, kv_seqlens=None, *,
                     q_segment_ids=None, kv_segment_ids=None, bias=None,
                     alibi_slopes=None, scale: float = 1.0,
                     dropout: Optional[Dropout] = None,
-                    soft_cap: Optional[float] = None):
+                    soft_cap: Optional[float] = None,
+                    q_position_offset=None):
     """Reference forward. Without ``fp8_scales`` ``q`` arrives pre-scaled
     by scale * log2(e) and O takes q's dtype. With them (the FP8 branch)
     q, k and v are payloads and ``fp8_scales`` is :func:`fp8_fwd_scales`'
@@ -355,11 +354,17 @@ def flash_fwd_plain(q, k, v, q_seqlens=None, kv_seqlens=None, *,
     arrives unscaled and ``scale`` is the softmax scale. With ``dropout``
     the denominator sums
     the undropped weights and the PV product takes ``where(keep, p * inv,
-    0)`` (:func:`dropout_keep`)."""
+    0)`` (:func:`dropout_keep`). ``q_position_offset`` (an int or a
+    one-element int tensor) adds to ``offset``, and a side of ``window``
+    may be a one-element int tensor, active whatever its value (the
+    kernels' runtime positions); tensors are read on their device, never
+    on the host."""
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
     fp8 = fp8_scales is not None
+    offset = _plain_offset(offset, q_position_offset)
+    window = _window(window, scalar=True)
     s = torch.einsum("bqhgd,bkhd->bhgqk",
                      q.float().reshape(b, sq, hkv, g, d), k.float())
     if fp8:
@@ -398,37 +403,102 @@ def flash_fwd_plain(q, k, v, q_seqlens=None, kv_seqlens=None, *,
     return o.to(out_dtype), lse
 
 
-def _window(window) -> Tuple[int, int]:
-    """A static two-sided window as (left, right), -1 for an inactive
-    side (any negative int, as the reference's ``_win_active``)."""
+def _runtime_int(t, what: str):
+    """``t``, an int or a one-element integer tensor, checked."""
+    if isinstance(t, torch.Tensor):
+        if t.numel() == 1 and not (t.is_floating_point() or t.is_complex()
+                                   or t.dtype == torch.bool):
+            return t
+    elif isinstance(t, numbers.Integral):
+        return int(t)
+    raise TypeError(f"{what} takes an int or a one-element integer tensor, "
+                    f"got {t!r}")
+
+
+def _window(window, scalar: bool = False) -> tuple:
+    """A two-sided window as (left, right). A side is an int, -1 where it
+    is inactive (any negative int, as the reference's ``_win_active``), or
+    a one-element int tensor, a runtime bound that is active whatever its
+    value (the reference's traced bound); ``scalar`` reshapes such a
+    tensor to 0 dimensions."""
     if window is None:
         return NO_WINDOW
     left, right = window
+    out = []
     for side in (left, right):
-        if not isinstance(side, numbers.Integral):
-            raise NotImplementedError(
-                "a dynamic (traced or tensor) window is not ported yet")
-    return (int(left) if left >= 0 else -1, int(right) if right >= 0 else -1)
+        side = _runtime_int(side, "a window side")
+        if isinstance(side, torch.Tensor):
+            out.append(side.reshape(()) if scalar else side)
+        else:
+            out.append(side if side >= 0 else -1)
+    return tuple(out)
+
+
+def _win_active(window) -> Tuple[bool, bool]:
+    """Each side's activity, apart from its value: a tensor side is
+    active, an int side where it is >= 0."""
+    return tuple(isinstance(w, torch.Tensor) or w >= 0 for w in window)
+
+
+def _plain_offset(offset: int, q_position_offset):
+    """The plain versions' query offset: ``offset`` plus
+    ``q_position_offset``, a 0-dim tensor on the inputs' device where that
+    is a tensor (no host read), else an int."""
+    if q_position_offset is None:
+        return offset
+    qoff = _runtime_int(q_position_offset, "q_position_offset")
+    return offset + (qoff.reshape(()) if isinstance(qoff, torch.Tensor)
+                     else qoff)
+
+
+def _runtime_positions(offset: int, window, q_position_offset):
+    """The kernels' static (offset, left, right) and their runtime
+    positions, the int32 vector [qoff, left, right] on the card, or None
+    when nothing is a tensor (the reference's ``qoff`` operand, with its
+    window under ``_win_dynamic``). An int ``q_position_offset`` joins the
+    static offset. With a vector, a tensor side's static bound is the
+    placeholder 0 (active, as the reference's), and an active int side's
+    value moves into the vector too, which is stacked on the card (no
+    host read)."""
+    qoff = q_position_offset
+    if qoff is not None:
+        qoff = _runtime_int(qoff, "q_position_offset")
+    if qoff is not None and not isinstance(qoff, torch.Tensor):
+        offset, qoff = offset + qoff, None
+    parts = (qoff, *window)
+    if not any(isinstance(p, torch.Tensor) for p in parts):
+        return (offset, *window), None
+    static = (offset, *(0 if isinstance(w, torch.Tensor) else w
+                        for w in window))
+    dev = next(p.device for p in parts if isinstance(p, torch.Tensor))
+    vec = [p.reshape(()).to(torch.int32) if isinstance(p, torch.Tensor)
+           else torch.full((), max(p, 0) if p is not None else 0,
+                           dtype=torch.int32, device=dev)
+           for p in parts]
+    return static, torch.stack(vec)
 
 
 def _sw(window, softmax_sink) -> str:
     """The launch count's suffix: "_sw" for the window and sink branch."""
-    return "_sw" if window != NO_WINDOW or softmax_sink is not None else ""
+    return "_sw" if any(_win_active(window)) or softmax_sink is not None \
+        else ""
 
 
 def _branch(fp8: bool, fp8_mha: bool, window, softmax_sink,
             segments: bool, bias=None, slopes=None, dropout=None,
-            cap=None) -> str:
+            cap=None, qoff: bool = False) -> str:
     """The launch count's suffix of a branch: "_fp8" for FP8 Q/K/V,
     "_fp8_mha" with fp8 O (and dO), "_bias" with a bias, "_alibi" with
     ALiBi and "_softcap" with the soft cap, "_dropout" with dropout, then
-    :func:`_sw`'s, then "_seg" with segment ids."""
+    :func:`_sw`'s, then "_seg" with segment ids and "_qoff" last with the
+    runtime positions."""
     return (("_fp8_mha" if fp8_mha else "_fp8" if fp8 else "")
             + ("_bias" if bias is not None else "")
             + ("_alibi" if slopes is not None else "")
             + ("_softcap" if cap is not None else "")
             + ("_dropout" if dropout is not None else "")
-            + _sw(window, softmax_sink) + ("_seg" if segments else ""))
+            + _sw(window, softmax_sink) + ("_seg" if segments else "")
+            + ("_qoff" if qoff else ""))
 
 
 def _dropout_args(dropout: Optional[Dropout], sq: int, skv: int,
@@ -566,7 +636,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               bias: Optional[torch.Tensor] = None, score_mod=None,
               dropout_probability: float = 0.0,
               dropout_seed: Optional[torch.Tensor] = None,
-              block_q: int = DEFAULT_BLOCK_Q, block_k: int = DEFAULT_BLOCK_K):
+              block_q: int = DEFAULT_BLOCK_Q, block_k: int = DEFAULT_BLOCK_K,
+              q_position_offset=None):
     """O (B, Sq, Hq, D) and LSE (B, Hq, Sq) f32.
 
     ``q_seqlens`` / ``kv_seqlens`` (B,) give each sequence's valid
@@ -575,8 +646,14 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and not with lengths): a query with id 0 or no visible key writes O
     = 0 and LSE = -1e30 (the sink with one); ``offset`` shifts the causal
     diagonal and the window (key j is visible to query i when j <= i +
-    offset);
-    ``window`` is a static (left, right), -1 for an inactive side;
+    offset); ``q_position_offset``, an int or a one-element int32 tensor
+    (the reference's runtime q-position offset, which ring attention
+    passes per step), adds to ``offset``. ``window`` is (left, right),
+    each side an int, -1 for an inactive side, or a one-element int32
+    tensor, a runtime bound that is active whatever its value (-1
+    included). On the card a tensor offset or side makes the kernels read
+    the runtime positions, [qoff, left, right], on the card (the
+    ``_qoff`` launch names); on the CPU the plain version reads them.
     ``softmax_sink`` the (Hq,) sink logits, or None. ``bias`` (B or 1,
     Hq, Sq, Skv), f32 or bf16, is a post-scale bias; ``score_mod`` an
     :class:`~..flex_attention.AlibiMod` (ALiBi) or
@@ -621,9 +698,10 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         sc = None
         qs = q if slopes is not None or cap is not None else \
             (q.float() * (scale * LOG2E)).to(q.dtype)
+    qoff = q_position_offset
     if _build.on_cpu(q, k, v, q_seqlens, kv_seqlens, softmax_sink,
                      scale_invs, out_scale, q_segment_ids, kv_segment_ids,
-                     bias, drop and drop.seed):
+                     bias, drop and drop.seed, *_tensors(qoff, *window)):
         return flash_fwd_plain(qs, k, v, q_seqlens, kv_seqlens,
                                causal=causal, offset=offset, window=window,
                                softmax_sink=softmax_sink, fp8_scales=sc,
@@ -631,7 +709,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                q_segment_ids=q_segment_ids,
                                kv_segment_ids=kv_segment_ids, bias=bias,
                                alibi_slopes=slopes, scale=scale,
-                               dropout=drop, soft_cap=cap)
+                               dropout=drop, soft_cap=cap,
+                               q_position_offset=qoff)
     code = _build.dtype_code(q, (torch.float32, torch.bfloat16,
                                  torch.float8_e4m3fn))
     out_code = _build.DTYPE_CODES[out_dtype]
@@ -644,6 +723,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     amax = torch.zeros((1,), dtype=torch.float32, device=q.device) \
         if fp8_out else None
     bias = bias.contiguous() if bias is not None else None
+    static, pos = _runtime_positions(offset, window, qoff)
     _build.check_aligned(qs, k, v, sink, sc, bias, slopes)
     o = torch.empty(q.shape, dtype=out_dtype, device=q.device)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
@@ -652,15 +732,20 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   out_code, P(lse), P(q_seqlens), P(kv_seqlens), P(qseg),
                   P(kseg), P(sink), P(sc), P(amax), P(bias),
                   *_bias_args(bias), P(slopes), b, sq, skv, hq, hkv, d,
-                  int(causal), offset, window[0], window[1], float(scale),
+                  int(causal), *static, P(pos), float(scale),
                   float(cap or 0.0), *_dropout_args(drop, sq, skv, hq // hkv),
                   _build.stream(q))
     _build.LAUNCHES["flash_attention_fwd" + _branch(
         fp8, fp8_out, window, sink, qseg is not None, bias, slopes,
-        drop, cap)] += 1
+        drop, cap, pos is not None)] += 1
     if fp8_out:
         return o, lse, amax.reshape(())
     return o, lse
+
+
+def _tensors(*items) -> tuple:
+    """The tensors among ``items`` (a runtime offset and window sides)."""
+    return tuple(t for t in items if isinstance(t, torch.Tensor))
 
 
 def _bias_args(bias) -> tuple:
@@ -676,7 +761,8 @@ def flash_bwd_plain(qs, k, v, do, lse, delta, q_seqlens=None,
                     grad_dtype=None, q_segment_ids=None,
                     kv_segment_ids=None, bias=None, alibi_slopes=None,
                     dropout: Optional[Dropout] = None,
-                    soft_cap: Optional[float] = None):
+                    soft_cap: Optional[float] = None,
+                    q_position_offset=None):
     """Reference backward; ``delta`` is rowsum(dO * O) (B, Sq, Hq) f32.
     Without ``fp8_scales`` ``qs`` arrives pre-scaled by scale * log2(e)
     and each gradient takes its input's dtype. With them (the FP8 branch)
@@ -687,11 +773,14 @@ def flash_bwd_plain(qs, k, v, do, lse, delta, q_seqlens=None,
     ``alibi_slopes`` or ``soft_cap`` q arrives unscaled and dK takes
     ``scale``, and the cap's VJP multiplies ds before its rounding. With
     ``dropout`` the forward's mask applies to dp and to the weights of
-    dV."""
+    dV. ``q_position_offset`` and the window's tensor sides as
+    :func:`flash_fwd_plain` takes them."""
     b, sq, hq, d = qs.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
     fp8 = fp8_scales is not None
+    offset = _plain_offset(offset, q_position_offset)
+    window = _window(window, scalar=True)
     qf = qs.float().reshape(b, sq, hkv, g, d)
     dof = do.float().reshape(b, sq, hkv, g, d)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float())
@@ -751,7 +840,8 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               bias: Optional[torch.Tensor] = None, score_mod=None,
               dropout_probability: float = 0.0,
               dropout_seed: Optional[torch.Tensor] = None,
-              block_q: int = DEFAULT_BLOCK_Q, block_k: int = DEFAULT_BLOCK_K):
+              block_q: int = DEFAULT_BLOCK_Q, block_k: int = DEFAULT_BLOCK_K,
+              q_position_offset=None):
     """(dQ, dK, dV) of :func:`flash_fwd` for the output gradient ``do``,
     from its inputs (q unscaled), O and LSE and the forward's mask
     (lengths or segment ids); each in its input's dtype and shape. A
@@ -762,7 +852,8 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     a fourth output is dbias, the per-batch f32 ``ds`` (B, Hq, Sq, Skv),
     0 wherever a pair is masked or its tile skipped; ``score_mod`` is the
     forward's ALiBi or soft cap, and the dropout arguments the forward's
-    (its mask is recomputed, not stored), FP8 included.
+    (its mask is recomputed, not stored), FP8 included; so are
+    ``q_position_offset`` and ``window``, in either form.
 
     FP8 (the reference's ``_flash_bwd`` with ``scale_invs``): q, k and v
     are the forward's e4m3 payloads; O and dO are high-precision, or
@@ -802,9 +893,11 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         sc, grad_dtype = None, q.dtype
         qs = q if slopes is not None or cap is not None else \
             (q.float() * (scale * LOG2E)).to(q.dtype)
+    qoff = q_position_offset
     if _build.on_cpu(q, k, v, o, lse, do, q_seqlens, kv_seqlens, scale_invs,
                      o_scale_inv, do_scale_inv, q_segment_ids,
-                     kv_segment_ids, bias, drop and drop.seed):
+                     kv_segment_ids, bias, drop and drop.seed,
+                     *_tensors(qoff, *window)):
         return flash_bwd_plain(qs, k, v, do, lse, delta, q_seqlens,
                                kv_seqlens, scale=scale, causal=causal,
                                offset=offset, window=window, fp8_scales=sc,
@@ -812,7 +905,7 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                q_segment_ids=q_segment_ids,
                                kv_segment_ids=kv_segment_ids, bias=bias,
                                alibi_slopes=slopes, dropout=drop,
-                               soft_cap=cap)
+                               soft_cap=cap, q_position_offset=qoff)
     code = _build.dtype_code(q, (torch.float32, torch.bfloat16,
                                  torch.float8_e4m3fn))
     _check_head_dim(d)
@@ -837,23 +930,23 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dbias = (torch.empty((b, hq, sq, skv), dtype=torch.float32,
                          device=q.device) if bias is not None else None)
     P, st = _build.ptr, _build.stream(q)
-    left, right = window
+    static, pos = _runtime_positions(offset, window, qoff)
     name = _branch(fp8, fp8_mha, window, softmax_sink, qseg is not None,
-                   bias, slopes, drop, cap)
+                   bias, slopes, drop, cap, pos is not None)
     terms = (P(bias), *_bias_args(bias), P(slopes))
     drop_args = _dropout_args(drop, sq, skv, hq // hkv)
     _build.launch("te_flash_attention_bwd_dq", P(qs), P(k), P(v), code,
                   P(do), do_code, P(lse2), P(delta), P(dq), g_code,
                   P(q_seqlens), P(kv_seqlens), P(qseg), P(kseg), P(sc),
                   *terms, P(dbias), b, sq, skv, hq, hkv, d, int(causal),
-                  offset, left, right, float(scale), float(cap or 0.0),
+                  *static, P(pos), float(scale), float(cap or 0.0),
                   *drop_args, st)
     _build.LAUNCHES["flash_attention_bwd_dq" + name] += 1
     _build.launch("te_flash_attention_bwd_dkv", P(qs), P(k), P(v), code,
                   P(do), do_code, P(lse2), P(delta), P(dk), P(dv), g_code,
                   P(q_seqlens), P(kv_seqlens), P(qseg), P(kseg), P(sc),
-                  *terms, b, sq, skv, hq, hkv, d, int(causal), offset, left,
-                  right, float(scale), float(cap or 0.0), *drop_args, st)
+                  *terms, b, sq, skv, hq, hkv, d, int(causal), *static,
+                  P(pos), float(scale), float(cap or 0.0), *drop_args, st)
     _build.LAUNCHES["flash_attention_bwd_dkv" + name] += 1
     if dbias is not None:
         return dq, dk, dv, dbias
@@ -900,24 +993,25 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, sink, bias, q_seqlens, kv_seqlens,
                 q_segment_ids, kv_segment_ids, scale, causal, offset, window,
-                score_mod, drop):
+                qoff, score_mod, drop):
         masks = (q_seqlens, kv_seqlens, q_segment_ids, kv_segment_ids)
         o, lse = flash_fwd(q, k, v, scale=scale, causal=causal,
                            offset=offset, window=window, softmax_sink=sink,
-                           bias=bias, score_mod=score_mod, **_mask_kw(masks),
+                           bias=bias, score_mod=score_mod,
+                           q_position_offset=qoff, **_mask_kw(masks),
                            **_dropout_kw(drop))
         ctx.save_for_backward(q, k, v, o, lse, sink, bias, *masks)
-        ctx.cfg = (scale, causal, offset, window, score_mod, drop)
+        ctx.cfg = (scale, causal, offset, window, qoff, score_mod, drop)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse, sink, bias, *masks = ctx.saved_tensors
-        scale, causal, offset, window, score_mod, drop = ctx.cfg
+        scale, causal, offset, window, qoff, score_mod, drop = ctx.cfg
         dq, dk, dv, *dbias = flash_bwd(
             q, k, v, o, lse, do, scale=scale, causal=causal, offset=offset,
             window=window, softmax_sink=sink, bias=bias, score_mod=score_mod,
-            **_mask_kw(masks), **_dropout_kw(drop))
+            q_position_offset=qoff, **_mask_kw(masks), **_dropout_kw(drop))
         dsink = (sink_grad(sink, o, lse, do)
                  if sink is not None and ctx.needs_input_grad[3] else None)
         dbias = dbias[0] if dbias and ctx.needs_input_grad[4] else None
@@ -925,7 +1019,7 @@ class _FlashAttention(torch.autograd.Function):
             if bias.shape[0] == 1:
                 dbias = dbias.sum(dim=0, keepdim=True)
             dbias = dbias.to(bias.dtype)
-        return (dq, dk, dv, dsink, dbias) + (None,) * 10
+        return (dq, dk, dv, dsink, dbias) + (None,) * 11
 
 
 def _quantize_qkv(quantizers, q, k, v):
@@ -950,12 +1044,13 @@ def _fp8_fwd(q, k, v, sink, masks, quantizers, cfg, drop=None):
     """The reference's ``_fp8_core_fwd``: O in q's dtype, and the
     residuals (payloads, dequant scales, O, LSE, amaxes); ``drop`` the
     dropout, or None."""
-    scale, causal, offset, window = cfg
+    scale, causal, offset, window, qoff = cfg
     (qq, qk, qv), sinv = _quantize_qkv(quantizers, q, k, v)
     o, lse = flash_fwd(qq.data, qk.data, qv.data, scale=scale,
                        causal=causal, offset=offset, window=window,
                        softmax_sink=sink, scale_invs=sinv, out_dtype=q.dtype,
-                       **_mask_kw(masks), **_dropout_kw(drop))
+                       q_position_offset=qoff, **_mask_kw(masks),
+                       **_dropout_kw(drop))
     return o, (qq.data, qk.data, qv.data, sinv, o, lse,
                qq.amax, qk.amax, qv.amax)
 
@@ -980,12 +1075,12 @@ class _FP8Attention(torch.autograd.Function):
     def backward(ctx, do):
         qd, kd, vd, sinv, o, lse, *rest = ctx.saved_tensors
         amaxes, sink, masks = rest[:3], rest[3], rest[4:]
-        scale, causal, offset, window = ctx.cfg
+        scale, causal, offset, window, qoff = ctx.cfg
         dq, dk, dv = flash_bwd(qd, kd, vd, o, lse, do, scale=scale,
                                causal=causal, offset=offset, window=window,
                                softmax_sink=sink, scale_invs=sinv,
-                               grad_dtype=do.dtype, **_mask_kw(masks),
-                               **_dropout_kw(ctx.drop))
+                               grad_dtype=do.dtype, q_position_offset=qoff,
+                               **_mask_kw(masks), **_dropout_kw(ctx.drop))
         dsink = (sink_grad(sink, o, lse, do)
                  if sink is not None and ctx.needs_input_grad[3] else None)
         _write_back(ctx.quantizers, amaxes)
@@ -998,12 +1093,12 @@ def _fp8_mha_fwd(q, k, v, w, sink, masks, quantizers, cfg, drop=None):
     quantized after it under current scaling), then the output projection
     of the O payload, (B, Sq, N) in q's dtype; and the residuals. ``drop``
     is the dropout, or None."""
-    scale, causal, offset, window = cfg
+    scale, causal, offset, window, qoff = cfg
     qq_z, qk_z, qv_z, qo_z, qw_z, _, _ = quantizers
     (qq, qk, qv), sinv = _quantize_qkv((qq_z, qk_z, qv_z), q, k, v)
     kw = dict(scale=scale, causal=causal, offset=offset, window=window,
-              softmax_sink=sink, scale_invs=sinv, **_mask_kw(masks),
-              **_dropout_kw(drop))
+              softmax_sink=sink, scale_invs=sinv, q_position_offset=qoff,
+              **_mask_kw(masks), **_dropout_kw(drop))
     if isinstance(qo_z, DelayedScaleQuantizer):
         o_pay, lse, o_amax = flash_fwd(qq.data, qk.data, qv.data,
                                        out_dtype=qo_z.q_dtype,
@@ -1050,7 +1145,7 @@ class _FP8MHA(torch.autograd.Function):
         (qd, kd, vd, sinv, o_pay, so_inv, lse, w_pay, sw_inv,
          *rest) = ctx.saved_tensors
         amaxes, sink, masks = rest[:5], rest[5], rest[6:]
-        scale, causal, offset, window = ctx.cfg
+        scale, causal, offset, window, qoff = ctx.cfg
         q_dtype, w_shape, w_dtype = ctx.meta
         qg_z, qdo_z = ctx.quantizers[5], ctx.quantizers[6]
         b, sq, hq, d = qd.shape
@@ -1066,7 +1161,8 @@ class _FP8MHA(torch.autograd.Function):
                                causal=causal, offset=offset, window=window,
                                softmax_sink=sink, scale_invs=sinv,
                                grad_dtype=q_dtype, o_scale_inv=so_inv,
-                               do_scale_inv=qdo.scale_inv, **_mask_kw(masks),
+                               do_scale_inv=qdo.scale_inv,
+                               q_position_offset=qoff, **_mask_kw(masks),
                                **_dropout_kw(ctx.drop))
         dsink = None
         if sink is not None and ctx.needs_input_grad[4]:
@@ -1095,15 +1191,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     dropout_probability: float = 0.0, dropout_seed=None,
                     block_q: int = DEFAULT_BLOCK_Q,
                     block_k: int = DEFAULT_BLOCK_K,
-                    **unported) -> torch.Tensor:
+                    q_position_offset=None) -> torch.Tensor:
     """Flash attention over BSHD inputs; returns O (B, Sq, Hq, D),
     differentiable in q, k, v, the learnable sink and the bias.
 
     Masking comes from ``attn_mask_type``, the segment ids or else the
     lengths in ``sequence_descriptor`` (a
     :class:`~..attention.SequenceDescriptor`; its ids mask a packed batch
-    whatever the mask type, as the reference's do) and the static
-    ``window_size`` (left, right). ``softmax_type``
+    whatever the mask type, as the reference's do) and ``window_size``
+    (left, right), each side an int (-1 inactive) or a one-element int32
+    tensor (a runtime bound, active whatever its value).
+    ``q_position_offset``, an int or a one-element int32 tensor, shifts
+    the queries' positions against the keys' (the causal rule, the window
+    and ALiBi see query i at i + offset; context parallelism passes its
+    rank's or step's offset): a tensor on the card is read there by the
+    kernels, never on the host. ``softmax_type``
     OFF_BY_ONE adds a sink of logit 0 to every head, LEARNABLE the (Hq,)
     logits ``softmax_offset``. ``bias`` (B or 1, Hq, Sq, Skv) is a
     post-scale bias; ``score_mod`` ALiBi
@@ -1125,16 +1227,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     key), or a sequence of them. ``block_q`` and ``block_k`` are the
     reference's tile sizes, which decide the dropout bits (and nothing
     else here); FP8 Q/K/V (``qkv_quantizers``, ``mha_proj``) take dropout
-    too. The reference's dynamic window (a traced ``window_size``) and
-    ``q_position_offset`` are not ported yet and raise: ring attention,
-    their one consumer, comes with the parallelism slice."""
-    for name, value in unported.items():
-        if name not in _UNPORTED:
-            raise TypeError(f"flash_attention() got an unexpected argument "
-                            f"{name!r}")
-        if value is not None:
-            raise NotImplementedError(
-                f"flash_attention({name}=...) is not ported yet")
+    too. The reference's ``blocks`` only pick its grid, so the port has no
+    counterpart of them."""
     mask_type = attn_mask_type or AttnMaskType.NO_MASK
     masks = (None,) * 4
     desc = sequence_descriptor
@@ -1157,7 +1251,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if softmax_offset is None:
             raise ValueError("LEARNABLE softmax requires softmax_offset (Hq,)")
         sink = softmax_offset.reshape(hq)
-    cfg = (float(scale), mask_type.is_causal, offset, window)
+    cfg = (float(scale), mask_type.is_causal, offset, window,
+           q_position_offset)
     drop = _dropout(dropout_probability, dropout_seed, block_q, block_k,
                     q.device)
     grad = torch.is_grad_enabled()
@@ -1197,5 +1292,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                      score_mod, drop)
     return flash_fwd(q, k, v, scale=scale, causal=mask_type.is_causal,
                      offset=offset, window=window, softmax_sink=sink,
-                     bias=bias, score_mod=score_mod, **_mask_kw(masks),
+                     bias=bias, score_mod=score_mod,
+                     q_position_offset=q_position_offset, **_mask_kw(masks),
                      **_dropout_kw(drop))[0]
