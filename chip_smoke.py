@@ -82,7 +82,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
      planted faults (the striped ring's live -1 left bound read as an
      inactive side, an offset one tile off) that must fail, and offsets
      at the edges of the kernels' 64-row tiles (rows masked whole write
-     O = 0 and LSE = -1e30);
+     O = 0 and LSE = -1e30; a step where each query sees at most one key,
+     whose dQ and dK cancel to 0, held to 0 within f32 rounding); the
+     flash kernels' tensor-core bodies: two launches bitwise equal at
+     rows 4 and 4b's shapes (O, LSE, dQ, dK, dV, dbias), then Sq and Skv
+     of 200, 136 and 72 (no multiple of the tiles), D 64, 128 and 256,
+     GQA groups of 1, 4 and 8, a window, a sink, segment ids and runtime
+     positions, bf16 and e4m3, forward and backward;
   4. FP8-resident serving at LLAMA_8B width (seeded random weights, FP8
      KV cache, B = 8, prompts of 512 and 384 tokens, 32 new tokens)
      through prefill and decode_steps, with TTFT, decode ms/step, tok/s
@@ -7228,6 +7234,39 @@ QOFF_WINDOWS = ((-1, -1), (37, 0), (2, 0))
 QOFF_EDGES = (-1, -63, -64, -65, -127, 63, 65, -256)
 
 
+def one_key_step(L: int, pos) -> bool:
+    """Whether every query of a ring step (B 1, L queries and keys, causal,
+    its runtime positions ``pos``) sees at most one key."""
+    from transformerengine_tpu_torch.ops.flash_attention import (
+        _plain_offset, _visible, _window)
+    seen = _visible(L, L, None, None, True,
+                    _plain_offset(0, pos["q_position_offset"]),
+                    _window(pos["window"], scalar=True), "cuda").sum(dim=-1)
+    return int(seen.max()) <= 1
+
+
+# A step where each query sees at most one key has p one-hot and O = V,
+# so ds = p (dp - delta) cancels and dQ and dK are exactly 0: both the
+# kernels and the plain version return only the f32 rounding of dp and
+# delta, in other summation orders (the tensor cores' dp against the plain
+# version's f32 dot), and a limit relative to that noise asks for equal
+# bits. Such a gradient is held to zero within 2^-20 (8 f32 ulps) of the
+# largest gradient of its terms (the plain version with delta 0).
+CANCELLED_RTOL = 2 ** -20
+
+
+def check_cancelled(name: str, got, ref, terms) -> None:
+    """[3P] a gradient that cancels to zero (see CANCELLED_RTOL): the
+    kernels' and the plain version's both within CANCELLED_RTOL of the
+    largest |terms|."""
+    tol = CANCELLED_RTOL * float(terms.float().abs().max())
+    check(f"{name} (one key a query: exactly 0, the plain version "
+          f"{float(ref.float().abs().max()):.1e})", got,
+          got.new_zeros(got.shape), tol)
+    if float(ref.float().abs().max()) > tol:
+        raise AssertionError(f"{name}: the plain version does not cancel")
+
+
 def check_qoff_variants(torch) -> None:
     """[3P] every (rank, step) of a cp-4 ring, contiguous and striped, for
     each of QOFF_WINDOWS: the step's runtime positions, a row of the
@@ -7278,7 +7317,17 @@ def check_qoff_variants(torch) -> None:
                     delta = (do.float() * o.float()).sum(dim=-1)
                     ref = flash_bwd_plain(qs, k, v, do, lse, delta, **kw,
                                           **pos)
-                    for gname, a, r in zip(("dQ", "dK", "dV"), got, ref):
+                    one_key = one_key_step(L, pos)
+                    if one_key:
+                        terms = flash_bwd_plain(qs, k, v, do, lse,
+                                                torch.zeros_like(delta),
+                                                **kw, **pos)
+                    for i, (gname, a, r) in enumerate(zip(
+                            ("dQ", "dK", "dV"), got, ref)):
+                        if one_key and gname != "dV":
+                            check_cancelled(f"bwd {name} {gname}", a, r,
+                                            terms[i])
+                            continue
                         check(f"bwd {name} {gname}", a, r,
                               BWD_RTOL * max(float(r.float().abs().max()),
                                              1e-30))
@@ -7327,6 +7376,109 @@ def check_qoff_variants(torch) -> None:
     log(f"  offsets {QOFF_EDGES} at the tiles' edges forward and backward "
         f"ok, fully masked rows zero")
 
+
+def check_flash_determinism(torch) -> None:
+    """[3Q] the tensor-core bodies are deterministic: two launches on the
+    same inputs give bitwise-equal O and LSE, and dQ, dK, dV (and dbias),
+    at row 4's shape (B 2, S 2048, Hq 32, Hkv 8, D 128, bf16, causal) and
+    at row 4b's (the encoder's padding mask and f32 relative bias). The
+    backward's two kernels sum without atomics, in a fixed order."""
+    from transformerengine_tpu_torch.ops.flash_attention import (
+        flash_bwd, flash_fwd)
+    b, s, hq, hkv, d = FP8_SHAPE
+    log(f"[3Q] flash attention's determinism: two launches bitwise equal "
+        f"at rows 4 and 4b's shapes (B={b} S={s} Hq={hq} Hkv={hkv} D={d})")
+    q, k, v, do, lens = enc_inputs(torch, 91)
+    bias = encoder_bias(torch, s, hq, ENC_SEED)
+    scale = d ** -0.5
+    for row, args, kw in (("4", (), dict(causal=True)),
+                          ("4b", (lens, lens), dict(causal=False,
+                                                   bias=bias))):
+        outs = []
+        for _ in range(2):
+            o, lse = flash_fwd(q, k, v, *args, scale=scale, **kw)
+            grads = flash_bwd(q, k, v, o, lse, do, *args, scale=scale, **kw)
+            outs.append((o, lse, *grads))
+        torch.cuda.synchronize()
+        names = ("O", "LSE", "dQ", "dK", "dV", "dbias")
+        for name, a, r in zip(names, *outs):
+            if not torch.equal(a, r):
+                raise AssertionError(f"row {row}: {name} differs between "
+                                     f"two launches")
+        log(f"  row {row}: {', '.join(names[:len(outs[0])])} bitwise equal "
+            f"ok")
+        del outs
+
+
+# [3R] the tensor-core bodies at their tiles' edges: (dtype, Sq, Skv, D, Hq,
+# Hkv, window, sink, segment ids, runtime q offset), causal at the
+# bottom-right offset Skv - Sq (plus the runtime offset, where one is
+# given). Sq and Skv are no multiples of 64; D 64, 128 and 256 take the
+# three tile shapes; groups of 1, 4 and 8.
+EDGE_CASES = tuple(
+    (dt, *case) for dt in ("bf16", "e4m3") for case in (
+        (200, 136, 64, 4, 4, None, False, None, None),
+        (136, 200, 128, 8, 2, (40, 0), True, None, None),
+        (200, 200, 256, 8, 1, None, False, "gaps", None),
+        (200, 136, 128, 16, 2, (70, 0), False, None, 72),
+        (72, 200, 64, 32, 4, None, True, "packed", None)))
+
+
+def check_edge_variants(torch) -> None:
+    """[3R] :data:`EDGE_CASES` through the bf16 and e4m3 (current-scaling
+    payloads, a bf16 dO) tensor-core bodies, forward and backward, each
+    against its plain version with [3b]'s and [3e]'s tolerances; the
+    queries that see no key write O = 0 and LSE = -1e30 (the sink with
+    one) and get zero gradients."""
+    from transformerengine_tpu_torch.ops.flash_attention import (
+        LOG2E, flash_bwd, flash_bwd_plain, flash_fwd, flash_fwd_plain,
+        fp8_bwd_scales, fp8_fwd_scales)
+    log("[3R] flash attention's tensor-core bodies at their tiles' edges, "
+        "bf16 and e4m3, forward and backward")
+    g = torch.Generator(device="cuda").manual_seed(97)
+    bf16 = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(bf16)
+
+    for dt, sq, skv, d, hq, hkv, window, sink, ids, qoff in EDGE_CASES:
+        q, do = randn(2, sq, hq, d), randn(2, sq, hq, d)
+        k, v = randn(2, skv, hkv, d), randn(2, skv, hkv, d)
+        s0 = randn(hq).float() * 2 if sink else None
+        mk, qzero, kzero = variant_mask(torch, g, ids, 2, sq, skv)
+        scale = d ** -0.5
+        kw = dict(causal=True, offset=skv - sq, window=window or (-1, -1),
+                  **mk)
+        if qoff is not None:
+            kw.update(positions_row(torch, qoff))
+        name = (f"{dt} Sq={sq} Skv={skv} D={d} G={hq // hkv} "
+                f"window={window} sink={sink} ids={ids} qoff={qoff}")
+        if dt == "e4m3":
+            (q, k, v), sinv = fp8_payloads(torch, (q, k, v))
+            fkw, bkw = dict(scale_invs=sinv), dict(grad_dtype=bf16)
+            pf = dict(fp8_scales=fp8_fwd_scales(sinv, scale), out_dtype=bf16)
+            pb = dict(fp8_scales=fp8_bwd_scales(
+                sinv, scale, torch.ones((), device="cuda")), grad_dtype=bf16)
+            qs = q
+        else:
+            fkw = bkw = pf = pb = {}
+            qs = (q.float() * (scale * LOG2E)).to(bf16)
+        o, lse = flash_fwd(q, k, v, scale=scale, softmax_sink=s0, **fkw,
+                           **kw)
+        o_ref, lse_ref = flash_fwd_plain(qs, k, v, softmax_sink=s0, **pf,
+                                         **kw)
+        check(f"fwd {name} O", o, o_ref, row_tol(o_ref, BF16_ROW_RTOL))
+        check(f"fwd {name} LSE", lse, lse_ref, LSE_ATOL)
+        check_masked_rows(torch, f"fwd {name}", qzero, o, lse, s0)
+        got = flash_bwd(q, k, v, o, lse, do, scale=scale, softmax_sink=s0,
+                        **fkw, **bkw, **kw)
+        delta = (do.float() * o.float()).sum(dim=-1)
+        ref = flash_bwd_plain(qs, k, v, do, lse, delta, scale=scale, **pb,
+                              **kw)
+        for gname, a, r in zip(("dQ", "dK", "dV"), got, ref):
+            check(f"bwd {name} {gname}", a, r,
+                  BWD_RTOL * float(r.float().abs().max()))
+        check_zero_grads(f"bwd {name}", got, qzero, kzero)
 
 # Phase 26: LLAMA_8B's attention over S 8192 split over 4 ranks on one
 # card, and a 2-layer LlamaModel step at LLAMA_8B width (cut for time, as
@@ -7919,6 +8071,8 @@ def main() -> int:
     run("3", check_flash_qoff, timer, results)
     run("3", check_flash_bwd_qoff, timer, results)
     run("3", check_qoff_variants)
+    run("3", check_flash_determinism)
+    run("3", check_edge_variants)
     run("4", serve, results)
     run("9", serve_paged_mxfp8, results)
     run("12", serve_paged_nvfp4, results)

@@ -139,7 +139,8 @@ def build(verbose: bool = False) -> Path:
                 failed.append(f"{src.name} (rc {proc.returncode}):\n"
                               + "\n".join(errors))
             elif verbose:
-                print(f"[nvcc {src.name}] " + " | ".join(_ptxas_summary(log)))
+                for entry in _ptxas_summary(log):
+                    print(f"[nvcc {src.name}] {entry}")
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         tmp_lib = Path(tmp) / out.name
@@ -153,15 +154,27 @@ def build(verbose: bool = False) -> Path:
 
 
 def _ptxas_summary(log: str):
-    """One entry per kernel variant: registers, spills, shared memory."""
-    out = []
+    """One entry per kernel variant: its name (demangled where ``c++filt``
+    is on the PATH, without its parameter list), registers, shared memory
+    and, where it spills, its spill bytes."""
+    entries, name, spill = [], "?", ""
     for line in log.splitlines():
         line = line.strip()
-        if "Used" in line and "registers" in line:
-            out.append(line.split(":", 1)[1].strip())
-        elif "spill stores" in line and not line.startswith("0 bytes stack"):
-            out.append(line)
-    return out
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill stores" in line:
+            spill = "" if line.startswith("0 bytes stack") else f" ({line})"
+        elif "Used" in line and "registers" in line:
+            entries.append((name, line.split(":", 1)[1].strip() + spill))
+            spill = ""
+    names = [n for n, _ in entries]
+    if names and shutil.which("c++filt"):
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True).stdout
+        if len(out.splitlines()) == len(names):
+            names = [n.replace("(anonymous namespace)::", "").split("(")[0]
+                     for n in out.splitlines()]
+    return [f"{n}: {e}" for n, (_, e) in zip(names, entries)]
 
 
 def library() -> ctypes.CDLL:
