@@ -19,7 +19,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
      phase 9's shape (fp8 pages, a shuffled table) and then bf16 and f32
      pages, sinks and a length of 0; the KN decode GEMM at the four GEMMs
      of an LLAMA_8B layer in its e4m3 and its packed e2m1 branch, then
-     M = 1 and 32, f32 x and the packed form at small shapes;
+     M = 1 and 32, f32 x and the packed form at small shapes; both decode
+     GEMMs repeatable bit for bit, their row 0 the same at M = 1 as at
+     M = 8, and every e4m3 code and packed byte through them exactly;
      the two NVFP4 kernels at the training path's x and gradient shapes,
      with and without the RHT (amaxes, payloads and scales equal), then
      f32, a zero tensor, -0 codes, subnormal scales, other sign masks and
@@ -396,6 +398,16 @@ BF16_ROW_RTOL = 2 ** -6
 LSE_ATOL = 1e-4
 
 
+def same_rows(torch, name: str, one, full) -> None:
+    """Row 0 of a decode GEMM must not depend on M: one row of x against
+    the first row of its M = BATCH result, bit for bit."""
+    ok = torch.equal(one, full[:1])
+    log(f"  {name}: row 0 at M = 1 against M = {full.shape[0]} "
+        f"{'equal' if ok else 'DIFFERS'}")
+    if not ok:
+        raise AssertionError(f"{name}: row 0 depends on M")
+
+
 def check_matvec(torch, timer, results):
     from transformerengine_tpu_torch import _build
     from transformerengine_tpu_torch.ops.decode_matmul import (
@@ -423,32 +435,44 @@ def check_matvec(torch, timer, results):
             ref = decode_tn_matvec_plain(x, w, s)
             # f32 sums over K in another order: relative to the largest
             # output, 1e-4 leaves room for K = 14336 terms.
-            err = check(f"{wname} {gemm} N={n} K={k}", got, ref,
-                        1e-4 * float(ref.abs().max()))
+            name = f"{wname} {gemm} N={n} K={k}"
+            err = check(name, got, ref, 1e-4 * float(ref.abs().max()))
+            if not torch.equal(decode_tn_matvec(x, w, s), got):
+                raise AssertionError("decode_tn_matvec is not deterministic")
+            same_rows(torch, name, decode_tn_matvec(x[:1], w, s), got)
             tot["err"] = max(tot["err"], err)
             tot["ms"] += timer(lambda: decode_tn_matvec(x, w, s))
             tot["plain_ms"] += timer(lambda: decode_tn_matvec_plain(x, w, s))
-            if wname == "bf16":
-                wt = w.t()
+            # torch.mm on the weight widened to bf16 (the fp8 weight's
+            # scale on the f32 result): the same function.
+            wt = w.to(torch.bfloat16).t()
+            if s is None:
                 tot["library_ms"] += timer(
                     lambda: torch.mm(x, wt, out_dtype=torch.float32))
+            else:
+                tot["library_ms"] += timer(
+                    lambda: torch.mm(x, wt, out_dtype=torch.float32) * s)
+            del wt
             tot["nbytes"] += (n * k * w.element_size() + BATCH * k * 2
                               + BATCH * n * 4)
             tot["flops"] += 2 * BATCH * n * k
         b_ms, b_by = bound_ms(tot["nbytes"], tot["flops"])
         log(f"  {wname} one layer (4 GEMMs): kernel {tot['ms']:.4f} ms, plain "
-            f"{tot['plain_ms']:.4f} ms, library "
-            f"{tot['library_ms'] if wname == 'bf16' else 'n/a'} ms, "
-            f"bound {b_ms:.4f} ms ({b_by})")
+            f"{tot['plain_ms']:.4f} ms, torch.mm on the bf16 weight "
+            f"{tot['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+            f"results equal from run to run")
         totals[wname] = (tot, b_ms, b_by)
-    tot, b_ms, b_by = totals["fp8"]
-    results["decode_tn_matvec"] = dict(
-        name="decode_tn_matvec", route="cuda",
-        source="transformerengine_tpu_torch/csrc/decode_matvec.cu",
-        replaces="transformerengine_tpu/ops/decode_matmul.py:246",
-        max_abs_err=tot["err"], ms=tot["ms"], plain_ms=tot["plain_ms"],
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        shape="fp8 weights, the 4 GEMMs of one LLAMA_8B layer, M=8")
+    for name, wname, about in (
+            ("decode_tn_matvec", "fp8", "fp8 weights"),
+            ("decode_tn_matvec_bf16", "bf16", "bf16 weights")):
+        tot, b_ms, b_by = totals[wname]
+        results[name] = dict(
+            name=name, route="cuda",
+            source="transformerengine_tpu_torch/csrc/decode_matvec.cu",
+            replaces="transformerengine_tpu/ops/decode_matmul.py:246",
+            max_abs_err=tot["err"], ms=tot["ms"], plain_ms=tot["plain_ms"],
+            bound_ms=b_ms, bound_by=b_by, library_ms=tot["library_ms"],
+            shape=f"{about}, the 4 GEMMs of one LLAMA_8B layer, M=8")
     _build.LAUNCHES.clear()
 
 
@@ -1640,6 +1664,52 @@ def check_kn_matvec(torch, timer, results):
         "(block 16) and an out_scale")
     kn_layer(torch, timer, results, g, True)
     kn_variants(torch, g)
+    decode_codes(torch)
+
+
+def decode_codes(torch) -> None:
+    """Every weight code through both decode GEMMs, bit for bit against the
+    plain versions: x one-hot, so each output is one dequantized weight
+    (times its scale). Every e4m3 code but the NaNs (which no payload
+    holds) of an (N, K) weight, and of a (K, N) payload under scales of 1,
+    2^-7, 0.375 and 3 (the bf16 product rounds like the reference's); every
+    packed byte, both its codes."""
+    from transformerengine_tpu_torch.ops.decode_matmul import (
+        decode_kn_matvec, decode_kn_matvec_plain, decode_tn_matvec,
+        decode_tn_matvec_plain)
+    codes = torch.arange(256, dtype=torch.int32)
+    codes = torch.where((codes & 0x7f) == 0x7f, 0, codes).to(torch.uint8)
+    e4m3 = codes.view(torch.float8_e4m3fn).to("cuda")
+    packed = torch.arange(256, dtype=torch.int32).to(torch.uint8).to("cuda")
+
+    def one_hot(m: int, k: int, at):
+        x = torch.zeros((m, k), device="cuda")
+        for row, col in enumerate(at):
+            x[row, col] = 1.0
+        return x.to(torch.bfloat16)
+
+    def exact(name: str, got, ref) -> None:
+        if not torch.equal(got, ref):
+            raise AssertionError(f"{name}: a dequantized code differs")
+
+    w = e4m3[:, None].repeat(1, 64)
+    x = one_hot(1, 64, (5,))
+    exact("tn e4m3", decode_tn_matvec(x, w, None),
+          decode_tn_matvec_plain(x, w, None))
+    for s in (1.0, 2.0 ** -7, 0.375, 3.0):
+        sc = torch.full((2, 256), s, device="cuda").to(torch.bfloat16)
+        p = e4m3[None, :].repeat(16, 1)
+        x = one_hot(1, 16, (3,))
+        exact(f"kn e4m3 x {s}",
+              decode_kn_matvec(x, p, sc[:1], block=16),
+              decode_kn_matvec_plain(x, p, sc[:1], block=16))
+        p = packed[None, :].repeat(16, 1)
+        x = one_hot(2, 32, (2, 16 + 7))
+        exact(f"kn packed x {s}",
+              decode_kn_matvec(x, p, sc, block=16, packed=True),
+              decode_kn_matvec_plain(x, p, sc, block=16, packed=True))
+    log("  every e4m3 code and packed byte, both kernels: equal to the plain "
+        "versions bit for bit")
 
 
 def kn_layer(torch, timer, results, g, packed: bool) -> None:
@@ -1671,6 +1741,9 @@ def kn_layer(torch, timer, results, g, packed: bool) -> None:
         again = kernel()
         if not torch.equal(again, got):
             raise AssertionError("decode_kn_matvec is not deterministic")
+        same_rows(torch, f"{gemm} K={k} N={n}",
+                  decode_kn_matvec(x[:1], p, s, o, block=block,
+                                   packed=packed), got)
         tot["err"] = max(tot["err"], err)
         tot["ms"] += timer(kernel)
         tot["plain_ms"] += timer(plain)
@@ -1910,6 +1983,11 @@ def serve_paged_block(torch, results, phase: str, recipe, load: dict,
             else contextlib.nullcontext()
         with scope:
             stats[mode] = drive_serving(torch, model, ip, expect, results)
+        if mode == "bf16" and not in_autocast:
+            # These launches ran decode_tn_matvec's bf16-weight branch.
+            n = expect["decode_tn_matvec"]
+            results["decode_tn_matvec"]["launches"] -= n
+            add_launches(results, "decode_tn_matvec_bf16", n)
         stats[mode]["resident_gib"] = resident_gib(model)
         del model, kn
         torch.cuda.empty_cache()

@@ -13,6 +13,7 @@
 #include <thread>
 #include <vector>
 #include <mutex>
+#include <atomic>
 #include <functional>
 #include <type_traits>
 
@@ -39,12 +40,18 @@ enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorLaunchFailure = 719 
 typedef void* cudaStream_t;
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 template <typename K> inline cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) { return cudaSuccess; }
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
+// An H100's 132 SMs, two blocks each.
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) { *v = 132; return cudaSuccess; }
+template <typename K> inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t) { *n = 2; return cudaSuccess; }
 
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
 
 inline float __int_as_float(int v) { float f; memcpy(&f, &v, 4); return f; }
 inline int __float_as_int(float v) { int i; memcpy(&i, &v, 4); return i; }
+inline float __uint_as_float(unsigned v) { float f; memcpy(&f, &v, 4); return f; }
 inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
@@ -62,6 +69,7 @@ inline __nv_bfloat16 __float2bfloat16(float f) {
   u += 0x7fffu + ((u >> 16) & 1u);
   return {uint16_t(u >> 16)};
 }
+inline __nv_bfloat16 __float2bfloat16_rn(float f) { return __float2bfloat16(f); }
 inline float __bfloat162float(__nv_bfloat16 b) { uint32_t u = uint32_t(b.x) << 16; float f; memcpy(&f, &u, 4); return f; }
 inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) { return {__float2bfloat16(a), __float2bfloat16(b)}; }
 
@@ -120,6 +128,9 @@ inline T __shfl_xor_sync(unsigned, T v, int o) {
   T r; memcpy(&r, &bits, sizeof(T)); return r;
 }
 int atomicMax(int* p, int v);
+unsigned atomicAdd(unsigned* p, unsigned v);
+inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
+template <typename T> inline T __ldcg(const T* p) { return *p; }
 inline cudaError_t cudaGetLastError() { return sim::last_error(); }
 inline bool __all_sync(unsigned, bool v) {
   auto& w = sim::warp(); unsigned l = sim::lane();

@@ -57,5 +57,44 @@ inline void cp_async16(void* dst, const void* src, bool valid) {
   sim::check_smem(dst, 16);
   if (valid) memcpy(dst, src, 16); else memset(dst, 0, 16);
 }
+inline uint4 ldg_stream(const void* p) { uint4 v; memcpy(&v, p, 16); return v; }
 inline void cp_async_commit() {}
 template <int N> inline void cp_async_wait() {}
+
+inline uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
+  const uint64_t pool = uint64_t(a) | (uint64_t(b) << 32);
+  uint32_t d = 0;
+  for (int i = 0; i < 4; ++i) {
+    const unsigned s = (sel >> (4 * i)) & 15u;
+    uint32_t byte = uint32_t(pool >> (8 * (s & 7u))) & 0xffu;
+    if (s & 8u) byte = (byte & 0x80u) ? 0xffu : 0u;
+    d |= byte << (8 * i);
+  }
+  return d;
+}
+namespace simptx {
+// The f16 bits of a value that f16 holds exactly (or NaN).
+inline uint16_t f16_bits(float f) {
+  const uint16_t s = std::signbit(f) ? 0x8000 : 0;
+  const float a = std::fabs(f);
+  if (std::isnan(f)) return 0x7e00;
+  if (a == 0.f) return s;
+  int e;
+  const float m = std::frexp(a, &e);  // a = m 2^e, m in [0.5, 1)
+  const int E = e - 1 + 15;
+  if (E >= 1) return s | uint16_t(E << 10) | uint16_t((m * 2.f - 1.f) * 1024.f);
+  return s | uint16_t(a * 16777216.f);
+}
+}  // namespace simptx
+inline uint32_t cvt_f16x2_e4m3x2(uint32_t pair) {
+  return uint32_t(simptx::f16_bits(sim_fp8_to_float(pair & 0xffu, 0))) |
+         (uint32_t(simptx::f16_bits(sim_fp8_to_float((pair >> 8) & 0xffu, 0))) << 16);
+}
+inline uint32_t mul_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d = 0;
+  for (int h = 0; h < 2; ++h) {
+    const float p = simptx::bf(simptx::half_of(a, h)) * simptx::bf(simptx::half_of(b, h));
+    d |= uint32_t(__float2bfloat16(p).x) << (16 * h);
+  }
+  return d;
+}

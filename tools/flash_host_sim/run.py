@@ -1,25 +1,29 @@
 #!/usr/bin/env python3
-"""Runs the flash attention kernels' CUDA sources on the CPU, in a host
+"""Runs the tensor-core kernels' CUDA sources on the CPU, in a host
 simulation, through the port's own wrappers, and holds each result to the
-wrapper's plain version (the tolerances of ``chip_smoke.py`` phase 3).
+wrapper's plain version (the tolerances of ``chip_smoke.py`` phase 3):
+the flash attention kernels and the decode GEMMs.
 
-    python3 tools/flash_host_sim/run.py [--quick] [--out DIR]
+    python3 tools/flash_host_sim/run.py [--quick] [--kernels flash,decode]
+                                        [--out DIR]
 
-No CUDA toolkit is needed: ``g++`` (C++20, pthreads) compiles the flash
-units (``csrc/flash_attention*.cu``) against the headers here, which
-stand in for the CUDA ones. Each block's threads are ``std::thread``s,
-``__syncthreads`` a barrier, and the warp-wide instructions of
-``csrc/ptx.cuh`` (ldmatrix, mma.sync, cp.async) are replaced by
+No CUDA toolkit is needed: ``g++`` (C++20, pthreads) compiles the units
+(``csrc/flash_attention*.cu``, ``csrc/decode_matvec.cu`` and
+``csrc/decode_kn_matvec.cu``) against the headers here, which stand in
+for the CUDA ones. Each block's threads are ``std::thread``s (a grid's
+blocks run one after another), ``__syncthreads`` a barrier, and the
+instructions of ``csrc/ptx.cuh`` (ldmatrix, mma.sync, cp.async, prmt, the
+e4m3 pair conversion, the bf16 pair product) are replaced by
 ``ptx_sim.cuh``, which exchanges each lane's operands through a per-warp
 buffer and computes every lane's fragment from the PTX layouts. So a
-wrong fragment index, mask, tile edge or stage shows here as a wrong
-result; the timing, the hardware's summation order and the compiler's
-register use show only on the card. Launches with ``<<<...>>>`` and
-``extern __shared__`` arrays are rewritten in a copy of the sources;
-the wrappers run their kernel path on CPU tensors (their ``_build``
-hooks pointed at the simulated library). ``--quick`` runs one case; the
-whole set takes some minutes (D = 256 is the slowest). Exits 1 if a case
-fails."""
+wrong fragment index, mask, tile edge, stage or byte permute shows here as
+a wrong result; the timing, the hardware's summation order and the
+compiler's register use show only on the card. Launches with ``<<<...>>>``
+and ``extern __shared__`` arrays are rewritten in a copy of the sources;
+the wrappers run their kernel path on CPU tensors (their ``_build`` hooks
+pointed at the simulated library). ``--quick`` runs one case of each; the
+whole set takes some minutes (flash at D = 256 is the slowest). Exits 1 if
+a case fails."""
 from __future__ import annotations
 
 import argparse
@@ -42,14 +46,19 @@ FLAGS = ["-std=c++20", "-O1", "-fPIC", "-pthread", "-ffp-contract=off",
          "-w", f"-I{HERE / 'include'}"]
 
 
-def build(out: Path) -> Path:
-    """Copies and rewrites the flash sources into ``out``, compiles them
-    and returns the shared library."""
+UNITS = {"flash": "flash_attention*.cu",
+         "decode": "decode*matvec.cu"}
+
+
+def build(out: Path, kinds) -> Path:
+    """Copies and rewrites the units of ``kinds`` (keys of ``UNITS``) and
+    the headers into ``out``, compiles them and returns the shared
+    library."""
     src = out / "src"
     shutil.rmtree(src, ignore_errors=True)
     src.mkdir(parents=True)
-    for p in [CSRC / "common.cuh", CSRC / "flash_mma.cuh",
-              *CSRC.glob("flash_attention*.cu")]:
+    units = [p for kind in kinds for p in sorted(CSRC.glob(UNITS[kind]))]
+    for p in [*CSRC.glob("*.cuh"), *units]:
         shutil.copy(p, src / p.name)
     shutil.copy(HERE / "ptx_sim.cuh", src / "ptx.cuh")
     for p in src.iterdir():
@@ -58,7 +67,7 @@ def build(out: Path) -> Path:
                    r"(\w+)\[\];", r"\1* \2 = (\1*)sim::smem();", s)
         s = re.sub(r"(\w+)<<<(.*?)>>>\(", r"sim::launch(\1, \2)(", s)
         p.write_text(s)
-    units = sorted(src.glob("flash_attention*.cu")) + [HERE / "sim.cpp"]
+    units = [src / p.name for p in units] + [HERE / "sim.cpp"]
 
     def compile_one(p: Path) -> Path:
         obj = src / (p.stem + ".o")
@@ -68,7 +77,7 @@ def build(out: Path) -> Path:
 
     with ThreadPoolExecutor(8) as ex:
         objs = list(ex.map(compile_one, units))
-    lib = out / "libflash_sim.so"
+    lib = out / "libkernels_sim.so"
     subprocess.run(["g++", "-shared", "-pthread", "-o", str(lib),
                     *map(str, objs)], check=True)
     return lib
@@ -83,7 +92,10 @@ class Sim:
         self._build = _build
         self.lib = ctypes.CDLL(str(lib))
         for name in ("te_flash_attention_fwd", "te_flash_attention_bwd_dq",
-                     "te_flash_attention_bwd_dkv"):
+                     "te_flash_attention_bwd_dkv", "te_decode_tn_matvec",
+                     "te_decode_kn_matvec"):
+            if not hasattr(self.lib, name):
+                continue
             fn = getattr(self.lib, name)
             fn.argtypes = _build._SIGNATURES[name]
             fn.restype = ctypes.c_int
@@ -230,28 +242,149 @@ def cases(torch):
     return out
 
 
+# The decode GEMMs against their plain versions: f32 sums over K in another
+# order, 1e-4 of the largest output (chip_smoke.py [3a], [3d] and [3n]).
+MATVEC_RTOL = 1e-4
+
+
+def hold(fails, name, got, ref, atol) -> None:
+    diff = (got.float() - ref.float()).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    ok = math.isfinite(err) and err <= atol
+    print(f"  {name}: {err:.3e} (tolerance {atol:.1e}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fails.append(name)
+
+
+def same_rows(fails, name, small, big) -> None:
+    """Row m of out must not depend on M: M rows against the first M of a
+    larger M, bit for bit."""
+    ok = torch_equal(small, big[:small.shape[0]])
+    print(f"  {name}: rows of M={small.shape[0]} against M={big.shape[0]} "
+          f"{'equal' if ok else 'DIFFER'}", flush=True)
+    if not ok:
+        fails.append(name)
+
+
+def torch_equal(a, b) -> bool:
+    return bool((a == b).all())
+
+
+def run_tn(torch, dm, sim, fails, m, n, k, xt, wt, seed=0) -> None:
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((m, k), generator=g).to(xt)
+    w = torch.randn((n, k), generator=g)
+    s = None
+    if wt == torch.float8_e4m3fn:
+        s = (w.abs().amax() / 448.0).reshape(1)
+        w = w / s
+    w = w.to(wt)
+    name = f"tn M={m} N={n} K={k} x {xt} w {wt}"
+    t0 = time.time()
+    with sim.on():
+        got = dm.decode_tn_matvec(x, w, s)
+        one = dm.decode_tn_matvec(x[:1], w, s)
+    print(f"[{name}] {time.time() - t0:.1f} s", flush=True)
+    ref = dm.decode_tn_matvec_plain(x, w, s)
+    hold(fails, name, got, ref, MATVEC_RTOL * float(ref.abs().max()))
+    same_rows(fails, name, one, got)
+
+
+def kn_operands(torch, g, m, k, n, packed, block, xt):
+    """x and a block-scaled (K, N) weight as chip_smoke.kn_operands makes
+    them: e4m3 codes with power-of-two bf16 scales, or packed e2m1 codes
+    with e4m3-valued bf16 scales and an out_scale."""
+    x = torch.randn((m, k), generator=g).to(xt)
+    if packed:
+        payload = torch.randint(0, 256, (k // 2, n), generator=g,
+                                dtype=torch.uint8)
+        scale = (torch.rand((k // block, n), generator=g) * 4 + 0.05).to(
+            torch.float8_e4m3fn).to(torch.bfloat16)
+        out_scale = torch.tensor([0.37])
+    else:
+        payload = torch.randn((k, n), generator=g).to(torch.float8_e4m3fn)
+        exp = torch.randint(-12, -5, (k // block, n), generator=g)
+        scale = torch.ldexp(torch.ones_like(exp, dtype=torch.float32),
+                            exp).to(torch.bfloat16)
+        out_scale = None
+    return x, payload, scale, out_scale
+
+
+def run_kn(torch, dm, sim, fails, m, k, n, packed, block, xt,
+           seed=0) -> None:
+    g = torch.Generator().manual_seed(seed)
+    x, p, sc, o = kn_operands(torch, g, m, k, n, packed, block, xt)
+    name = (f"kn M={m} K={k} N={n} block {block} x {xt} "
+            f"{'packed e2m1' if packed else 'e4m3'}")
+    t0 = time.time()
+    with sim.on():
+        got = dm.decode_kn_matvec(x, p, sc, o, block=block, packed=packed)
+        one = dm.decode_kn_matvec(x[:1], p, sc, o, block=block,
+                                  packed=packed)
+    print(f"[{name}] {time.time() - t0:.1f} s", flush=True)
+    ref = dm.decode_kn_matvec_plain(x, p, sc, o, block=block, packed=packed)
+    hold(fails, name, got, ref, MATVEC_RTOL * float(ref.abs().max()))
+    same_rows(fails, name, one, got)
+
+
+def decode_cases(torch):
+    """(function, args): each M tier of both tensor-core bodies, ragged N,
+    K with a tail (a 64-k step's part, a chunk's part), blocks of 16, 32
+    and 48, packed and not, several chunks and one, one and two 16-row
+    tiles a block (the simulation's card holds 264 blocks); and the FMA
+    bodies (an f32 x, a block of 8)."""
+    bf, e4, f32 = torch.bfloat16, torch.float8_e4m3fn, torch.float32
+    return [
+        (run_tn, (8, 100, 1040, bf, e4)),
+        (run_tn, (3, 70, 208, bf, bf)),
+        (run_tn, (12, 33, 96, bf, e4)),
+        (run_tn, (17, 40, 336, bf, e4)),
+        (run_tn, (32, 50, 144, bf, bf)),
+        (run_tn, (3, 4300, 64, bf, e4)),
+        (run_tn, (5, 40, 160, f32, e4)),
+        (run_kn, (8, 1024, 256, False, 32, bf)),
+        (run_kn, (8, 1056, 1040, True, 16, bf)),
+        (run_kn, (3, 480, 160, False, 48, bf)),
+        (run_kn, (12, 640, 160, True, 32, bf)),
+        (run_kn, (17, 512, 144, False, 32, bf)),
+        (run_kn, (32, 256, 128, True, 16, bf)),
+        (run_kn, (5, 512, 272, False, 16, f32)),
+        (run_kn, (4, 256, 128, False, 8, bf)),
+    ]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true")
+    ap.add_argument("--kernels", default="flash,decode",
+                    help="comma-separated: flash, decode")
     ap.add_argument("--out", help="build directory (default: a temporary "
                     "one)")
     args = ap.parse_args()
+    kinds = args.kernels.split(",")
     sys.path.insert(0, str(REPO))
     import torch
     torch.set_num_threads(4)
+    from transformerengine_tpu_torch.ops import decode_matmul as dm
     from transformerengine_tpu_torch.ops import flash_attention as fa
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(args.out or tmp)
         out.mkdir(parents=True, exist_ok=True)
         t0 = time.time()
-        sim = Sim(build(out))
+        sim = Sim(build(out, kinds))
         print(f"built in {time.time() - t0:.1f} s", flush=True)
         fails: list = []
-        todo = cases(torch)
-        for name, dt, *shape, kw in (todo[:1] if args.quick else todo):
-            do_dtype = kw.pop("do_dtype", None)
-            run_case(torch, fa, sim, fails, name, dt, *shape,
-                     do_dtype=do_dtype, **kw)
+        if "decode" in kinds:
+            todo = decode_cases(torch)
+            for fn, shape in (todo[:1] + todo[7:8] if args.quick else todo):
+                fn(torch, dm, sim, fails, *shape)
+        if "flash" in kinds:
+            todo = cases(torch)
+            for name, dt, *shape, kw in (todo[:1] if args.quick else todo):
+                do_dtype = kw.pop("do_dtype", None)
+                run_case(torch, fa, sim, fails, name, dt, *shape,
+                         do_dtype=do_dtype, **kw)
     print("failed:", fails or "none")
     return 1 if fails else 0
 

@@ -35,6 +35,7 @@ void run_grid(dim3 grid, dim3 block, size_t smem, const std::function<void()>& b
 }
 }  // namespace sim
 int atomicMax(int* p, int v) { std::lock_guard<std::mutex> g(sim::mu); int o = *p; if (v > o) *p = v; return o; }
+unsigned atomicAdd(unsigned* p, unsigned v) { std::lock_guard<std::mutex> g(sim::mu); unsigned o = *p; *p = o + v; return o; }
 static float fp8_value(uint8_t c, int e5m2) {
   const int ebits = e5m2 ? 5 : 4, mbits = e5m2 ? 2 : 3, bias = e5m2 ? 15 : 7;
   const int s = c >> 7, e = (c >> mbits) & ((1 << ebits) - 1), m = c & ((1 << mbits) - 1);

@@ -1,7 +1,9 @@
-// The PTX instructions of the flash kernels' tensor-core bodies: warp-wide
-// fragment loads from shared memory (ldmatrix), the bf16 matrix product
-// with f32 accumulators (mma.sync m16n8k16) and 16-byte asynchronous
-// copies from global to shared memory (cp.async).
+// The PTX instructions of the tensor-core bodies: warp-wide fragment loads
+// from shared memory (ldmatrix), the bf16 matrix product with f32
+// accumulators (mma.sync m16n8k16), 16-byte asynchronous copies from
+// global to shared memory (cp.async), and for the decode GEMMs' weights
+// streaming loads, byte permutes (prmt), the e4m3 pair conversion and the
+// bf16 pair product.
 //
 // Fragment layouts of mma.m16n8k16 (lane l, g = l / 4, t = l % 4), each
 // 32-bit register holding two consecutive 16-bit values, the lower column
@@ -53,6 +55,45 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// prmt.b32 in its default mode: byte i of the result is byte s_i & 7 of the
+// pool {a, b} (a's bytes 0-3, b's 4-7), s_i the i-th 4-bit field of sel's
+// low 16 bits; where bit 3 of s_i is set, that byte's sign bit fills all 8
+// bits instead.
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b,
+                                         uint32_t sel) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
+  return d;
+}
+
+// The two e4m3 values of the low 16 bits of `pair` (the first in the low
+// byte) as an f16 pair, exactly: every e4m3 value is an f16 value.
+__device__ __forceinline__ uint32_t cvt_f16x2_e4m3x2(uint32_t pair) {
+  uint32_t d;
+  asm("cvt.rn.f16x2.e4m3x2 %0, %1;\n"
+      : "=r"(d)
+      : "h"(static_cast<unsigned short>(pair)));
+  return d;
+}
+
+// The products of two bf16 pairs, each rounded to nearest even (a bf16
+// multiply, as the reference's).
+__device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// A 16-byte load of data read once: it is not kept in L1 (where it would
+// evict what is read again), and L2 fetches the whole 128-byte line.
+__device__ __forceinline__ uint4 ldg_stream(const void* p) {
+  uint4 v;
+  asm("ld.global.nc.L1::no_allocate.L2::128B.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
 }
 
 // Copies 16 bytes from global to shared memory without the registers, or

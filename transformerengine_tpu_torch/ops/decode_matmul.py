@@ -16,10 +16,11 @@ from .. import _build
 
 _X_DTYPES = (torch.float32, torch.bfloat16)
 _W_DTYPES = (torch.bfloat16, torch.float8_e4m3fn)
-# Stored rows of the (K, N) payload that one block of the KN kernel sums
-# (kChunk in csrc/decode_kn_matvec.cu): the K chunks' partial sums take
+# The fewest stored rows of the (K, N) payload that one block of the KN
+# kernel sums (kMmaChunk in csrc/decode_kn_matvec.cu; the FMA body's
+# kChunk is larger): the K chunks' partial sums take at most
 # ceil(K_store / _KN_CHUNK) * M * N floats of workspace.
-_KN_CHUNK = 1024
+_KN_CHUNK = 256
 
 
 def use_decode_matvec(m: int, n: int, k: int) -> bool:
