@@ -17,7 +17,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
      and ``quantize_normed``), the MXFP8 norm kernel through
      ``BlockScaleQuantizer.quantize_normed``. Paged decode attention at
      phase 9's shape (fp8 pages, a shuffled table) and then bf16 and f32
-     pages, sinks and a length of 0; the KN decode GEMM at the four GEMMs
+     pages, sinks and a length of 0; both decode attentions (the sequence
+     split across blocks) repeatable bit for bit with a launch at another
+     grid shape between two launches, timed beside SDPA on the cache
+     dequantized (and gathered) to bf16, and held at the split sequence's
+     edges (empty splits, lengths 0, 1 and below a tile, a full cache and
+     table, a window across split boundaries, a length of 0 with a sink);
+     the KN decode GEMM at the four GEMMs
      of an LLAMA_8B layer in its e4m3 and its packed e2m1 branch, then
      M = 1 and 32, f32 x and the packed form at small shapes; both decode
      GEMMs repeatable bit for bit, their row 0 the same at M = 1 as at
@@ -566,23 +572,70 @@ def check_decode_attention(torch, timer, results):
     # The kernel keeps the softmax weights in f32 (the reference's Pallas
     # form); the plain version rounds them to bf16 (its einsum form).
     err = check("O", out, ref, row_tol(ref, BF16_ROW_RTOL))
+    same_again(torch, "decode_attention", out,
+               lambda: decode_attention(q, kc, vc, lens, kv_scale=dq),
+               lambda: decode_attention(q[:1], kc[:1], vc[:1], lens[:1],
+                                        kv_scale=dq[:1]))
     ms = timer(lambda: decode_attention(q, kc, vc, lens, kv_scale=dq))
     plain_ms = timer(lambda: decode_attention_plain(
         q, kc, vc, lens, kv_scale=dq, scale=d ** -0.5,
         out_dtype=torch.bfloat16))
+    # SDPA on the cache dequantized to bf16 (not timed), the lengths as a
+    # boolean key mask: the same function, bar the dequantization.
+    library_ms = decode_library(torch, timer, q, kc, vc, dq, lens, out)
     total_len = int(lens.sum())
     nbytes = 2 * total_len * hkv * d + 2 * 2 * b * hq * d + 4 * b + 4 * b
     flops = 4 * hq * d * total_len
     b_ms, b_by = bound_ms(nbytes, flops)
-    log(f"  kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+    log(f"  kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA on the "
+        f"dequantized cache {library_ms:.4f} ms, bound {b_ms:.4f} ms "
         f"({b_by})")
     results["decode_attention"] = dict(
         name="decode_attention", route="cuda",
         source="transformerengine_tpu_torch/csrc/decode_attention.cu",
         replaces="transformerengine_tpu/ops/decode_attention.py:146",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None,
+        bound_by=b_by, library_ms=library_ms,
         shape=f"decode B={b} Hq={hq} Hkv={hkv} D={d} fp8 cache")
+
+
+def same_again(torch, name: str, out, call, other) -> None:
+    """A decode attention kernel's second launch gives ``out`` bit for bit,
+    with a launch at another grid shape (``other``) between the two: the
+    splits' sum has a fixed order, and the last block of each row resets
+    its ticket."""
+    other()
+    again = call()
+    ok = torch.equal(again, out)
+    log(f"  {name}: two launches, one at another grid shape between them, "
+        f"{'equal' if ok else 'DIFFER'}")
+    if not ok:
+        raise AssertionError(f"{name} is not repeatable")
+
+
+def decode_library(torch, timer, q, kc, vc, dq, lens, out) -> float:
+    """Time of ``F.scaled_dot_product_attention(..., enable_gqa=True)`` on
+    q (B, 1, Hq, D) and the (B, S, Hkv, D) cache dequantized by ``dq`` to
+    bf16 (outside the timing), keys past ``lens`` masked; its largest
+    difference from the kernel's ``out`` is logged."""
+    import torch.nn.functional as F
+    b, s = kc.shape[:2]
+    kd, vd = ((c.float() * dq.reshape(-1, 1, 1, 1)).to(torch.bfloat16)
+              .transpose(1, 2).contiguous() for c in (kc, vc))
+    qt = q.transpose(1, 2)
+    mask = (torch.arange(s, device=q.device)[None, :] < lens[:, None])[
+        :, None, None, :]
+
+    def call():
+        return F.scaled_dot_product_attention(
+            qt, kd, vd, attn_mask=mask, scale=q.shape[-1] ** -0.5,
+            enable_gqa=True)
+
+    diff = float((call().transpose(1, 2).float() - out.float()).abs().max())
+    ms = timer(call)
+    log(f"  SDPA on the dequantized cache: max_abs_diff from the kernel "
+        f"{diff:.3e}")
+    return ms
 
 
 def check_variants(torch) -> None:
@@ -658,6 +711,33 @@ def check_variants(torch) -> None:
         check(f"decode q {qt} cache {ct} D={d} G={hq // hkv} "
               f"window={window} sink={sink}", out, ref,
               tol * float(ref.abs().max()))
+    # The split sequence's edges (B * Hkv = 6 rows, so each row's tiles
+    # spread over blocks): splits left empty (a length of 0 with a sink,
+    # which gives a zero row, lengths 1 and below one tile), a full cache,
+    # a window whose edge falls inside a split's tile and which spans split
+    # boundaries. bf16 outputs as in [3c]; f32 ones as above.
+    for qt, ct, d, hq, s_max, lens, window, sink, tol in (
+            (bf16, e4m3, 128, 8, 640, (528, 0, 1), -1, True, None),
+            (f32, f32, 64, 2, 640, (40, 640, 63), -1, False, 1e-4),
+            (bf16, bf16, 64, 16, 640, (600, 300, 449), 100, True, None),
+            (f32, e4m3, 128, 8, 512, (449, 385, 512), 127, False, 2e-2)):
+        b, hkv = 3, 2
+        q = randn(b, 1, hq, d, dtype=qt)
+        kc, vc = (randn(b, s_max, hkv, d, dtype=ct) for _ in range(2))
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        scale = torch.tensor([0.5, 1.0, 2.0], device="cuda")
+        sinks = randn(hq) if sink else None
+        out = decode_attention(q, kc, vc, lengths, kv_scale=scale,
+                               window_left=window, softmax_sink=sinks)
+        ref = decode_attention_plain(q, kc, vc, lengths, kv_scale=scale,
+                                     scale=d ** -0.5, window_left=window,
+                                     out_dtype=qt, softmax_sink=sinks)
+        check(f"decode split edges q {qt} cache {ct} D={d} G={hq // hkv} "
+              f"S={s_max} lengths={lens} window={window} sink={sink}", out,
+              ref, row_tol(ref, BF16_ROW_RTOL) if tol is None
+              else tol * float(ref.abs().max()))
+        if 0 in lens and bool(out[lens.index(0)].abs().max() != 0):
+            raise AssertionError("a length of 0 must give a zero row")
 
 
 # The flash backward's gradients (bf16) against the plain version: ds and
@@ -1559,21 +1639,30 @@ def check_paged_attention(torch, timer, results):
     # Both keep the softmax in f32 (the reference's Pallas form); the
     # bf16 outputs round apart where the f32 sums' order moves them.
     err = check("O", out, ref, row_tol(ref, BF16_ROW_RTOL))
+    same_again(torch, "paged_decode_attention", out, kernel,
+               lambda: paged_decode_attention(q[:1], kc, vc, table[:1],
+                                              lens[:1], kv_scale=dq[:1]))
     ms, plain_ms = timer(kernel), timer(plain)
+    # SDPA on each sequence's pages gathered and dequantized to bf16 (not
+    # timed), the lengths as a boolean key mask.
+    gathered = [p[table.long()].reshape(b, mpps * page, hkv, d)
+                for p in (kc, vc)]
+    library_ms = decode_library(torch, timer, q, *gathered, dq, lens, out)
+    del gathered
     total_len = int(lens.sum())
     nbytes = 2 * total_len * hkv * d + 2 * 2 * b * hq * d + 4 * b * mpps \
         + 4 * b + 4 * b
     flops = 4 * hq * d * total_len
     b_ms, b_by = bound_ms(nbytes, flops)
-    log(f"  kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
-        f"({b_by}); library: none (no PyTorch call reads an fp8 paged "
-        f"cache)")
+    log(f"  kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA on the "
+        f"gathered, dequantized pages {library_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by})")
     results["paged_decode_attention"] = dict(
         name="paged_decode_attention", route="cuda",
         source="transformerengine_tpu_torch/csrc/paged_decode_attention.cu",
         replaces="transformerengine_tpu/ops/paged_attention.py:87",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None,
+        bound_by=b_by, library_ms=library_ms,
         shape=f"decode B={b} Hq={hq} Hkv={hkv} D={d} fp8 pages of {page}")
 
 
@@ -1618,6 +1707,36 @@ def check_paged_variants(torch) -> None:
                else row_tol(ref, BF16_ROW_RTOL))
         check(f"paged q {qt} pages {ct} D={d} G={hq // hkv} sink={sink}",
               out, ref, tol)
+        if bool(out[1].abs().max() != 0):
+            raise AssertionError("a length of 0 must give a zero row")
+    # The split sequence's edges: tables of 640 keys over B * Hkv = 8
+    # rows, pages of 16 (each row looks its page up) and of 128 (a tile's
+    # page read once); lengths 0 (with and without a sink: a zero row), 1,
+    # below one tile and the whole table.
+    for qt, ct, d, hq, page, mpps, lens, sink in (
+            (f32, f32, 64, 8, 16, 40, (37, 0, 640, 5), True),
+            (bf16, e4m3, 128, 8, 128, 5, (528, 0, 1, 63), False)):
+        n_pages = b * mpps + 5
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        table = torch.randperm(n_pages, generator=g, device="cuda")[
+            :b * mpps].to(torch.int32).reshape(b, mpps)
+        table[3, 1:] = -1
+        mag = torch.rand(b, generator=g, device="cuda") * 2 + 0.5
+        kc, vc, dq = paged_pool(torch, g, n_pages, page, hkv, d, table, mag,
+                                ct)
+        if dq is None:
+            dq = torch.rand(b, generator=g, device="cuda") + 0.5
+        q = torch.randn((b, 1, hq, d), generator=g, device="cuda").to(qt)
+        sinks = torch.randn(hq, generator=g, device="cuda") if sink else None
+        out = paged_decode_attention(q, kc, vc, table, lengths, kv_scale=dq,
+                                     softmax_sink=sinks)
+        ref = paged_decode_attention_plain(
+            q, kc, vc, table, lengths, kv_scale=dq, scale=d ** -0.5,
+            out_dtype=qt, softmax_sink=sinks)
+        tol = (1e-5 * float(ref.abs().max()) if qt == f32
+               else row_tol(ref, BF16_ROW_RTOL))
+        check(f"paged split edges q {qt} pages {ct} D={d} page={page} "
+              f"lengths={lens} sink={sink}", out, ref, tol)
         if bool(out[1].abs().max() != 0):
             raise AssertionError("a length of 0 must give a zero row")
 
@@ -3934,18 +4053,10 @@ def check_sw_variants(torch, timer) -> None:
     offset with a band, f32, D 128 and 256 and a group of 8; then
     decode_attention at GPT-OSS's decode shape with its window and
     sink."""
-    from transformerengine_tpu_torch.inference.kv_cache import (
-        calibrate_kv_scale, quantize_for_cache)
-    from transformerengine_tpu_torch.ops.decode_attention import (
-        decode_attention, decode_attention_plain)
     log("[3t] flash attention's window and sink at small shapes, forward "
         "and backward")
     g = torch.Generator(device="cuda").manual_seed(23)
     f32, bf16 = torch.float32, torch.bfloat16
-
-    def randn(*shape, dtype=f32):
-        return torch.randn(shape, generator=g, device="cuda").to(dtype)
-
     # (dtype, Sq, Skv, D, Hq, Hkv, causal, window, sink, lengths)
     flash_variants(torch, g, (
         (f32, 70, 70, 64, 4, 2, False, (10, -1), None, None),
@@ -3955,6 +4066,24 @@ def check_sw_variants(torch, timer) -> None:
         (bf16, 40, 100, 256, 4, 2, True, (24, 0), "learnable", None),
         (bf16, 150, 150, 64, 16, 2, True, (32, 0), "learnable",
          (150, 77))))
+    check_decode_gptoss(torch, timer, g)
+
+
+def check_decode_gptoss(torch, timer, g=None) -> float:
+    """decode_attention at GPT-OSS's decode shape with its window and sink,
+    on inputs drawn from ``g`` ([3t]'s generator, or one of its own),
+    against its plain version; returns its time."""
+    from transformerengine_tpu_torch.inference.kv_cache import (
+        calibrate_kv_scale, quantize_for_cache)
+    from transformerengine_tpu_torch.ops.decode_attention import (
+        decode_attention, decode_attention_plain)
+    if g is None:
+        g = torch.Generator(device="cuda").manual_seed(23)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def randn(*shape, dtype=f32):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
     b, hq, hkv, d = BATCH, *GPTOSS_HEADS
     s_alloc = -(-(max(PROMPT_LENS) + NEW_TOKENS) // 128) * 128
     lens = mixed_lengths(torch, b, PROMPT_LENS) + NEW_TOKENS // 2
@@ -3977,6 +4106,7 @@ def check_sw_variants(torch, timer) -> None:
     b_ms, b_by = bound_ms(nbytes, 4 * hq * d * b * (GPTOSS_BAND + 1))
     log(f"  decode_attention at GPT-OSS's decode shape: kernel {ms:.4f} ms, "
         f"bound {b_ms:.4f} ms ({b_by}, the band's keys)")
+    return ms
 
 
 GPTOSS_TRAIN_LAYERS = 4

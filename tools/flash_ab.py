@@ -3,7 +3,7 @@
 turns (parent, change, change, parent by default).
 
     python3 tools/flash_ab.py PARENT_DIR CHANGE_DIR [--order 0,1,1,0]
-                              [--group flash|decode|all]
+                              [--group flash|decode|decode_attn|all]
 
 Each turn runs, in a process of its own, the checkout's own
 ``chip_smoke.py`` row checks, which build its kernels on first use, hold
@@ -16,9 +16,14 @@ FP8 branches 2f, 2o, 4f and 4o, and their runtime-position branches 2q,
 (``decode_tn_matvec`` on fp8 and bf16 weights, ``check_matvec``) and 13
 and 13p (``decode_kn_matvec`` on e4m3 and packed e2m1 weights,
 ``check_kn_matvec``), each with its library call's time beside it (as
-``<row> lib``). Prints the card's name and power limit, one JSON line of
-row -> ms per turn, and last one JSON line of each checkout's per-row
-median. Needs one CUDA card."""
+``<row> lib``). ``decode_attn`` (the decode attention kernels): rows 3
+(``decode_attention``, ``check_decode_attention``) and 14
+(``paged_decode_attention``, ``check_paged_attention``) with their library
+calls' times, and row 3 at GPT-OSS's decode shape with its window and sink
+(``3g``), timed in either tree by this checkout's ``check_decode_gptoss``
+(the wrapper's API is the same in both). Prints the card's name and
+power limit, one JSON line of row -> ms per turn, and last one JSON line
+of each checkout's per-row median. Needs one CUDA card."""
 from __future__ import annotations
 
 import argparse
@@ -34,15 +39,23 @@ ROWS = {"flash_attention_fwd": "2", "flash_attention_fwd_fp8": "2f",
         "flash_attention_bwd_fp8": "4f", "flash_attention_bwd_fp8_mha": "4o",
         "flash_attention_bwd_qoff": "4q", "flash_attention_bwd_fp8_qoff": "4fq",
         "decode_tn_matvec": "1", "decode_tn_matvec_bf16": "1b",
-        "decode_kn_matvec": "13", "decode_kn_matvec_packed": "13p"}
+        "decode_kn_matvec": "13", "decode_kn_matvec_packed": "13p",
+        "decode_attention": "3", "paged_decode_attention": "14",
+        "decode_attention_gptoss": "3g"}
 
 CHECKS = {"flash": ("check_flash", "check_flash_bwd", "check_flash_fp8",
                     "check_flash_bwd_fp8", "check_flash_qoff",
                     "check_flash_bwd_qoff"),
-          "decode": ("check_matvec", "check_kn_matvec")}
+          "decode": ("check_matvec", "check_kn_matvec"),
+          "decode_attn": ("check_decode_attention", "check_paged_attention")}
+# Rows timed by functions of this checkout's chip_smoke.py (which return
+# the time) on each tree's port: results key -> function.
+EXTRAS = {"decode_attn": (("decode_attention_gptoss",
+                           "check_decode_gptoss"),)}
+HERE_SMOKE = Path(__file__).resolve().parents[1] / "chip_smoke.py"
 
 TURN = """
-import json, sys, torch
+import importlib.util, json, sys, torch
 sys.path.insert(0, ".")
 import chip_smoke as cs
 from transformerengine_tpu_torch import _build
@@ -56,6 +69,13 @@ for name in %r:
 ms = {k: r["ms"] for k, r in results.items()}
 ms.update({k + " lib": r["library_ms"] for k, r in results.items()
            if r.get("library_ms") is not None})
+extras = %r
+if extras:
+    spec = importlib.util.spec_from_file_location("ab_helpers", %r)
+    helpers = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(helpers)
+    for key, name in extras:
+        ms[key] = getattr(helpers, name)(torch, timer)
 print("TURN " + json.dumps(ms))
 """
 
@@ -65,10 +85,12 @@ def main() -> int:
     ap.add_argument("trees", nargs=2, help="the parent's and the change's "
                     "checkout directories")
     ap.add_argument("--order", default="0,1,1,0")
-    ap.add_argument("--group", choices=("flash", "decode", "all"),
-                    default="all")
+    ap.add_argument("--group", choices=("flash", "decode", "decode_attn",
+                                        "all"), default="all")
     args = ap.parse_args()
     checks = sum((CHECKS[g] for g in CHECKS
+                  if args.group in (g, "all")), ())
+    extras = sum((EXTRAS[g] for g in EXTRAS
                   if args.group in (g, "all")), ())
     trees = [Path(t).resolve() for t in args.trees]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -77,7 +99,8 @@ def main() -> int:
     print(smi, flush=True)
     readings = {0: [], 1: []}
     for i in map(int, args.order.split(",")):
-        out = subprocess.run([sys.executable, "-c", TURN % (checks,)],
+        out = subprocess.run([sys.executable, "-c",
+                              TURN % (checks, extras, str(HERE_SMOKE))],
                              cwd=trees[i],
                              capture_output=True, text=True)
         if out.returncode != 0:

@@ -117,6 +117,7 @@ cudaError_t last_error();
 }  // namespace sim
 
 inline void __syncthreads() { sim::tl_block->bar->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) { sim::warp().bar.arrive_and_wait(); }
 template <typename T>
 inline T __shfl_xor_sync(unsigned, T v, int o) {
   static_assert(sizeof(T) <= 8);
@@ -124,6 +125,16 @@ inline T __shfl_xor_sync(unsigned, T v, int o) {
   uint64_t bits = 0; memcpy(&bits, &v, sizeof(T)); w.x[l][7] = bits;
   w.bar.arrive_and_wait();
   bits = w.x[l ^ o][7];
+  w.bar.arrive_and_wait();
+  T r; memcpy(&r, &bits, sizeof(T)); return r;
+}
+template <typename T>
+inline T __shfl_sync(unsigned, T v, int src) {
+  static_assert(sizeof(T) <= 8);
+  auto& w = sim::warp(); unsigned l = sim::lane();
+  uint64_t bits = 0; memcpy(&bits, &v, sizeof(T)); w.x[l][7] = bits;
+  w.bar.arrive_and_wait();
+  bits = w.x[src & 31][7];
   w.bar.arrive_and_wait();
   T r; memcpy(&r, &bits, sizeof(T)); return r;
 }

@@ -2,14 +2,17 @@
 """Runs the tensor-core kernels' CUDA sources on the CPU, in a host
 simulation, through the port's own wrappers, and holds each result to the
 wrapper's plain version (the tolerances of ``chip_smoke.py`` phase 3):
-the flash attention kernels and the decode GEMMs.
+the flash attention kernels, the decode GEMMs and the two decode
+attention kernels.
 
-    python3 tools/flash_host_sim/run.py [--quick] [--kernels flash,decode]
+    python3 tools/flash_host_sim/run.py [--quick]
+                                        [--kernels flash,decode,decode_attn]
                                         [--out DIR]
 
 No CUDA toolkit is needed: ``g++`` (C++20, pthreads) compiles the units
-(``csrc/flash_attention*.cu``, ``csrc/decode_matvec.cu`` and
-``csrc/decode_kn_matvec.cu``) against the headers here, which stand in
+(``csrc/flash_attention*.cu``, ``csrc/decode_matvec.cu``,
+``csrc/decode_kn_matvec.cu``, ``csrc/decode_attention.cu`` and
+``csrc/paged_decode_attention.cu``) against the headers here, which stand in
 for the CUDA ones. Each block's threads are ``std::thread``s (a grid's
 blocks run one after another), ``__syncthreads`` a barrier, and the
 instructions of ``csrc/ptx.cuh`` (ldmatrix, mma.sync, cp.async, prmt, the
@@ -18,7 +21,10 @@ e4m3 pair conversion, the bf16 pair product) are replaced by
 buffer and computes every lane's fragment from the PTX layouts. So a
 wrong fragment index, mask, tile edge, stage or byte permute shows here as
 a wrong result; the timing, the hardware's summation order and the
-compiler's register use show only on the card. Launches with ``<<<...>>>``
+compiler's register use show only on the card. The simulated card holds
+264 blocks (132 SMs, two blocks each), which sets the grids that size
+themselves to fill it (the decode GEMMs' split K, the decode attention
+kernels' split sequence). Launches with ``<<<...>>>``
 and ``extern __shared__`` arrays are rewritten in a copy of the sources;
 the wrappers run their kernel path on CPU tensors (their ``_build`` hooks
 pointed at the simulated library). ``--quick`` runs one case of each; the
@@ -47,7 +53,8 @@ FLAGS = ["-std=c++20", "-O1", "-fPIC", "-pthread", "-ffp-contract=off",
 
 
 UNITS = {"flash": "flash_attention*.cu",
-         "decode": "decode*matvec.cu"}
+         "decode": "decode*matvec.cu",
+         "decode_attn": "*decode_attention.cu"}
 
 
 def build(out: Path, kinds) -> Path:
@@ -93,7 +100,8 @@ class Sim:
         self.lib = ctypes.CDLL(str(lib))
         for name in ("te_flash_attention_fwd", "te_flash_attention_bwd_dq",
                      "te_flash_attention_bwd_dkv", "te_decode_tn_matvec",
-                     "te_decode_kn_matvec"):
+                     "te_decode_kn_matvec", "te_decode_attention",
+                     "te_paged_decode_attention"):
             if not hasattr(self.lib, name):
                 continue
             fn = getattr(self.lib, name)
@@ -354,11 +362,178 @@ def decode_cases(torch):
     ]
 
 
+# The decode attention kernels against their plain versions, at phase 3's
+# tolerances (chip_smoke.py [3c], [3d], [3l] and [3m]). The contiguous
+# kernel's plain version is the reference's einsum form, which rounds the
+# softmax weights (and, for an e4m3 or bf16 cache, q) to bf16: f32 outputs
+# of it are held at 2e-2 of the largest output, 1e-4 on an f32 cache. The
+# paged plain version keeps f32 throughout: 1e-5. bf16 outputs: 2^-6 of
+# each row's largest element.
+ATTN_F32_RTOL = {"contiguous": 2e-2, "contiguous f32": 1e-4, "paged": 1e-5}
+
+
+def attn_tolerance(ref, paged: bool, qt, ct):
+    import torch
+    if qt == torch.bfloat16:
+        return BF16_ROW_RTOL * ref.float().abs().amax(dim=-1, keepdim=True)
+    key = ("paged" if paged else
+           "contiguous f32" if ct == torch.float32 else "contiguous")
+    return ATTN_F32_RTOL[key] * float(ref.abs().max())
+
+
+def attn_inputs(torch, g, b: int, s: int, hq: int, hkv: int, d: int, qt, ct,
+                lead: int):
+    """q (B, 1, Hq, D) and K/V of (lead, S, Hkv, D) rows at each row's own
+    magnitude (2^-2 to 2^2), with (B,) dequant scales: e4m3 payloads
+    quantized by each row's calibrated scale, bf16 and f32 ones at scales
+    of 0.5-1.5."""
+    mag = 2.0 ** (torch.arange(lead) % 5 - 2.0)
+    k = torch.randn((lead, s, hkv, d), generator=g) * mag[:, None, None, None]
+    v = torch.randn((lead, s, hkv, d), generator=g) * mag[:, None, None, None]
+    if ct == torch.float8_e4m3fn:
+        dq = torch.maximum(k.abs().amax(dim=(1, 2, 3)),
+                           v.abs().amax(dim=(1, 2, 3))) / 448.0
+        k, v = (t / dq[:, None, None, None] for t in (k, v))
+    else:
+        dq = torch.rand(lead, generator=g) + 0.5
+    q = torch.randn((b, 1, hq, d), generator=g).to(qt)
+    return q, k.to(ct), v.to(ct), dq
+
+
+def run_decode_attn(torch, sim, fails, name, qt, ct, b, hq, hkv, d, lens,
+                    s=None, page=None, max_pages=None, window=-1,
+                    sink=False, repeat=False, seed=0) -> None:
+    """One case of ``decode_attention`` (``s``) or
+    ``paged_decode_attention`` (``page``, ``max_pages``: a shuffled table
+    whose entries past a row's pages are -1 on every other row): the
+    kernel on the simulation against its plain version; rows of length 0
+    exactly zero; with ``repeat``, two launches bitwise equal with a launch
+    at another grid shape (one batch row) between them."""
+    from transformerengine_tpu_torch.ops import decode_attention as da
+    from transformerengine_tpu_torch.ops import paged_attention as pa
+    g = torch.Generator().manual_seed(seed)
+    paged = page is not None
+    lengths = torch.tensor(lens, dtype=torch.int32)
+    sinks = torch.randn(hq, generator=g) * 2 if sink else None
+    if paged:
+        n_pages = b * max_pages + 3
+        q, kc, vc, dq = attn_inputs(torch, g, b, page, hq, hkv, d, qt, ct,
+                                    n_pages)
+        table = torch.randperm(n_pages, generator=g)[:b * max_pages].to(
+            torch.int32).reshape(b, max_pages)
+        for r in range(0, b, 2):
+            table[r, -(-lens[r] // page):] = -1
+        dq = dq[table.long().clamp_min(0)[:, 0]]
+
+        def call(rows=slice(None)):
+            return pa.paged_decode_attention(
+                q[rows], kc, vc, table[rows], lengths[rows],
+                kv_scale=dq[rows], softmax_sink=sinks)
+
+        ref = pa.paged_decode_attention_plain(
+            q, kc, vc, table, lengths, kv_scale=dq, scale=d ** -0.5,
+            out_dtype=qt, softmax_sink=sinks)
+    else:
+        q, kc, vc, dq = attn_inputs(torch, g, b, s, hq, hkv, d, qt, ct, b)
+
+        def call(rows=slice(None)):
+            return da.decode_attention(
+                q[rows], kc[rows], vc[rows], lengths[rows],
+                kv_scale=dq[rows], window_left=window, softmax_sink=sinks)
+
+        ref = da.decode_attention_plain(
+            q, kc, vc, lengths, kv_scale=dq, scale=d ** -0.5,
+            window_left=window, out_dtype=qt, softmax_sink=sinks)
+        if sinks is None:
+            # A row of length 0: the reference's Pallas form (the kernel's)
+            # gives zeros, its einsum form (the plain version) the mean of
+            # V over the masked keys.
+            ref[lengths <= 0] = 0
+    t0 = time.time()
+    with sim.on():
+        got = call()
+        if repeat:
+            call(slice(0, 1))
+            again = call()
+    print(f"[{name}] {time.time() - t0:.1f} s", flush=True)
+    diff = (got.float() - ref.float()).abs()
+    tol = attn_tolerance(ref, paged, qt, ct)
+    err = float(diff.max())
+    ok = math.isfinite(err) and bool((diff <= tol).all())
+    print(f"  {name} O: {err:.3e} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fails.append(f"{name} O")
+    for r, n in enumerate(lens):
+        if n <= 0 and bool(got[r].abs().max() != 0):
+            print(f"  {name}: row {r} of length 0 is not zero", flush=True)
+            fails.append(f"{name} zero row")
+    if repeat:
+        same = torch_equal(got, again)
+        print(f"  {name}: two launches, one at another grid shape between "
+              f"them, {'equal' if same else 'DIFFER'}", flush=True)
+        if not same:
+            fails.append(f"{name} repeat")
+
+
+def decode_attn_cases(torch):
+    """Keyword arguments of :func:`run_decode_attn`: one split (a row of
+    one tile) and many (the simulated card's 264 blocks over B * Hkv rows,
+    up to the span's tiles), splits left empty (lengths 0, 1 and below one
+    tile), a full cache and a full table, a window whose edge falls inside
+    a split's tile and which spans split boundaries, the sink with a length
+    of 0 (a zero row), G 1, 4 and 8, D 64, 128 and 256, caches e4m3, bf16
+    and f32, q bf16 and f32, pages of 16 (rows look their pages up one by
+    one) and of 128 (a tile's page read once); and the head groups' edges:
+    G 2, 3, 5 and 32, D 48 and 80 (an odd count of 16-byte chunks)."""
+    bf, e4, f32 = torch.bfloat16, torch.float8_e4m3fn, torch.float32
+    return [
+        dict(name="contiguous one split", qt=bf, ct=e4, b=2, hq=8, hkv=2,
+             d=128, s=64, lens=(64, 37), repeat=True),
+        dict(name="contiguous many splits, lengths 528, 0, 1", qt=bf, ct=e4,
+             b=3, hq=8, hkv=2, d=128, s=640, lens=(528, 0, 1), repeat=True),
+        dict(name="contiguous G1 f32 below one tile and full", qt=f32,
+             ct=f32, b=2, hq=4, hkv=4, d=64, s=640, lens=(40, 640)),
+        dict(name="contiguous G8 window edge inside a split, sink", qt=bf,
+             ct=bf, b=2, hq=16, hkv=2, d=64, s=640, lens=(600, 300),
+             window=100, sink=True, repeat=True),
+        dict(name="contiguous window across split boundaries", qt=f32,
+             ct=e4, b=3, hq=8, hkv=2, d=128, s=512, lens=(449, 385, 512),
+             window=127),
+        dict(name="contiguous window edge on a tile, G1 D256", qt=f32,
+             ct=bf, b=2, hq=2, hkv=2, d=256, s=448, lens=(385, 320),
+             window=64),
+        dict(name="contiguous sink with length 0, D256", qt=f32, ct=bf, b=3,
+             hq=4, hkv=1, d=256, s=256, lens=(0, 256, 100), sink=True),
+        dict(name="contiguous q bf16, f32 cache, D256 G8", qt=bf, ct=f32,
+             b=2, hq=8, hkv=1, d=256, s=192, lens=(150, 3)),
+        dict(name="contiguous G3 D80", qt=bf, ct=e4, b=2, hq=6, hkv=2,
+             d=80, s=320, lens=(300, 129), repeat=True),
+        dict(name="contiguous G32 D64", qt=f32, ct=bf, b=2, hq=64, hkv=2,
+             d=64, s=192, lens=(150, 64), window=70),
+        dict(name="paged one split, full table", qt=bf, ct=e4, b=2, hq=8,
+             hkv=2, d=128, page=16, max_pages=4, lens=(64, 20)),
+        dict(name="paged pages of 128, lengths 528, 0, 1, sink", qt=bf,
+             ct=e4, b=3, hq=8, hkv=2, d=128, page=128, max_pages=5,
+             lens=(528, 0, 1), sink=True, repeat=True),
+        dict(name="paged pages of 16, full table, length 0 with sink",
+             qt=f32, ct=f32, b=4, hq=8, hkv=2, d=64, page=16, max_pages=40,
+             lens=(37, 0, 640, 5), sink=True, repeat=True),
+        dict(name="paged G1 D256 bf16 pages of 32", qt=f32, ct=bf, b=2,
+             hq=2, hkv=2, d=256, page=32, max_pages=6, lens=(192, 70)),
+        dict(name="paged G4 e4m3 f32 q pages of 64", qt=f32, ct=e4, b=2,
+             hq=8, hkv=2, d=64, page=64, max_pages=5, lens=(300, 64)),
+        dict(name="paged G2 D256 e4m3", qt=f32, ct=e4, b=2, hq=4, hkv=2,
+             d=256, page=64, max_pages=3, lens=(192, 100)),
+        dict(name="paged G5 D48", qt=bf, ct=bf, b=2, hq=10, hkv=2, d=48,
+             page=32, max_pages=4, lens=(128, 33), sink=True),
+    ]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true")
-    ap.add_argument("--kernels", default="flash,decode",
-                    help="comma-separated: flash, decode")
+    ap.add_argument("--kernels", default="flash,decode,decode_attn",
+                    help="comma-separated: flash, decode, decode_attn")
     ap.add_argument("--out", help="build directory (default: a temporary "
                     "one)")
     args = ap.parse_args()
@@ -379,6 +554,10 @@ def main() -> int:
             todo = decode_cases(torch)
             for fn, shape in (todo[:1] + todo[7:8] if args.quick else todo):
                 fn(torch, dm, sim, fails, *shape)
+        if "decode_attn" in kinds:
+            todo = decode_attn_cases(torch)
+            for case in (todo[1:2] + todo[-3:-2] if args.quick else todo):
+                run_decode_attn(torch, sim, fails, **case)
         if "flash" in kinds:
             todo = cases(torch)
             for name, dt, *shape, kw in (todo[:1] if args.quick else todo):

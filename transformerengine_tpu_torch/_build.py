@@ -53,8 +53,8 @@ _SIGNATURES = {
                                _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I,
                                _I, _I, _I, _I, _I, _I, _P, _F, _F,
                                *_DROPOUT, _P),
-    "te_decode_attention": (_P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I,
-                            _I, _I, _I, _F, _I, _P),
+    "te_decode_attention": (_P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _P, _I,
+                            _I, _I, _I, _I, _I, _F, _I, _P),
     "te_flash_attention_bwd_dq": (_P, _P, _P, _I, _P, _I, _P, _P, _P, _I,
                                   _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I,
                                   _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
@@ -71,7 +71,8 @@ _SIGNATURES = {
     "te_mxfp8_norm_quantize": (_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _F, _P),
     "te_paged_decode_attention": (_P, _I, _P, _P, _I, _P, _P, _P, _I, _P,
-                                  _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+                                  _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                                  _P),
     "te_decode_kn_matvec": (_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
                             _P),
     "te_mxfp8_qdq_2x_grouped": (_P, _I, _I, _P, _P, _I, _I, _I, _P),

@@ -239,6 +239,18 @@ inline cudaError_t allow_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// The blocks of `kernel` (`threads` threads, `smem` bytes of shared memory)
+// that the card holds at once: its SMs times the blocks an SM takes.
+template <typename Kernel>
+inline int resident_blocks(Kernel kernel, int threads, size_t smem) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                smem);
+  return sms * per_sm > 0 ? sms * per_sm : 1;
+}
+
 // Attention dropout (the reference's `_dropout_keep`, its integer hash):
 // the score of query i, key j and query head h of batch b is kept when
 // hash(seed, b, h / G, the reference's tile origin (i - i % bq, j - j % bk),

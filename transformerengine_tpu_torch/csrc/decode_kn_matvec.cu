@@ -527,7 +527,7 @@ cudaError_t launch_mma_m(const void* x, const void* payload,
   // K is split so that the column tiles' blocks fill the card once (as the
   // M <= 8 instance holds them, for every M: the sums' order then does not
   // depend on M), in chunks of whole steps of every warp.
-  static const int slots = decode_mma::resident_blocks(
+  static const int slots = resident_blocks(
       kn_mma_kernel<PACKED, 1>, kThreads, mma_smem<1>());
   const int k_store = PACKED ? K / 2 : K;
   const int tiles = (N + kTileN - 1) / kTileN;

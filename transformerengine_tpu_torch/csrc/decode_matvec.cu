@@ -322,7 +322,7 @@ template <typename WT, int MT>
 cudaError_t launch_mma_rt(const void* x, const void* w, const float* scale,
                           float* out, int M, int N, int K,
                           cudaStream_t stream) {
-  static const int slots = decode_mma::resident_blocks(
+  static const int slots = resident_blocks(
       tn_mma_kernel<WT, MT, 1>, kThreads, mma_smem<MT, 1>());
   if ((N + 15) / 16 <= slots)
     return launch_mma<WT, MT, 1>(x, w, scale, out, M, N, K, stream);

@@ -83,18 +83,6 @@ __device__ __forceinline__ void e2m1x8_to_bf16x2(uint32_t w,
   out[3] = prmt(lo23, hi23, 0x7362);
 }
 
-// The blocks of `kernel` (kThreads threads, `smem` bytes of shared memory)
-// that the card holds at once: its SMs times the blocks an SM takes.
-template <typename Kernel>
-inline int resident_blocks(Kernel kernel, int threads, size_t smem) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
-                                                smem);
-  return sms * per_sm > 0 ? sms * per_sm : 1;
-}
-
 // Word i of a 16-byte register vector.
 __device__ __forceinline__ uint32_t word(const uint4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;

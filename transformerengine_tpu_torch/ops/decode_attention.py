@@ -4,7 +4,9 @@ decode_attention).
 
 On CUDA tensors it launches the kernel in ``csrc/decode_attention.cu``,
 which follows the reference's Pallas form (``_decode_kernel``: K and V
-dequantized to f32 before both products, online softmax). On CPU tensors
+dequantized to f32 before both products, online softmax), with a
+sequence's keys split across blocks and their partial softmaxes combined
+in the same launch. On CPU tensors
 it runs :func:`decode_attention_plain`, the reference's default einsum
 form: bf16 operands for fp8 and bf16 caches (so the softmax weights are
 rounded to bf16 before the PV product) with ``kv_scale`` applied to the
@@ -22,6 +24,28 @@ NEG_INF = -1e30
 
 _Q_DTYPES = (torch.float32, torch.bfloat16)
 _CACHE_DTYPES = (torch.float32, torch.bfloat16, torch.float8_e4m3fn)
+
+# The decode kernels' keys a tile, splits of a sequence at most, and
+# (batch row, kv head) pairs at most (kBS, kMaxSplits and kMaxRows in
+# csrc/decode_attn.cuh).
+TILE = 64
+MAX_SPLITS = 64
+MAX_ROWS = 16384
+
+
+def split_workspace(b: int, hq: int, hkv: int, d: int, span: int, device):
+    """The f32 workspace of the decode kernels' partial softmaxes for rows
+    that reach at most ``span`` keys, and the splits it holds: (None, 1)
+    where a row is one tile. Raises where B * Hkv exceeds the kernels'
+    ticket counters."""
+    if b * hkv > MAX_ROWS:
+        raise ValueError(f"the decode kernels take B * Hkv <= {MAX_ROWS}, "
+                         f"got {b} * {hkv}")
+    splits = min(-(-span // TILE), MAX_SPLITS)
+    if splits <= 1:
+        return None, 1
+    return torch.empty(splits * b * hq * (d + 2), dtype=torch.float32,
+                       device=device), splits
 
 
 def decode_attention_plain(q, k_cache, v_cache, lengths, *, kv_scale,
@@ -106,12 +130,14 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         softmax_sink = softmax_sink.float().reshape(hq).contiguous()
     _build.check_aligned(q3, k_cache, v_cache, lengths, kv_scale,
                          softmax_sink)
+    span = s_max if window_left < 0 else min(s_max, window_left + TILE)
+    ws, max_splits = split_workspace(b, hq, hkv, d, span, q3.device)
     out = torch.empty_like(q3)
     _build.launch("te_decode_attention", _build.ptr(q3), q_code,
                   _build.ptr(k_cache), _build.ptr(v_cache), c_code,
                   _build.ptr(lengths), _build.ptr(kv_scale),
                   int(kv_scale.numel() > 1), _build.ptr(softmax_sink),
-                  _build.ptr(out), b, s_max, hq, hkv, d, scale, window_left,
-                  _build.stream(q3))
+                  _build.ptr(out), _build.ptr(ws), max_splits, b, s_max, hq,
+                  hkv, d, scale, window_left, _build.stream(q3))
     _build.LAUNCHES["decode_attention"] += 1
     return out.reshape(b, 1, hq, d)

@@ -4,7 +4,8 @@ transformerengine_tpu/ops/paged_attention.py paged_decode_attention).
 
 On CUDA tensors it launches the kernel in
 ``csrc/paged_decode_attention.cu``, which reads the (num_pages, page,
-Hkv, D) pool in place; on CPU tensors it runs
+Hkv, D) pool in place, a sequence's pages split across blocks and their
+partial softmaxes combined in the same launch; on CPU tensors it runs
 :func:`paged_decode_attention_plain`. Both follow the reference's only
 form, its Pallas kernel ``_paged_kernel``: K and V dequantized to f32 by
 the slot's scale, f32 scores times the softmax scale, a masked
@@ -18,6 +19,7 @@ from typing import Optional
 import torch
 
 from .. import _build
+from .decode_attention import split_workspace
 
 NEG_INF = -1e30
 
@@ -114,12 +116,15 @@ def paged_decode_attention(q: torch.Tensor, pages_k: torch.Tensor,
         softmax_sink = softmax_sink.float().reshape(hq).contiguous()
     _build.check_aligned(q3, pages_k, pages_v, table, lengths, kv_scale,
                          softmax_sink)
+    ws, max_splits = split_workspace(b, hq, hkv, d, table.shape[1] * page,
+                                     q3.device)
     out = torch.empty_like(q3)
     _build.launch("te_paged_decode_attention", _build.ptr(q3), q_code,
                   _build.ptr(pages_k), _build.ptr(pages_v), c_code,
                   _build.ptr(table), _build.ptr(lengths),
                   _build.ptr(kv_scale), int(kv_scale.numel() > 1),
-                  _build.ptr(softmax_sink), _build.ptr(out), b, n_pages,
-                  page, table.shape[1], hq, hkv, d, scale, _build.stream(q3))
+                  _build.ptr(softmax_sink), _build.ptr(out), _build.ptr(ws),
+                  max_splits, b, n_pages, page, table.shape[1], hq, hkv, d,
+                  scale, _build.stream(q3))
     _build.LAUNCHES["paged_decode_attention"] += 1
     return out.reshape(b, 1, hq, d)
