@@ -29,7 +29,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
      GEMMs repeatable bit for bit, their row 0 the same at M = 1 as at
      M = 8, and every e4m3 code and packed byte through them exactly;
      the two NVFP4 kernels at the training path's x and gradient shapes,
-     with and without the RHT (amaxes, payloads and scales equal), then
+     with and without the RHT (amaxes, payloads and scales equal), at the
+     MLP's shape an input whose column runs cancel exactly under the
+     rotation beside rows of +0 and -0, two launches bitwise equal and
+     two yardsticks of the timer (``torch.aminmax`` and a copy), then
      f32, a zero tensor, -0 codes, subnormal scales, other sign masks and
      stochastic rounding (neighbours, repeatability, bias); the grouped
      MXFP8 QDQ of the MoE's expert kernels at MIXTRAL_8X7B's two stacks,
@@ -1406,6 +1409,27 @@ def nvfp4_input(torch, g, m: int, n: int, dtype=None):
     return x.to(dtype or torch.bfloat16)
 
 
+def nvfp4_cancel_input(torch, g, m: int, n: int, dtype=None):
+    """Normal values whose column runs of 16 rows are a constant (even
+    columns) or a signed Hadamard row (odd ones): the RHT under sign mask
+    0 turns each into one nonzero value and 15 exact zeros. Rows 16-31
+    are +0 and rows 32-47 -0; the even rows 48-62 are small negative
+    values beside a 6 every 16 columns, which round to -0."""
+    x = torch.randn((m, n), generator=g, device="cuda")
+    i = torch.arange(16, device="cuda")
+    ij = i[:, None] & i[None, :]
+    had = 1.0 - 2.0 * (sum((ij >> b) & 1 for b in range(4)) & 1).float()
+    cols = torch.arange(n, device="cuda")
+    sign = torch.where(cols % 2 == 1, had[:, cols % 16],
+                       torch.ones((), device="cuda"))
+    y = x[::16].repeat_interleave(16, dim=0) * sign.repeat(m // 16, 1)
+    y[16:32] = 0.0
+    y[32:48] = -0.0
+    y[48:64:2] = -x[48:64:2].abs() * 1e-3
+    y[48:64:2, ::16] = 6.0
+    return y.to(dtype or torch.bfloat16)
+
+
 def check_nvfp4_pair(torch, name: str, x, mask, seed=None):
     """Both NVFP4 kernels on ``x`` against their plain versions: the two
     amaxes equal, then payloads and scales byte for byte under the tensor
@@ -1444,27 +1468,44 @@ def check_nvfp4_quantize(torch, timer, results):
         el = m * n
         # Read x once (the amax pass writes two floats); the quantize pass
         # writes two one-byte payloads and two grids of a byte per 16.
-        # Operations an element: abs and max, and with the RHT 32 more (16
-        # products and 16 sums); the quantize about 19 an orientation
-        # (abs, max, scale, clip, 14 comparisons) and the RHT's 32.
+        # Operations an element, counted from csrc/nvfp4.cuh's bodies as
+        # single f32 or integer operations (at half F32_FLOPS, which counts
+        # an FMA as two): the amax 2 (abs and max), with the RHT 10 (both
+        # maxima and the folded rotation's 92 operations a run of 16); the
+        # quantize 12 an orientation (abs and max, the scaled value, 7 to
+        # round, half a conversion, about 2 for the block scale's three
+        # divisions a run), and with the RHT 6 more. Neither count reaches
+        # the bytes' time: the bound stays the bytes'.
         for mask in (None, 0):
             rht = mask is not None
-            _, ts, _ = check_nvfp4_pair(
+            amax, ts, first = check_nvfp4_pair(
                 torch, f"({m}, {n}) {'with' if rht else 'without'} the RHT",
                 x, mask)
             ms_a = timer(lambda: nvfp4_amax_2x(x, mask))
             plain_a = timer(lambda: nvfp4_amax_2x_plain(x, mask))
             ms_q = timer(lambda: nvfp4_quantize_2x(x, *ts, mask))
             plain_q = timer(lambda: nvfp4_quantize_2x_plain(x, *ts, mask))
-            ba, bya = bound_ms(2 * el + 8, (34 if rht else 2) * el,
-                               F32_FLOPS)
+            ba, bya = bound_ms(2 * el + 8, (10 if rht else 2) * el,
+                               F32_FLOPS / 2)
             bq, byq = bound_ms(2 * el + 2 * (el + el // 16),
-                               (70 if rht else 38) * el, F32_FLOPS)
+                               (30 if rht else 24) * el, F32_FLOPS / 2)
             log(f"    amax kernel {ms_a:.4f} ms, plain {plain_a:.4f} ms, "
                 f"bound {ba:.4f} ms ({bya}); quantize kernel {ms_q:.4f} ms, "
                 f"plain {plain_q:.4f} ms, bound {bq:.4f} ms ({byq})")
-            if n != 14336 or not rht:
+            if n != 14336:
                 continue
+            check_nvfp4_repeat(torch, x, mask, amax, ts, first)
+            check_nvfp4_pair(torch, f"({m}, {n}) cancelling runs, +0 and -0 "
+                             f"rows, {'with' if rht else 'without'} the RHT",
+                             nvfp4_cancel_input(torch, g, m, n), mask)
+            if not rht:
+                continue
+            ms_mm, ms_cp = time_yardsticks(torch, timer, x)
+            log(f"    yardsticks of this timer at ({m}, {n}) bf16: "
+                f"torch.aminmax(x) {ms_mm:.4f} ms (one read, bound "
+                f"{bound_ms(2 * el, 0)[0]:.4f} ms), dst.copy_(x) "
+                f"{ms_cp:.4f} ms (a read and a write, bound "
+                f"{bound_ms(4 * el, 0)[0]:.4f} ms)")
             shape = f"({m}, {n}) bf16 with the RHT"
             results["nvfp4_amax_2x"] = dict(
                 name="nvfp4_amax_2x", route="cuda",
@@ -1480,6 +1521,51 @@ def check_nvfp4_quantize(torch, timer, results):
                 max_abs_err=0.0, ms=ms_q, plain_ms=plain_q, bound_ms=bq,
                 bound_by=byq, library_ms=None,
                 shape=shape + " -> e2m1 + e4m3 scales, both orientations")
+
+
+def check_nvfp4_repeat(torch, x, mask, amax, ts, first) -> None:
+    """A second launch of each NVFP4 kernel on ``x`` (after the timer's)
+    gives the first one's amaxes and bytes bit for bit."""
+    from transformerengine_tpu_torch.ops.quantize_kernels import (
+        nvfp4_amax_2x, nvfp4_quantize_2x)
+    again = nvfp4_amax_2x(x, mask)
+    same = all(float(a) == float(b) for a, b in zip(amax, again))
+    log(f"  a second launch of nvfp4_amax_2x: amaxes "
+        f"{'equal' if same else 'DIFFER'} {'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError("nvfp4_amax_2x is not repeatable")
+    check_bytes_equal(torch, "a second launch of nvfp4_quantize_2x",
+                      nvfp4_quantize_2x(x, *ts, mask), first,
+                      ("row", "srow", "col", "scol"))
+
+
+def time_yardsticks(torch, timer, x) -> tuple:
+    """The timer's own reach on x's bytes: (``torch.aminmax(x)``, one
+    read; ``dst.copy_(x)``, a read and a write) in ms."""
+    dst = torch.empty_like(x)
+    return timer(lambda: torch.aminmax(x)), timer(lambda: dst.copy_(x))
+
+
+def time_nvfp4_shapes(torch, timer) -> dict:
+    """The NVFP4 kernels' times at every [3o] shape, without and with the
+    RHT, and the timer's two yardsticks at the MLP's shape (tools/
+    flash_ab.py --group nvfp4 runs it on each checkout's port)."""
+    from transformerengine_tpu_torch.ops.quantize_kernels import (
+        nvfp4_amax_2x, nvfp4_quantize_2x)
+    from transformerengine_tpu_torch.quantize.qmath import nvfp4_tensor_scale
+    g = torch.Generator(device="cuda").manual_seed(12)
+    ms = {}
+    for m, n in NVFP4_SHAPES:
+        x = nvfp4_input(torch, g, m, n)
+        for mask in (None, 0):
+            tag = f"{m}x{n}{' rht' if mask is not None else ''}"
+            ts = [nvfp4_tensor_scale(a) for a in nvfp4_amax_2x(x, mask)]
+            ms[f"amax {tag}"] = timer(lambda: nvfp4_amax_2x(x, mask))
+            ms[f"quantize {tag}"] = timer(
+                lambda: nvfp4_quantize_2x(x, *ts, mask))
+        if n == 14336:
+            ms["aminmax"], ms["copy"] = time_yardsticks(torch, timer, x)
+    return ms
 
 
 # Stochastic rounding's bias: each code's mean over SR_SEEDS seeds lies

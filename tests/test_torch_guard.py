@@ -158,6 +158,9 @@ def test_entry_points_without_a_device_need_the_card(monkeypatch):
     from transformerengine_tpu_torch.models.mixtral import load_flax_params
     with pytest.raises(RuntimeError, match="no CUDA device"):
         load_flax_params({}, MIXTRAL_TINY)
+    from transformerengine_tpu_torch.inference import paged_init
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        paged_init(4, 4, 1, 4, 1, 16)
     model = LlamaModel(LLAMA_TINY, device="cpu")
     tokens = torch.ones((1, 4), dtype=torch.int32)
     paged = InferenceParams(1, 8, is_paged=True, page_size=4)

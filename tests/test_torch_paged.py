@@ -61,7 +61,7 @@ def test_paged_cache_functions_match_jax(dtype, prompt):
     b, hkv, d, page, mpps = 2, 2, 16, 8, 4
     rng = np.random.default_rng(0)
     js = jkv.paged_init(16, page, b, mpps, hkv, d, dtype=jd)
-    tc = tkv.paged_init(16, page, b, mpps, hkv, d, dtype=td)
+    tc = tkv.paged_init(16, page, b, mpps, hkv, d, dtype=td, device="cpu")
     scale = np.array([3.0, 0.25], np.float32) if dtype == "fp8" else None
     js_scale = jnp.asarray(scale) if scale is not None else None
     t_scale = torch.from_numpy(scale) if scale is not None else None
@@ -92,7 +92,8 @@ def test_paged_pool_overflow_raises_without_writing():
     """A pool too small for the tokens raises on the CPU, before any
     write past it (the reference's XLA scatter drops such writes; on the
     card an index past the pool would be a device fault)."""
-    tc = tkv.paged_init(2, 4, 2, 2, 1, 16, dtype=torch.float32)
+    tc = tkv.paged_init(2, 4, 2, 2, 1, 16, dtype=torch.float32,
+                        device="cpu")
     kn = torch.ones((2, 1, 1, 16))
     for _ in range(4):
         tkv.paged_append_token(tc, kn, kn)
@@ -102,7 +103,8 @@ def test_paged_pool_overflow_raises_without_writing():
         tkv.paged_append_token(tc, kn, kn)
     assert torch.equal(tc.pages_k, before)
     # A sequence that outgrows its table raises too.
-    tc = tkv.paged_init(8, 4, 1, 1, 1, 16, dtype=torch.float32)
+    tc = tkv.paged_init(8, 4, 1, 1, 1, 16, dtype=torch.float32,
+                        device="cpu")
     for _ in range(4):
         tkv.paged_append_token(tc, kn[:1], kn[:1])
     with pytest.raises(RuntimeError, match="out of room"):

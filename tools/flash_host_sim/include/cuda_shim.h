@@ -52,6 +52,8 @@ inline int max(int a, int b) { return a > b ? a : b; }
 inline float __int_as_float(int v) { float f; memcpy(&f, &v, 4); return f; }
 inline int __float_as_int(float v) { int i; memcpy(&i, &v, 4); return i; }
 inline float __uint_as_float(unsigned v) { float f; memcpy(&f, &v, 4); return f; }
+inline unsigned __float_as_uint(float v) { unsigned u; memcpy(&u, &v, 4); return u; }
+using std::signbit;
 inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
@@ -88,6 +90,14 @@ inline __half2_raw __nv_cvt_fp8x2_to_halfraw2(__nv_fp8x2_storage_t v, __nv_fp8_i
 }
 inline float2 __half22float2(__half2 h) { return {h.x, h.y}; }
 inline uint8_t __nv_cvt_float_to_fp8(float f, __nv_saturation_t, __nv_fp8_interpretation_t k) { return sim_float_to_fp8(f, k == __NV_E5M2); }
+inline __nv_fp8x2_storage_t __nv_cvt_float2_to_fp8x2(float2 f, __nv_saturation_t, __nv_fp8_interpretation_t k) {
+  return __nv_fp8x2_storage_t(sim_float_to_fp8(f.x, k == __NV_E5M2) | (sim_float_to_fp8(f.y, k == __NV_E5M2) << 8));
+}
+typedef uint8_t __nv_fp8_storage_t;
+struct __half_raw { float x; };
+struct __half { float x; __half() = default; __half(__half_raw r) : x(r.x) {} };
+inline __half_raw __nv_cvt_fp8_to_halfraw(__nv_fp8_storage_t v, __nv_fp8_interpretation_t k) { return {sim_fp8_to_float(v, k == __NV_E5M2)}; }
+inline float __half2float(__half h) { return h.x; }
 
 namespace sim {
 struct Warp { std::barrier<> bar{32}; uint64_t x[32][8]; };
@@ -139,7 +149,9 @@ inline T __shfl_sync(unsigned, T v, int src) {
   T r; memcpy(&r, &bits, sizeof(T)); return r;
 }
 int atomicMax(int* p, int v);
+unsigned atomicMax(unsigned* p, unsigned v);
 unsigned atomicAdd(unsigned* p, unsigned v);
+unsigned atomicExch(unsigned* p, unsigned v);
 inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
 template <typename T> inline T __ldcg(const T* p) { return *p; }
 inline cudaError_t cudaGetLastError() { return sim::last_error(); }

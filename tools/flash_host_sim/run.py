@@ -2,17 +2,18 @@
 """Runs the tensor-core kernels' CUDA sources on the CPU, in a host
 simulation, through the port's own wrappers, and holds each result to the
 wrapper's plain version (the tolerances of ``chip_smoke.py`` phase 3):
-the flash attention kernels, the decode GEMMs and the two decode
-attention kernels.
+the flash attention kernels, the decode GEMMs, the two decode attention
+kernels and the two NVFP4 quantize kernels (byte for byte).
 
     python3 tools/flash_host_sim/run.py [--quick]
-                                        [--kernels flash,decode,decode_attn]
+                                        [--kernels flash,decode,decode_attn,nvfp4]
                                         [--out DIR]
 
 No CUDA toolkit is needed: ``g++`` (C++20, pthreads) compiles the units
 (``csrc/flash_attention*.cu``, ``csrc/decode_matvec.cu``,
-``csrc/decode_kn_matvec.cu``, ``csrc/decode_attention.cu`` and
-``csrc/paged_decode_attention.cu``) against the headers here, which stand in
+``csrc/decode_kn_matvec.cu``, ``csrc/decode_attention.cu``,
+``csrc/paged_decode_attention.cu`` and ``csrc/nvfp4_quantize.cu``) against
+the headers here, which stand in
 for the CUDA ones. Each block's threads are ``std::thread``s (a grid's
 blocks run one after another), ``__syncthreads`` a barrier, and the
 instructions of ``csrc/ptx.cuh`` (ldmatrix, mma.sync, cp.async, prmt, the
@@ -24,7 +25,10 @@ a wrong result; the timing, the hardware's summation order and the
 compiler's register use show only on the card. The simulated card holds
 264 blocks (132 SMs, two blocks each), which sets the grids that size
 themselves to fill it (the decode GEMMs' split K, the decode attention
-kernels' split sequence). Launches with ``<<<...>>>``
+kernels' split sequence, the NVFP4 passes' persistent grids). ``nvfp4``
+also builds ``nvfp4_sweep.cpp``, which holds the NVFP4 rounding to
+nearest to the table walk it replaced over every f32 of magnitude at most
+8 (about 11 s on 4 threads). Launches with ``<<<...>>>``
 and ``extern __shared__`` arrays are rewritten in a copy of the sources;
 the wrappers run their kernel path on CPU tensors (their ``_build`` hooks
 pointed at the simulated library). ``--quick`` runs one case of each; the
@@ -54,7 +58,8 @@ FLAGS = ["-std=c++20", "-O1", "-fPIC", "-pthread", "-ffp-contract=off",
 
 UNITS = {"flash": "flash_attention*.cu",
          "decode": "decode*matvec.cu",
-         "decode_attn": "*decode_attention.cu"}
+         "decode_attn": "*decode_attention.cu",
+         "nvfp4": "nvfp4_quantize.cu"}
 
 
 def build(out: Path, kinds) -> Path:
@@ -101,7 +106,8 @@ class Sim:
         for name in ("te_flash_attention_fwd", "te_flash_attention_bwd_dq",
                      "te_flash_attention_bwd_dkv", "te_decode_tn_matvec",
                      "te_decode_kn_matvec", "te_decode_attention",
-                     "te_paged_decode_attention"):
+                     "te_paged_decode_attention", "te_nvfp4_amax_2x",
+                     "te_nvfp4_quantize_2x"):
             if not hasattr(self.lib, name):
                 continue
             fn = getattr(self.lib, name)
@@ -529,11 +535,140 @@ def decode_attn_cases(torch):
     ]
 
 
+def nvfp4_input(torch, g, m: int, n: int, dtype, kind: str = "rows"):
+    """x (M, N) of ``dtype``. ``rows``: normal values with rows of three
+    magnitudes, 1e-3, 1 and 1e3 (``chip_smoke.nvfp4_input``'s rule: the
+    small rows' blocks take subnormal e4m3 scales). ``cancel``: every
+    column's runs of 16 rows are a constant or a signed Hadamard row,
+    which the RHT (sign mask 0) turns into one nonzero value and 15 exact
+    zeros; rows of +0 and of -0; small negative values beside a large
+    one, which round to -0."""
+    x = torch.randn((m, n), generator=g)
+    if kind == "rows":
+        x[:m // 4] *= 1e-3
+        x[m // 2:] *= 1e3
+        return x.to(dtype)
+    i = torch.arange(16)
+    ij = i[:, None] & i[None, :]
+    had = 1.0 - 2.0 * (sum((ij >> b) & 1 for b in range(4)) & 1).float()
+    cols = torch.arange(n)
+    sign = torch.where(cols % 2 == 1, had[:, cols % 16], torch.ones(()))
+    y = x[::16].repeat_interleave(16, dim=0) * sign.repeat(m // 16, 1)
+    y[16:32] = 0.0
+    y[32:48] = -0.0
+    y[48:64:2] = -x[48:64:2].abs() * 1e-3
+    y[48:64:2, ::16] = 6.0
+    return y.to(dtype)
+
+
+def run_nvfp4(torch, sim, fails, name, dtype, m, n, mask, seed=None,
+              kind="rows", repeat=False, data_seed=0) -> None:
+    """Both NVFP4 kernels on the simulation against their plain versions:
+    the amaxes equal, then payloads and scale grids byte for byte under
+    the tensor scales they give. With ``repeat``, two launches of each
+    give equal bytes and amaxes with a launch at another shape between
+    them (the amax pass's running maxima and ticket are reset)."""
+    from transformerengine_tpu_torch.ops import quantize_kernels as qk
+    from transformerengine_tpu_torch.quantize.qmath import (
+        nvfp4_tensor_scale)
+    g = torch.Generator().manual_seed(data_seed)
+    x = nvfp4_input(torch, g, m, n, dtype, kind)
+    t0 = time.time()
+    with sim.on():
+        amax = qk.nvfp4_amax_2x(x, mask)
+        ts = [nvfp4_tensor_scale(a) for a in amax]
+        got = qk.nvfp4_quantize_2x(x, *ts, mask, seed)
+        if repeat:
+            other = x[:16 * (m // 32) or 16, :n - 16 or 16].contiguous()
+            qk.nvfp4_amax_2x(other, mask)
+            qk.nvfp4_quantize_2x(other, *ts, mask, seed)
+            again_amax = qk.nvfp4_amax_2x(x, mask)
+            again = qk.nvfp4_quantize_2x(x, *ts, mask, seed)
+    print(f"[{name}] {time.time() - t0:.1f} s", flush=True)
+    ref_amax = qk.nvfp4_amax_2x_plain(x, mask)
+    same = all(float(a) == float(r) for a, r in zip(amax, ref_amax))
+    print(f"  {name} amaxes {[float(a) for a in amax]}: "
+          f"{'equal' if same else 'DIFFER'}", flush=True)
+    if not same:
+        fails.append(f"{name} amax")
+    ref = qk.nvfp4_quantize_2x_plain(x, *ts, mask, seed)
+    for part, a, r in zip(("row", "srow", "col", "scol"), got, ref):
+        bad = int((a.view(torch.uint8) != r.view(torch.uint8)).sum()) \
+            if a.shape == r.shape else -1
+        print(f"  {name} {part}: {bad} bytes differ "
+              f"{'ok' if bad == 0 else 'FAIL'}", flush=True)
+        if bad:
+            fails.append(f"{name} {part}")
+    if kind == "cancel":
+        codes = torch.cat([got[0].view(torch.uint8).flatten(),
+                           got[2].view(torch.uint8).flatten()])
+        signed = int((codes == 0x80).sum()), int((codes == 0).sum())
+        print(f"  {name}: {signed[0]} -0 codes, {signed[1]} +0 codes",
+              flush=True)
+        if not all(signed):
+            fails.append(f"{name} made no -0 or no +0 code")
+    if repeat:
+        ok = all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                 for a, b in zip(got, again)) and \
+            all(torch.equal(a, b) for a, b in zip(amax, again_amax))
+        print(f"  {name}: two launches, one at another shape between "
+              f"them, {'equal' if ok else 'DIFFER'}", flush=True)
+        if not ok:
+            fails.append(f"{name} repeat")
+
+
+def nvfp4_cases(torch):
+    """Keyword arguments of :func:`run_nvfp4`: bf16 and f32 x, without the
+    RHT, with it under sign mask 0 (the recipe's) and under other masks,
+    round to nearest and seeds, shapes that are not tile multiples (48 x
+    80, 208 x 336), the cancelling input with and without the RHT, and
+    more tiles (17 x 17) than the simulated card's 264 blocks, so that
+    blocks walk two tiles."""
+    bf, f32 = torch.bfloat16, torch.float32
+    return [
+        dict(name="bf16 208x336 RHT mask 0", dtype=bf, m=208, n=336, mask=0,
+             repeat=True),
+        dict(name="bf16 208x336 no RHT", dtype=bf, m=208, n=336, mask=None,
+             repeat=True),
+        dict(name="f32 48x80 RHT mask 0x1234", dtype=f32, m=48, n=80,
+             mask=0x1234),
+        dict(name="f32 208x336 no RHT seed 7", dtype=f32, m=208, n=336,
+             mask=None, seed=7),
+        dict(name="bf16 48x80 RHT mask 0xBEEF seed 11", dtype=bf, m=48,
+             n=80, mask=0xBEEF, seed=11),
+        dict(name="bf16 208x336 RHT mask 0 seed 3", dtype=bf, m=208, n=336,
+             mask=0, seed=3),
+        dict(name="f32 208x336 RHT mask 0", dtype=f32, m=208, n=336, mask=0,
+             data_seed=1),
+        dict(name="bf16 128x256 cancelling, RHT mask 0", dtype=bf, m=128,
+             n=256, mask=0, kind="cancel"),
+        dict(name="f32 128x256 cancelling, no RHT", dtype=f32, m=128, n=256,
+             mask=None, kind="cancel"),
+        dict(name="bf16 1040x2064 RHT mask 0 (blocks walk two tiles)",
+             dtype=bf, m=1040, n=2064, mask=0),
+    ]
+
+
+SWEEP = HERE / "nvfp4_sweep.cpp"
+
+
+def nvfp4_sweep(out: Path, threads: int = 4) -> tuple:
+    """Builds and runs ``nvfp4_sweep.cpp``: (exit code, its output)."""
+    exe = out / "nvfp4_sweep"
+    subprocess.run(["g++", *FLAGS[:1], "-O2", *FLAGS[2:], f"-I{CSRC}",
+                    str(SWEEP), str(HERE / "sim.cpp"), "-o", str(exe)],
+                   check=True)
+    done = subprocess.run([str(exe), str(threads)], capture_output=True,
+                          text=True)
+    return done.returncode, done.stdout + done.stderr
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true")
-    ap.add_argument("--kernels", default="flash,decode,decode_attn",
-                    help="comma-separated: flash, decode, decode_attn")
+    ap.add_argument("--kernels", default="flash,decode,decode_attn,nvfp4",
+                    help="comma-separated: flash, decode, decode_attn, "
+                    "nvfp4")
     ap.add_argument("--out", help="build directory (default: a temporary "
                     "one)")
     args = ap.parse_args()
@@ -558,6 +693,14 @@ def main() -> int:
             todo = decode_attn_cases(torch)
             for case in (todo[1:2] + todo[-3:-2] if args.quick else todo):
                 run_decode_attn(torch, sim, fails, **case)
+        if "nvfp4" in kinds:
+            todo = nvfp4_cases(torch)
+            for case in (todo[:2] if args.quick else todo):
+                run_nvfp4(torch, sim, fails, **case)
+            rc, log = nvfp4_sweep(out)
+            print(log, end="", flush=True)
+            if rc:
+                fails.append("nvfp4 rounding sweep")
         if "flash" in kinds:
             todo = cases(torch)
             for name, dt, *shape, kw in (todo[:1] if args.quick else todo):

@@ -36,6 +36,8 @@ void run_grid(dim3 grid, dim3 block, size_t smem, const std::function<void()>& b
 }  // namespace sim
 int atomicMax(int* p, int v) { std::lock_guard<std::mutex> g(sim::mu); int o = *p; if (v > o) *p = v; return o; }
 unsigned atomicAdd(unsigned* p, unsigned v) { std::lock_guard<std::mutex> g(sim::mu); unsigned o = *p; *p = o + v; return o; }
+unsigned atomicMax(unsigned* p, unsigned v) { std::lock_guard<std::mutex> g(sim::mu); unsigned o = *p; if (v > o) *p = v; return o; }
+unsigned atomicExch(unsigned* p, unsigned v) { std::lock_guard<std::mutex> g(sim::mu); unsigned o = *p; *p = v; return o; }
 static float fp8_value(uint8_t c, int e5m2) {
   const int ebits = e5m2 ? 5 : 4, mbits = e5m2 ? 2 : 3, bias = e5m2 ? 15 : 7;
   const int s = c >> 7, e = (c >> mbits) & ((1 << ebits) - 1), m = c & ((1 << mbits) - 1);
@@ -46,13 +48,24 @@ static float fp8_value(uint8_t c, int e5m2) {
   else v = std::ldexp(1.f + m / float(1 << mbits), e - bias);
   return s ? -v : v;
 }
-float sim_fp8_to_float(uint8_t c, int e5m2) { return fp8_value(c, e5m2); }
+// Each code's value, computed once.
+static const float* fp8_table(int e5m2) {
+  static const auto tables = [] {
+    std::vector<float> t(512);
+    for (int k = 0; k < 2; ++k)
+      for (int c = 0; c < 256; ++c) t[256 * k + c] = fp8_value(uint8_t(c), k);
+    return t;
+  }();
+  return tables.data() + 256 * (e5m2 ? 1 : 0);
+}
+float sim_fp8_to_float(uint8_t c, int e5m2) { return fp8_table(e5m2)[c]; }
 uint8_t sim_float_to_fp8(float f, int e5m2) {
   // nearest finite code, ties to the even code (f already clipped to range)
   if (std::isnan(f)) return e5m2 ? 0x7f : 0x7f;
+  const float* table = fp8_table(e5m2);
   int best = -1; float bd = INFINITY;
   for (int c = 0; c < 256; ++c) {
-    float v = fp8_value(c, e5m2);
+    float v = table[c];
     if (!std::isfinite(v)) continue;
     if ((c >> 7) != (std::signbit(f) ? 1 : 0)) continue;
     float d = std::fabs(v - f);

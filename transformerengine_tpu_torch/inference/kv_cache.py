@@ -21,6 +21,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from ..device import resolve_device
 from ..quantize.dtypes import dtype_max, float8_e4m3, is_fp8_dtype
 
 
@@ -189,8 +190,10 @@ def cache_append(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
 def paged_init(num_pages: int, page_size: int, batch: int,
                max_pages_per_seq: int, hkv: int, d: int,
                dtype: torch.dtype = torch.bfloat16,
-               device="cpu") -> PagedKVCache:
-    """An empty paged cache: zero pages, an unallocated table."""
+               device="cuda") -> PagedKVCache:
+    """An empty paged cache: zero pages, an unallocated table, on the card
+    unless ``device`` asks for the CPU (without a card it raises)."""
+    device = resolve_device(device)
     shape = (num_pages, page_size, hkv, d)
     return PagedKVCache(
         pages_k=torch.zeros(shape, dtype=dtype, device=device),

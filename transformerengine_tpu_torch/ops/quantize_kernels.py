@@ -417,7 +417,7 @@ def nvfp4_amax_2x(x2d: torch.Tensor, rht_mask: Optional[int] = None):
     x_code = _build.dtype_code(x2d, _X_DTYPES)
     x2d = x2d.contiguous()
     _build.check_aligned(x2d)
-    out = torch.zeros((2,), dtype=torch.float32, device=x2d.device)
+    out = torch.empty((2,), dtype=torch.float32, device=x2d.device)
     _build.launch("te_nvfp4_amax_2x", _build.ptr(x2d), x_code,
                   int(rht_mask is not None), rht_mask or 0, _build.ptr(out),
                   m, n, _build.stream(x2d))
