@@ -3,7 +3,7 @@
 turns (parent, change, change, parent by default).
 
     python3 tools/flash_ab.py PARENT_DIR CHANGE_DIR [--order 0,1,1,0]
-                              [--group flash|decode|decode_attn|nvfp4|all]
+                              [--group flash|decode|decode_attn|nvfp4|norm|all]
 
 Each turn runs, in a process of its own, the checkout's own
 ``chip_smoke.py`` row checks, which build its kernels on first use, hold
@@ -27,9 +27,16 @@ the MLP's shape with the RHT (``check_nvfp4_quantize``), and, timed in
 either tree by this checkout's ``time_nvfp4_shapes``, both kernels at
 every ``[3o]`` shape without and with the RHT and the timer's two
 yardsticks (``torch.aminmax`` and a copy of x, as ``3o aminmax`` and
-``3o copy``). Prints the card's name and
-power limit, one JSON line of row -> ms per turn, and last one JSON line
-of each checkout's per-row median. Needs one CUDA card."""
+``3o copy``). ``norm`` (the fused norm-quantize kernels): rows 6
+(``norm_cast_transpose`` through ``quantize_normed``, ``check_norm_cast``)
+and 9 (``mxfp8_norm_quantize_2x`` through ``quantize_normed``,
+``check_mxfp8_norm``) at (4096, 4096) bf16, and, timed in either tree by
+this checkout's ``time_norm_shapes``, row 9 rowwise-only and as LayerNorm
+with beta, row 6 through its wrapper alone and the timer's copy of x (as
+``norm 9 rowwise-only``, ``norm 9 layernorm``, ``norm 6 wrapper``,
+``norm copy``). Prints the card's name and power limit, one JSON line of
+row -> ms per turn, and last one JSON line of each checkout's per-row
+median. Needs one CUDA card."""
 from __future__ import annotations
 
 import argparse
@@ -48,20 +55,24 @@ ROWS = {"flash_attention_fwd": "2", "flash_attention_fwd_fp8": "2f",
         "decode_kn_matvec": "13", "decode_kn_matvec_packed": "13p",
         "decode_attention": "3", "paged_decode_attention": "14",
         "decode_attention_gptoss": "3g", "nvfp4_amax_2x": "10",
-        "nvfp4_quantize_2x": "11", "nvfp4_shapes": "3o"}
+        "nvfp4_quantize_2x": "11", "nvfp4_shapes": "3o",
+        "norm_cast_transpose": "6", "mxfp8_norm_quantize_2x": "9",
+        "norm_shapes": "norm"}
 
 CHECKS = {"flash": ("check_flash", "check_flash_bwd", "check_flash_fp8",
                     "check_flash_bwd_fp8", "check_flash_qoff",
                     "check_flash_bwd_qoff"),
           "decode": ("check_matvec", "check_kn_matvec"),
           "decode_attn": ("check_decode_attention", "check_paged_attention"),
-          "nvfp4": ("check_nvfp4_quantize",)}
+          "nvfp4": ("check_nvfp4_quantize",),
+          "norm": ("check_norm_cast", "check_mxfp8_norm")}
 # Rows timed by functions of this checkout's chip_smoke.py (which return
 # the time, or a dict of label -> time) on each tree's port: results key
 # -> function.
 EXTRAS = {"decode_attn": (("decode_attention_gptoss",
                            "check_decode_gptoss"),),
-          "nvfp4": (("nvfp4_shapes", "time_nvfp4_shapes"),)}
+          "nvfp4": (("nvfp4_shapes", "time_nvfp4_shapes"),),
+          "norm": (("norm_shapes", "time_norm_shapes"),)}
 HERE_SMOKE = Path(__file__).resolve().parents[1] / "chip_smoke.py"
 
 TURN = """
@@ -100,7 +111,8 @@ def main() -> int:
                     "checkout directories")
     ap.add_argument("--order", default="0,1,1,0")
     ap.add_argument("--group", choices=("flash", "decode", "decode_attn",
-                                        "nvfp4", "all"), default="all")
+                                        "nvfp4", "norm", "all"),
+                    default="all")
     args = ap.parse_args()
     checks = sum((CHECKS[g] for g in CHECKS
                   if args.group in (g, "all")), ())

@@ -23,6 +23,10 @@
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __align__(n) __attribute__((aligned(n)))
+// A static __shared__ array becomes a static one: right while one block runs
+// at a time (a plain grid), wrong for a cluster, whose blocks run at once
+// (the cluster kernels keep their shared memory in extern arrays).
+#define __shared__ static
 
 struct dim3 { unsigned x, y, z; constexpr dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
 struct uint4 { unsigned x, y, z, w; };
@@ -30,13 +34,14 @@ struct uint2 { unsigned x, y; };
 struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
+inline uint2 make_uint2(unsigned a, unsigned b) { return {a, b}; }
 inline float2 make_float2(float a, float b) { return {a, b}; }
 
 extern thread_local dim3 threadIdx, blockIdx;
 extern thread_local dim3 blockDim, gridDim;
 
 typedef int cudaError_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorLaunchFailure = 719 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidConfiguration = 9, cudaErrorLaunchFailure = 719 };
 typedef void* cudaStream_t;
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 template <typename K> inline cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) { return cudaSuccess; }
@@ -101,8 +106,12 @@ inline float __half2float(__half h) { return h.x; }
 
 namespace sim {
 struct Warp { std::barrier<> bar{32}; uint64_t x[32][8]; };
-struct Block { std::barrier<>* bar; Warp* warps; unsigned char* smem; size_t smem_size; };
+// A cluster's barrier over all its blocks' threads and its blocks' shared
+// memory, by rank.
+struct Cluster { std::barrier<>* bar; std::vector<unsigned char*> smem; };
+struct Block { std::barrier<>* bar; Warp* warps; unsigned char* smem; size_t smem_size; unsigned rank = 0; Cluster* cluster = nullptr; };
 extern thread_local Block* tl_block;
+std::mutex& atomics_mutex();
 inline Warp& warp() { return tl_block->warps[threadIdx.x >> 5]; }
 inline unsigned lane() { return threadIdx.x & 31; }
 inline void* smem() { return tl_block->smem; }
@@ -112,6 +121,8 @@ inline void check_smem(const void* p, size_t n) {
   if (c < tl_block->smem || c + n > tl_block->smem + tl_block->smem_size) fail("shared access out of range");
 }
 void run_grid(dim3 grid, dim3 block, size_t smem, const std::function<void()>& body);
+// A grid of clusters of `cdim` blocks along x: a cluster's blocks run at once.
+void run_cluster_grid(dim3 grid, dim3 block, size_t smem, unsigned cdim, const std::function<void()>& body);
 template <typename K>
 struct Launcher {
   K kernel; dim3 grid, block; size_t smem;
@@ -160,4 +171,35 @@ inline bool __all_sync(unsigned, bool v) {
   w.x[l][6] = v; w.bar.arrive_and_wait();
   bool all = true; for (int i = 0; i < 32; ++i) all = all && w.x[i][6];
   w.bar.arrive_and_wait(); return all;
+}
+
+// cudaLaunchKernelEx with a cluster dimension (along x), and the occupancy
+// API's clusters: 16 blocks at once over the cluster's size (two clusters
+// of 8), so that small shapes make persistent clusters walk several strips.
+enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension = 4 };
+struct cudaLaunchAttributeValue { struct { unsigned x, y, z; } clusterDim; };
+struct cudaLaunchAttribute { cudaLaunchAttributeID id; cudaLaunchAttributeValue val; };
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim; size_t dynamicSmemBytes; cudaStream_t stream;
+  cudaLaunchAttribute* attrs; unsigned numAttrs;
+};
+namespace sim {
+inline unsigned cluster_dim(const cudaLaunchConfig_t* c) {
+  for (unsigned i = 0; i < c->numAttrs; ++i)
+    if (c->attrs[i].id == cudaLaunchAttributeClusterDimension) {
+      if (c->attrs[i].val.clusterDim.y != 1 || c->attrs[i].val.clusterDim.z != 1) fail("cluster dimension other than along x");
+      return c->attrs[i].val.clusterDim.x;
+    }
+  return 1;
+}
+}  // namespace sim
+template <typename K>
+inline cudaError_t cudaOccupancyMaxActiveClusters(int* n, K, const cudaLaunchConfig_t* c) {
+  *n = c->dynamicSmemBytes > 232448 ? 0 : 16 / (int)sim::cluster_dim(c);
+  return cudaSuccess;
+}
+template <typename... E, typename... A>
+inline cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* c, void (*kernel)(E...), A&&... args) {
+  sim::run_cluster_grid(c->gridDim, c->blockDim, c->dynamicSmemBytes, sim::cluster_dim(c), [&]() { kernel(args...); });
+  return sim::last_error();
 }

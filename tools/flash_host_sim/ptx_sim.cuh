@@ -3,6 +3,9 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <chrono>
+#include <optional>
+
 namespace simptx {
 inline float bf(uint16_t b) { uint32_t u = uint32_t(b) << 16; float f; memcpy(&f, &u, 4); return f; }
 inline uint16_t half_of(uint32_t r, int hi) { return hi ? uint16_t(r >> 16) : uint16_t(r & 0xffff); }
@@ -97,4 +100,79 @@ inline uint32_t mul_bf16x2(uint32_t a, uint32_t b) {
     d |= uint32_t(__float2bfloat16(p).x) << (16 * h);
   }
   return d;
+}
+
+// The bulk copies and mbarriers: a copy lands at once and counts its bytes
+// off the barrier. An mbarrier's state in its 8 bytes: completed phases
+// (bits 0-7), the arrival count (8-15), arrivals pending (16-23), bytes
+// pending (24-55, signed) and a mark (56-63) that shows a use before init.
+namespace simptx {
+constexpr uint64_t kMbarMark = 0x5Bull;
+inline void mbar_step(uint64_t* bar, unsigned arrivals, int64_t bytes) {
+  std::lock_guard<std::mutex> g(sim::atomics_mutex());
+  const uint64_t w = *bar;
+  if ((w >> 56) != kMbarMark) sim::fail("mbarrier used before its init");
+  unsigned phase = w & 0xff, count = (w >> 8) & 0xff, pending = (w >> 16) & 0xff;
+  int64_t tx = int32_t(uint32_t(w >> 24)) + bytes;
+  if (pending < arrivals) sim::fail("mbarrier: more arrivals than its count");
+  pending -= arrivals;
+  if (pending == 0 && tx == 0) { phase = (phase + 1) & 0xff; pending = count; }
+  *bar = (kMbarMark << 56) | (uint64_t(uint32_t(int32_t(tx))) << 24) | (uint64_t(pending) << 16) | (uint64_t(count) << 8) | phase;
+}
+inline sim::Cluster& cluster() {
+  if (sim::tl_block->cluster == nullptr) sim::fail("cluster primitive outside a cluster launch");
+  return *sim::tl_block->cluster;
+}
+inline thread_local std::optional<std::barrier<>::arrival_token> cluster_token;
+}  // namespace simptx
+
+inline void mbar_init(uint64_t* bar, unsigned count) {
+  sim::check_smem(bar, 8);
+  if (reinterpret_cast<uintptr_t>(bar) % 8 || count < 1 || count > 255) sim::fail("mbarrier init");
+  std::lock_guard<std::mutex> g(sim::atomics_mutex());
+  *bar = (simptx::kMbarMark << 56) | (uint64_t(count) << 16) | (uint64_t(count) << 8);
+}
+inline void mbar_fence_init() {}
+inline void mbar_arrive_expect(uint64_t* bar, unsigned bytes) { simptx::mbar_step(bar, 1, bytes); }
+inline void mbar_wait(uint64_t* bar, unsigned parity) {
+  // A phase that never completes (a copy into another tile, a missing
+  // arrival) hangs the card; here it fails after 30 s.
+  const auto give_up = std::chrono::steady_clock::now() + std::chrono::seconds(30);
+  for (;;) {
+    uint64_t w;
+    {
+      std::lock_guard<std::mutex> g(sim::atomics_mutex());
+      w = *bar;
+    }
+    if ((w >> 56) != simptx::kMbarMark) sim::fail("mbarrier waited on before its init");
+    if ((w & 1) != parity) return;
+    if (std::chrono::steady_clock::now() > give_up) sim::fail("mbarrier phase never completed");
+    std::this_thread::yield();
+  }
+}
+inline void bulk_load(void* dst, const void* src, unsigned bytes, uint64_t* bar) {
+  if (reinterpret_cast<uintptr_t>(dst) % 16 || reinterpret_cast<uintptr_t>(src) % 16 || bytes % 16 || bytes == 0) sim::fail("bulk copy not 16-byte aligned or sized");
+  sim::check_smem(dst, bytes);
+  memcpy(dst, src, bytes);
+  simptx::mbar_step(bar, 0, -int64_t(bytes));
+}
+inline void fence_proxy_async() {}
+inline unsigned cluster_rank() { simptx::cluster(); return sim::tl_block->rank; }
+inline void cluster_sync() { simptx::cluster().bar->arrive_and_wait(); }
+inline void cluster_arrive() {
+  if (simptx::cluster_token) sim::fail("cluster arrive twice without a wait");
+  simptx::cluster_token.emplace(simptx::cluster().bar->arrive());
+}
+inline void cluster_wait() {
+  if (!simptx::cluster_token) sim::fail("cluster wait without an arrive");
+  simptx::cluster().bar->wait(std::move(*simptx::cluster_token));
+  simptx::cluster_token.reset();
+}
+template <typename T>
+inline T* cluster_map(T* p, unsigned rank) {
+  auto& cl = simptx::cluster();
+  const unsigned char* c = reinterpret_cast<const unsigned char*>(p);
+  if (c < sim::tl_block->smem || c + sizeof(T) > sim::tl_block->smem + sim::tl_block->smem_size) sim::fail("cluster_map of an address outside shared memory");
+  if (rank >= cl.smem.size()) sim::fail("cluster_map to a rank outside the cluster");
+  return reinterpret_cast<T*>(cl.smem[rank] + (c - sim::tl_block->smem));
 }

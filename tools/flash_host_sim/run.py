@@ -59,7 +59,8 @@ FLAGS = ["-std=c++20", "-O1", "-fPIC", "-pthread", "-ffp-contract=off",
 UNITS = {"flash": "flash_attention*.cu",
          "decode": "decode*matvec.cu",
          "decode_attn": "*decode_attention.cu",
-         "nvfp4": "nvfp4_quantize.cu"}
+         "nvfp4": "nvfp4_quantize.cu",
+         "norm": "*norm*.cu"}
 
 
 def build(out: Path, kinds) -> Path:
@@ -107,7 +108,8 @@ class Sim:
                      "te_flash_attention_bwd_dkv", "te_decode_tn_matvec",
                      "te_decode_kn_matvec", "te_decode_attention",
                      "te_paged_decode_attention", "te_nvfp4_amax_2x",
-                     "te_nvfp4_quantize_2x"):
+                     "te_nvfp4_quantize_2x", "te_mxfp8_norm_quantize",
+                     "te_norm_cast_transpose"):
             if not hasattr(self.lib, name):
                 continue
             fn = getattr(self.lib, name)
@@ -649,6 +651,178 @@ def nvfp4_cases(torch):
     ]
 
 
+# The fused norms' statistics against the plain version's (chip_smoke.py
+# RSIGMA_RTOL and its mu limit): sums in another order, f32 ulps.
+RSIGMA_RTOL = 1e-6
+MU_RTOL, MU_ATOL = 1e-6, 1e-7
+
+
+def run_norm(torch, sim, fails, name, form, dtype, m, h, norm="rmsnorm",
+             zcg=False, beta=False, q="e4m3", rowwise_only=False,
+             zero_row=False, clip=False, repeat=False, seed=0) -> None:
+    """One case of ``mxfp8_norm_quantize_2x`` (``form`` "mxfp8") or
+    ``norm_cast_transpose`` ("tensor") on the simulation: payloads, grids
+    and the amax byte for byte against the plain version from the kernel's
+    own statistics; rsigma and mu within f32 ulps of the plain version's.
+    ``zero_row``: rows 3 and m - 5 are zeros, whose rsigma is exactly
+    1 / sqrt(eps). ``clip``: a quarter of gamma's columns scaled by 2^-140,
+    so their blocks' amaxes fall below the E8M0 clip (2^-118). With
+    ``repeat``, two launches bitwise equal with a launch at another shape
+    between them (the per-tensor amax's ticket is reset)."""
+    from transformerengine_tpu_torch.ops import quantize_kernels as qk
+    qt = torch.float8_e4m3fn if q == "e4m3" else torch.float8_e5m2
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((m, h), generator=g) * 2 + 0.5
+    gamma = torch.randn(h, generator=g) * 0.2 + (0.0 if zcg else 1.0)
+    bt = torch.randn(h, generator=g) * 0.1 if beta else None
+    if zero_row:
+        x[3] = 0.0
+        x[m - 5] = 0.0
+    if clip:
+        gamma[: h // 4] *= 2.0 ** -140
+    x = x.to(dtype)
+    eps = 1e-5
+    kw = dict(norm=norm, zero_centered_gamma=zcg, epsilon=eps)
+    scale = torch.tensor([40.0 if q == "e4m3" else 5000.0])
+    if form == "mxfp8":
+        def call(xx=x, gm=gamma, bb=bt):
+            return qk.mxfp8_norm_quantize_2x(xx, gm, bb, qt, **kw,
+                                             rowwise_only=rowwise_only)
+        parts = ("row", "col", "srow", "scol")
+        stats_at = 4
+    else:
+        def call(xx=x, gm=gamma, bb=bt):
+            return qk.norm_cast_transpose(xx, gm, bb, scale, qt, **kw)
+        parts = ("row", "col", "amax")
+        stats_at = 3
+    t0 = time.time()
+    with sim.on():
+        got = call()
+        if repeat:
+            hh = h // 2 if h % 256 == 0 else h
+            call(x[:m // 2 if m % 64 == 0 else 32, :hh].contiguous(),
+                 gamma[:hh].contiguous(), None if bt is None else
+                 bt[:hh].contiguous())
+            again = call()
+    print(f"[{name}] {time.time() - t0:.1f} s", flush=True)
+    layernorm = norm == "layernorm"
+    rsigma = got[stats_at]
+    mu = got[stats_at + 1] if layernorm else None
+    if form == "mxfp8":
+        own = qk.mxfp8_norm_quantize_2x_plain(
+            x, gamma, bt, qt, **kw, rowwise_only=rowwise_only,
+            stats=(mu, rsigma))
+        ref = qk.mxfp8_norm_quantize_2x_plain(x, gamma, bt, qt, **kw,
+                                              rowwise_only=rowwise_only)
+    else:
+        own = qk.norm_cast_transpose_plain(x, gamma, bt, scale, qt, **kw,
+                                           stats=(mu, rsigma))
+        ref = qk.norm_cast_transpose_plain(x, gamma, bt, scale, qt, **kw)
+    for part, a, r in zip(parts, got, own):
+        if r is None:
+            bad = 0 if a is None else -1
+        elif a is None or a.shape != r.shape:
+            bad = -1
+        elif part == "amax":
+            bad = int(a.float() != r.float())
+        else:
+            bad = int((a.view(torch.uint8) != r.view(torch.uint8)).sum())
+        print(f"  {name} {part}: {bad} bytes differ from the plain version "
+              f"on the kernel's statistics {'ok' if bad == 0 else 'FAIL'}",
+              flush=True)
+        if bad:
+            fails.append(f"{name} {part}")
+    hold(fails, f"{name} rsigma", rsigma, ref[stats_at],
+         RSIGMA_RTOL * float(ref[stats_at].abs().max()))
+    if layernorm:
+        hold(fails, f"{name} mu", mu, ref[stats_at + 1],
+             MU_RTOL * float(ref[stats_at + 1].abs().max()) + MU_ATOL)
+    if zero_row:
+        want = float(1.0 / torch.sqrt(torch.tensor(eps, dtype=torch.float32)))
+        ok = float(rsigma[3]) == want == float(rsigma[m - 5])
+        print(f"  {name}: zero rows' rsigma {float(rsigma[3])!r} "
+              f"{'equal' if ok else 'DIFFERS from'} 1 / sqrt(eps) {want!r}",
+              flush=True)
+        if not ok:
+            fails.append(f"{name} zero row")
+    if clip and form == "mxfp8":
+        clipped = int((got[2] == 0).sum())
+        print(f"  {name}: {clipped} rowwise blocks at the E8M0 clip",
+              flush=True)
+        if not clipped:
+            fails.append(f"{name} reached no clipped block")
+    if repeat:
+        def same(a, b):
+            if a is None or b is None:
+                return a is None and b is None
+            return torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+        ok = all(same(a, b) for a, b in zip(got, again))
+        print(f"  {name}: two launches, one at another shape between them, "
+              f"{'equal' if ok else 'DIFFER'}", flush=True)
+        if not ok:
+            fails.append(f"{name} repeat")
+
+
+def norm_cases(torch):
+    """Keyword arguments of :func:`run_norm`, each named with the cluster
+    size C, the slices and the tiles its shape gives (make_plan in
+    csrc/norm_quant.cuh: the smallest C of 2, 4 and 8 whose slice of 32
+    rows fits 32 KB; two tiles of the slice where they fit 192 KB, else
+    x read twice in chunks):
+    bf16 and f32 x, RMSNorm and LayerNorm with beta, zero-centered gamma,
+    e4m3 and e5m2, both orientations and rowwise only, 32-column blocks
+    that do not divide evenly over C, a ragged last strip (M = 264, the
+    per-tensor form), zero rows, blocks below the E8M0 clip, more strips
+    than the clusters the simulation holds at once (16 blocks over C:
+    clusters walk several strips, each strip's tile loaded during the one
+    before), shapes past the two tiles' budget (x read twice, in chunks),
+    and two launches equal with one at another shape between."""
+    bf, f32 = torch.bfloat16, torch.float32
+    return [
+        dict(name="mxfp8 bf16 RMSNorm 2x e4m3, C 8 (blocks 8 and 9), zero "
+             "rows, repeat", form="mxfp8", dtype=bf, m=64, h=2080,
+             zero_row=True, repeat=True),
+        dict(name="mxfp8 f32 LayerNorm beta 2x e5m2, C 8 (blocks 8 and 9)",
+             form="mxfp8", dtype=f32, m=64, h=2080, norm="layernorm",
+             beta=True, q="e5m2"),
+        dict(name="mxfp8 bf16 LayerNorm beta zero-centered rowwise-only "
+             "e4m3, C 4 (blocks 8/8/8/9)", form="mxfp8", dtype=bf, m=96,
+             h=1056, norm="layernorm", beta=True, zcg=True,
+             rowwise_only=True),
+        dict(name="mxfp8 bf16 RMSNorm zero-centered 2x e5m2, C 2 (blocks "
+             "8/8)", form="mxfp8", dtype=bf, m=64, h=512, zcg=True,
+             q="e5m2"),
+        dict(name="mxfp8 f32 RMSNorm 2x below the E8M0 clip, C 2",
+             form="mxfp8", dtype=f32, m=32, h=256, clip=True),
+        dict(name="mxfp8 f32 RMSNorm 2x, 5 strips over 2 clusters of 8 "
+             "(blocks 4 and 5), repeat", form="mxfp8", dtype=f32, m=160,
+             h=1056, repeat=True),
+        dict(name="mxfp8 f32 LayerNorm beta 2x past the budget (C 8, "
+             "blocks 30, chunks of 256 columns), 3 strips over 2 clusters",
+             form="mxfp8", dtype=f32, m=96, h=7680, norm="layernorm",
+             beta=True),
+        dict(name="mxfp8 f32 LayerNorm beta 2x past the budget (C 8, "
+             "blocks 48 and 49, chunks of 256 columns)", form="mxfp8",
+             dtype=f32, m=32, h=12320, norm="layernorm", beta=True),
+        dict(name="tensor bf16 RMSNorm e4m3, M 264 (a strip of 8 rows), "
+             "C 2, repeat", form="tensor", dtype=bf, m=264, h=384,
+             repeat=True),
+        dict(name="tensor f32 LayerNorm beta zero-centered e5m2, M 264, "
+             "C 8 (blocks 8 and 9)", form="tensor", dtype=f32, m=264,
+             h=2176, norm="layernorm", beta=True, zcg=True, q="e5m2"),
+        dict(name="tensor bf16 LayerNorm beta e4m3, zero rows, C 4",
+             form="tensor", dtype=bf, m=64, h=1152, norm="layernorm",
+             beta=True, zero_row=True),
+        dict(name="tensor f32 RMSNorm e4m3, M 136: 5 strips (the last of 8 "
+             "rows) over 2 clusters of 8", form="tensor", dtype=f32, m=136,
+             h=1152),
+        dict(name="tensor f32 RMSNorm e4m3 past the budget (C 8, blocks 48 "
+             "and 49), M 40, repeat", form="tensor", dtype=f32, m=40,
+             h=12416, repeat=True),
+    ]
+
+
 SWEEP = HERE / "nvfp4_sweep.cpp"
 
 
@@ -666,9 +840,10 @@ def nvfp4_sweep(out: Path, threads: int = 4) -> tuple:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true")
-    ap.add_argument("--kernels", default="flash,decode,decode_attn,nvfp4",
+    ap.add_argument("--kernels",
+                    default="flash,decode,decode_attn,nvfp4,norm",
                     help="comma-separated: flash, decode, decode_attn, "
-                    "nvfp4")
+                    "nvfp4, norm")
     ap.add_argument("--out", help="build directory (default: a temporary "
                     "one)")
     args = ap.parse_args()
@@ -701,6 +876,10 @@ def main() -> int:
             print(log, end="", flush=True)
             if rc:
                 fails.append("nvfp4 rounding sweep")
+        if "norm" in kinds:
+            todo = norm_cases(torch)
+            for case in (todo[:1] + todo[8:9] if args.quick else todo):
+                run_norm(torch, sim, fails, **case)
         if "flash" in kinds:
             todo = cases(torch)
             for name, dt, *shape, kw in (todo[:1] if args.quick else todo):

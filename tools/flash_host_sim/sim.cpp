@@ -3,6 +3,7 @@
 // buffer filled with a byte pattern (a read before a write shows) and
 // guarded past its end; fp8 conversions by table; atomics under a lock.
 #include "cuda_shim.h"
+#include <memory>
 thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 namespace sim {
 thread_local Block* tl_block = nullptr;
@@ -10,6 +11,7 @@ static cudaError_t err = cudaSuccess;
 static std::mutex mu;
 void fail(const char* what) { fprintf(stderr, "SIM FAIL: %s (block %u %u %u thread %u)\n", what, blockIdx.x, blockIdx.y, blockIdx.z, threadIdx.x); fflush(stderr); abort(); }
 cudaError_t last_error() { cudaError_t e = err; err = cudaSuccess; return e; }
+std::mutex& atomics_mutex() { return mu; }
 void run_grid(dim3 grid, dim3 block, size_t smem, const std::function<void()>& body) {
   const unsigned n = block.x * block.y * block.z;
   if (n > 1024 || smem > 232448) { err = cudaErrorInvalidValue; return; }
@@ -31,6 +33,39 @@ void run_grid(dim3 grid, dim3 block, size_t smem, const std::function<void()>& b
           });
         for (auto& x : th) x.join();
         for (size_t i = 0; i < guard; ++i) if (base[smem + i] != 0xA5) { fprintf(stderr, "SIM FAIL: shared memory written past its size\n"); abort(); }
+      }
+}
+void run_cluster_grid(dim3 grid, dim3 block, size_t smem, unsigned cdim, const std::function<void()>& body) {
+  const unsigned n = block.x * block.y * block.z;
+  if (n > 1024 || smem > 232448 || cdim < 1 || cdim > 8 || grid.x % cdim) { err = cudaErrorInvalidValue; return; }
+  const size_t guard = 256;
+  std::vector<std::vector<unsigned char>> bufs(cdim, std::vector<unsigned char>(smem + guard + 16));
+  std::vector<unsigned char*> bases(cdim);
+  for (unsigned b = 0; b < cdim; ++b) bases[b] = bufs[b].data() + (16 - reinterpret_cast<uintptr_t>(bufs[b].data()) % 16) % 16;
+  for (unsigned bz = 0; bz < grid.z; ++bz)
+    for (unsigned by = 0; by < grid.y; ++by)
+      for (unsigned cx = 0; cx < grid.x / cdim; ++cx) {
+        for (unsigned b = 0; b < cdim; ++b) memset(bases[b], 0xA5, smem + guard);
+        std::barrier<> cbar(cdim * n);
+        Cluster cl{&cbar, bases};
+        std::vector<std::unique_ptr<std::barrier<>>> bars;
+        std::vector<std::vector<Warp>> warps(cdim);
+        std::vector<Block> blks;
+        for (unsigned b = 0; b < cdim; ++b) {
+          bars.push_back(std::make_unique<std::barrier<>>(n));
+          warps[b] = std::vector<Warp>((n + 31) / 32);
+        }
+        for (unsigned b = 0; b < cdim; ++b) blks.push_back(Block{bars[b].get(), warps[b].data(), bases[b], smem, b, &cl});
+        std::vector<std::thread> th;
+        for (unsigned b = 0; b < cdim; ++b)
+          for (unsigned t = 0; t < n; ++t)
+            th.emplace_back([&, b, t]() {
+              threadIdx = dim3(t, 0, 0); blockIdx = dim3(cx * cdim + b, by, bz); blockDim = block; gridDim = grid;
+              tl_block = &blks[b]; body();
+            });
+        for (auto& x : th) x.join();
+        for (unsigned b = 0; b < cdim; ++b)
+          for (size_t i = 0; i < guard; ++i) if (bases[b][smem + i] != 0xA5) { fprintf(stderr, "SIM FAIL: shared memory written past its size\n"); abort(); }
       }
 }
 }  // namespace sim
@@ -60,8 +95,9 @@ static const float* fp8_table(int e5m2) {
 }
 float sim_fp8_to_float(uint8_t c, int e5m2) { return fp8_table(e5m2)[c]; }
 uint8_t sim_float_to_fp8(float f, int e5m2) {
-  // nearest finite code, ties to the even code (f already clipped to range)
+  // nearest finite code, ties to the even code: saturating, as SATFINITE
   if (std::isnan(f)) return e5m2 ? 0x7f : 0x7f;
+  if (std::isinf(f)) f = std::copysign(3.0e38f, f);
   const float* table = fp8_table(e5m2);
   int best = -1; float bd = INFINITY;
   for (int c = 0; c < 256; ++c) {

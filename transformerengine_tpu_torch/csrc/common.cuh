@@ -123,22 +123,6 @@ __device__ __forceinline__ float half_warp_max(float v) {
   return v;
 }
 
-// Loads 4 consecutive elements (8 bytes of bf16, 16 of f32, aligned to
-// that size) and widens them to f32.
-__device__ __forceinline__ void load4(const float* p, float* out) {
-  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-  out[0] = v.x;
-  out[1] = v.y;
-  out[2] = v.z;
-  out[3] = v.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* out) {
-  const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
-  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) out[i] = __bfloat162float(e[i]);
-}
-
 // The per-tensor FP8 cast of quantize/qmath.py: clip to +-q_max, then
 // round to nearest even (the clip comes first, so saturation never
 // decides a value).
@@ -193,40 +177,6 @@ __device__ __forceinline__ void block_amax_to(float v, float* scratch,
     for (int w = 0; w < (int)(blockDim.x >> 5); ++w) m = fmaxf(m, scratch[w]);
     atomicMax(reinterpret_cast<int*>(out), __float_as_int(m));
   }
-}
-
-// Statistics of one row of H elements, reduced by one warp with 16-byte
-// loads (H a multiple of 16 / sizeof(T), the row 16-byte aligned): for
-// LayerNorm mean = sum(x) / H, else 0; var = sum((x - mean)^2) / H;
-// rs = 1 / sqrt(var + eps), correctly rounded. Every lane gets both.
-template <typename T>
-__device__ __forceinline__ void row_stats(const T* __restrict__ xr, int H,
-                                          int layernorm, float eps,
-                                          int lane, float& mean, float& rs) {
-  constexpr int kVec = 16 / sizeof(T);
-  mean = 0.f;
-  if (layernorm) {
-    float sum = 0.f;
-    for (int c = lane * kVec; c < H; c += 32 * kVec) {
-      float v[kVec];
-      load16(xr + c, v);
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) sum = __fadd_rn(sum, v[e]);
-    }
-    mean = __fdiv_rn(warp_sum(sum), (float)H);
-  }
-  float sq = 0.f;
-  for (int c = lane * kVec; c < H; c += 32 * kVec) {
-    float v[kVec];
-    load16(xr + c, v);
-#pragma unroll
-    for (int e = 0; e < kVec; ++e) {
-      const float d = __fsub_rn(v[e], mean);
-      sq = __fadd_rn(sq, __fmul_rn(d, d));
-    }
-  }
-  const float var = __fdiv_rn(warp_sum(sq), (float)H);
-  rs = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, eps)));
 }
 
 // Raises the dynamic shared memory limit of `kernel` when it needs more

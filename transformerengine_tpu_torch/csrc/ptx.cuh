@@ -3,7 +3,9 @@
 // accumulators (mma.sync m16n8k16), 16-byte asynchronous copies from
 // global to shared memory (cp.async), and for the decode GEMMs' weights
 // streaming loads, byte permutes (prmt), the e4m3 pair conversion and the
-// bf16 pair product.
+// bf16 pair product; for the fused norm-quantize, Hopper's bulk copies
+// (cp.async.bulk, the 1-D TMA) onto mbarriers, and the cluster's barrier,
+// rank and distributed shared memory.
 //
 // Fragment layouts of mma.m16n8k16 (lane l, g = l / 4, t = l % 4), each
 // 32-bit register holding two consecutive 16-bit values, the lower column
@@ -114,4 +116,101 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The 32-bit shared-memory address of a generic pointer into this block's
+// shared memory.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Initializes an mbarrier that completes a phase after `count` arrivals
+// and the bytes its arrivals announced (one thread, before any use).
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Makes the initialized mbarriers visible to the bulk copies and to the
+// cluster (after mbar_init, before the block's barrier).
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival on `bar` that announces `bytes` still to come by bulk copy.
+__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar,
+                                                   unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Waits until the phase of `bar` with this parity (0 for the first) has
+// completed; its bulk copies' bytes are then visible to the caller.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// Copies `bytes` (a multiple of 16; both addresses 16-byte aligned) from
+// global to this block's shared memory by the TMA unit, which counts them
+// off `bar` on arrival.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Orders this thread's earlier shared-memory accesses before later bulk
+// copies into the same bytes (the copies run in the async proxy).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// This block's rank in its cluster.
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The cluster's barrier in two halves: every thread of every block of the
+// cluster arrives (its shared-memory writes released), then waits for all
+// (the others' acquired). A block must not exit while a peer may still
+// read its shared memory: arrive after the last remote read, wait before
+// the end.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+// The address of `p` (into this block's shared memory) in the shared
+// memory of the cluster's block `rank`, as a generic pointer.
+template <typename T>
+__device__ __forceinline__ T* cluster_map(T* p, unsigned rank) {
+  uint64_t out;
+  asm volatile("mapa.u64 %0, %1, %2;\n"
+               : "=l"(out)
+               : "l"(reinterpret_cast<uint64_t>(p)), "r"(rank));
+  return reinterpret_cast<T*>(out);
 }

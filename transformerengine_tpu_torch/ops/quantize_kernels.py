@@ -8,7 +8,7 @@ Per-tensor scaling:
   ``csrc/cast_transpose.cu``.
 * :func:`norm_cast_transpose` replaces ``norm_cast_transpose``: RMSNorm or
   LayerNorm fused with the same cast, which also returns rsigma and mu;
-  kernel in ``csrc/norm_cast_transpose.cu``.
+  kernel in ``csrc/norm_cast_transpose.cu`` over ``csrc/norm_quant.cuh``.
 
 MXFP8 (one E8M0 scale per 32 elements along the quantized axis, stored as
 uint8 biased exponents):
@@ -134,10 +134,10 @@ def _check_norm_args(x2d, gamma, beta, norm):
 
 
 def norm_cast_transpose_plain(x2d, gamma, beta, scale, q_dtype, *, norm,
-                              zero_centered_gamma, epsilon):
+                              zero_centered_gamma, epsilon, stats=None):
     y, mu, rsigma = normed_plain(x2d, gamma, beta, norm=norm,
                                  zero_centered_gamma=zero_centered_gamma,
-                                 epsilon=epsilon)
+                                 epsilon=epsilon, stats=stats)
     amax = y.abs().amax().reshape(1)
     m = dtype_max(q_dtype)
     row = (y * scale.float().reshape(())).clamp(-m, m).to(q_dtype)
@@ -177,7 +177,7 @@ def norm_cast_transpose(x2d: torch.Tensor, gamma: torch.Tensor,
     dev = x2d.device
     row = torch.empty((m, h), dtype=q_dtype, device=dev)
     col = torch.empty((h, m), dtype=q_dtype, device=dev)
-    amax = torch.zeros((1,), dtype=torch.float32, device=dev)
+    amax = torch.empty((1,), dtype=torch.float32, device=dev)
     rsigma = torch.empty((m, 1), dtype=torch.float32, device=dev)
     layernorm = norm == "layernorm"
     mu = torch.empty((m, 1), dtype=torch.float32, device=dev) \
