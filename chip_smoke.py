@@ -106,21 +106,35 @@ Phases, each of which raises (and so exits non-zero) on failure:
      positions, bf16 and e4m3, forward and backward;
   4. FP8-resident serving at LLAMA_8B width (seeded random weights, FP8
      KV cache, B = 8, prompts of 512 and 384 tokens, 32 new tokens)
-     through prefill and decode_steps, with TTFT, decode ms/step, tok/s
-     and each kernel's launch count held to its expectation;
+     through prefill and decode_steps (one captured CUDA graph a step
+     after an eager first step), with TTFT, decode ms/step, tok/s and
+     each kernel's launch count held to its expectation; beside it the
+     eager loop (the model call and argmax) on a second prefill: its
+     launch counts equal, the graphed greedy tokens equal to its own
+     except at a near-tie, one capture for the caches, decode ms/step,
+     Python calls a step and the busy share of both; then sampled
+     decoding (temperature 0.7, top-k 40) graphed against eager from
+     generators seeded alike, a new one halfway, the tokens equal
+     (phases 9, 12, 14 and 17 serve through the same checks, phase 9 the
+     sampled one too);
   5. serving, the card against the CPU, for three seeds: one layer at
      LLAMA_8B width with the same weights, equal fp8 payload bytes, the
      prefill's and every decode step's logits within tolerance, and
-     near-equal greedy tokens; then one seed with MXFP8 (K, N)-resident
+     near-equal greedy tokens (the card's generate decodes through its
+     graph, the CPU's eagerly); then one seed with MXFP8 (K, N)-resident
      weights and the paged cache, and one with NVFP4 (K/2, N) packed ones
-     under autocast (two layers);
+     under autocast;
   6. FP8 training at LLAMA_8B width, 4 layers, B = 2, S = 2048, under
      DelayedScaling(amax_history_len=16): five SGD steps with finite
      losses, the delayed-scaling state rolled, and exact launch counts;
      ms/step, tokens/s, the device's busy share and top kernels, and the
      same step without a recipe. Then the quantizer API on the step's own
      activations (both orientations, and the fused norm + cast), held to
-     the layers' one-orientation payloads;
+     the layers' one-orientation payloads; then make_graphed_callables
+     with gradients: one LayerNormMLP at LLAMA_8B width and this batch,
+     forward and backward graphs against the eager module, output and
+     gradients held to GRAPHED_MLP_RTOL, and its forward form captured on
+     a sample and called on two other inputs, held to the same limit;
   7. training, the card against the CPU: one step of one layer at
      LLAMA_8B width, B = 1, S = 256, without a recipe, under
      DelayedScaling, MXFP8BlockScaling, NVFP4BlockScaling and
@@ -145,7 +159,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
  10. continuous batching at LLAMA_8B width: 8 slots, 16 seeded requests
      of 64-512 tokens, 32 new tokens each, fp8 weights and cache:
      requests/s, tok/s, admission ms, decode ms/step, exact launch counts,
-     and four requests against the card's own batch-1 generate;
+     one capture for the engine; the same requests with the engine's
+     decode op by op (equal launch counts and tokens); and four requests
+     against the card's own batch-1 generate;
  11. NVFP4 training as phase 8, under NVFP4BlockScaling() (the RHT on the
      input's and gradient's colwise usages): five steps, then the forward
      without a gradient, with exact launch counts of the two NVFP4
@@ -2170,7 +2186,8 @@ def serve(torch, results) -> None:
     expect = {"flash_attention_fwd": layers,
               "decode_attention": layers * (NEW_TOKENS - 1),
               "decode_tn_matvec": 4 * layers * (NEW_TOKENS - 1)}
-    results["_serve"] = drive_serving(torch, model, ip, expect, results)
+    results["_serve"] = drive_serving(torch, model, ip, expect, results,
+                                      sampled=True)
     del model
 
 
@@ -2187,14 +2204,22 @@ def hold_launches(counts: dict, expect: dict, results) -> None:
             add_launches(results, name, got)
 
 
-def drive_serving(torch, model, ip, expect: dict, results) -> dict:
+def drive_serving(torch, model, ip, expect: dict, results,
+                  sampled: bool = False) -> dict:
     """The serving path at B = BATCH: a warm-up generate, then, with every
     launch count from zero, a prefill of the mixed-length prompts and
-    NEW_TOKENS - 1 one-step decodes, each synchronized. Checks the tokens,
-    the logits and the launch counts (``expect``); returns TTFT, decode
-    ms/step and tok/s, the host's calls per step and the device profile of
-    four more steps."""
-    from transformerengine_tpu_torch import _build
+    NEW_TOKENS - 1 one-step decodes, each synchronized: the first step
+    runs eagerly and the engine captures it, the rest replay the graph.
+    Beside it the eager loop (:func:`eager_step`) on a second prefill of
+    the same prompts, from the graphed run's first tokens. Checks the
+    tokens, the logits, the launch counts (``expect``, and the eager
+    loop's equal to the graph's), one capture for the caches, and the
+    graphed greedy tokens against the eager loop's
+    (:func:`graph_vs_eager`); with ``sampled`` also the sampled tokens
+    (:func:`sampled_graph_vs_eager`). Returns TTFT, decode ms/step and
+    tok/s of both loops, the host's calls per step and the device
+    profile of four more steps of each."""
+    from transformerengine_tpu_torch import _build, graph
     from transformerengine_tpu_torch.inference import (
         decode_steps, generate, prefill)
     vocab = model.config.vocab_size
@@ -2204,13 +2229,15 @@ def drive_serving(torch, model, ip, expect: dict, results) -> dict:
     torch.cuda.synchronize()
     del warm
 
+    captures = graph.CAPTURES["decode_step"]
     _build.LAUNCHES.clear()
     t0 = time.perf_counter()
     first, caches = prefill(model, tokens, ip, lengths)
     first_host = first.cpu()
     ttft = time.perf_counter() - t0
     # One call a step, synchronized, so that the median and the least
-    # step time show the host's cost apart from its slower moments.
+    # step time show the host's cost apart from its slower moments. The
+    # first call runs the step eagerly and captures it.
     step_s, steps, tok = [], [], first
     for _ in range(NEW_TOKENS - 1):
         t0 = time.perf_counter()
@@ -2220,7 +2247,6 @@ def drive_serving(torch, model, ip, expect: dict, results) -> dict:
         steps.append(tok)
     toks = torch.stack(steps, dim=1)
     toks_host = toks.cpu()
-    decode_s = sum(step_s)
     counts = dict(_build.LAUNCHES)
     _build.LAUNCHES.clear()
 
@@ -2233,22 +2259,166 @@ def drive_serving(torch, model, ip, expect: dict, results) -> dict:
     if logits.shape != (BATCH, 16, vocab) or \
             not bool(torch.isfinite(logits).all()):
         raise AssertionError("the model's logits are not finite")
-    step_ms = decode_s / (NEW_TOKENS - 1) * 1e3
-    median_ms = statistics.median(step_s) * 1e3
-    least_ms = min(step_s) * 1e3
-    log(f"  TTFT {ttft * 1e3:.2f} ms (prefill of {BATCH}x{max(PROMPT_LENS)} "
-        f"tokens), decode {step_ms:.3f} ms/step (median {median_ms:.3f}, "
-        f"least {least_ms:.3f}), {BATCH / (step_ms / 1e3):.1f} tok/s, "
-        f"peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     hold_launches(counts, expect, results)
-    calls = host_calls_per_step(model, caches, toks[:, -1])
-    log(f"  host: {calls} Python calls per decode step")
-    stats = dict(ttft_ms=ttft * 1e3, decode_ms_per_step=step_ms,
-                 decode_median_ms=median_ms, decode_least_ms=least_ms,
-                 tok_per_s=BATCH / (step_ms / 1e3),
-                 layers=len(model.layers), host_calls_per_step=calls)
-    profile_decode(torch, model, caches, toks[:, -1], stats)
+
+    # The eager loop starts from the graphed run's first tokens, so that
+    # both loops start alike (a second prefill's first tokens are only
+    # compared, below).
+    _build.LAUNCHES.clear()
+    first2, caches2 = prefill(model, tokens, ip, lengths)
+    eager_s, eager_toks, gaps, tok = [], [], [], first
+    for _ in range(NEW_TOKENS - 1):
+        t0 = time.perf_counter()
+        tok, lg = eager_step(torch, model, caches2, tok)
+        torch.cuda.synchronize()
+        eager_s.append(time.perf_counter() - t0)
+        eager_toks.append(tok)
+        gaps.append(top_gap(torch, lg))
+    eager_counts = dict(_build.LAUNCHES)
+    _build.LAUNCHES.clear()
+    if eager_counts != counts:
+        raise AssertionError(f"the eager loop launched {eager_counts}, the "
+                             f"graph {counts}")
+    prefills = int((first2.cpu() != first_host).sum())
+    agreement = graph_vs_eager(torch, toks_host,
+                               torch.stack(eager_toks, dim=1).cpu(),
+                               torch.stack(gaps, dim=1).cpu())
+
+    if prefills:
+        agreement += (f"; the second prefill's first tokens differ in "
+                      f"{prefills} rows")
+    stats = dict(ttft_ms=ttft * 1e3, layers=len(model.layers),
+                 agreement_with_eager=agreement)
+    # The graph's figures are the replays'; the first step (eager, then
+    # the capture) is kept apart.
+    stats.update(step_figures("decode", step_s[1:]))
+    stats.update(step_figures("eager_decode", eager_s))
+    stats["first_step_ms"] = step_s[0] * 1e3
+    log(f"  TTFT {ttft * 1e3:.2f} ms (prefill of {BATCH}x{max(PROMPT_LENS)} "
+        f"tokens); decode through the graph "
+        f"{stats['decode_ms_per_step']:.3f} ms/step (median "
+        f"{stats['decode_median_ms']:.3f}, least "
+        f"{stats['decode_least_ms']:.3f}) over {len(step_s) - 1} replays "
+        f"after a first step of {step_s[0] * 1e3:.2f} ms (eager + capture), "
+        f"{BATCH / stats['decode_ms_per_step'] * 1e3:.1f} tok/s; the eager "
+        f"loop {stats['eager_decode_ms_per_step']:.3f} ms/step (median "
+        f"{stats['eager_decode_median_ms']:.3f}, least "
+        f"{stats['eager_decode_least_ms']:.3f}); peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    log(f"  graphed greedy tokens against the eager loop's: {agreement}")
+    stats["tok_per_s"] = BATCH / stats["decode_ms_per_step"] * 1e3
+    graph_beside_eager(
+        torch, stats,
+        lambda: decode_steps(model, caches, toks[:, -1], 1),
+        lambda: eager_step(torch, model, caches2, toks[:, -1]))
+    made = graph.CAPTURES["decode_step"] - captures
+    stats["captures"] = made
+    log(f"  captures of the decode step for these caches: {made} "
+        f"(expected 1) {'ok' if made == 1 else 'FAIL'}")
+    if made != 1:
+        raise AssertionError(f"{made} captures of the decode step on one "
+                             f"set of caches")
+    del caches2
+    if sampled:
+        stats["sampled"] = sampled_graph_vs_eager(torch, model, ip, tokens,
+                                                  lengths)
     return stats
+
+
+def eager_step(torch, model, caches, tok):
+    """One greedy decode step without the graph, the model call and the
+    argmax: what the engine captures, run op by op. Returns (tokens,
+    logits)."""
+    with torch.no_grad():
+        logits = model(tok[:, None], kv_caches=caches)[:, -1]
+    return torch.argmax(logits, dim=-1).to(torch.int32), logits
+
+
+def top_gap(torch, logits):
+    """(B,) the top two logits' distance over the largest |logit|."""
+    lg = logits.float()
+    top2 = lg.topk(2, dim=-1).values
+    return (top2[:, 0] - top2[:, 1]) / lg.abs().amax(dim=-1)
+
+
+def graph_vs_eager(torch, graphed, eager, gaps) -> str:
+    """Holds the graphed greedy tokens (B, N) to the eager loop's: equal,
+    except that a row may leave them where the eager loop's top two
+    logits lie within STEPS_RTOL of the largest (``gaps``, (B, N)); the
+    rest of that row is not compared."""
+    notes = []
+    for row in range(graphed.shape[0]):
+        diff = torch.nonzero(graphed[row] != eager[row]).flatten()
+        if not diff.numel():
+            continue
+        t = int(diff[0])
+        gap = float(gaps[row, t])
+        notes.append(f"row {row} leaves the eager loop at step {t}, where "
+                     f"its top two logits lie {gap:.3e} of the largest apart")
+        if gap > STEPS_RTOL:
+            raise AssertionError(f"graphed and eager greedy tokens differ at "
+                                 f"row {row}, step {t}, not at a near-tie")
+    return "; ".join(notes) or \
+        f"equal over {graphed.shape[0]}x{graphed.shape[1]} tokens"
+
+
+def step_figures(key: str, seconds) -> dict:
+    """Mean, median and least ms of the steps' times, under ``key``."""
+    return {f"{key}_ms_per_step": sum(seconds) / len(seconds) * 1e3,
+            f"{key}_median_ms": statistics.median(seconds) * 1e3,
+            f"{key}_least_ms": min(seconds) * 1e3}
+
+
+# Sampled decoding: steps compared between the graph and the eager loop,
+# at a common serving setting (temperature 0.7, top-k 40), one seed for
+# both generators.
+SAMPLED_STEPS = 8
+SAMPLED = dict(temperature=0.7, top_k=40)
+
+
+def sampled_graph_vs_eager(torch, model, ip, tokens, lengths) -> str:
+    """Sampled decoding through the graph against the eager loop with the
+    engine's draw, each from card generators seeded alike, after a greedy
+    prefill of the same prompts: the tokens must be equal (the graph
+    advances its registered generator as the eager draws do). Halfway, a
+    second call on the same caches brings a new generator (seeded 8) in
+    place of the first, which the caller drops: the graph must draw from
+    the new one, even where it takes the freed one's address."""
+    from transformerengine_tpu_torch.inference import decode_steps, prefill
+    from transformerengine_tpu_torch.inference.engine import _sample
+    half = SAMPLED_STEPS // 2
+    first, caches = prefill(model, tokens, ip, lengths)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    graphed = [decode_steps(model, caches, first, half, generator=gen,
+                            **SAMPLED)]
+    del gen
+    graphed.append(decode_steps(
+        model, caches, graphed[0][:, -1], SAMPLED_STEPS - half,
+        generator=torch.Generator(device="cuda").manual_seed(8), **SAMPLED))
+    graphed = torch.cat(graphed, dim=1).cpu()
+    del caches
+    first, caches = prefill(model, tokens, ip, lengths)
+    out, tok, greedy = [], first, 0
+    for i in range(SAMPLED_STEPS):
+        if i in (0, half):
+            gen = torch.Generator(device="cuda").manual_seed(7 if i == 0
+                                                             else 8)
+        with torch.no_grad():
+            logits = model(tok[:, None], kv_caches=caches)[:, -1]
+        tok = _sample(logits, gen, **SAMPLED)
+        greedy += int((tok == logits.argmax(dim=-1)).sum())
+        out.append(tok)
+    eager = torch.stack(out, dim=1).cpu()
+    note = (f"{BATCH}x{SAMPLED_STEPS} tokens at temperature "
+            f"{SAMPLED['temperature']}, top-k {SAMPLED['top_k']}, seeds 7 "
+            f"then 8: "
+            f"{'equal' if torch.equal(graphed, eager) else 'DIFFERENT'}; "
+            f"{greedy} of them the argmax")
+    log(f"  sampled, graphed against eager: {note}")
+    if not torch.equal(graphed, eager):
+        raise AssertionError(f"sampled tokens differ: graphed "
+                             f"{graphed.tolist()}, eager {eager.tolist()}")
+    return note
 
 
 def resident_gib(model) -> float:
@@ -2326,7 +2496,9 @@ def serve_paged_block(torch, results, phase: str, recipe, load: dict,
         scope = autocast(recipe=recipe) if in_autocast \
             else contextlib.nullcontext()
         with scope:
-            stats[mode] = drive_serving(torch, model, ip, expect, results)
+            stats[mode] = drive_serving(
+                torch, model, ip, expect, results,
+                sampled=mode == "quantized" and not in_autocast)
         if mode == "bf16" and not in_autocast:
             # These launches ran decode_tn_matvec's bf16-weight branch.
             n = expect["decode_tn_matvec"]
@@ -2367,10 +2539,64 @@ def serve_paged_nvfp4(torch, results) -> None:
 BATCH_SLOTS, BATCH_REQUESTS, BATCH_CHECKED = 8, 16, 4
 
 
+def run_engine(torch, eng):
+    """Steps ``eng`` until its queue and slots drain, each step
+    synchronized: (outputs by request, wall s, each admitting step's
+    admission s, each step's decode s, requests admitted)."""
+    admit_s, decode_s, admitted = [], [], [0]
+    admit = eng._admit
+
+    def timed_admit():
+        n0 = len(eng.emitted)
+        t = time.perf_counter()
+        admit()
+        torch.cuda.synchronize()
+        if len(eng.emitted) > n0:
+            admit_s.append(time.perf_counter() - t)
+            admitted[0] += len(eng.emitted) - n0
+
+    eng._admit = timed_admit
+    out = {}
+    t_all = time.perf_counter()
+    try:
+        while eng.queue or eng.active:
+            t0 = time.perf_counter()
+            a0 = sum(admit_s)
+            out.update(eng.step())
+            torch.cuda.synchronize()
+            decode_s.append(time.perf_counter() - t0 - (sum(admit_s) - a0))
+    finally:
+        eng._admit = admit
+    return out, time.perf_counter() - t_all, admit_s, decode_s, admitted[0]
+
+
+def batch1_near_tie(torch, model, prompt, ref, got, plen, ip1, what) -> str:
+    """Where request tokens ``got`` leave ``ref`` (equal lists give
+    "equal"): the step and the gap of the top two logits there, over the
+    largest, of the batch-1 run forced along ``ref``; raises where the gap
+    is wider than STEPS_RTOL."""
+    diff = torch.nonzero(got != ref).flatten()
+    if not diff.numel():
+        return "equal"
+    tokens = torch.zeros((1, plen), dtype=torch.int32)
+    tokens[0, :len(prompt)] = torch.tensor(prompt)
+    length = torch.tensor([len(prompt)], dtype=torch.int32)
+    t = int(diff[0])
+    lg = forced_logits(torch, model, tokens, length, ip1, ref[None],
+                       "cuda")[0, t]
+    top2 = lg.topk(2).values
+    gap = float(top2[0] - top2[1]) / float(lg.abs().max())
+    if gap > STEPS_RTOL:
+        raise AssertionError(f"{what} at step {t}, not at a near-tie")
+    return (f"leaves it at step {t}, where the batch-1 run's top two "
+            f"logits lie {gap:.3e} of the largest apart")
+
+
 def serve_batching(torch, results) -> None:
-    from transformerengine_tpu_torch import Float8CurrentScaling, _build
+    from transformerengine_tpu_torch import Float8CurrentScaling, _build, graph
     from transformerengine_tpu_torch.inference import (
-        ContinuousBatchingEngine, InferenceParams, generate)
+        ContinuousBatchingEngine, InferenceParams, batching, decode_steps,
+        generate)
     from transformerengine_tpu_torch.models.llama import LLAMA_8B, LlamaModel
     from transformerengine_tpu_torch.quantize.prequant import (
         prequantize_kernels)
@@ -2385,7 +2611,8 @@ def serve_batching(torch, results) -> None:
         f"weights (Float8CurrentScaling), fp8 cache with per-slot scales, "
         f"{BATCH_SLOTS} slots, prompt_len {plen}, {BATCH_REQUESTS} requests "
         f"of {int(lens.min())}-{int(lens.max())} tokens (seeded), "
-        f"{NEW_TOKENS} new tokens each")
+        f"{NEW_TOKENS} new tokens each; the engine's decode through its "
+        f"graph, then the same requests with the decode op by op")
     model = LlamaModel(cfg, device="cuda", seed=0)
     shrink_embedding(model)
     prequantize_kernels(model, Float8CurrentScaling())
@@ -2398,34 +2625,14 @@ def serve_batching(torch, results) -> None:
     del warm
     torch.cuda.synchronize()
 
+    captures = graph.CAPTURES["decode_step"]
     eng = ContinuousBatchingEngine(model, **kw)
     rids = [eng.submit(r) for r in reqs]
-    admit_s, decode_s, admitted = [], [], [0]
-    admit = eng._admit
-
-    def timed_admit():
-        n0 = len(eng.emitted)
-        t = time.perf_counter()
-        admit()
-        torch.cuda.synchronize()
-        if len(eng.emitted) > n0:
-            admit_s.append(time.perf_counter() - t)
-            admitted[0] += len(eng.emitted) - n0
-
-    eng._admit = timed_admit
     _build.LAUNCHES.clear()
-    results_out = {}
-    t_all = time.perf_counter()
-    while eng.queue or eng.active:
-        t0 = time.perf_counter()
-        a0 = sum(admit_s)
-        results_out.update(eng.step())
-        torch.cuda.synchronize()
-        decode_s.append(time.perf_counter() - t0 - (sum(admit_s) - a0))
-    wall = time.perf_counter() - t_all
+    results_out, wall, admit_s, decode_s, admitted = run_engine(torch, eng)
     counts = dict(_build.LAUNCHES)
     _build.LAUNCHES.clear()
-    eng._admit = admit
+    made = graph.CAPTURES["decode_step"] - captures
     n_steps = len(decode_s)
     if sorted(results_out) != sorted(rids) or any(
             len(results_out[r]) != NEW_TOKENS or min(results_out[r]) < 0
@@ -2433,19 +2640,70 @@ def serve_batching(torch, results) -> None:
         raise AssertionError("the engine did not finish every request with "
                              f"{NEW_TOKENS} tokens in the vocabulary")
     n_tok = sum(len(t) for t in results_out.values())
-    step_ms = sum(decode_s) / n_steps * 1e3
+    stats = dict(requests_per_s=BATCH_REQUESTS / wall, tok_per_s=n_tok / wall,
+                 admission_ms=sum(admit_s) / admitted * 1e3,
+                 decode_steps=n_steps, admissions=admitted, wall_s=wall,
+                 captures=made, **step_figures("decode", decode_s))
     log(f"  {BATCH_REQUESTS} requests in {wall:.2f} s: "
         f"{BATCH_REQUESTS / wall:.2f} requests/s, {n_tok / wall:.1f} tok/s; "
-        f"admission {sum(admit_s) / admitted[0] * 1e3:.2f} ms a request "
-        f"({admitted[0]} admissions in {len(admit_s)} steps), decode "
-        f"{step_ms:.3f} ms/step over {n_steps} steps")
-    hold_launches(counts, {"flash_attention_fwd": layers * admitted[0],
+        f"admission {stats['admission_ms']:.2f} ms a request ({admitted} "
+        f"admissions in {len(admit_s)} steps), decode "
+        f"{stats['decode_ms_per_step']:.3f} ms/step (median "
+        f"{stats['decode_median_ms']:.3f}, least "
+        f"{stats['decode_least_ms']:.3f}) over {n_steps} steps")
+    hold_launches(counts, {"flash_attention_fwd": layers * admitted,
                            "decode_attention": layers * n_steps,
                            "decode_tn_matvec": 4 * layers * n_steps,
                            "paged_decode_attention": 0,
                            "decode_kn_matvec": 0}, results)
-    # Requests against the card's own batch-1 generate of the same prompt.
+    log(f"  captures of the decode step for the engine: {made} (expected 1) "
+        f"{'ok' if made == 1 else 'FAIL'}")
+    if made != 1:
+        raise AssertionError(f"the engine captured its step {made} times")
+
+    # The same requests, the engine's decode run op by op.
+    def eager_decode(model, caches, tok, n, device=None):
+        return torch.stack([eager_step(torch, model, caches, tok)[0]], dim=1)
+
+    eager_eng = ContinuousBatchingEngine(model, **kw)
+    for r in reqs:
+        eager_eng.submit(r)
+    batching.decode_steps = eager_decode
+    try:
+        _build.LAUNCHES.clear()
+        eager_out, e_wall, _, e_decode, _ = run_engine(torch, eager_eng)
+        eager_counts = dict(_build.LAUNCHES)
+        _build.LAUNCHES.clear()
+    finally:
+        batching.decode_steps = decode_steps
+    if eager_counts != counts:
+        raise AssertionError(f"the eager engine launched {eager_counts}, the "
+                             f"graphed one {counts}")
+    stats.update(step_figures("eager_decode", e_decode),
+                 eager_requests_per_s=BATCH_REQUESTS / e_wall)
+    log(f"  op by op: {BATCH_REQUESTS / e_wall:.2f} requests/s, decode "
+        f"{stats['eager_decode_ms_per_step']:.3f} ms/step (median "
+        f"{stats['eager_decode_median_ms']:.3f}, least "
+        f"{stats['eager_decode_least_ms']:.3f}) over {len(e_decode)} steps")
     ip1 = InferenceParams(1, plen + NEW_TOKENS, torch.float8_e4m3fn)
+    notes = []
+    for rid in rids:
+        note = batch1_near_tie(
+            torch, model, reqs[rid],
+            torch.tensor(eager_out[rid], dtype=torch.int32),
+            torch.tensor(results_out[rid], dtype=torch.int32), plen, ip1,
+            f"request {rid} differs from the eager engine's")
+        if note != "equal":
+            notes.append(f"request {rid} {note}")
+    stats["agreement_with_eager"] = "; ".join(notes) or \
+        f"all {BATCH_REQUESTS} requests equal"
+    log(f"  graphed against op by op: {stats['agreement_with_eager']}")
+    # The idle slots of the drained engines keep decoding.
+    graph_beside_eager(
+        torch, stats, lambda: decode_steps(model, eng.caches, eng.current, 1),
+        lambda: eager_step(torch, model, eager_eng.caches,
+                           eager_eng.current))
+    # Requests against the card's own batch-1 generate of the same prompt.
     notes = []
     for rid in rids[::BATCH_REQUESTS // BATCH_CHECKED]:
         tokens = torch.zeros((1, plen), dtype=torch.int32)
@@ -2454,53 +2712,43 @@ def serve_batching(torch, results) -> None:
         ref = generate(model, tokens, length, NEW_TOKENS,
                        inference_params=ip1)[0].cpu()
         got = torch.tensor(results_out[rid], dtype=torch.int32)
-        diff = torch.nonzero(got != ref).flatten()
-        if not diff.numel():
-            notes.append(f"request {rid} equal")
-            continue
-        t = int(diff[0])
-        lg = forced_logits(torch, model, tokens, length, ip1, ref[None],
-                           "cuda")[0, t]
-        top2 = lg.topk(2).values
-        gap = float(top2[0] - top2[1]) / float(lg.abs().max())
-        notes.append(f"request {rid} leaves its batch-1 run at step {t}, "
-                     f"where that run's top two logits lie {gap:.3e} of the "
-                     f"largest apart")
-        if gap > STEPS_RTOL:
-            raise AssertionError(f"request {rid} differs from its batch-1 "
-                                 f"run at step {t}, not at a near-tie")
-    log(f"  against batch-1 generate: {'; '.join(notes)}")
-    results["_batching"] = dict(
-        requests_per_s=BATCH_REQUESTS / wall, tok_per_s=n_tok / wall,
-        admission_ms=sum(admit_s) / admitted[0] * 1e3,
-        decode_ms_per_step=step_ms, decode_steps=n_steps,
-        admissions=admitted[0], wall_s=wall, agreement="; ".join(notes))
-    del model, eng
+        notes.append(f"request {rid} " + batch1_near_tie(
+            torch, model, reqs[rid], ref, got, plen, ip1,
+            f"request {rid} differs from its batch-1 run"))
+    stats["agreement"] = "; ".join(notes)
+    log(f"  against batch-1 generate: {stats['agreement']}")
+    results["_batching"] = stats
+    del model, eng, eager_eng
 
 
-def host_calls_per_step(model, caches, tok) -> int:
-    """Python calls (cProfile's count, builtins included) of one more
-    decode step: the host's work per step, which sets decode ms/step
-    while the card idles, and which the shared host's speed does not
-    move. Comparable across commits on one device type (the kernel
+def host_calls(fn) -> int:
+    """Python calls (cProfile's count, builtins included) of one call of
+    ``fn``, one decode step: the host's work per step, which sets decode
+    ms/step while the card idles, and which the shared host's speed does
+    not move. Comparable across commits on one device type (the kernel
     wrappers' own calls differ between the card and the CPU)."""
     import cProfile
     import pstats
-    from transformerengine_tpu_torch.inference import decode_steps
     prof = cProfile.Profile()
     prof.enable()
-    decode_steps(model, caches, tok, 1, device=tok.device)
+    fn()
     prof.disable()
     return sum(v[1] for v in pstats.Stats(prof).stats.values())
 
 
-def profile_decode(torch, model, caches, tok, stats, steps: int = 4) -> None:
-    """Device time by kernel over a few more decode steps, and the
-    device's busy share of the steps' wall time."""
-    from transformerengine_tpu_torch.inference import decode_steps
-    busy, wall, kernels = device_profile(
-        torch, lambda: decode_steps(model, caches, tok, steps), 1)
-    log_profile("decode", stats, busy, wall, kernels, steps)
+def graph_beside_eager(torch, stats, graphed, eager, steps: int = 4) -> None:
+    """Python calls of one decode step, and the device's time by kernel
+    and busy share over ``steps`` more, through the graph (``graphed``,
+    one step a call) and the eager loop (``eager``), into ``stats``
+    (the eager loop's under ``eager_``)."""
+    for label, fn, prefix in (("graphed", graphed, ""),
+                              ("eager", eager, "eager_")):
+        calls = host_calls(fn)
+        stats[prefix + "host_calls_per_step"] = calls
+        log(f"  host: {calls} Python calls per {label} decode step")
+        busy, wall, kernels = device_profile(torch, fn, steps)
+        log_profile(f"{label} decode", stats, busy, wall, kernels, steps,
+                    key=prefix + "profile")
 
 
 def forced_logits(torch, model, tokens, lengths, ip, forced, dev):
@@ -2537,10 +2785,8 @@ PREFILL_RTOL = 2 ** -6
 STEPS_RTOL = 2 ** -5
 CARD_VS_CPU_SEEDS = (1, 2, 3)
 # Depth of phase 5's model. One layer takes every kernel of the path and
-# halves the CPU's side, which sets the phase's time. The NVFP4 seed keeps
-# the two layers its reading below was taken at.
+# halves the CPU's side, which sets the phase's time.
 CARD_VS_CPU_LAYERS = 1
-NVFP4_VS_CPU_LAYERS = 2
 # Decode steps a seed compares. The limits were read over eight; four
 # keep the phase inside its share of the time limit (the CPU side widens
 # every weight at every decode GEMM).
@@ -2553,10 +2799,12 @@ PAGED_VS_CPU_SEED = 4
 # lands an ulp apart, its tensor scale moves every block scale and code
 # that follow it, and the logits differ by a tenth of the largest (seed 5
 # read 9.95e-2 at prefill and 0.136 over four steps). Seed 6 is one of
-# the first kind: it read 5.2e-6 at prefill and 3.1e-5 over four steps,
-# seed 7 4.9e-6 and 5.6e-6 (an H100 80GB HBM3 at 700 W; PERF.md,
-# section 6). The limit, about three times the largest reading of seeds
-# 6 and 7, fails any wrong code, block scale or tensor scale.
+# the first kind: at two layers it read 5.2e-6 at prefill and 3.1e-5
+# over four steps, seed 7 4.9e-6 and 5.6e-6; at the one layer it runs
+# now, 5.3e-6 and 5.4e-6, seed 7 6.5e-5 and 6.5e-5 (an H100 80GB HBM3 at
+# 700 W; PERF.md, section 6). The limit, about three times seed 6's
+# largest reading at two layers, fails any wrong code, block scale or
+# tensor scale.
 NVFP4_VS_CPU_SEED = 6
 NVFP4_RTOL = 1e-4
 
@@ -2629,8 +2877,7 @@ def card_vs_cpu(torch, nvfp4_seeds=(NVFP4_VS_CPU_SEED,)) -> None:
         f"cache, seeds {CARD_VS_CPU_SEEDS}; then seed {PAGED_VS_CPU_SEED} "
         f"with MXFP8 (K, N)-resident weights (block_decode='quantized') and "
         f"the paged cache (pages of 16), and seeds {nvfp4_seeds} the same "
-        f"with NVFP4 (packed) under autocast at {NVFP4_VS_CPU_LAYERS} "
-        f"layers")
+        f"with NVFP4 (packed) under autocast")
     failures = []
     paged = dict(is_paged=True, page_size=16)
     for seed in CARD_VS_CPU_SEEDS:
@@ -2645,8 +2892,7 @@ def card_vs_cpu(torch, nvfp4_seeds=(NVFP4_VS_CPU_SEED,)) -> None:
         if not card_vs_cpu_seed(torch, seed, NVFP4BlockScaling(),
                                 dict(block_decode="quantized"), paged, b, s,
                                 new, in_autocast=True,
-                                limits=(NVFP4_RTOL, NVFP4_RTOL),
-                                layers=NVFP4_VS_CPU_LAYERS):
+                                limits=(NVFP4_RTOL, NVFP4_RTOL)):
             failures.append(seed)
     if failures:
         raise AssertionError(f"card and CPU disagree for seeds {failures}")
@@ -2655,13 +2901,12 @@ def card_vs_cpu(torch, nvfp4_seeds=(NVFP4_VS_CPU_SEED,)) -> None:
 def card_vs_cpu_seed(torch, seed: int, recipe, prequant_kw: dict,
                      ip_kw: dict, b: int, s: int, new: int,
                      in_autocast: bool = False,
-                     limits=(PREFILL_RTOL, STEPS_RTOL),
-                     layers: int = CARD_VS_CPU_LAYERS) -> bool:
-    """One seed of phase 5: the same ``layers``-layer model on the CPU and
-    the card, prequantized on each, with equal resident bytes; the greedy
-    tokens of ``generate`` and the logits along the CPU's tokens, under
-    ``autocast(recipe)`` with ``in_autocast``; ``limits`` are the prefill's
-    and the steps' tolerances."""
+                     limits=(PREFILL_RTOL, STEPS_RTOL)) -> bool:
+    """One seed of phase 5: the same CARD_VS_CPU_LAYERS-layer model on the
+    CPU and the card, prequantized on each, with equal resident bytes;
+    the greedy tokens of ``generate`` and the logits along the CPU's
+    tokens, under ``autocast(recipe)`` with ``in_autocast``; ``limits``
+    are the prefill's and the steps' tolerances."""
     import contextlib
     from transformerengine_tpu_torch import autocast
     from transformerengine_tpu_torch.inference import (
@@ -2669,7 +2914,7 @@ def card_vs_cpu_seed(torch, seed: int, recipe, prequant_kw: dict,
     from transformerengine_tpu_torch.models.llama import LLAMA_8B, LlamaModel
     from transformerengine_tpu_torch.quantize.prequant import (
         prequantize_kernels)
-    cfg = dataclasses.replace(LLAMA_8B, num_layers=layers)
+    cfg = dataclasses.replace(LLAMA_8B, num_layers=CARD_VS_CPU_LAYERS)
     t0 = time.perf_counter()
     cpu = LlamaModel(cfg, device="cpu", seed=seed)
     shrink_embedding(cpu)
@@ -2798,7 +3043,7 @@ def device_profile(torch, fn, steps: int):
 
 
 def log_profile(label: str, stats: dict, busy_us, wall_us, kernels,
-                steps: int) -> None:
+                steps: int, key: str = "profile") -> None:
     if not kernels:
         log(f"  {label} profile: the profiler saw no CUDA kernels; device "
             f"time by kernel not measured")
@@ -2809,7 +3054,7 @@ def log_profile(label: str, stats: dict, busy_us, wall_us, kernels,
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     for name, us in top:
         log(f"    {us / steps / 1e3:8.3f} ms/step  {name[:90]}")
-    stats["profile"] = dict(
+    stats[key] = dict(
         busy_ms_per_step=busy_us / steps / 1e3,
         wall_ms_per_step=wall_us / steps / 1e3,
         top_ms_per_step={n[:90]: us / steps / 1e3 for n, us in top})
@@ -2889,6 +3134,99 @@ def train(torch, results) -> None:
     quantizer_api_path(torch, model, tokens, recipe, results)
     results["_train"] = stats
     del model
+
+
+# make_graphed_callables with gradients: the graphed LayerNormMLP's
+# output and gradients against the eager module's on the same input,
+# largest difference over the largest element. The graph replays the
+# eager step's kernels on the same operands, so they agree bit for bit
+# where the libraries choose the same algorithms under capture.
+GRAPHED_MLP_RTOL = 0.0
+
+
+def check_graphed_mlp(torch) -> None:
+    """Phase 6's check of ``make_graphed_callables``' autograd form: one
+    LayerNormMLP at LLAMA_8B width (RMSNorm, SwiGLU, hidden 4096, FFN
+    14336), bf16 without a recipe, at phase 6's batch (B 2, S 2048),
+    forward and backward through forward and backward graphs against the
+    eager module: output, dx and every parameter's gradient, twice, and
+    ms a step of each. Then the forward form without a gradient, captured
+    on a sample and called on two other inputs."""
+    from transformerengine_tpu_torch import graph, make_graphed_callables
+    from transformerengine_tpu_torch.models.llama import LLAMA_8B
+    from transformerengine_tpu_torch.nn.module import LayerNormMLP
+    h, f = LLAMA_8B.hidden_size, LLAMA_8B.intermediate_size
+    log(f"[6] make_graphed_callables with gradients: LayerNormMLP (RMSNorm, "
+        f"SwiGLU) at hidden {h}, FFN {f}, B={TRAIN_B}, S={TRAIN_S}, bf16")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    mlp = LayerNormMLP(h, f, norm_type="rmsnorm",
+                       activations=("silu", "linear"), device="cuda",
+                       generator=gen)
+    x = torch.randn((TRAIN_B, TRAIN_S, h), device="cuda",
+                    generator=gen).bfloat16()
+    dy = torch.randn((TRAIN_B, TRAIN_S, h), device="cuda",
+                     generator=gen).bfloat16()
+
+    def step(fn):
+        for p in mlp.parameters():
+            p.grad = None
+        xx = x.clone().requires_grad_()
+        t0 = time.perf_counter()
+        y = fn(xx)
+        y.backward(dy)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        return [y.detach(), xx.grad] + [p.grad for p in mlp.parameters()], ms
+
+    eager, _ = step(mlp)
+    captures = graph.CAPTURES["make_graphed_callables"]
+    graphed = make_graphed_callables(mlp, (x.clone().requires_grad_(),))
+    names = ["out", "dx"] + [n for n, _ in mlp.named_parameters()]
+    worst, times = {}, {"graphed": [], "eager": []}
+    for _ in range(2):
+        got, ms = step(graphed)
+        times["graphed"].append(ms)
+        times["eager"].append(step(mlp)[1])
+        for name, a, b in zip(names, got, eager):
+            if a is None or a.shape != b.shape:
+                raise AssertionError(f"graphed {name} missing or misshapen")
+            d = float((a.float() - b.float()).abs().max()) / float(
+                b.float().abs().max())
+            worst[name] = max(worst.get(name, 0.0), d)
+    made = graph.CAPTURES["make_graphed_callables"] - captures
+    ok = made == 1 and all(d <= GRAPHED_MLP_RTOL for d in worst.values())
+    log(f"  {made} capture; largest difference over the largest element, "
+        f"graphed against eager over two steps: "
+        f"{', '.join(f'{n} {d:.3e}' for n, d in worst.items())} (limit "
+        f"{GRAPHED_MLP_RTOL:.1e}); forward and backward "
+        f"{min(times['graphed']):.3f} ms graphed, "
+        f"{min(times['eager']):.3f} ms eager (least of two) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the graphed LayerNormMLP differs from the "
+                             "eager one")
+
+    # The forward form: captured on sample arguments, then called on
+    # others of the same shape; each call's output against the eager
+    # module's on that call's own input, and the first output kept
+    # through the second call (outputs are cloned out of the graph).
+    with torch.no_grad():
+        fwd = make_graphed_callables(mlp, (x,))
+        others = [torch.randn(x.shape, device="cuda", generator=gen
+                              ).bfloat16() for _ in range(2)]
+        got = [fwd(o) for o in others]
+        want = [mlp(o) for o in others]
+    made = graph.CAPTURES["make_graphed_callables"] - captures
+    diffs = [float((a.float() - b.float()).abs().max()) / float(
+        b.float().abs().max()) for a, b in zip(got, want)]
+    ok = made == 2 and max(diffs) <= GRAPHED_MLP_RTOL
+    log(f"  forward form captured on a sample, called on two other inputs: "
+        f"{made - 1} capture; largest difference over the largest element "
+        f"{', '.join(f'{d:.3e}' for d in diffs)} (limit "
+        f"{GRAPHED_MLP_RTOL:.1e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the graphed LayerNormMLP forward does not "
+                             "answer each call from its own input")
 
 
 def mxfp8_counts(layers: int, train: bool) -> dict:
@@ -3784,28 +4122,29 @@ def route_swap(own, cached, topk: int = 2) -> str:
 
 def cached_vs_recompute(torch, model) -> str:
     """The reference test's check (``tests/test_mixtral.py``): greedy
-    tokens through the cache (the engine's prefill and one-step decodes
-    at B = BATCH over phase 4's prompts, with the reference's default bf16
-    cache) against greedy decoding that recomputes the whole sequence at
-    every step, for two sequences, with each step's router logits beside
-    the cached step's. A sequence may leave the recompute's tokens only at
-    a near-tie: the recompute's top two logits within STEPS_RTOL of the
-    largest, or a swap of experts at a router near-tie
-    (:func:`route_swap`); the rest of it is not compared."""
-    from transformerengine_tpu_torch.inference import (
-        InferenceParams, decode_steps, prefill)
+    tokens through the cache (the engine's prefill and one-step eager
+    decodes at B = BATCH over phase 4's prompts, with the reference's
+    default bf16 cache) against greedy decoding that recomputes the
+    whole sequence at every step, for two sequences, with each step's
+    router logits beside the cached step's. A sequence may leave the
+    recompute's tokens only at a near-tie: the recompute's top two logits
+    within STEPS_RTOL of the largest, or a swap of experts at a router
+    near-tie (:func:`route_swap`); the rest of it is not compared."""
+    from transformerengine_tpu_torch.inference import InferenceParams, prefill
     vocab = model.config.vocab_size
     tokens, lengths = prompts(torch, BATCH, max(PROMPT_LENS), vocab,
                               PROMPT_LENS, "cuda")
     s = tokens.shape[1]
     ip = InferenceParams(BATCH, s + NEW_TOKENS)
     routes = []
+    # The router hook runs in Python, which a graph replay skips: the
+    # cached steps run op by op (drive_serving holds the graph to them).
     with router_logits(torch, routes):
         first, caches = prefill(model, tokens, ip, lengths)
         cached, step_routes = [first], [routes[:]]
         for _ in range(NEW_TOKENS - 1):
             routes.clear()
-            cached.append(decode_steps(model, caches, cached[-1], 1)[:, 0])
+            cached.append(eager_step(torch, model, caches, cached[-1])[0])
             step_routes.append(routes[:])
     cached = torch.stack(cached, dim=1).cpu()
     notes, largest = [], 0.0
@@ -3965,9 +4304,10 @@ def moe_planted_faults(torch, recipe) -> dict:
             setattr(module, name, real)
 
     def drop_second(real):
-        def combine(expert_out, probs, aux):
+        def combine(expert_out, probs, aux, **kwargs):
             second = probs.topk(2, dim=-1).indices[:, 1:]
-            return real(expert_out, probs.scatter(1, second, 0.0), aux)
+            return real(expert_out, probs.scatter(1, second, 0.0), aux,
+                        **kwargs)
         return combine
 
     def wi_from_nn(real):
@@ -8538,6 +8878,7 @@ def main() -> int:
     run("10", serve_batching, results)
     run("5", card_vs_cpu)
     run("6", train, results)
+    run("6", check_graphed_mlp)
     run("8", train_mxfp8, results)
     run("11", train_nvfp4, results)
     run("13", train_mixtral, results)

@@ -16,6 +16,7 @@ from .common.recipe import (E4M3, E5M2, HYBRID, DelayedScaling,
                             NVFP4BlockScaling, QParams, Recipe)
 from .quantize.helper import autocast, get_quantize_config
 from .flex_attention import flex_attention
+from .graph import make_graphed_callables
 from .models.gptoss import GPTOSS_20B, GPTOSS_TINY, GptOssModel
 from .models.mixtral import MIXTRAL_8X7B, MIXTRAL_TINY, MixtralModel
 
@@ -23,4 +24,5 @@ __all__ = ["DelayedScaling", "E4M3", "E5M2", "Float8CurrentScaling",
            "Format", "GPTOSS_20B", "GPTOSS_TINY", "GptOssModel", "HYBRID",
            "MIXTRAL_8X7B", "MIXTRAL_TINY", "MXFP8BlockScaling",
            "MixtralModel", "NVFP4BlockScaling", "QParams", "Recipe",
-           "autocast", "flex_attention", "get_quantize_config", "recipe"]
+           "autocast", "flex_attention", "get_quantize_config",
+           "make_graphed_callables", "recipe"]

@@ -16,10 +16,12 @@ grouped GEMMs of ``ops/grouped_gemm.py``, with the reference's branches:
   gradient with ``tn``, the wgrad the dequantized x with the dequantized
   gradient.
 
-The group sizes are read to the host once per call and kept for the
-backward (the caller may pass host ints, as ``moe`` does once per
-layer). ``kernel_cache`` and the per-expert-scaled ``grouped_dense_gq``
-are not ported yet."""
+With a gradient the group sizes are read to the host once per call and
+kept for the backward (the caller may pass host ints, as ``moe`` does
+once per layer). Without one they go to the grouped GEMMs as given, and
+a tensor stays on the device through the bf16 products.
+``kernel_cache`` and the per-expert-scaled ``grouped_dense_gq`` are not
+ported yet."""
 from __future__ import annotations
 
 import torch
@@ -125,10 +127,10 @@ def grouped_dense(x: torch.Tensor, kernel: torch.Tensor,
     if kernel_cache is not None:
         raise NotImplementedError("grouped_dense's kernel_cache is not "
                                   "ported yet")
-    sizes = host_sizes(group_sizes)
     if needs_grad(x, kernel):
-        return _GroupedDense.apply(x, kernel, sizes, quantizer_set)
-    return _gd_fwd(x, kernel, sizes, quantizer_set)[0]
+        return _GroupedDense.apply(x, kernel, host_sizes(group_sizes),
+                                   quantizer_set)
+    return _gd_fwd(x, kernel, group_sizes, quantizer_set)[0]
 
 
 def grouped_dense_gq(x, kernel, group_sizes, grouped_quantizer):

@@ -11,6 +11,12 @@ scheduler only decides which slot runs what:
 - a slot finishes on EOS or ``max_new_tokens`` and is freed at once (its
   length reset to 0).
 
+On the card the decode step is the engine's captured CUDA graph: the
+slot caches live as long as the engine, so it captures once and replays
+every step. The admissions (an eager prefill, then in-place copies into
+the caches' storage) and the read of the tokens for the EOS check stay
+outside the graph.
+
 Prompts are right-padded to ``prompt_len``. Idle slots keep decoding
 rows that nothing reads (batch rows are independent through every
 layer), and their lengths keep growing: the cache drops their writes

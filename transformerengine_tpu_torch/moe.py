@@ -7,6 +7,7 @@ from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
+from .dense import needs_grad
 from .grouped_dense import grouped_dense
 from .ops.activation import (_ACT, CLAMPED, clamped_swiglu,
                              normalize_activation_type)
@@ -45,8 +46,9 @@ def moe(x: torch.Tensor, router_weight: torch.Tensor, w_up: torch.Tensor,
     """(output with x's shape and dtype, aux loss, a 0-d f32 tensor) of
     ``x`` (T, H) or (B, S, H): the f32 router, top-``topk`` routing,
     dispatch, the grouped expert MLP under ``quantizer_sets`` (up, down)
-    and the weighted combine. The group sizes are read to the host once
-    here, for both grouped GEMMs and their backward."""
+    and the weighted combine. With a gradient the group sizes are read
+    to the host once here, for both grouped GEMMs and their backward;
+    without one they stay an (E,) tensor on the device."""
     if ep_axis:
         raise NotImplementedError("expert parallelism (ep_axis) is not "
                                   "ported yet")
@@ -63,7 +65,9 @@ def moe(x: torch.Tensor, router_weight: torch.Tensor, w_up: torch.Tensor,
         aux_loss_coeff=aux_loss_coeff, expert_bias=expert_bias,
         num_groups=num_groups, group_topk=group_topk)
     disp, aux = token_dispatch(h, routing_map, num_out_tokens=t * topk)
-    sizes = host_sizes(aux["group_sizes"])
+    sizes = aux["group_sizes"]
+    if needs_grad(x, router_weight, w_up, w_down):
+        sizes = host_sizes(sizes)
     out_e = _expert_mlp(disp, w_up, w_down, sizes, acts, *quantizer_sets)
-    out = token_combine(out_e.to(h.dtype), probs, aux)
+    out = token_combine(out_e.to(h.dtype), probs, aux, topk=topk)
     return out.reshape(orig_shape).to(x.dtype), aux_loss

@@ -43,24 +43,33 @@ def token_dispatch(x: torch.Tensor, routing_map: torch.Tensor,
 
 
 def token_combine(expert_out: torch.Tensor, probs: torch.Tensor,
-                  aux: dict) -> torch.Tensor:
+                  aux: dict, topk: Optional[int] = None) -> torch.Tensor:
     """The expert outputs (N, H), each weighted by its token's
     probability for that expert (in the outputs' dtype), summed per token
-    in the outputs' dtype: (T, H)."""
+    (f32 sums, one rounding to the outputs' dtype): (T, H). ``topk``
+    says that every token selects exactly that many experts and N is
+    T * ``topk`` (top-k routing, as :func:`~.moe.moe` dispatches)."""
     t, e = probs.shape
     n = expert_out.shape[0]
+    if topk is not None and n != t * topk:
+        raise ValueError(f"{n} slots for {t} tokens at top-{topk}")
     token_of_slot = aux["token_of_slot"]
     expert_of_slot = aux["perm"][:n] % e
     w = probs[token_of_slot, expert_of_slot].to(expert_out.dtype)
     w = torch.where(aux["valid"], w, 0)
     contrib = expert_out * w[:, None]
-    # The reference's segment_sum. With top-2 every token sums exactly
-    # two terms from zero, and a + b == b + a, so the order of index_add's
-    # atomics on the card cannot change the result; beyond two terms it
-    # could.
-    out = torch.zeros((t, expert_out.shape[1]), dtype=expert_out.dtype,
-                      device=expert_out.device)
-    return out.index_add(0, token_of_slot, contrib)
+    # The reference's segment_sum, in a fixed order: the same result on
+    # every run, where index_add's atomics on the card would sum three or
+    # more terms of a token in any order (GPT-OSS's top-4). Each token's
+    # terms are summed in expert order over a (T, K) grid: with top-k
+    # routing its slots, sorted by (token, expert), fill a (T, topk)
+    # grid; otherwise each slot goes to its own row of a (T, E) grid.
+    if topk is not None:
+        order = torch.argsort(aux["perm"][:n])
+        return contrib[order].view(t, topk, -1).sum(dim=1)
+    grid = contrib.new_zeros((t * e, contrib.shape[1]))
+    grid = grid.index_copy(0, aux["perm"][:n], contrib)
+    return grid.view(t, e, -1).sum(dim=1)
 
 
 def moe_permute(x, routing_map, num_out_tokens=None):
