@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases 3,4,5,...,26] [--train-seeds 21]
+    python3 chip_smoke.py [--phases 3,4,5,...,27] [--train-seeds 21]
                           [--moe-seeds 31] [--gptoss-seeds 51]
 
 Phases, each of which raises (and so exits non-zero) on failure:
@@ -123,7 +123,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
      near-equal greedy tokens (the card's generate decodes through its
      graph, the CPU's eagerly); then one seed with MXFP8 (K, N)-resident
      weights and the paged cache, and one with NVFP4 (K/2, N) packed ones
-     under autocast;
+     under autocast (each seed's CPU model drawn in the background while
+     the seed before it runs, and phase 7's first one too);
   6. FP8 training at LLAMA_8B width, 4 layers, B = 2, S = 2048, under
      DelayedScaling(amax_history_len=16): five SGD steps with finite
      losses, the delayed-scaling state rolled, and exact launch counts;
@@ -156,8 +157,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
      block_decode="quantized")``, then ``"bf16"``, each with TTFT, decode
      ms/step, tok/s, resident GiB, the device's busy share and exact launch
      counts (at load and per decode step);
- 10. continuous batching at LLAMA_8B width: 8 slots, 16 seeded requests
-     of 64-512 tokens, 32 new tokens each, fp8 weights and cache:
+ 10. continuous batching at LLAMA_8B width (8 layers): 8 slots, 16
+     seeded requests of 64-512 tokens, 32 new tokens each, fp8 weights
+     and cache:
      requests/s, tok/s, admission ms, decode ms/step, exact launch counts,
      one capture for the engine; the same requests with the engine's
      decode op by op (equal launch counts and tokens); and four requests
@@ -281,11 +283,29 @@ Phases, each of which raises (and so exits non-zero) on failure:
      step of the 2-layer model on its shard (global RoPE positions, the
      loss and gradients summed over the group, SGD), held to the
      parent's step; exact launches per rank and layer, ms a call and a
-     step, the bytes staged through the host.
+     step, the bytes staged through the host;
+ 27. examples/train_llama_fp8.py's loop at LLAMA_8B width (phase 6's 4
+     layers, B = 2, S = 2048, DelayedScaling(amax_history_len=16)): the
+     loss and its backward, ``clip_by_global_norm(1.0)`` and
+     ``fused_adam(3e-4)`` applied in place, 6 steps each with f32 masters
+     and with the example's low-precision form (int16 remainders, bf16
+     exp_avg), the loss falling on a fixed batch, exact launches,
+     ms/step, the optimizer step alone (CUDA events) against its byte
+     bound, peak GiB, the busy share of one profiled step; one step from
+     one state without remat and with ``remat=True`` under
+     nothing_saveable, dots and offload_dots (gradients and delayed state
+     bitwise equal, the flash forward launched twice a layer, ms and peak
+     of each); the low-precision run's train state saved after 3 steps,
+     restored into a fresh model that takes the other 3 (params, buffers
+     and optimizer state bitwise equal to the 6 uninterrupted steps); the
+     remainder property on one layer's leaves (10 steps: remainders
+     recombine into the f32-master run's masters bit for bit) and one
+     optimizer step of each form, the card against the CPU.
 Then one ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 A kernel's ``launches`` is the sum of its counts over the runs of the
 paths (phases 4, 6, 8, 9, 10, 11, 12, 13, 14, 16, 17, 19, 20, 21, 23,
-25 and 26, phase 9's load included; phase 26's summed over its ranks),
+25, 26 and 27, phase 9's load included; phase 26's summed over its
+ranks),
 each counted from zero; comparisons with the plain versions do not
 count.
 ``--phases`` runs a subset (for iterating on one path); the default runs
@@ -302,6 +322,7 @@ import math
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -2537,6 +2558,10 @@ def serve_paged_nvfp4(torch, results) -> None:
 
 
 BATCH_SLOTS, BATCH_REQUESTS, BATCH_CHECKED = 8, 16, 4
+# Depth of the continuous-batching phase (10) at LLAMA_8B width, cut from
+# 32 for the time limit as phases 9 and 12 were: every check and launch
+# count follows the depth; phase 4 still serves all 32 layers.
+BATCHING_LAYERS = 8
 
 
 def run_engine(torch, eng):
@@ -2600,7 +2625,7 @@ def serve_batching(torch, results) -> None:
     from transformerengine_tpu_torch.models.llama import LLAMA_8B, LlamaModel
     from transformerengine_tpu_torch.quantize.prequant import (
         prequantize_kernels)
-    cfg = LLAMA_8B
+    cfg = dataclasses.replace(LLAMA_8B, num_layers=BATCHING_LAYERS)
     layers = cfg.num_layers
     plen = max(PROMPT_LENS)
     g = torch.Generator(device="cpu").manual_seed(10)
@@ -2867,8 +2892,45 @@ def same_resident_bytes(torch, cpu, card) -> int:
     return len(pk_cpu)
 
 
+class Background:
+    """One call run in a thread beside the caller's work; ``result()``
+    waits for it and raises what it raised. The card-against-CPU phases
+    draw their CPU models so: the CPU generator draws on one core (about
+    7 s for one layer at LLAMA_8B width), while the caller's CPU steps
+    take the others."""
+
+    def __init__(self, fn):
+        self._out = {}
+        self._thread = threading.Thread(target=self._run, args=(fn,),
+                                         daemon=True)
+        self._thread.start()
+
+    def _run(self, fn):
+        try:
+            self._out["value"] = fn()
+        except BaseException as err:    # handed to result()'s caller
+            self._out["error"] = err
+
+    def result(self):
+        self._thread.join()
+        if "error" in self._out:
+            raise self._out["error"]
+        return self._out["value"]
+
+
+def cpu_llama(layers: int, seed: int):
+    """A ``layers``-deep LLAMA_8B-width model drawn on the CPU from
+    ``seed``, its embedding shrunk (phases 5 and 7)."""
+    from transformerengine_tpu_torch.models.llama import LLAMA_8B, LlamaModel
+    model = LlamaModel(dataclasses.replace(LLAMA_8B, num_layers=layers),
+                       device="cpu", seed=seed)
+    shrink_embedding(model)
+    return model
+
+
 def card_vs_cpu(torch, nvfp4_seeds=(NVFP4_VS_CPU_SEED,)) -> None:
-    """Phase 5; ``nvfp4_seeds`` are the NVFP4 check's seeds."""
+    """Phase 5; ``nvfp4_seeds`` are the NVFP4 check's seeds. Each seed's
+    CPU model is drawn in the background while the seed before it runs."""
     from transformerengine_tpu_torch import (
         Float8CurrentScaling, MXFP8BlockScaling, NVFP4BlockScaling)
     b, s, new = 2, 64, CARD_VS_CPU_NEW
@@ -2880,20 +2942,23 @@ def card_vs_cpu(torch, nvfp4_seeds=(NVFP4_VS_CPU_SEED,)) -> None:
         f"with NVFP4 (packed) under autocast")
     failures = []
     paged = dict(is_paged=True, page_size=16)
-    for seed in CARD_VS_CPU_SEEDS:
-        if not card_vs_cpu_seed(torch, seed, Float8CurrentScaling(), {},
-                                {}, b, s, new):
+    runs = [(seed, Float8CurrentScaling(), {}, {}, {})
+            for seed in CARD_VS_CPU_SEEDS]
+    runs.append((PAGED_VS_CPU_SEED, MXFP8BlockScaling(),
+                 dict(block_decode="quantized"), paged, {}))
+    runs += [(seed, NVFP4BlockScaling(), dict(block_decode="quantized"),
+              paged, dict(in_autocast=True, limits=(NVFP4_RTOL, NVFP4_RTOL)))
+             for seed in nvfp4_seeds]
+    drawn = Background(lambda: cpu_llama(CARD_VS_CPU_LAYERS, runs[0][0]))
+    for i, (seed, recipe, prequant_kw, ip_kw, kw) in enumerate(runs):
+        cpu = drawn.result()
+        if i + 1 < len(runs):
+            drawn = Background(lambda nxt=runs[i + 1][0]: cpu_llama(
+                CARD_VS_CPU_LAYERS, nxt))
+        if not card_vs_cpu_seed(torch, seed, recipe, prequant_kw, ip_kw, b,
+                                s, new, cpu=cpu, **kw):
             failures.append(seed)
-    if not card_vs_cpu_seed(torch, PAGED_VS_CPU_SEED, MXFP8BlockScaling(),
-                            dict(block_decode="quantized"), paged, b, s,
-                            new):
-        failures.append(PAGED_VS_CPU_SEED)
-    for seed in nvfp4_seeds:
-        if not card_vs_cpu_seed(torch, seed, NVFP4BlockScaling(),
-                                dict(block_decode="quantized"), paged, b, s,
-                                new, in_autocast=True,
-                                limits=(NVFP4_RTOL, NVFP4_RTOL)):
-            failures.append(seed)
+        del cpu
     if failures:
         raise AssertionError(f"card and CPU disagree for seeds {failures}")
 
@@ -2901,12 +2966,13 @@ def card_vs_cpu(torch, nvfp4_seeds=(NVFP4_VS_CPU_SEED,)) -> None:
 def card_vs_cpu_seed(torch, seed: int, recipe, prequant_kw: dict,
                      ip_kw: dict, b: int, s: int, new: int,
                      in_autocast: bool = False,
-                     limits=(PREFILL_RTOL, STEPS_RTOL)) -> bool:
+                     limits=(PREFILL_RTOL, STEPS_RTOL), cpu=None) -> bool:
     """One seed of phase 5: the same CARD_VS_CPU_LAYERS-layer model on the
     CPU and the card, prequantized on each, with equal resident bytes;
     the greedy tokens of ``generate`` and the logits along the CPU's
     tokens, under ``autocast(recipe)`` with ``in_autocast``; ``limits``
-    are the prefill's and the steps' tolerances."""
+    are the prefill's and the steps' tolerances. ``cpu``: the seed's CPU
+    model (``cpu_llama``), drawn here when not given."""
     import contextlib
     from transformerengine_tpu_torch import autocast
     from transformerengine_tpu_torch.inference import (
@@ -2916,8 +2982,8 @@ def card_vs_cpu_seed(torch, seed: int, recipe, prequant_kw: dict,
         prequantize_kernels)
     cfg = dataclasses.replace(LLAMA_8B, num_layers=CARD_VS_CPU_LAYERS)
     t0 = time.perf_counter()
-    cpu = LlamaModel(cfg, device="cpu", seed=seed)
-    shrink_embedding(cpu)
+    if cpu is None:
+        cpu = cpu_llama(CARD_VS_CPU_LAYERS, seed)
     card = LlamaModel(cfg, device="cuda", seed=seed)
     card.load_state_dict(cpu.state_dict())
     for m in (cpu, card):
@@ -3825,8 +3891,10 @@ def train_vs_cpu_recipes() -> tuple:
                                         fp8_mha=True)))
 
 
-def train_card_vs_cpu(torch, seed: int = TRAIN_VS_CPU_SEED) -> list:
-    """Phase 7 for one seed; returns what failed."""
+def train_card_vs_cpu(torch, seed: int = TRAIN_VS_CPU_SEED,
+                      drawn=None) -> list:
+    """Phase 7 for one seed; returns what failed. ``drawn``: a
+    ``Background`` drawing the seed's fresh CPU model (``cpu_llama``)."""
     import copy
     import os
     from transformerengine_tpu_torch import DelayedScaling
@@ -3846,8 +3914,8 @@ def train_card_vs_cpu(torch, seed: int = TRAIN_VS_CPU_SEED) -> list:
     # what a new model of the seed would be (the delayed state registers
     # on a model's first step under a recipe), without drawing its 1e9
     # weights again (about 7 s of the CPU's generator a model).
-    fresh = LlamaModel(cfg, device="cpu", seed=seed)
-    shrink_embedding(fresh)
+    fresh = drawn.result() if drawn is not None \
+        else cpu_llama(TRAIN_VS_CPU_LAYERS, seed)
     for rname, recipe in train_vs_cpu_recipes():
         t0 = time.perf_counter()
         limits = TRAIN_VS_CPU_LIMITS[rname]
@@ -8759,6 +8827,477 @@ def train_cp(torch, results) -> None:
         gnorm_worst=st["gnorm"][worst])
 
 
+# Phase 27: examples/train_llama_fp8.py's loop at LLAMA_8B width (phase
+# 6's 4 layers, B and S, DelayedScaling(amax_history_len=16)): the loss
+# and its backward, clip_by_global_norm(OPT_CLIP) and fused_adam at the
+# example's learning rate, written into the model in place.
+OPT_LR = 3e-4
+OPT_CLIP = 1.0
+OPT_STEPS = 6
+# The checkpoint: saved after this many steps of the low-precision
+# optimizer, restored into a fresh model and optimizer, which take the
+# other steps.
+OPT_CKPT_AT = 3
+# The remainder property: steps of a remainder and an f32-master
+# optimizer (f32 moments, weight decay) on one layer's leaves with the
+# same seeded gradients of this scale.
+OPT_REM_STEPS = 10
+OPT_REM_WD = 0.01
+OPT_REM_GRAD = 1e-2
+OPT_SEED = 27
+# One optimizer step on the same leaves, state and gradients, the card
+# against the CPU: largest difference in units in the last place of any
+# param, moment or master word. Every op is IEEE on both sides (the
+# CPU's square root is taken in f64 and rounded once, the card's sqrtf
+# is correctly rounded), so none is allowed.
+OPT_VS_CPU_ULPS = 0
+REMAT_POLICIES = ("nothing_saveable", "dots", "offload_dots")
+
+
+def events_ms(torch, fn):
+    """(``fn()``, its ms on the card between two CUDA events; on the host's
+    clock for a CPU rehearsal)."""
+    if CARD == "cpu":
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def leaf_nbytes(x) -> int:
+    if x is None:
+        return 0
+    if hasattr(x, "payload"):
+        return x.payload.nbytes + x.scale_inv.nbytes
+    return x.nbytes
+
+
+def optimizer_bytes(torch, state, params) -> int:
+    """The least bytes one ``fused_adam`` step moves: each gradient (in
+    its param's dtype) read, each moment and master read and written, each
+    param written, and read too where there is no f32 master to start
+    from."""
+    total = 0
+    for n, p in params.items():
+        w = state.master[n]
+        total += p.nbytes + 2 * (leaf_nbytes(state.mu[n])
+                                 + leaf_nbytes(state.nu[n])
+                                 + leaf_nbytes(w))
+        f32_master = w is not None and w.dtype == torch.float32
+        total += p.nbytes * (1 if f32_master else 2)
+    return total
+
+
+def adam_train_step(torch, model, opt, state, tokens, targets, recipe,
+                    ms: list):
+    """One step of the example's loop: the loss and its backward
+    (``train_step`` without SGD), the gradients clipped by their global
+    norm and ``fused_adam`` applied in place; appends (clip ms, optimizer
+    ms) from CUDA events to ``ms``. Returns (loss, norm, state)."""
+    from transformerengine_tpu_torch.optimizers import (
+        clip_by_global_norm, grads_of)
+    loss = train_step(torch, model, tokens, targets, recipe, lr=0)
+    (grads, norm), clip_ms = events_ms(
+        torch, lambda: clip_by_global_norm(grads_of(model), OPT_CLIP))
+    state, opt_ms = events_ms(torch, lambda: opt.apply(model, state, grads))
+    ms.append((clip_ms, opt_ms))
+    return loss, norm, state
+
+
+def adam_state_to(state, device):
+    """A copy of an AdamState on ``device``."""
+    from transformerengine_tpu_torch.optimizers import AdamState, ScaledState
+
+    def to(x):
+        if x is None:
+            return None
+        if isinstance(x, ScaledState):
+            return ScaledState(x.payload.to(device), x.scale_inv.to(device))
+        return x.to(device)
+    return AdamState(to(state.step), {n: to(t) for n, t in state.mu.items()},
+                     {n: to(t) for n, t in state.nu.items()},
+                     {n: to(t) for n, t in state.master.items()})
+
+
+def words_apart(torch, got, ref) -> tuple:
+    """(differing words, the largest distance in units in the last place)
+    of two tensors of one dtype, on ``got``'s device."""
+    ref = ref.to(got.device)
+    if got.dtype.is_floating_point:
+        ints = {2: torch.int16, 4: torch.int32, 1: torch.int8}[
+            got.element_size()]
+        got, ref = got.view(ints), ref.view(ints)
+    d = (got.long() - ref.long()).abs()
+    return int((d > 0).sum()), int(d.max()) if d.numel() else 0
+
+
+def state_leaves(state) -> dict:
+    """{"mu.<name>": tensor, ...} of an AdamState's tensors (a ScaledState
+    as its payload and scale) and its step."""
+    out = {"step": state.step}
+    for part in ("mu", "nu", "master"):
+        for n, x in getattr(state, part).items():
+            if x is None:
+                continue
+            if hasattr(x, "payload"):
+                out[f"{part}.{n}.payload"] = x.payload
+                out[f"{part}.{n}.scale_inv"] = x.scale_inv
+            else:
+                out[f"{part}.{n}"] = x
+    return out
+
+
+def unequal(torch, got: dict, ref: dict) -> list:
+    """Names whose tensors are not bitwise equal (or missing)."""
+    if set(got) != set(ref):
+        return sorted(set(got) ^ set(ref))
+    return [n for n, t in got.items()
+            if t.dtype != ref[n].dtype or not torch.equal(t, ref[n])]
+
+
+def adam_variant(torch, results, stats, label: str, opt, recipe,
+                 checkpoint_at=None, profile=False):
+    """``OPT_STEPS`` steps of the example's loop with ``opt`` on a fresh
+    LLAMA_8B-width model (phase 6's seed, batch and depth), exact flash
+    launches in each; the loss must fall. With ``checkpoint_at`` the train
+    state is saved (in memory) after that many steps. Returns (model,
+    state, the checkpoint or None)."""
+    import io
+    from transformerengine_tpu_torch import _build
+    from transformerengine_tpu_torch.models.llama import LLAMA_8B, LlamaModel
+    from transformerengine_tpu_torch.utils import (
+        save_checkpoint, state_with_quantize_meta)
+    cfg = dataclasses.replace(LLAMA_8B, num_layers=TRAIN_LAYERS)
+    tokens, targets = train_batch(torch, cfg.vocab_size, TRAIN_B, TRAIN_S,
+                                  CARD)
+    expect = {"flash_attention_fwd": TRAIN_LAYERS,
+              "flash_attention_bwd_dq": TRAIN_LAYERS,
+              "flash_attention_bwd_dkv": TRAIN_LAYERS}
+    torch.cuda.reset_peak_memory_stats()
+    model = LlamaModel(cfg, device=CARD, seed=0)
+    shrink_embedding(model)
+    held = {"state": opt.init(model)}
+    ms = []
+
+    def one():
+        loss, norm, held["state"] = adam_train_step(
+            torch, model, opt, held["state"], tokens, targets, recipe, ms)
+        return float(loss), float(norm)
+
+    first = checkpoint_at or OPT_STEPS
+    outs, times, totals = timed_steps(torch, one, expect, first, "step")
+    ckpt = None
+    if checkpoint_at:
+        from torch.utils.serialization import config as serialization
+        ckpt = io.BytesIO()
+        t0 = time.perf_counter()
+        # An in-memory round trip: no checksum, pinned copies to the host.
+        saved = (serialization.save.compute_crc32,
+                 serialization.save.use_pinned_memory_for_d2h)
+        serialization.save.compute_crc32 = False
+        serialization.save.use_pinned_memory_for_d2h = True
+        try:
+            save_checkpoint(ckpt, state_with_quantize_meta(
+                model.state_dict(), opt_state=held["state"], step=first))
+        finally:
+            (serialization.save.compute_crc32,
+             serialization.save.use_pinned_memory_for_d2h) = saved
+        log(f"  the train state saved after step {first}: "
+            f"{ckpt.tell() / 2 ** 30:.2f} GiB in "
+            f"{time.perf_counter() - t0:.1f} s")
+        more, more_times, more_totals = timed_steps(
+            torch, one, expect, OPT_STEPS - first, "step")
+        outs, times = outs + more, times + more_times
+        totals.update(more_totals)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [o[0] for o in outs]
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: losses {losses} do not fall")
+    state = held["state"]
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    remainders = sum(1 for w in state.master.values()
+                     if w is not None and w.dtype == torch.int16)
+    step_ms = statistics.median(times[1:]) * 1e3
+    opt_ms = statistics.median(m[1] for m in ms[1:])
+    clip_ms = statistics.median(m[0] for m in ms[1:])
+    nbytes = optimizer_bytes(torch, state, params)
+    n_params = sum(p.numel() for p in params.values())
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"  {label}: losses {[round(x, 5) for x in losses]} (falling), "
+        f"grad norms {[round(o[1], 4) for o in outs]}; launches per step "
+        f"{expect} in every step ok; {remainders} int16 remainders among "
+        f"{len(params)} leaves")
+    log(f"    step times {[round(t * 1e3, 2) for t in times]} ms; median "
+        f"of steps 2-{OPT_STEPS} {step_ms:.2f} ms/step, "
+        f"{TRAIN_B * TRAIN_S / (step_ms / 1e3):.0f} tok/s, peak {peak:.2f} "
+        f"GiB")
+    log(f"    the optimizer step alone (CUDA events, median of steps "
+        f"2-{OPT_STEPS}): {opt_ms:.3f} ms against its byte bound "
+        f"{bound:.3f} ms ({nbytes / 1e9:.2f} GB at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s, {nbytes / n_params:.1f} B a "
+        f"parameter); the clip {clip_ms:.3f} ms")
+    out = dict(ms_per_step=step_ms, optimizer_ms=opt_ms, clip_ms=clip_ms,
+               optimizer_bound_ms=bound, optimizer_bytes=nbytes,
+               peak_gib=peak, losses=losses)
+    if profile:
+        busy, wall, kernels = device_profile(torch, one, 1)
+        _build.LAUNCHES.clear()
+        log_profile(f"{label} step", out, busy, wall, kernels, 1)
+    stats[label] = out
+    add_launches(results, "flash_attention_fwd", totals["flash_attention_fwd"])
+    add_launches(results, "flash_attention_bwd",
+                 totals["flash_attention_bwd_dq"]
+                 + totals["flash_attention_bwd_dkv"])
+    return model, state, ckpt
+
+
+def check_resume(torch, results, opt, recipe, ckpt, model, state) -> None:
+    """Restores ``ckpt`` into a fresh model (another seed) and optimizer
+    state, takes the remaining steps, and holds params, buffers and the
+    optimizer state bitwise to ``model`` and ``state`` after the
+    uninterrupted steps."""
+    from transformerengine_tpu_torch.models.llama import LLAMA_8B, LlamaModel
+    from transformerengine_tpu_torch.utils import restore_checkpoint
+    cfg = dataclasses.replace(LLAMA_8B, num_layers=TRAIN_LAYERS)
+    tokens, targets = train_batch(torch, cfg.vocab_size, TRAIN_B, TRAIN_S,
+                                  CARD)
+    fresh = LlamaModel(cfg, device=CARD, seed=1)
+    ckpt.seek(0)
+    t0 = time.perf_counter()
+    saved = restore_checkpoint(ckpt)
+    fresh.load_state_dict(saved["params"])
+    held = {"state": saved["opt_state"]}
+    at = saved["step"]
+    del saved
+    restore_s = time.perf_counter() - t0
+    expect = {"flash_attention_fwd": TRAIN_LAYERS,
+              "flash_attention_bwd_dq": TRAIN_LAYERS,
+              "flash_attention_bwd_dkv": TRAIN_LAYERS}
+
+    def one():
+        held["state"] = adam_train_step(
+            torch, fresh, opt, held["state"], tokens, targets, recipe, [])[2]
+    _, _, totals = timed_steps(torch, one, expect, OPT_STEPS - at,
+                               "resumed step")
+    bad = unequal(torch, dict(fresh.state_dict()), dict(model.state_dict()))
+    bad += unequal(torch, state_leaves(held["state"]), state_leaves(state))
+    log(f"  checkpoint: restored in {restore_s:.1f} s into a fresh model, "
+        f"{OPT_STEPS - at} more steps: params, buffers and optimizer state "
+        f"{'bitwise equal to' if not bad else 'DIFFER from'} "
+        f"{OPT_STEPS} uninterrupted steps ({len(state_leaves(state))} state "
+        f"tensors, {len(model.state_dict())} in the state_dict)")
+    if bad:
+        raise AssertionError(f"the resumed run differs: {bad[:8]}")
+    add_launches(results, "flash_attention_fwd", totals["flash_attention_fwd"])
+    add_launches(results, "flash_attention_bwd",
+                 totals["flash_attention_bwd_dq"]
+                 + totals["flash_attention_bwd_dkv"])
+
+
+def check_remat(torch, results, stats, model, recipe) -> None:
+    """One step from one start state without remat (twice, the control)
+    and with ``remat=True`` under each of REMAT_POLICIES (twice each):
+    every gradient and delayed-scaling buffer bitwise equal to the step
+    without remat, the flash forward launched twice a layer, each
+    policy's peak and ms/step (its second step) beside the step without
+    remat."""
+    from transformerengine_tpu_torch import _build
+    from transformerengine_tpu_torch.checkpoint_policies import remat_policy
+    from transformerengine_tpu_torch.models.llama import LLAMA_8B
+    cfg = dataclasses.replace(LLAMA_8B, num_layers=TRAIN_LAYERS)
+    tokens, targets = train_batch(torch, cfg.vocab_size, TRAIN_B, TRAIN_S,
+                                  CARD)
+    start = {n: t.clone() for n, t in model.state_dict().items()}
+
+    def run(policy):
+        model.load_state_dict(start)
+        model.remat = None if policy is None else remat_policy(policy)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        train_step(torch, model, tokens, targets, recipe, lr=0)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = dict(_build.LAUNCHES)
+        _build.LAUNCHES.clear()
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        buffers = {n: b.clone() for n, b in delayed_state(model).items()}
+        return dict(grads=grads, buffers=buffers, counts=counts,
+                    ms=seconds * 1e3,
+                    peak=torch.cuda.max_memory_allocated() / 2 ** 30,
+                    above=(torch.cuda.max_memory_allocated() - resident)
+                    / 2 ** 30)
+
+    base = run(None)
+    failures = []
+    readings = {}
+    for policy in (None,) + REMAT_POLICIES:
+        layers = TRAIN_LAYERS * (1 if policy is None else 2)
+        expect = {"flash_attention_fwd": layers,
+                  "flash_attention_bwd_dq": TRAIN_LAYERS,
+                  "flash_attention_bwd_dkv": TRAIN_LAYERS}
+        for turn in range(2):
+            got = run(policy)
+            if got["counts"] != expect:
+                failures.append(f"{policy} launched {got['counts']}, "
+                                f"expected {expect}")
+            bad = unequal(torch, got["grads"], base["grads"]) + unequal(
+                torch, got["buffers"], base["buffers"])
+            if bad:
+                failures.append(f"{policy} turn {turn + 1}: {bad[:6]} "
+                                f"differ")
+            for name, n in got["counts"].items():
+                add_launches(results, bwd_row(name), n)
+            got["grads"] = len(got.pop("grads"))
+        readings[policy or "none"] = got
+        log(f"  remat {policy or 'off (the control, a repeat)'}: gradients "
+            f"({got['grads']}) and delayed state "
+            f"({len(got['buffers'])}) "
+            f"{'bitwise equal to' if not bad else 'DIFFER from'} the step "
+            f"without remat; launches {got['counts']}; "
+            f"{got['ms']:.2f} ms/step, peak {got['peak']:.2f} GiB "
+            f"({got['above']:.2f} above the resident state)")
+    model.remat = None
+    model.load_state_dict(start)
+    model.zero_grad(set_to_none=True)
+    del base, start
+    stats["remat"] = {k: dict(ms_per_step=r["ms"], peak_gib=r["peak"],
+                              above_resident_gib=r["above"])
+                      for k, r in readings.items()}
+    if failures:
+        raise AssertionError(f"remat: {failures}")
+
+
+def check_remainders(torch) -> None:
+    """The remainder property on the card, then one optimizer step card
+    against CPU: one layer's leaves of a fresh LLAMA_8B-width model (bf16
+    kernels, f32 norm scales) under a remainder optimizer and an
+    f32-master one (f32 moments, weight decay), fed the same seeded
+    gradients for OPT_REM_STEPS steps: each bf16 leaf's parameter and
+    remainder combine into the f32 master bit for bit (the f32 leaves
+    keep f32 masters, equal). Then one more step of each on the card and
+    on the CPU from copies of the same leaves, state and gradients, held
+    to OPT_VS_CPU_ULPS."""
+    from transformerengine_tpu_torch.models.llama import LLAMA_8B
+    from transformerengine_tpu_torch.nn.transformer import TransformerLayer
+    from transformerengine_tpu_torch.optimizers import fused_adam
+    from transformerengine_tpu_torch.optimizers.fused_adam import (
+        _combine_master)
+    cfg = LLAMA_8B
+    gen = torch.Generator(device=CARD).manual_seed(OPT_SEED)
+    layer = TransformerLayer(
+        cfg.hidden_size, cfg.intermediate_size, cfg.num_attention_heads,
+        num_gqa_groups=cfg.num_kv_heads, norm_type="rmsnorm",
+        mlp_activations="swiglu", enable_rotary_pos_emb=True,
+        dtype=cfg.dtype, device=CARD, generator=gen)
+    leaves = {n: p.detach() for n, p in layer.named_parameters()}
+    del layer
+    rem_opt = fused_adam(OPT_LR, weight_decay=OPT_REM_WD,
+                         store_param_remainders=True)
+    ref_opt = fused_adam(OPT_LR, weight_decay=OPT_REM_WD,
+                         use_master_weights=True)
+    p_rem, s_rem = dict(leaves), rem_opt.init(leaves)
+    p_ref, s_ref = dict(leaves), ref_opt.init(leaves)
+
+    def grads():
+        return {n: (torch.randn(t.shape, generator=gen, device=CARD)
+                    * OPT_REM_GRAD).to(t.dtype) for n, t in leaves.items()}
+    t0 = time.perf_counter()
+    for _ in range(OPT_REM_STEPS):
+        g = grads()
+        p_rem, s_rem = rem_opt.step(g, s_rem, p_rem)
+        p_ref, s_ref = ref_opt.step(g, s_ref, p_ref)
+    bad, rounded = [], 0
+    for n, w in s_rem.master.items():
+        if w.dtype == torch.int16:
+            whole = _combine_master(p_rem[n], w)
+            rounded += words_apart(torch, p_ref[n], p_rem[n])[0]
+        else:
+            whole = w
+        if not torch.equal(whole, s_ref.master[n]):
+            bad.append(n)
+    n_rem = sum(w.dtype == torch.int16 for w in s_rem.master.values())
+    n_params = sum(t.numel() for t in leaves.values())
+    log(f"[27c] the remainder property: {len(leaves)} leaves of one layer "
+        f"({n_params / 1e6:.1f} M parameters, {n_rem} bf16 with int16 "
+        f"remainders), {OPT_REM_STEPS} steps at lr {OPT_LR}, weight decay "
+        f"{OPT_REM_WD}, seeded gradients of scale {OPT_REM_GRAD}: "
+        f"combine(param, remainder) {'equals' if not bad else 'DIFFERS from'}"
+        f" the f32 masters bit for bit ({rounded} bf16 words where the "
+        f"f32-master form's rounded parameter differs from the truncated "
+        f"one); {time.perf_counter() - t0:.1f} s")
+    if bad:
+        raise AssertionError(f"remainders: {bad} differ from the f32 masters")
+    g = grads()
+    for label, opt, p, s in (("remainders", rem_opt, p_rem, s_rem),
+                             ("f32 masters", ref_opt, p_ref, s_ref)):
+        cpu_p = {n: t.cpu() for n, t in p.items()}
+        cpu_g = {n: t.cpu() for n, t in g.items()}
+        cpu_s = adam_state_to(s, "cpu")
+        (card_p, card_s), card_ms = events_ms(torch, lambda: opt.step(g, s, p))
+        t0 = time.perf_counter()
+        host_p, host_s = opt.step(cpu_g, cpu_s, cpu_p)
+        cpu_s_time = time.perf_counter() - t0
+        got = {**{f"param.{n}": t for n, t in card_p.items()},
+               **state_leaves(card_s)}
+        ref = {**{f"param.{n}": t for n, t in host_p.items()},
+               **state_leaves(host_s)}
+        apart = {n: words_apart(torch, t, ref[n]) for n, t in got.items()}
+        words = sum(a[0] for a in apart.values())
+        ulps = max(a[1] for a in apart.values())
+        worst = max(apart, key=lambda n: apart[n][1])
+        ok = ulps <= OPT_VS_CPU_ULPS
+        log(f"[27d] one optimizer step ({label}), the card against the CPU "
+            f"on the same leaves, state and gradients: {words} differing "
+            f"words of {sum(t.numel() for t in got.values())}, largest "
+            f"{ulps} ulps ({worst}), limit {OPT_VS_CPU_ULPS} "
+            f"{'ok' if ok else 'FAIL'}; card {card_ms:.2f} ms, CPU "
+            f"{cpu_s_time:.1f} s")
+        if not ok:
+            raise AssertionError(f"optimizer step ({label}), card against "
+                                 f"CPU: {ulps} ulps at {worst}")
+
+
+def train_optimizers(torch, results) -> None:
+    """[27] examples/train_llama_fp8.py's loop in PyTorch (module
+    docstring): the two optimizer forms, remat, the checkpoint, the
+    remainder property and the optimizer card against CPU."""
+    from transformerengine_tpu_torch import DelayedScaling
+    from transformerengine_tpu_torch.optimizers import fused_adam
+    recipe = DelayedScaling(amax_history_len=16)
+    log(f"[27] the example's training loop: LLAMA_8B width, {TRAIN_LAYERS} "
+        f"layers, B={TRAIN_B} S={TRAIN_S}, DelayedScaling(amax_history_len="
+        f"16), clip_by_global_norm({OPT_CLIP}) and fused_adam({OPT_LR}) "
+        f"in place, {OPT_STEPS} steps on one batch")
+    stats = {}
+    t0 = time.perf_counter()
+    opt = fused_adam(OPT_LR, use_master_weights=True)
+    model, state, _ = adam_variant(torch, results, stats, "f32 masters", opt,
+                                   recipe, profile=True)
+    check_remat(torch, results, stats, model, recipe)
+    del model, state
+    torch.cuda.empty_cache()
+    opt = fused_adam(OPT_LR, store_param_remainders=True,
+                     exp_avg_dtype=torch.bfloat16)
+    model, state, ckpt = adam_variant(
+        torch, results, stats, "remainders, bf16 exp_avg", opt, recipe,
+        checkpoint_at=OPT_CKPT_AT)
+    check_resume(torch, results, opt, recipe, ckpt, model, state)
+    del model, state, ckpt
+    torch.cuda.empty_cache()
+    check_remainders(torch)
+    log(f"  phase 27 took {time.perf_counter() - t0:.1f} s")
+    results["_train_optimizers"] = stats
+
+
 def bwd_row(kernel: str) -> str:
     """The results row of a launch name: a branch's dQ and dK/dV kernels
     share one row."""
@@ -8770,7 +9309,7 @@ def bwd_row(kernel: str) -> str:
 
 PHASES = ("3", "4", "5", "6", "7", "8", "9", "10", "11", "12", "13", "14",
           "15", "16", "17", "18", "19", "20", "21", "22", "23", "24", "25",
-          "26")
+          "26", "27")
 
 
 def main() -> int:
@@ -8781,7 +9320,7 @@ def main() -> int:
     import argparse
     parser = argparse.ArgumentParser()
     parser.add_argument("--phases", default=",".join(PHASES),
-                        help="comma-separated subset of 3-26")
+                        help="comma-separated subset of 3-27")
     parser.add_argument("--train-seeds", default=str(TRAIN_VS_CPU_SEED),
                         help="comma-separated seeds of phase 7 (its limits "
                         "were set from the readings of 21,22,23)")
@@ -8876,6 +9415,14 @@ def main() -> int:
     run("9", serve_paged_mxfp8, results)
     run("12", serve_paged_nvfp4, results)
     run("10", serve_batching, results)
+    train_seeds = [int(x) for x in args.train_seeds.split(",")]
+    # Phase 7's first fresh CPU model is drawn in the background from
+    # phase 5 on (a phase of checks, not timings), so phase 7 need not
+    # wait for it.
+    early = {}
+    if "5" in phases and "7" in phases:
+        early[train_seeds[0]] = Background(
+            lambda: cpu_llama(TRAIN_VS_CPU_LAYERS, train_seeds[0]))
     run("5", card_vs_cpu)
     run("6", train, results)
     run("6", check_graphed_mlp)
@@ -8891,10 +9438,11 @@ def main() -> int:
     run("23", train_dropout, results)
     run("25", train_flex, results)
     run("26", train_cp, results)
+    run("27", train_optimizers, results)
     failed = []
-    for seed in map(int, args.train_seeds.split(",")):
+    for seed in train_seeds:
         run("7", lambda torch, seed=seed: failed.extend(
-            train_card_vs_cpu(torch, seed)))
+            train_card_vs_cpu(torch, seed, early.pop(seed, None))))
     for seed in map(int, args.moe_seeds.split(",")):
         run("15", lambda torch, seed=seed: failed.extend(
             mixtral_card_vs_cpu(torch, seed)))
@@ -8915,7 +9463,7 @@ def main() -> int:
                                          "_train_fp8_attention",
                                          "_train_packed", "_train_encoder",
                                          "_train_dropout", "_train_flex",
-                                         "_train_cp")
+                                         "_train_cp", "_train_optimizers")
              if k in results}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

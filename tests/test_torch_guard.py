@@ -35,7 +35,8 @@ torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "transformerengine_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "transformerengine_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
+             "transformerengine_tpu")
 
 _IMPORT_ALL = f"""
 import importlib, pkgutil, sys
@@ -111,11 +112,13 @@ def _imported_roots(path: Path):
 def test_source_scan_finds_no_jax_import():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) >= 20
-    # The MoE slice's modules are among them.
+    # The MoE slice's modules are among them, and the training loop's.
     for name in ("moe.py", "permutation.py", "grouped_dense.py",
                  "ops/router.py", "ops/grouped_gemm.py", "nn/moe.py",
                  "models/mixtral.py", "quantize/microbatch.py",
-                 "flex_attention.py"):
+                 "flex_attention.py", "optimizers/fused_adam.py",
+                 "optimizers/multi_tensor.py", "ops/cross_entropy.py",
+                 "checkpoint_policies.py", "utils/checkpoint.py"):
         assert PORT / name in files, name
     for path in files:
         bad = set(_imported_roots(path)) & set(FORBIDDEN)
@@ -180,6 +183,40 @@ def test_entry_points_without_a_device_need_the_card(monkeypatch):
         prefill(model, tokens, paged, torch.tensor([4]))
     with pytest.raises(ValueError, match="expected cuda"):
         ContinuousBatchingEngine(model, **batching)
+
+
+def test_training_loop_entry_points_keep_the_card_default(monkeypatch):
+    """The optimizer state follows its params' device; the model configs'
+    remat and the conversion of the reference's optimizer state default
+    to the card and raise without one; ``device="cpu"`` runs them."""
+    import dataclasses
+    from types import SimpleNamespace
+    from transformerengine_tpu_torch.models.llama import load_flax_opt_state
+    from transformerengine_tpu_torch.optimizers import fused_adam
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    remat = dataclasses.replace(LLAMA_TINY, remat=True,
+                                remat_policy="offload_dots")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LlamaModel(remat)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MixtralModel(dataclasses.replace(MIXTRAL_TINY, remat=True))
+    ref_state = SimpleNamespace(step=0, mu={}, nu={}, master={})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_flax_opt_state(ref_state, LLAMA_TINY)
+    assert load_flax_opt_state(ref_state, LLAMA_TINY,
+                               device="cpu").step.device.type == "cpu"
+    model = LlamaModel(remat, device="cpu")
+    for opt in (fused_adam(store_param_remainders=True,
+                           exp_avg_dtype=torch.bfloat16),
+                fused_adam(use_master_weights=True,
+                           exp_avg_sq_dtype=torch.float8_e4m3fn)):
+        state = opt.init(model)
+        leaves = [state.step, *state.mu.values(), *state.master.values(),
+                  *(v.payload for v in state.nu.values())] \
+            if opt.exp_avg_sq_dtype == torch.float8_e4m3fn else \
+            [state.step, *state.mu.values(), *state.nu.values(),
+             *state.master.values()]
+        assert all(t.device.type == "cpu" for t in leaves)
 
 
 def test_packed_forward_keeps_the_card_default(monkeypatch):

@@ -15,6 +15,7 @@ from .common.recipe import (E4M3, E5M2, HYBRID, DelayedScaling,
                             Float8CurrentScaling, Format, MXFP8BlockScaling,
                             NVFP4BlockScaling, QParams, Recipe)
 from .quantize.helper import autocast, get_quantize_config
+from . import checkpoint_policies
 from .flex_attention import flex_attention
 from .graph import make_graphed_callables
 from .models.gptoss import GPTOSS_20B, GPTOSS_TINY, GptOssModel
@@ -24,5 +25,6 @@ __all__ = ["DelayedScaling", "E4M3", "E5M2", "Float8CurrentScaling",
            "Format", "GPTOSS_20B", "GPTOSS_TINY", "GptOssModel", "HYBRID",
            "MIXTRAL_8X7B", "MIXTRAL_TINY", "MXFP8BlockScaling",
            "MixtralModel", "NVFP4BlockScaling", "QParams", "Recipe",
-           "autocast", "flex_attention", "get_quantize_config",
+           "autocast", "checkpoint_policies", "flex_attention",
+           "get_quantize_config",
            "make_graphed_callables", "recipe"]

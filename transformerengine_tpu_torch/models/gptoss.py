@@ -11,8 +11,9 @@ The model has :class:`~.mixtral.MixtralModel`'s interface (``layers``,
 return_aux_loss=...)``), so the inference engine serves it through the
 contiguous cache: the prefill's flash attention and the decode kernel
 take each layer's window and sink. The paged cache refuses a windowed
-layer (``nn/transformer.py``). Not ported yet: remat, expert parallelism
-(``ep_axis``) and the capacity path (``dropless=False``)."""
+layer (``nn/transformer.py``). ``remat`` and ``remat_policy`` act as
+Llama's. Not ported yet: expert parallelism (``ep_axis``) and the
+capacity path (``dropless=False``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -22,11 +23,12 @@ import torch
 from torch import nn
 
 from ..attention import AttnMaskType, SequenceDescriptor, SoftmaxType
+from ..checkpoint_policies import remat_policy
 from ..device import resolve_device
 from ..nn.module import LayerNorm
 from ..nn.transformer import TransformerLayer
 from . import llama
-from .llama import cross_entropy_loss, tied_logits
+from .llama import cross_entropy_loss, run_layer, tied_logits
 from .mixtral import collect_aux_loss
 
 
@@ -48,6 +50,8 @@ class GptOssConfig:
     rope_base: float = 150000.0
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
+    remat: bool = False
+    remat_policy: str = "nothing_saveable"
 
 
 GPTOSS_TINY = GptOssConfig(
@@ -103,6 +107,7 @@ class GptOssModel(nn.Module):
         self.final_norm = LayerNorm(cfg.hidden_size, epsilon=cfg.norm_eps,
                                     norm_type="rmsnorm",
                                     device=dev)
+        self.remat = remat_policy(cfg.remat_policy) if cfg.remat else None
 
     @property
     def device(self) -> torch.device:
@@ -114,13 +119,14 @@ class GptOssModel(nn.Module):
         """(B, S) int tokens -> (B, S, vocab) f32 logits, and with
         ``return_aux_loss`` the summed router aux loss beside them (zero
         at the default ``aux_loss_coeff``). Attention and caches as in
-        :meth:`~.llama.LlamaModel.forward`."""
+        :meth:`~.llama.LlamaModel.forward`, remat as its ``config.remat``
+        says."""
         x = self.embedding[tokens]
         aux_losses = []
         for i, layer in enumerate(self.layers):
-            x, aux = layer(x, sequence_descriptor,
-                           kv_cache=kv_caches[i] if kv_caches is not None
-                           else None)
+            x, aux = run_layer(self.remat, layer, x, sequence_descriptor,
+                               None, kv_caches[i] if kv_caches is not None
+                               else None)
             aux_losses.append(aux)
         logits = tied_logits(self.final_norm(x), self.embedding)
         if return_aux_loss:

@@ -15,7 +15,15 @@ its tokens' global RoPE positions (``positions``). The step's sums over
 the group are the caller's, as under the reference's ``shard_map`` they
 come from its transpose: each rank's loss is its tokens' summed cross
 entropy over the global token count, and the weights' gradients are
-summed over the group (``parallel.group.all_reduce_sum``)."""
+summed over the group (``parallel.group.all_reduce_sum``).
+
+``remat`` (with ``remat_policy``: ``"nothing_saveable"``, ``"dots"`` or
+``"offload_dots"``) runs each layer of a training forward as one
+checkpointed call (``checkpoint_policies.checkpoint``), which the
+backward runs again. ``scan_layers`` changes no computation here: the
+reference's scanned model stacks its layers' variables on a leading
+axis, and :func:`load_flax_params` and :func:`load_flax_opt_state` split
+such a tree into ``layers.{i}``."""
 from __future__ import annotations
 
 import dataclasses
@@ -26,12 +34,14 @@ import torch
 from torch import nn
 
 from ..attention import AttnMaskType, SequenceDescriptor
+from ..checkpoint_policies import checkpoint, remat_policy
 from ..dense import needs_grad
 from ..device import resolve_device
 from ..inference.kv_cache import KVCache
 from ..nn.module import LayerNorm
 from ..nn.transformer import TransformerLayer, flax_state
 from ..ops.gemm import matmul_f32
+from ..optimizers.fused_adam import AdamState, ScaledState
 from ..quantize.prequant import BlockResidentKernel, PrequantizedKernel
 
 
@@ -48,6 +58,9 @@ class LlamaConfig:
     rope_base: float = 500000.0
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
+    remat: bool = False
+    remat_policy: str = "nothing_saveable"
+    scan_layers: bool = False
     context_parallel_group: Optional[object] = None
 
 
@@ -91,6 +104,7 @@ class LlamaModel(nn.Module):
         self.final_norm = LayerNorm(cfg.hidden_size, epsilon=cfg.norm_eps,
                                     norm_type="rmsnorm",
                                     device=dev)
+        self.remat = remat_policy(cfg.remat_policy) if cfg.remat else None
 
     @property
     def device(self) -> torch.device:
@@ -108,12 +122,23 @@ class LlamaModel(nn.Module):
         ``positions`` (B, S) are the tokens' RoPE positions (a packed
         batch's positions within each document). With ``kv_caches`` (one
         per layer) the call prefills or decodes through them, updating
-        them in place."""
+        them in place. Under ``config.remat`` each layer of a forward
+        without caches is one checkpointed call."""
         x = self.embedding[tokens]
         for i, layer in enumerate(self.layers):
-            x = layer(x, sequence_descriptor, positions,
-                      kv_cache=kv_caches[i] if kv_caches is not None else None)
+            x = run_layer(self.remat, layer, x, sequence_descriptor,
+                          positions, kv_caches[i] if kv_caches is not None
+                          else None)
         return tied_logits(self.final_norm(x), self.embedding)
+
+
+def run_layer(remat, layer, x, sequence_descriptor, positions, kv_cache):
+    """One layer's call: a checkpointed call under the ``remat`` policy
+    (not None) when it has no cache, else the plain call."""
+    if remat is not None and kv_cache is None:
+        return checkpoint(layer, x, sequence_descriptor, positions,
+                          policy=remat)
+    return layer(x, sequence_descriptor, positions, kv_cache=kv_cache)
 
 
 def tied_logits(x: torch.Tensor, embedding: torch.Tensor) -> torch.Tensor:
@@ -216,15 +241,99 @@ def load_flax_params(params_np: Mapping, config: LlamaConfig,
     reference's collection of resident kernels (its ``PrequantizedKernel``
     leaves with numpy arrays), adds under each kernel's key the port's
     :class:`PrequantizedKernel` module with the same payload bytes;
-    :func:`load_flax_state` installs such a state."""
+    :func:`load_flax_state` installs such a state. Under
+    ``config.scan_layers`` the params and ``quantize_meta`` are the
+    scanned model's, each layer's leaves stacked under ``layers``."""
     dev = resolve_device(device)
+    # GPT-OSS's config has no scanned form, as the reference's has none.
+    scanned = getattr(config, "scan_layers", False)
+    if scanned:
+        params_np = unstack_layers(params_np, config.num_layers)
     state = flax_state(params_np, config.dtype, dev)
     if quantize_meta is not None:
+        if scanned:
+            quantize_meta = unstack_layers(quantize_meta, config.num_layers)
         state.update(flax_state(quantize_meta, torch.float32, dev))
     if prequant is not None:
         state.update(flax_state(prequant, None, dev, leaf=lambda name, arr:
                                 _resident_module(arr, config, dev)))
     return state
+
+
+def unstack_layers(tree: Mapping, num_layers: int) -> dict:
+    """A scanned reference model's tree (``layers`` holding every layer's
+    leaves stacked on a leading axis) with ``layers`` split into
+    ``layer_{i}`` subtrees, as the unscanned model names them. A
+    per-tensor scaled state leaf (``payload`` and ``scale_inv``) keeps its
+    one scale, which the reference took over the whole stack."""
+    if "layers" not in tree:
+        raise KeyError("the tree has no stacked 'layers' (scan_layers)")
+
+    def index(sub, i):
+        if isinstance(sub, Mapping):
+            return {k: index(v, i) for k, v in sub.items()}
+        if sub is None:
+            return None
+        if hasattr(sub, "payload"):
+            return ScaledState(np.asarray(sub.payload)[i],
+                               np.asarray(sub.scale_inv))
+        arr = np.asarray(sub)
+        if arr.shape[:1] != (num_layers,):
+            raise ValueError(f"a stacked leaf of shape {arr.shape} has no "
+                             f"leading axis of {num_layers} layers")
+        return arr[i]
+
+    out = {k: v for k, v in tree.items() if k != "layers"}
+    for i in range(num_layers):
+        out[f"layer_{i}"] = index(tree["layers"], i)
+    return out
+
+
+# numpy's (ml_dtypes') names of the dtypes that torch.from_numpy cannot
+# take: the unsigned view that carries their bits, and the torch dtype.
+_NUMPY_BITS = {"bfloat16": (np.uint16, torch.bfloat16),
+               "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
+               "float8_e5m2": (np.uint8, torch.float8_e5m2)}
+
+
+def _np_tensor(arr, device) -> torch.Tensor:
+    """A numpy array as a tensor of the same dtype and bits on
+    ``device``."""
+    arr = np.ascontiguousarray(np.asarray(arr))
+    if arr.dtype.name in _NUMPY_BITS:
+        view, dtype = _NUMPY_BITS[arr.dtype.name]
+        return torch.from_numpy(arr.view(view).copy()).view(dtype).to(device)
+    return torch.from_numpy(arr.copy()).to(device)
+
+
+def load_flax_opt_state(opt_state, config: LlamaConfig,
+                        device="cuda") -> AdamState:
+    """The reference's ``fused_adam`` state (its ``AdamState`` with numpy
+    arrays: ``step``, ``mu``, ``nu``, ``master``) as the port's
+    :class:`~..optimizers.fused_adam.AdamState`, keyed as
+    :func:`load_flax_params` keys the params: each leaf in its own dtype
+    and bits (f32, bf16 or int16 remainders; a ``ScaledState``'s fp8
+    payload and scale), None masters kept. Under ``config.scan_layers``
+    the trees are the scanned model's."""
+    dev = resolve_device(device)
+
+    def leaf(name, arr):
+        if arr is None:
+            return None
+        if hasattr(arr, "payload"):
+            return ScaledState(_np_tensor(arr.payload, dev),
+                               _np_tensor(arr.scale_inv, dev))
+        return _np_tensor(arr, dev)
+
+    def tree(t):
+        if config.scan_layers:
+            t = unstack_layers(t, config.num_layers)
+        return flax_state(t, None, dev, leaf=leaf)
+
+    step = torch.tensor(int(np.asarray(opt_state.step)), dtype=torch.int32,
+                        device=dev)
+    return AdamState(step, tree(opt_state.mu), tree(opt_state.nu),
+                     tree(opt_state.master))
 
 
 def load_flax_state(model: nn.Module, state: Mapping) -> nn.Module:

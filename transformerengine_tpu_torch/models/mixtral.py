@@ -6,8 +6,9 @@ aux losses to the token cross entropy.
 
 The model has :class:`~.llama.LlamaModel`'s interface (``layers``,
 ``embedding``, ``forward(tokens, sequence_descriptor, kv_caches=...)``),
-so the inference engine serves it as it serves Llama. Not ported yet:
-``scan_layers``, remat and expert parallelism."""
+so the inference engine serves it as it serves Llama, and its
+``remat``, ``remat_policy`` and ``scan_layers`` act as Llama's. Not
+ported yet: expert parallelism."""
 from __future__ import annotations
 
 import dataclasses
@@ -17,12 +18,14 @@ import torch
 from torch import nn
 
 from ..attention import AttnMaskType, SequenceDescriptor
+from ..checkpoint_policies import remat_policy
 from ..device import resolve_device
 from ..inference.kv_cache import KVCache
 from ..nn.module import LayerNorm
 from ..nn.transformer import TransformerLayer
 from . import llama
-from .llama import cross_entropy_loss, tied_logits
+from .llama import (cross_entropy_loss, load_flax_opt_state, run_layer,
+                    tied_logits)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +44,9 @@ class MixtralConfig:
     rope_base: float = 1e6
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
+    remat: bool = False
+    remat_policy: str = "nothing_saveable"
+    scan_layers: bool = False
 
 
 MIXTRAL_TINY = MixtralConfig(vocab_size=256, hidden_size=128,
@@ -85,6 +91,7 @@ class MixtralModel(nn.Module):
         self.final_norm = LayerNorm(cfg.hidden_size, epsilon=cfg.norm_eps,
                                     norm_type="rmsnorm",
                                     device=dev)
+        self.remat = remat_policy(cfg.remat_policy) if cfg.remat else None
 
     @property
     def device(self) -> torch.device:
@@ -100,9 +107,9 @@ class MixtralModel(nn.Module):
         x = self.embedding[tokens]
         aux_losses = []
         for i, layer in enumerate(self.layers):
-            x, aux = layer(x, sequence_descriptor,
-                           kv_cache=kv_caches[i] if kv_caches is not None
-                           else None)
+            x, aux = run_layer(self.remat, layer, x, sequence_descriptor,
+                               None, kv_caches[i] if kv_caches is not None
+                               else None)
             aux_losses.append(aux)
         logits = tied_logits(self.final_norm(x), self.embedding)
         if return_aux_loss:
@@ -136,6 +143,8 @@ def load_flax_params(params_np: Mapping, config: MixtralConfig,
     ``state_dict`` on ``device``: ``layer_{i}`` becomes ``layers.{i}``,
     the expert kernels take ``config.dtype``, and norm scales and router
     kernels stay f32; ``quantize_meta`` adds the delayed-scaling state,
-    as :func:`.llama.load_flax_params` does."""
+    and a ``scan_layers`` model's stacked trees are split, as
+    :func:`.llama.load_flax_params` does (:func:`.llama.load_flax_opt_state`
+    takes its ``fused_adam`` state)."""
     return llama.load_flax_params(params_np, config, device,
                                   quantize_meta=quantize_meta)

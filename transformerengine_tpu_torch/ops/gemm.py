@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from ..checkpoint_policies import DOT, keep
 from ..quantize.quantizer import QuantizeLayout
 from ..quantize.tensor import ScaledTensor1x, dequantize_blocks, get_rowwise
 from .decode_matmul import (decode_kn_matvec, decode_tn_matvec,
@@ -28,7 +29,13 @@ from .decode_matmul import (decode_kn_matvec, decode_tn_matvec,
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` with exact products, f32 accumulation and an f32 result.
     bf16 operands on the card stay bf16 (cuBLAS accumulates in f32);
-    elsewhere the operands widen to f32 first."""
+    elsewhere the operands widen to f32 first. Inside a checkpointed call
+    whose policy keeps dots, the second forward takes the first's result
+    (``checkpoint_policies``)."""
+    return keep(DOT, lambda: _matmul_f32(a, b))
+
+
+def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
         return torch.mm(a, b, out_dtype=torch.float32)
     return a.float() @ b.float()
