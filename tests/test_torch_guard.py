@@ -112,10 +112,12 @@ def _imported_roots(path: Path):
 def test_source_scan_finds_no_jax_import():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) >= 20
-    # The MoE slice's modules are among them, and the training loop's.
+    # The MoE slice's modules are among them, the training loop's and the
+    # recipes'.
     for name in ("moe.py", "permutation.py", "grouped_dense.py",
                  "ops/router.py", "ops/grouped_gemm.py", "nn/moe.py",
                  "models/mixtral.py", "quantize/microbatch.py",
+                 "quantize/grouped.py", "common/recipe.py",
                  "flex_attention.py", "optimizers/fused_adam.py",
                  "optimizers/multi_tensor.py", "ops/cross_entropy.py",
                  "checkpoint_policies.py", "utils/checkpoint.py"):

@@ -359,11 +359,26 @@ def test_grouped_dense_forward_without_grad_and_unported_options():
     x1 = xt.clone().requires_grad_()
     np.testing.assert_array_equal(
         _np(grouped_dense(x1, wt, sizes, quantizer_set=q)), _np(out))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        grouped_dense(xt, wt, sizes, kernel_cache=object())
+    from transformerengine_tpu_torch.quantize.microbatch import (
+        quantize_grouped_kernel)
+    cache, _ = quantize_grouped_kernel(wt, q)
+    with torch.no_grad():
+        cached = grouped_dense(xt, wt, sizes, quantizer_set=q,
+                               kernel_cache=cache)
+    np.testing.assert_array_equal(_np(cached), _np(out))
+    from transformerengine_tpu.quantize.grouped import (
+        GroupedQuantizer as JGroupedQuantizer)
+    from transformerengine_tpu.grouped_dense import (
+        grouped_dense_gq as j_grouped_dense_gq)
     from transformerengine_tpu_torch.grouped_dense import grouped_dense_gq
-    with pytest.raises(NotImplementedError, match="not ported"):
-        grouped_dense_gq(xt, wt, sizes, None)
+    from transformerengine_tpu_torch.quantize.grouped import GroupedQuantizer
+    xj, wj = (jnp.asarray(_np(a)).astype(jnp.bfloat16) for a in (xt, wt))
+    ref = j_grouped_dense_gq(xj, wj, jnp.asarray(sizes, jnp.int32),
+                             JGroupedQuantizer(jnp.dtype(jnp.float8_e4m3fn),
+                                               num_groups=2))
+    got = grouped_dense_gq(xt, wt, sizes,
+                           GroupedQuantizer(torch.float8_e4m3fn, 2))
+    assert _rel(got, ref) <= BF16_RTOL
     with pytest.raises(NotImplementedError, match="not ported"):
         moe(xt, torch.zeros((32, 2)), wt, wt, ep_axis="ep")
 

@@ -2,7 +2,9 @@
 recipe.py): the FP8 and FP4 format pairs, the per-tensor knobs
 (``QParams``), the two per-tensor recipes, delayed scaling (an amax
 history carried across steps) and current scaling, MXFP8 block scaling
-and NVFP4 block scaling. Float8BlockScaling is not ported yet.
+NVFP4 block scaling, FP8 block scaling (``Float8BlockScaling``: f32
+scales per 1 x 128 block or 128 x 128 tile) and ``CustomRecipe``, whose
+factory builds each role's quantizer.
 
 The FP8 recipes carry the reference's attention flags: ``fp8_dpa`` runs
 the attention on FP8 Q/K/V (per-tensor current-scaling e4m3 payloads,
@@ -13,6 +15,7 @@ streams an FP8 dO through the attention's backward
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable, Optional
 
 import torch
 
@@ -37,14 +40,25 @@ E2M1 = Format("E2M1", torch.float4_e2m1fn_x2, torch.float4_e2m1fn_x2)
 
 @dataclasses.dataclass(frozen=True)
 class QParams:
-    """Per-tensor quantization knobs of NVFP4: the random Hadamard
-    transform of the colwise usage, stochastic rounding and (16, 16)
-    blocks (the reference's ``power_2_scale`` and ``amax_epsilon`` are
-    read by no ported recipe and not ported)."""
+    """Per-tensor quantization knobs. NVFP4 reads the last three: the
+    random Hadamard transform of the colwise usage, stochastic rounding and
+    (16, 16) blocks. ``power_2_scale`` and ``amax_epsilon`` are accepted,
+    as the reference accepts them, and read by no recipe, there or
+    here."""
 
+    power_2_scale: bool = False
+    amax_epsilon: float = 0.0
     random_hadamard_transform: bool = False
     stochastic_rounding: bool = False
     fp4_2d_quantization: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class MMParams:
+    """Per-GEMM knobs. Accepted as the reference accepts them; neither
+    reads ``use_split_accumulator`` (every product accumulates in f32)."""
+
+    use_split_accumulator: bool = True
 
 
 class Recipe:
@@ -53,8 +67,20 @@ class Recipe:
     def mxfp8(self) -> bool:
         return isinstance(self, MXFP8BlockScaling)
 
+    def delayed(self) -> bool:
+        return isinstance(self, DelayedScaling)
+
+    def float8_current_scaling(self) -> bool:
+        return isinstance(self, Float8CurrentScaling)
+
+    def float8_block_scaling(self) -> bool:
+        return isinstance(self, Float8BlockScaling)
+
     def nvfp4(self) -> bool:
         return isinstance(self, NVFP4BlockScaling)
+
+    def custom(self) -> bool:
+        return isinstance(self, CustomRecipe)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,9 +105,13 @@ class DelayedScaling(Recipe):
 
 @dataclasses.dataclass(frozen=True)
 class Float8CurrentScaling(Recipe):
-    """Per-tensor scaling from the current amax."""
+    """Per-tensor scaling from the current amax. The three ``QParams`` are
+    accepted, as the reference accepts them, and read by neither."""
 
     fp8_format: Format = HYBRID
+    fp8_quant_fwd_inp: QParams = QParams()
+    fp8_quant_fwd_weight: QParams = QParams()
+    fp8_quant_bwd_grad: QParams = QParams()
     fp8_dpa: bool = False
     fp8_mha: bool = False
 
@@ -100,6 +130,30 @@ class MXFP8BlockScaling(Recipe):
     fp8_format: Format = E4M3
     fp8_dpa: bool = False
     fp8_mha: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class Float8BlockScaling(Recipe):
+    """FP8 with f32 scales from each block's own amax: 1 x 128 blocks
+    (``*_block_scaling_dim=1``) or 128 x 128 tiles (``=2``), by default
+    1 x 128 for activations and gradients and 128 x 128 for weights, the
+    scales rounded down to powers of two under ``force_pow_2_scales``.
+    Stateless."""
+
+    fp8_format: Format = E4M3
+    force_pow_2_scales: bool = True
+    x_block_scaling_dim: int = 1
+    w_block_scaling_dim: int = 2
+    grad_block_scaling_dim: int = 1
+    fp8_dpa: bool = False
+    fp8_mha: bool = False
+
+    def __post_init__(self):
+        for f in ("x", "w", "grad"):
+            dim = getattr(self, f"{f}_block_scaling_dim")
+            if dim not in (1, 2):
+                raise ValueError(f"{f}_block_scaling_dim must be 1 or 2, "
+                                 f"got {dim}")
 
 
 _FOUR_OVER_SIX = ("none", "weights", "activations", "all")
@@ -126,3 +180,13 @@ class NVFP4BlockScaling(Recipe):
         if self.nvfp4_4over6 not in _FOUR_OVER_SIX:
             raise ValueError(f"nvfp4_4over6 must be one of {_FOUR_OVER_SIX}, "
                              f"got {self.nvfp4_4over6!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class CustomRecipe(Recipe):
+    """A quantizer factory of the caller's: ``qfactory(role)``, role "x",
+    "kernel" or "dgrad", returns that role's quantizer, or None to leave
+    the role in high precision (None for every role is the unquantized
+    path)."""
+
+    qfactory: Optional[Callable] = None

@@ -10,7 +10,8 @@ Each layer is a ``torch.autograd.Function`` mirroring the reference's
   backward contracts the same payloads along the needed axis (dgrad
   ``q_dot(qg, qk, 1, 1)``, wgrad ``q_dot(qx, qg, 0, 0)``), as the scales
   are scalars;
-* block scaling (MXFP8, NVFP4), training ("2x"): x, the kernel and the
+* block scaling (MXFP8, FP8 block scaling, NVFP4), training ("2x"): x,
+  the kernel and the
   gradient are each quantized in both orientations, and every GEMM
   contracts along the stored last axis of both operands: forward
   ``tn_dot(rowwise(qx), colwise(qk))``, dgrad ``tn_dot(rowwise(qg),
@@ -36,6 +37,12 @@ autograd node, and take the reference primal's branches.
 
 A :class:`~.quantize.prequant.PrequantizedKernel` serves the forward
 only; a backward through it raises.
+
+``kernel_cache`` (``quantize/microbatch.py``) supplies the kernel's
+quantized usages of a gradient-accumulation step in place of the per-call
+kernel quantize: under per-tensor scaling its rowwise payload, under
+block scaling its two dequantized bf16 orientations. The backward takes
+the kernel's observation from the cache once per step.
 
 A bias is added in f32 to the f32 product before its one rounding to the
 output's dtype, as the reference adds it; its gradient is the sum of the
@@ -108,38 +115,44 @@ def _amax_of(t) -> torch.Tensor:
 
 
 def gemm_fwd(x2d, kernel, qset: QuantizerSet, *, inference: bool = False,
-             qx=None):
+             qx=None, kernel_cache=None):
     """``(M, N) f32 x2d (M, K) . kernel`` for a (K, ...) kernel or a
     PrequantizedKernel, and the residuals its backward needs.
     ``inference``: the forward without a gradient (block scaling then
     quantizes one orientation of each operand). ``qx``: x already
-    quantized (the fused norm's output), in place of ``x2d``."""
+    quantized (the fused norm's output), in place of ``x2d``.
+    ``kernel_cache``: the kernel's usages quantized once per step."""
     if isinstance(kernel, PrequantizedKernel):
         return prequant_dot(x2d, kernel.colwise, qset.x), ("prequant",)
     k2d = kernel.reshape(kernel.shape[0], -1)
     if qset.x is None:
         return q_dot(x2d, k2d, 1, 0), ("plain", x2d, k2d)
+    cached = kernel_cache.q if kernel_cache is not None else None
     if all_tensor_scaling(qset):
         qx = qset.x.quantize(x2d, layout=QuantizeLayout.ROWWISE)
-        qk = qset.kernel.quantize(k2d, layout=QuantizeLayout.ROWWISE)
+        qk = get_rowwise(cached) if cached is not None else \
+            qset.kernel.quantize(k2d, layout=QuantizeLayout.ROWWISE)
         return q_dot(qx, qk, 1, 0), ("1x", qx, qk)
     if inference:
         if qx is None:
             qx = qset.x.quantize(x2d, layout=QuantizeLayout.ROWWISE)
-        qk = qset.kernel.quantize(k2d, layout=QuantizeLayout.COLWISE)
+        qk = get_colwise(cached) if cached is not None else \
+            qset.kernel.quantize(k2d, layout=QuantizeLayout.COLWISE)
         return tn_dot(get_rowwise(qx), get_colwise(qk)), ("inference",)
     if qx is None:
         qx = qset.x.quantize(x2d)
-    qk = qset.kernel.quantize(k2d)
+    qk = cached if cached is not None else qset.kernel.quantize(k2d)
     # (M, K) x (N, K) -> (M, N); the backward keeps x's colwise usage and
     # the kernel's rowwise one.
     return (tn_dot(get_rowwise(qx), get_colwise(qk)),
             ("2x", get_colwise(qx), get_rowwise(qk)))
 
 
-def gemm_bwd(g2d: torch.Tensor, res, qset: QuantizerSet, need_dw=True):
+def gemm_bwd(g2d: torch.Tensor, res, qset: QuantizerSet, need_dw=True,
+             kernel_cache=None):
     """(dx2d, dw2d (K, N) or None, the set's updated state or None) of
-    the GEMM that :func:`gemm_fwd` ran."""
+    the GEMM that :func:`gemm_fwd` ran (with ``kernel_cache``, the
+    kernel's update only at the cache's first backward)."""
     if res[0] == "prequant":
         raise NotImplementedError(
             "backward through a PrequantizedKernel (inference-only "
@@ -160,6 +173,8 @@ def gemm_bwd(g2d: torch.Tensor, res, qset: QuantizerSet, need_dw=True):
         dw2d = tn_dot(qx, get_colwise(qg)) if need_dw else None  # (K, N)
     new = qset.update(QuantizerSet(x=_amax_of(qx), kernel=_amax_of(qk),
                                    dgrad=_amax_of(qg)))
+    if kernel_cache is not None:
+        new = kernel_cache.observe(qset, new)
     return dx2d, dw2d, new
 
 
@@ -184,9 +199,9 @@ def bias_grad(g2d: torch.Tensor, meta):
     return g2d.float().sum(dim=0).reshape(shape).to(dtype)
 
 
-def _dense_fwd(x, kernel, bias, qset, inference=False):
+def _dense_fwd(x, kernel, bias, qset, cache, inference=False):
     out2d, res = gemm_fwd(x.reshape(-1, kernel.shape[0]), kernel, qset,
-                          inference=inference)
+                          inference=inference, kernel_cache=cache)
     out2d = add_bias(out2d, bias)
     return out2d.reshape(*x.shape[:-1], *kernel.shape[1:]).to(x.dtype), res
 
@@ -194,11 +209,11 @@ def _dense_fwd(x, kernel, bias, qset, inference=False):
 class _Dense(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, kernel, bias, qset):
-        out, res = _dense_fwd(x, kernel, bias, qset)
+    def forward(ctx, x, kernel, bias, qset, cache):
+        out, res = _dense_fwd(x, kernel, bias, qset, cache)
         tensors, ctx.tag = split_residuals(res)
         ctx.save_for_backward(*tensors)
-        ctx.qset = qset
+        ctx.qset, ctx.cache = qset, cache
         ctx.shapes = (x.shape, x.dtype, tuple(kernel.shape), kernel.dtype)
         ctx.bias = bias_meta(bias)
         return out
@@ -209,12 +224,13 @@ class _Dense(torch.autograd.Function):
         n = math.prod(k_shape[1:])
         res = join_residuals(ctx.tag, ctx.saved_tensors)
         dx2d, dw2d, new = gemm_bwd(g.reshape(-1, n), res, ctx.qset,
-                                   need_dw=ctx.needs_input_grad[1])
+                                   need_dw=ctx.needs_input_grad[1],
+                                   kernel_cache=ctx.cache)
         if new is not None:
             ctx.qset.write_back(new)
         dw = dw2d.reshape(k_shape).to(k_dtype) if dw2d is not None else None
         return (dx2d.reshape(x_shape).to(x_dtype), dw,
-                bias_grad(g.reshape(-1, n), ctx.bias), None)
+                bias_grad(g.reshape(-1, n), ctx.bias), None, None)
 
 
 def check_bias(bias, kernel) -> None:
@@ -224,16 +240,20 @@ def check_bias(bias, kernel) -> None:
 
 
 def dense(x: torch.Tensor, kernel, bias: Optional[torch.Tensor] = None, *,
-          quantizer_set: QuantizerSet = noop_quantizer_set) -> torch.Tensor:
+          quantizer_set: QuantizerSet = noop_quantizer_set,
+          kernel_cache=None) -> torch.Tensor:
     """``out = x . kernel + bias``, contracting the last dim of ``x`` with
     the first of ``kernel``; the result takes ``x``'s dtype. ``bias`` has
     the kernel's feature shape, or is None. Differentiable in ``x``,
     ``kernel`` and ``bias``; the quantizer set's state is updated by the
-    backward (module docstring)."""
+    backward (module docstring). ``kernel_cache``: the kernel quantized
+    once per step by ``quantize.microbatch.quantize_kernel`` (rebuild it
+    after every optimizer step)."""
     if kernel.shape[0] != x.shape[-1]:
         raise ValueError(f"kernel {tuple(kernel.shape)} does not contract "
                          f"with x {tuple(x.shape)}")
     check_bias(bias, kernel)
     if needs_grad(x, kernel, bias):
-        return _Dense.apply(x, kernel, bias, quantizer_set)
-    return _dense_fwd(x, kernel, bias, quantizer_set, inference=True)[0]
+        return _Dense.apply(x, kernel, bias, quantizer_set, kernel_cache)
+    return _dense_fwd(x, kernel, bias, quantizer_set, kernel_cache,
+                      inference=True)[0]

@@ -18,11 +18,14 @@ from .permutation import token_combine, token_dispatch
 from .quantize.quantizer import QuantizerSet, noop_quantizer_set
 
 
-def _expert_mlp(h, w_up, w_down, group_sizes, acts, qset1, qset2):
+def _expert_mlp(h, w_up, w_down, group_sizes, acts, qset1, qset2,
+                kernel_caches=None):
     """The grouped MLP over expert-contiguous rows: w_up (E, H, n_act*F),
     w_down (E, F, H); GPT-OSS's clamped SwiGLU takes two FFN halves."""
+    kc1, kc2 = kernel_caches if kernel_caches is not None else (None, None)
     ffn = w_down.shape[1]
-    z = grouped_dense(h, w_up, group_sizes, quantizer_set=qset1)
+    z = grouped_dense(h, w_up, group_sizes, quantizer_set=qset1,
+                      kernel_cache=kc1)
     if acts == CLAMPED:
         a = clamped_swiglu(z.reshape(*z.shape[:-1], 2, ffn))
     elif len(acts) == 2:
@@ -31,7 +34,7 @@ def _expert_mlp(h, w_up, w_down, group_sizes, acts, qset1, qset2):
     else:
         a = _ACT[acts[0]](z)
     return grouped_dense(a.to(h.dtype), w_down, group_sizes,
-                         quantizer_set=qset2)
+                         quantizer_set=qset2, kernel_cache=kc2)
 
 
 def moe(x: torch.Tensor, router_weight: torch.Tensor, w_up: torch.Tensor,
@@ -42,13 +45,16 @@ def moe(x: torch.Tensor, router_weight: torch.Tensor, w_up: torch.Tensor,
         group_topk: int = 0,
         quantizer_sets: Tuple[QuantizerSet, QuantizerSet] = (
             noop_quantizer_set, noop_quantizer_set),
-        ep_axis: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        ep_axis: Optional[str] = None,
+        kernel_caches=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(output with x's shape and dtype, aux loss, a 0-d f32 tensor) of
     ``x`` (T, H) or (B, S, H): the f32 router, top-``topk`` routing,
     dispatch, the grouped expert MLP under ``quantizer_sets`` (up, down)
     and the weighted combine. With a gradient the group sizes are read
     to the host once here, for both grouped GEMMs and their backward;
-    without one they stay an (E,) tensor on the device."""
+    without one they stay an (E,) tensor on the device. ``kernel_caches``:
+    (up, down) from ``quantize.microbatch.quantize_grouped_kernel``, or
+    None."""
     if ep_axis:
         raise NotImplementedError("expert parallelism (ep_axis) is not "
                                   "ported yet")
@@ -68,6 +74,7 @@ def moe(x: torch.Tensor, router_weight: torch.Tensor, w_up: torch.Tensor,
     sizes = aux["group_sizes"]
     if needs_grad(x, router_weight, w_up, w_down):
         sizes = host_sizes(sizes)
-    out_e = _expert_mlp(disp, w_up, w_down, sizes, acts, *quantizer_sets)
+    out_e = _expert_mlp(disp, w_up, w_down, sizes, acts, *quantizer_sets,
+                        kernel_caches=kernel_caches)
     out = token_combine(out_e.to(h.dtype), probs, aux, topk=topk)
     return out.reshape(orig_shape).to(x.dtype), aux_loss

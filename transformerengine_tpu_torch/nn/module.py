@@ -20,9 +20,21 @@ reference's ``quantize_meta`` variables: ``{name}_{role}_scale`` (1,) and
 created at the first quantized call (as Flax creates the variables at
 init), or by ``load_state_dict`` from a state that holds them, and every
 backward pass writes the updated state into them (``dense.py``).
+
+Gradient accumulation (the reference's ``kernel_cache`` collection, its
+``is_first_microbatch`` weight workspace): inside ``with
+kernel_caches(model):`` the first quantized call of each module's GEMM
+quantizes its kernel once (``quantize/microbatch.py``) and every later
+microbatch inside the block reuses it, so an optimizer step's N
+microbatches quantize each kernel once. No cache exists outside the
+block, and none is built at construction. The cache holds the weights
+as they were when it was built and is never checked against them: step
+the optimizer after the block ends, never inside it, or the layers
+compute with stale weights.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import re
 from typing import Optional, Sequence, Union
@@ -36,6 +48,8 @@ from ..layernorm_dense import layernorm_dense
 from ..layernorm_mlp import layernorm_mlp
 from ..ops.activation import act_lu, normalize_activation_type, num_halves
 from ..quantize.helper import QuantizerFactory, get_quantize_config
+from ..quantize.microbatch import quantize_grouped_kernel, quantize_kernel
+from ..quantize.prequant import PrequantizedKernel
 from ..quantize.quantizer import (DelayedScaleQuantizer, QuantizerSet,
                                   noop_quantizer_set)
 
@@ -69,7 +83,26 @@ def _norm_params(module: nn.Module, hidden: int, norm_type: str,
 
 
 class TransformerEngineBase(nn.Module):
-    """Holds the delayed-scaling state of the module's GEMMs."""
+    """Holds the delayed-scaling state of the module's GEMMs, and inside
+    :func:`kernel_caches` their kernel caches."""
+
+    # {kernel name: KernelCache or None} inside kernel_caches(), else None.
+    _kernel_caches = None
+
+    def kernel_cache(self, name: str, kernel, qset: QuantizerSet,
+                     grouped: bool = False):
+        """The cache of kernel ``name`` for this step (module docstring):
+        built at the first call inside :func:`kernel_caches`, the same one
+        after; None outside it, for a prequantized kernel and without
+        quantization. ``grouped``: stacked expert kernels."""
+        caches = self._kernel_caches
+        if caches is None or isinstance(kernel, PrequantizedKernel) or \
+                qset.x is None:
+            return None
+        if name not in caches:
+            build = quantize_grouped_kernel if grouped else quantize_kernel
+            caches[name] = build(kernel, qset)[0]
+        return caches[name]
 
     def quantizer_set(self, name: str) -> QuantizerSet:
         """The quantizer set of GEMM ``name`` under the active recipe (the
@@ -122,6 +155,25 @@ class TransformerEngineBase(nn.Module):
                                       error_msgs)
 
 
+@contextlib.contextmanager
+def kernel_caches(model: nn.Module):
+    """One optimizer step of gradient accumulation over ``model``: inside,
+    each module's kernels are quantized at their first call and reused by
+    the later microbatches; the caches are dropped when the block ends
+    (module docstring). Step the optimizer after the block."""
+    mods = [m for m in model.modules()
+            if isinstance(m, TransformerEngineBase)]
+    if any(m._kernel_caches is not None for m in mods):
+        raise RuntimeError("kernel_caches blocks do not nest")
+    for m in mods:
+        m._kernel_caches = {}
+    try:
+        yield model
+    finally:
+        for m in mods:
+            m._kernel_caches = None
+
+
 class LayerNorm(nn.Module):
     """LayerNorm (with ``ln_bias``) or RMSNorm over the last axis, its
     parameters in f32, differentiable through the functional
@@ -162,8 +214,10 @@ class DenseGeneral(TransformerEngineBase):
         self.bias = _bias(use_bias, features, dtype, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return dense(x, self.kernel, self.bias,
-                     quantizer_set=self.quantizer_set("dense"))
+        qset = self.quantizer_set("dense")
+        return dense(x, self.kernel, self.bias, quantizer_set=qset,
+                     kernel_cache=self.kernel_cache("kernel", self.kernel,
+                                                    qset))
 
 
 class LayerNormDenseGeneral(TransformerEngineBase):
@@ -185,11 +239,13 @@ class LayerNormDenseGeneral(TransformerEngineBase):
         self.bias = _bias(use_bias, features, dtype, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return layernorm_dense(x, self.kernel, self.scale, beta=self.ln_bias,
-                               bias=self.bias, norm_type=self.norm_type,
-                               zero_centered_gamma=self.zero_centered_gamma,
-                               epsilon=self.epsilon,
-                               quantizer_set=self.quantizer_set("ln_dense"))
+        qset = self.quantizer_set("ln_dense")
+        return layernorm_dense(
+            x, self.kernel, self.scale, beta=self.ln_bias, bias=self.bias,
+            norm_type=self.norm_type,
+            zero_centered_gamma=self.zero_centered_gamma,
+            epsilon=self.epsilon, quantizer_set=qset,
+            kernel_cache=self.kernel_cache("kernel", self.kernel, qset))
 
 
 def dropout(x: torch.Tensor, rate: float,
@@ -245,20 +301,23 @@ class LayerNormMLP(TransformerEngineBase):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         rate = 0.0 if deterministic else self.intermediate_dropout_rate
         check_generator((rate,), generator)
+        qset1, qset2 = self.quantizer_set("mlp1"), self.quantizer_set("mlp2")
+        kc1 = self.kernel_cache("wi_kernel", self.wi_kernel, qset1)
+        kc2 = self.kernel_cache("wo_kernel", self.wo_kernel, qset2)
         if rate > 0.0:
             h, n_act, ffn = self.wi_kernel.shape
             y = layernorm(x, self.scale, self.ln_bias, self.norm_type,
                           self.zero_centered_gamma, epsilon=self.epsilon)
             a = dense(y, self.wi_kernel.reshape(h, n_act * ffn),
-                      quantizer_set=self.quantizer_set("mlp1"))
+                      quantizer_set=qset1, kernel_cache=kc1)
             a = a.reshape(*a.shape[:-1], n_act, ffn) if n_act > 1 else a
             act = dropout(act_lu(a, self.activations), rate, generator)
-            return dense(act, self.wo_kernel,
-                         quantizer_set=self.quantizer_set("mlp2"))
+            return dense(act, self.wo_kernel, quantizer_set=qset2,
+                         kernel_cache=kc2)
         return layernorm_mlp(x, self.scale, self.wi_kernel, self.wo_kernel,
                              beta=self.ln_bias, norm_type=self.norm_type,
                              zero_centered_gamma=self.zero_centered_gamma,
                              epsilon=self.epsilon,
                              activation_type=self.activations,
-                             quantizer_sets=(self.quantizer_set("mlp1"),
-                                             self.quantizer_set("mlp2")))
+                             quantizer_sets=(qset1, qset2),
+                             kernel_caches=(kc1, kc2))

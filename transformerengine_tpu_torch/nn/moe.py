@@ -18,7 +18,8 @@ class MoELayerNormMLP(TransformerEngineBase):
     """RMSNorm, then :func:`~..moe.moe` with the reference's parameters:
     ``ln.scale`` (f32), ``router_kernel`` (H, E) f32, ``wi_kernel`` (E, H,
     n_act * F) and ``wo_kernel`` (E, F, H); quantizer sets "moe_up" and
-    "moe_down". ``forward`` returns (output, aux loss)."""
+    "moe_down". ``forward`` returns (output, aux loss). Inside
+    ``kernel_caches`` the expert kernels are quantized once per step."""
 
     def __init__(self, hidden: int, intermediate_dim: int, *,
                  num_experts: int = 8, topk: int = 2, epsilon: float = 1e-6,
@@ -44,10 +45,12 @@ class MoELayerNormMLP(TransformerEngineBase):
                                      generator)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        up, down = self.quantizer_set("moe_up"), self.quantizer_set("moe_down")
         return moe(
             self.ln(x), self.router_kernel, self.wi_kernel, self.wo_kernel,
             topk=self.topk, activation_type=self.activations,
             score_function=self.score_function,
-            aux_loss_coeff=self.aux_loss_coeff,
-            quantizer_sets=(self.quantizer_set("moe_up"),
-                            self.quantizer_set("moe_down")))
+            aux_loss_coeff=self.aux_loss_coeff, quantizer_sets=(up, down),
+            kernel_caches=(
+                self.kernel_cache("wi_kernel", self.wi_kernel, up, True),
+                self.kernel_cache("wo_kernel", self.wo_kernel, down, True)))

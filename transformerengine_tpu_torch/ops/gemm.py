@@ -1,14 +1,18 @@
 """Scaled matmuls (counterpart of transformerengine_tpu/ops/gemm.py), for
-per-tensor-scaled, block-scaled (MXFP8, NVFP4) and plain operands.
+per-tensor-scaled, block-scaled (MXFP8, FP8 block scaling, NVFP4) and
+plain operands.
 
 Every product accumulates in f32 and returns f32. Per-tensor scales are
 scalars, so any contraction axes are allowed and the scales apply to the
 f32 result. Block-scaled operands must contract along their stored last
-axis (their scales run along it); each is dequantized to bf16 first, the
-payload times its block scale (a power of two, or an e4m3 value times an
-e2m1 one), exact in bf16, as the reference's ``_dq_block_to_bf16`` does;
-an NVFP4 operand's second-level tensor scale then multiplies the f32
-result, as the per-tensor scales do. A resident weight times a
+axis (their scales run along it); each is dequantized to bf16 first, as
+the reference's ``_dq_block_to_bf16`` does: the payload times its block
+scale (a power of two, or an e4m3 value times an e2m1 one), exact in
+bf16, or under FP8 block scaling times an f32 scale in f32, rounded once
+to bf16; an NVFP4 operand's second-level tensor scale then multiplies
+the f32 result, as the per-tensor scales do. A resident block-scaled
+(N, K) weight (FP8 block scaling's 128 x 128 tiles, NVFP4's 16 x 16) is
+dequantized so at every call. A resident weight times a
 small-M activation (decode) routes to a decode kernel
 (ops/decode_matmul.py): the (N, K) kernel for per-tensor-scaled and bf16
 weights, the (K, N) kernel for block-scaled ones
@@ -21,7 +25,7 @@ import torch
 
 from ..checkpoint_policies import DOT, keep
 from ..quantize.quantizer import QuantizeLayout
-from ..quantize.tensor import ScaledTensor1x, dequantize_blocks, get_rowwise
+from ..quantize.tensor import ScaledTensor1x, dequantize_to_bf16, get_rowwise
 from .decode_matmul import (decode_kn_matvec, decode_tn_matvec,
                             use_decode_matvec)
 
@@ -71,7 +75,7 @@ def q_dot(lhs, rhs, lhs_cdim: int, rhs_cdim: int) -> torch.Tensor:
                                  "it)")
             if t.tensor_scale_inv is not None:
                 scales.append(t.tensor_scale_inv.float().reshape(()))
-            return dequantize_blocks(t, torch.bfloat16)
+            return dequantize_to_bf16(t)
         scales.append(t.scale_inv.float().reshape(()))
         return t.data.to(torch.bfloat16)
 

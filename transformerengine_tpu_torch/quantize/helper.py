@@ -12,8 +12,9 @@ from typing import Optional
 
 import torch
 
-from ..common.recipe import (DelayedScaling, Float8CurrentScaling,
-                             MXFP8BlockScaling, NVFP4BlockScaling, Recipe)
+from ..common.recipe import (CustomRecipe, DelayedScaling, Float8BlockScaling,
+                             Float8CurrentScaling, MXFP8BlockScaling,
+                             NVFP4BlockScaling, Recipe)
 from .quantizer import (BlockScaleQuantizer, CurrentScaleQuantizer,
                         DelayedScaleQuantizer, NVFP4Quantizer, Quantizer,
                         QuantizeLayout, QuantizerSet, noop_quantizer_set)
@@ -82,19 +83,21 @@ class QuantizerFactory:
         length, on ``device``. MXFP8's margin is not read, as in the
         reference. Under NVFP4 each role takes its ``QParams`` (the RHT,
         stochastic rounding, 2D blocks) and "four over six" where
-        ``nvfp4_4over6`` names its class of tensor."""
+        ``nvfp4_4over6`` names its class of tensor. Under FP8 block
+        scaling each role takes its block dim (1 x 128 or 128 x 128).
+        A ``CustomRecipe`` returns its factory's quantizer for the role
+        (None: high precision)."""
         if role not in ("x", "kernel", "dgrad"):
             raise ValueError(f"role must be x, kernel or dgrad, got {role!r}")
         if recipe is None:
             return None
+        if isinstance(recipe, CustomRecipe):
+            return recipe.qfactory(role) if recipe.qfactory else None
         if isinstance(recipe, NVFP4BlockScaling):
             return _nvfp4_quantizer(recipe, role, q_layout)
         if not isinstance(recipe, (DelayedScaling, Float8CurrentScaling,
-                                   MXFP8BlockScaling)):
-            raise NotImplementedError(
-                f"recipe {type(recipe).__name__} is not ported yet; ported: "
-                f"DelayedScaling, Float8CurrentScaling, MXFP8BlockScaling "
-                f"and NVFP4BlockScaling")
+                                   MXFP8BlockScaling, Float8BlockScaling)):
+            raise TypeError(f"not a recipe: {type(recipe).__name__}")
         fmt = recipe.fp8_format
         dtype = fmt.bwd_dtype if role == "dgrad" else fmt.fwd_dtype
         if isinstance(recipe, DelayedScaling):
@@ -107,6 +110,15 @@ class QuantizerFactory:
                 amax_compute_algo=recipe.amax_compute_algo)
         if isinstance(recipe, MXFP8BlockScaling):
             return BlockScaleQuantizer(dtype, q_layout)
+        if isinstance(recipe, Float8BlockScaling):
+            dim = {"x": recipe.x_block_scaling_dim,
+                   "kernel": recipe.w_block_scaling_dim,
+                   "dgrad": recipe.grad_block_scaling_dim}[role]
+            return BlockScaleQuantizer(
+                dtype, q_layout,
+                scaling_mode=(ScalingMode.BLOCK_SCALING_2D if dim == 2
+                              else ScalingMode.BLOCK_SCALING_1D),
+                pow2_scales=recipe.force_pow_2_scales)
         return CurrentScaleQuantizer(dtype, q_layout)
 
     @staticmethod

@@ -5,18 +5,27 @@ transformerengine_tpu/quantize/prequant.py).
 in place, with a :class:`PrequantizedKernel`: a module whose buffers
 hold only the forward GEMM's usage of the (K, ...) kernel, so decode
 never re-quantizes. Under ``Float8CurrentScaling`` that is the (N, K)
-e4m3 payload and its scale. Under ``MXFP8BlockScaling`` and
-``NVFP4BlockScaling`` the kernel is quantized once along K (the colwise
-usage, with the recipe's weight quantizer) and then kept in one of the
-reference's two forms, chosen by ``block_decode`` (the reference's
+e4m3 payload and its scale. Under the block recipes
+(``MXFP8BlockScaling``, ``Float8BlockScaling``, ``NVFP4BlockScaling``)
+the kernel is quantized once along K (the colwise usage, with the
+recipe's weight quantizer) and then kept in one of the reference's two
+forms, chosen by ``block_decode`` (the reference's
 ``TE_TPU_BLOCK_DECODE``):
 - ``"bf16"``: dequantized once at load into a plain (N, K) bf16 weight;
-- ``"quantized"``: a :class:`BlockResidentKernel`, the (K, N) payload
-  with (K / block, N) bf16 block scales, which the KN decode kernel
-  dequantizes in flight: e4m3 bytes under MXFP8 (one byte a weight
-  instead of two); under NVFP4 the e2m1 codes two to a byte, split-plane,
-  where K is a multiple of 32 (else e4m3 bytes), with the tensor scale as
-  ``out_scale``.
+- ``"quantized"`` with 1-row weight blocks (MXFP8's 1 x 32, FP8 block
+  scaling's 1 x 128 under ``w_block_scaling_dim=1``, NVFP4's 1 x 16): a
+  :class:`BlockResidentKernel`, the (K, N) payload with (K / block, N)
+  bf16 block scales, which the KN decode kernel dequantizes in flight:
+  e4m3 bytes under MXFP8 and FP8 block scaling (one byte a weight
+  instead of two; FP8 block scaling's f32 scales stored as bf16, exact
+  only where they are powers of two, as the reference stores them);
+  under NVFP4 the e2m1 codes two to a byte, split-plane, where K is a
+  multiple of 32 (else e4m3 bytes), with the tensor scale as
+  ``out_scale``;
+- ``"quantized"`` with 2D weight blocks (FP8 block scaling's 128 x 128,
+  NVFP4's 16 x 16): the (N, K) block-scaled payload and its scale grid,
+  resident, which every GEMM dequantizes to bf16 as it runs (the
+  reference's route for such a storage).
 Embedding and norm parameters stay in high precision.
 """
 from __future__ import annotations
@@ -26,11 +35,12 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..common.recipe import (Float8CurrentScaling, MXFP8BlockScaling,
-                             NVFP4BlockScaling, Recipe)
+from ..common.recipe import (Float8BlockScaling, Float8CurrentScaling,
+                             MXFP8BlockScaling, NVFP4BlockScaling, Recipe)
 from ..ops.decode_matmul import dequantize_kn
 from .helper import QuantizerFactory
 from .quantizer import CurrentScaleQuantizer, QuantizeLayout
+from .scaling_modes import ScalingMode
 from .tensor import ScaledTensor1x
 
 _KERNEL_NAMES = ("kernel", "wi_kernel", "wo_kernel")
@@ -79,22 +89,27 @@ class PrequantizedKernel(nn.Module):
     The buffers are ``data`` (the (N, K) e4m3 payload, or for
     ``recipe=None`` and the block recipes' ``"bf16"`` form the (N, K)
     high-precision kernel) and ``scale_inv`` ((1,) f32, None for a
-    high-precision ``data``); for the ``"quantized"`` form both are None
-    and the
-    submodule ``kn`` (a :class:`BlockResidentKernel`) holds the weight.
-    ``logical_shape`` is the original kernel's shape, contracting dim
-    first."""
+    high-precision ``data``; for the 2D-block ``"quantized"`` form the
+    block scale grid of ``scaling_mode``, with NVFP4's second-level
+    ``tensor_scale_inv``); for the 1-row-block ``"quantized"`` form both
+    are None and the submodule ``kn`` (a :class:`BlockResidentKernel`)
+    holds the weight. ``logical_shape`` is the original kernel's shape,
+    contracting dim first."""
 
     def __init__(self, data: Optional[torch.Tensor],
                  scale_inv: Optional[torch.Tensor], logical_shape,
                  dq_dtype: torch.dtype,
-                 kn: Optional[BlockResidentKernel] = None):
+                 kn: Optional[BlockResidentKernel] = None,
+                 scaling_mode: ScalingMode = ScalingMode.CURRENT_TENSOR_SCALING,
+                 tensor_scale_inv: Optional[torch.Tensor] = None):
         super().__init__()
         self.register_buffer("data", data)
         self.register_buffer("scale_inv", scale_inv)
+        self.register_buffer("tensor_scale_inv", tensor_scale_inv)
         self.kn = kn
         self.logical_shape = tuple(logical_shape)
         self.dq_dtype = dq_dtype
+        self.scaling_mode = scaling_mode
 
     @property
     def shape(self):
@@ -114,7 +129,9 @@ class PrequantizedKernel(nn.Module):
         if self.scale_inv is None:
             return self.data
         return ScaledTensor1x(self.data, self.scale_inv, None, self.dq_dtype,
-                              layout="T", resident=True)
+                              layout="T", resident=True,
+                              scaling_mode=self.scaling_mode,
+                              tensor_scale_inv=self.tensor_scale_inv)
 
 
 _BLOCK_DECODE = ("bf16", "quantized")
@@ -162,7 +179,8 @@ def prequantize_kernel_array(kernel: torch.Tensor, recipe: Optional[Recipe],
         t = q.quantize(k2d, dq_dtype=kernel.dtype)
         return PrequantizedKernel(t.data, t.scale_inv, kernel.shape,
                                   kernel.dtype)
-    if isinstance(recipe, (MXFP8BlockScaling, NVFP4BlockScaling)):
+    if isinstance(recipe, (MXFP8BlockScaling, Float8BlockScaling,
+                           NVFP4BlockScaling)):
         if block_decode not in _BLOCK_DECODE:
             raise ValueError(f"block_decode must be one of {_BLOCK_DECODE}, "
                              f"got {block_decode!r}")
@@ -172,19 +190,20 @@ def prequantize_kernel_array(kernel: torch.Tensor, recipe: Optional[Recipe],
             return PrequantizedKernel(t.dequantize().to(torch.bfloat16),
                                       None, kernel.shape, kernel.dtype)
         br, bc = t.scaling_mode.block_shape
+        if br != 1:
+            return PrequantizedKernel(t.data, t.scale_inv, kernel.shape,
+                                      kernel.dtype,
+                                      scaling_mode=t.scaling_mode,
+                                      tensor_scale_inv=t.tensor_scale_inv)
         if k2d.shape[0] % bc:
             raise ValueError(f"block_decode='quantized' needs K a multiple "
                              f"of the block, got K={k2d.shape[0]}")
-        if br != 1:
-            raise NotImplementedError(
-                f"block_decode='quantized' with {br} x {bc} weight blocks "
-                f"is not ported yet")
         return PrequantizedKernel(None, None, kernel.shape, kernel.dtype,
                                   kn=_block_resident(t))
     raise NotImplementedError(
-        f"prequantization with {type(recipe).__name__} is not ported yet; "
+        f"prequantization with {type(recipe).__name__} is not ported; "
         f"ported: Float8CurrentScaling, MXFP8BlockScaling, "
-        f"NVFP4BlockScaling and recipe=None")
+        f"Float8BlockScaling, NVFP4BlockScaling and recipe=None")
 
 
 def prequantize_kernels(model: nn.Module, recipe: Optional[Recipe], *,

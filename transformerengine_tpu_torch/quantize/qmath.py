@@ -1,10 +1,13 @@
 """Quantization math (counterpart of transformerengine_tpu/quantize/
-qmath.py) for current and delayed scaling, MXFP8 and NVFP4. These
-functions are bit-exact to the reference and are the ground truth of the
-port's quantize kernels: f32 amax, f32 scale = q_max / amax (per tensor)
-or an E8M0 power of two per 32-element block (MXFP8), and a clip to the
-format's range BEFORE the round-to-nearest-even cast, so no value relies
-on the cast's own overflow behaviour. NVFP4 rounds onto the e2m1 grid by
+qmath.py) for current and delayed scaling, MXFP8, FP8 block scaling and
+NVFP4. These functions are bit-exact to the reference and are the ground
+truth of the port's quantize kernels: f32 amax, f32 scale = q_max / amax
+(per tensor), an E8M0 power of two per 32-element block (MXFP8) or an f32
+scale per 1 x 128 block or 128 x 128 tile (FP8 block scaling), and a
+clip to the format's range BEFORE the round-to-nearest-even cast, so no
+value relies on the cast's own overflow behaviour. FP8 stochastic
+rounding (:func:`stochastic_cast`) adds random bits below the target
+mantissa and truncates, as the reference does. NVFP4 rounds onto the e2m1 grid by
 the reference's table of bounds and ties (``_FP4_BOUNDS``,
 ``_FP4_TIE_UP``), not by torch's fp4 cast, and draws the bits of its
 stochastic rounding from a counter-based hash (:func:`sr_bits`), which
@@ -17,11 +20,18 @@ import torch.nn.functional as F
 
 from .dtypes import (E8M0_BIAS, FP4_MAX, FP4_STORAGE_DTYPE, dtype_max,
                      float8_e4m3)
+from .scaling_modes import ScalingMode
 
 _F32_TINY = 2.0 ** -126
 # The MXFP8 element emax: the reference takes 8 (e4m3's) for every element
 # dtype, e5m2 included (upstream TransformerEngine takes 15 for e5m2).
 MXFP8_EMAX = 8
+
+
+def decode_scale_inv(scale_inv: torch.Tensor,
+                     mode: ScalingMode) -> torch.Tensor:
+    """Stored scales -> f32 dequantization multipliers."""
+    return mode.decode_scale_inv(scale_inv)
 
 
 def compute_amax(x: torch.Tensor) -> torch.Tensor:
@@ -47,21 +57,45 @@ def saturate_cast(x: torch.Tensor, q_dtype: torch.dtype) -> torch.Tensor:
     return x.float().clamp(-m, m).to(q_dtype)
 
 
+def stochastic_cast(x: torch.Tensor, q_dtype: torch.dtype,
+                    ubits: torch.Tensor) -> torch.Tensor:
+    """Stochastic rounding to an FP8 dtype: |x| clipped to the format's
+    range, uniform random bits (the low 20 of ``ubits`` for e4m3, 21 for
+    e5m2: ``ubits`` holds uint32 values, in any integer dtype) added to
+    the f32 word below the target mantissa, the sum truncated to it, then
+    clipped and cast (exact, but for results in the format's subnormal
+    range, which the cast rounds to nearest), as the reference does."""
+    drop = 23 - (3 if q_dtype == float8_e4m3 else 2)
+    m = dtype_max(q_dtype)
+    word = x.float().clamp(-m, m).contiguous().view(torch.int32)
+    r = (ubits.long() & ((1 << drop) - 1)).to(torch.int32)
+    word = (word + r) & -(1 << drop)
+    return word.view(torch.float32).clamp(-m, m).to(q_dtype)
+
+
+def cast(x: torch.Tensor, q_dtype: torch.dtype, ubits=None) -> torch.Tensor:
+    """:func:`saturate_cast`, or :func:`stochastic_cast` with ``ubits``."""
+    if ubits is None:
+        return saturate_cast(x, q_dtype)
+    return stochastic_cast(x, q_dtype, ubits)
+
+
 def tensor_scale_quantize(x: torch.Tensor, q_dtype: torch.dtype,
-                          scale: torch.Tensor):
+                          scale: torch.Tensor, ubits=None):
     """Quantizes with a given f32 scale (delayed scaling). Returns (data,
     scale_inv (1,), amax)."""
     amax = compute_amax(x)
     scale = scale.float().reshape(())
-    data = saturate_cast(x.float() * scale, q_dtype)
+    data = cast(x.float() * scale, q_dtype, ubits)
     return data, (1.0 / scale).reshape(1), amax
 
 
-def current_scale_quantize(x: torch.Tensor, q_dtype: torch.dtype):
+def current_scale_quantize(x: torch.Tensor, q_dtype: torch.dtype,
+                           ubits=None):
     """Returns (data, scale_inv (1,), amax)."""
     amax = compute_amax(x)
     scale = compute_scale_from_amax(amax, q_dtype)
-    data = saturate_cast(x.float() * scale, q_dtype)
+    data = cast(x.float() * scale, q_dtype, ubits)
     return data, (1.0 / scale).reshape(1), amax
 
 
@@ -87,7 +121,7 @@ def _pow2_floor_exp(v: torch.Tensor) -> torch.Tensor:
     return (bits >> 23) - 127
 
 
-def mxfp8_quantize(x2d: torch.Tensor, q_dtype: torch.dtype):
+def mxfp8_quantize(x2d: torch.Tensor, q_dtype: torch.dtype, ubits=None):
     """OCP MX quantization along the last axis: one E8M0 scale per (1, 32)
     block. The block's exponent is floor(log2(amax)) - 8, clipped to
     [-127, 127], and 0 where the amax is 0; the payload is
@@ -100,9 +134,39 @@ def mxfp8_quantize(x2d: torch.Tensor, q_dtype: torch.dtype):
     # 2^-exp from its bits. An f32 amax gives exp <= 120 (inf gives 120),
     # so 127 - exp >= 7 and the multiplier is a normal number.
     mult = ((127 - exp) << 23).view(torch.float32)
-    data = saturate_cast(x2d.float() * _expand_scales(mult, 1, 32, r, c),
-                         q_dtype)
+    data = cast(x2d.float() * _expand_scales(mult, 1, 32, r, c), q_dtype,
+                ubits)
     return data, (exp + E8M0_BIAS).to(torch.uint8)
+
+
+def pow2_scale(q_max: float, amax: torch.Tensor) -> torch.Tensor:
+    """The largest power of two at or below q_max / max(amax, 2^-126), from
+    its exponent's bits (exact at every exponent; inf where the quotient
+    reaches 2^128)."""
+    quot = torch.full_like(amax, q_max) / amax.clamp_min(_F32_TINY)
+    return ((_pow2_floor_exp(quot) + 127) << 23).view(torch.float32)
+
+
+def block_quantize(x2d: torch.Tensor, q_dtype: torch.dtype, br: int, bc: int,
+                   pow2_scales: bool = True, ubits=None):
+    """FP8 block scaling along the last axis: one f32 scale per (br, bc)
+    block ((1, 128) or (128, 128)), ragged edge blocks padded with zeros.
+    The scale is q_max / max(amax, 2^-126), under ``pow2_scales`` rounded
+    down to a power of two, and 1 where the amax is 0 or the scale is not
+    finite; the payload is the cast of clip(x * scale). Returns (data,
+    scale_inv (rows / br, cols / bc) f32 = 1 / scale)."""
+    r, c = x2d.shape
+    amax = _block_amax(x2d, br, bc)
+    q_max = dtype_max(q_dtype)
+    if pow2_scales:
+        scale = pow2_scale(q_max, amax)
+    else:
+        scale = torch.full_like(amax, q_max) / amax.clamp_min(_F32_TINY)
+    scale = torch.where((amax > 0) & torch.isfinite(scale), scale,
+                        torch.ones_like(scale))
+    data = cast(x2d.float() * _expand_scales(scale, br, bc, r, c), q_dtype,
+                ubits)
+    return data, torch.ones_like(scale) / scale
 
 
 # ---------------------------------------------------------------------------

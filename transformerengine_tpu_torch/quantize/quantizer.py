@@ -1,5 +1,5 @@
 """Quantizers (counterpart of transformerengine_tpu/quantize/quantizer.py),
-for current scaling, delayed scaling, MXFP8 and NVFP4 block scaling.
+for current scaling, delayed scaling, MXFP8, FP8 block scaling and NVFP4.
 
 A quantizer is a frozen dataclass. Delayed scaling's state (``scale`` and
 ``amax_history``) is held in tensors; :meth:`DelayedScaleQuantizer.update`
@@ -8,7 +8,7 @@ returns a new quantizer with the rolled state, as the reference does, and
 the set it was computed from, in place. The layers call it once per
 backward pass, which is how the reference's "the quantizer set's
 cotangent is the updated state" reaches the buffers of an ``nn`` module.
-MXFP8 and NVFP4 keep no state.
+The block-scaled quantizers keep no state.
 
 Both orientations at once (``QuantizeLayout.ROWWISE_COLWISE``) go through
 ``ops/quantize_kernels.cast_transpose`` under tensor scaling,
@@ -18,17 +18,24 @@ M and N multiples of 16; other NVFP4 cases take the two generic passes,
 as the reference does); one MXFP8 orientation through
 ``mxfp8_quantize_1x``; ``quantize_normed`` through
 ``norm_cast_transpose`` or ``mxfp8_norm_quantize_2x``: the kernels on
-CUDA tensors, their plain versions on CPU tensors. Under block scaling
-the colwise usage is the transposed view quantized on its own (its blocks
-run down the input's columns), never the transpose of the rowwise
-payload; under NVFP4 it may be rotated first (the RHT) and has its own
-tensor scale and amax. One NVFP4 orientation has no kernel in the
-reference and is plain PyTorch here too.
+CUDA tensors, their plain versions on CPU tensors. FP8 block scaling
+(``BlockScaleQuantizer`` in a ``BLOCK_SCALING_*`` mode) has no kernel in
+the reference, which quantizes it in plain XLA, and is plain PyTorch
+here: it never reaches the MXFP8 kernels. Under block scaling the colwise
+usage is the transposed view quantized on its own (its blocks run down
+the input's columns), never the transpose of the rowwise payload; under
+NVFP4 it may be rotated first (the RHT) and has its own tensor scale and
+amax. One NVFP4 orientation has no kernel in the reference and is plain
+PyTorch here too.
 
-Stochastic rounding (NVFP4's gradients) needs a ``torch.Generator``
-passed to :meth:`Quantizer.quantize`, where the reference takes a key;
-one seed is drawn from it per call. Without one, rounding is to nearest,
-as in the reference's layers, which pass no key.
+Stochastic rounding needs a ``torch.Generator`` passed to
+:meth:`Quantizer.quantize`, where the reference takes a key: one seed is
+drawn from it per call, and the bits come from ``qmath.sr_bits`` of that
+seed (stream 0 rowwise, 1 colwise). Every FP8 quantizer then rounds
+stochastically (``qmath.stochastic_cast``) in the generic passes, as the
+reference's fused kernels decline a key; NVFP4 where its ``QParams`` ask.
+Without a generator, rounding is to nearest, as in the reference's
+layers, which pass no key.
 """
 from __future__ import annotations
 
@@ -72,7 +79,7 @@ class Quantizer:
         ``colwise`` says that ``x2d`` is the transposed view."""
         raise NotImplementedError
 
-    def _fused_1x(self, x2d, colwise: bool):
+    def _fused_1x(self, x2d, colwise: bool, seed=None):
         """One orientation from the UNTRANSPOSED 2D view (the colwise
         form transposes in the kernel), or None to quantize the
         (transposed) view with :meth:`_quantize_2d`."""
@@ -84,8 +91,12 @@ class Quantizer:
         return None
 
     def _seed(self, generator: Optional[torch.Generator]):
-        """The seed of this call's stochastic rounding, or None."""
-        return None
+        """The seed of this call's stochastic rounding, or None: one draw
+        from ``generator`` where there is one."""
+        if generator is None:
+            return None
+        return int(torch.randint(0, 2 ** 32, (), generator=generator,
+                                 device=generator.device))
 
     def _tensor(self, parts, dq_dtype, layout):
         data, s_inv, ts_inv, amax = parts
@@ -107,12 +118,12 @@ class Quantizer:
         seed = self._seed(generator)
 
         def colwise():
-            data, *rest = (self._fused_1x(x2d, True)
+            data, *rest = (self._fused_1x(x2d, True, seed)
                            or self._quantize_2d(x2d.t(), True, seed))
             return (data.contiguous().reshape(t_shape), *rest)
 
         def rowwise():
-            data, *rest = (self._fused_1x(x2d, False)
+            data, *rest = (self._fused_1x(x2d, False, seed)
                            or self._quantize_2d(x2d, False, seed))
             return (data.reshape(x.shape), *rest)
 
@@ -125,6 +136,13 @@ class Quantizer:
             (row, *row_rest), (col, *col_rest) = fused
             row_parts = (row.reshape(x.shape), *row_rest)
             col_parts = (col.reshape(t_shape), *col_rest)
+        elif self.scaling_mode.is_tensor_scaling:
+            # One scale both ways: the colwise payload is the rowwise one
+            # transposed (stochastic rounding draws once, as the
+            # reference).
+            row_parts = rowwise()
+            col = row_parts[0].reshape(x2d.shape).t().contiguous()
+            col_parts = (col.reshape(t_shape), *row_parts[1:])
         else:
             row_parts, col_parts = rowwise(), colwise()
         return ScaledTensor2x(rowwise=self._tensor(row_parts, dq_dtype, "N"),
@@ -136,6 +154,14 @@ class Quantizer:
         return self
 
 
+def _ubits(seed, colwise: bool, x2d: torch.Tensor):
+    """The stochastic-rounding bits of one orientation's 2D view, or None
+    (round to nearest) without a seed."""
+    if seed is None:
+        return None
+    return qmath.sr_bits(seed, int(colwise), x2d.shape, x2d.device)
+
+
 @dataclasses.dataclass(frozen=True)
 class CurrentScaleQuantizer(Quantizer):
     """Per-tensor scaling from the current amax."""
@@ -143,10 +169,13 @@ class CurrentScaleQuantizer(Quantizer):
     scaling_mode: ClassVar[ScalingMode] = ScalingMode.CURRENT_TENSOR_SCALING
 
     def _quantize_2d(self, x2d, colwise=False, seed=None):
-        data, s_inv, amax = qmath.current_scale_quantize(x2d, self.q_dtype)
+        data, s_inv, amax = qmath.current_scale_quantize(
+            x2d, self.q_dtype, _ubits(seed, colwise, x2d))
         return data, s_inv, None, amax
 
     def _fused_2x(self, x2d, seed=None):
+        if seed is not None:
+            return None
         amax = qmath.compute_amax(x2d)
         scale = qmath.compute_scale_from_amax(amax, self.q_dtype)
         row, col, _ = qk.cast_transpose(x2d, scale.reshape(1), self.q_dtype)
@@ -177,11 +206,13 @@ class DelayedScaleQuantizer(Quantizer):
     amax_compute_algo: str = "max"
 
     def _quantize_2d(self, x2d, colwise=False, seed=None):
-        data, s_inv, amax = qmath.tensor_scale_quantize(x2d, self.q_dtype,
-                                                        self.scale)
+        data, s_inv, amax = qmath.tensor_scale_quantize(
+            x2d, self.q_dtype, self.scale, _ubits(seed, colwise, x2d))
         return data, s_inv, None, amax
 
     def _fused_2x(self, x2d, seed=None):
+        if seed is not None:
+            return None
         row, col, amax = qk.cast_transpose(x2d, self.scale.reshape(1),
                                            self.q_dtype)
         s_inv = (1.0 / self.scale.float()).reshape(1)
@@ -236,28 +267,57 @@ class DelayedScaleQuantizer(Quantizer):
         self.amax_history.copy_(new.amax_history)
 
 
+_BLOCK_MODES = (ScalingMode.MXFP8_1D_SCALING, ScalingMode.BLOCK_SCALING_1D,
+                ScalingMode.BLOCK_SCALING_2D)
+
+
 @dataclasses.dataclass(frozen=True)
 class BlockScaleQuantizer(Quantizer):
-    """MXFP8: one E8M0 scale per 32 elements along the quantized axis,
-    from the block's own amax (the reference's BlockScaleQuantizer in its
-    MXFP8_1D_SCALING mode; the FP8-block modes are not ported). Every
-    orientation, and the fused norm, goes through a kernel for any
-    shape; the tensors carry no amax."""
+    """Block scaling from each block's own amax, in one of the
+    reference's three modes (``scaling_mode``): MXFP8, one E8M0 scale per
+    32 elements along the quantized axis; FP8 block scaling, one f32
+    scale per 1 x 128 block (``BLOCK_SCALING_1D``) or 128 x 128 tile
+    (``BLOCK_SCALING_2D``), rounded down to a power of two under
+    ``pow2_scales``. Under MXFP8 every orientation, and the fused norm,
+    goes through a kernel for any shape; FP8 block scaling is plain
+    PyTorch, as the reference's plain XLA, and has no fused norm. The
+    tensors carry no amax."""
 
-    scaling_mode: ClassVar[ScalingMode] = ScalingMode.MXFP8_1D_SCALING
+    scaling_mode: ScalingMode = ScalingMode.MXFP8_1D_SCALING
+    pow2_scales: bool = True
+
+    def __post_init__(self):
+        if self.scaling_mode not in _BLOCK_MODES:
+            raise ValueError(f"BlockScaleQuantizer takes an MXFP8 or FP8 "
+                             f"block scaling mode, got {self.scaling_mode}")
+
+    @property
+    def _mxfp8(self) -> bool:
+        return self.scaling_mode is ScalingMode.MXFP8_1D_SCALING
 
     def _quantize_2d(self, x2d, colwise=False, seed=None):
-        """The unfused ground truth (``qmath.mxfp8_quantize``), which
-        :meth:`_fused_1x` and :meth:`_fused_2x` equal bit for bit."""
-        data, scale = qmath.mxfp8_quantize(x2d, self.q_dtype)
-        return data, scale, None, None
+        """The unfused ground truth (``qmath.mxfp8_quantize``, which
+        :meth:`_fused_1x` and :meth:`_fused_2x` equal bit for bit, or
+        ``qmath.block_quantize``)."""
+        ubits = _ubits(seed, colwise, x2d)
+        if self._mxfp8:
+            data, scale = qmath.mxfp8_quantize(x2d, self.q_dtype, ubits)
+            return data, scale, None, None
+        br, bc = self.scaling_mode.block_shape
+        data, s_inv = qmath.block_quantize(x2d, self.q_dtype, br, bc,
+                                           self.pow2_scales, ubits)
+        return data, s_inv, None, None
 
-    def _fused_1x(self, x2d, colwise: bool):
+    def _fused_1x(self, x2d, colwise: bool, seed=None):
+        if not self._mxfp8 or seed is not None:
+            return None
         data, scale = qk.mxfp8_quantize_1x(x2d, self.q_dtype,
                                            colwise=colwise)
         return data, scale, None, None
 
     def _fused_2x(self, x2d, seed=None):
+        if not self._mxfp8 or seed is not None:
+            return None
         row, col, srow, scol = qk.mxfp8_quantize_2x(x2d, self.q_dtype)
         return (row, srow, None, None), (col, scol, None, None)
 
@@ -268,10 +328,11 @@ class BlockScaleQuantizer(Quantizer):
         """Normalization fused with the MXFP8 quantize: (ScaledTensor2x,
         mu or None, rsigma (M,)), bit-identical to ``ops/normalization``
         followed by :meth:`quantize`; the rowwise ScaledTensor1x alone for
-        ``layout=ROWWISE``. None when the reference's shape rule
-        (M % 256 == 0, H % 128 == 0) does not hold."""
+        ``layout=ROWWISE``. None under FP8 block scaling, and where the
+        reference's shape rule (M % 256 == 0, H % 128 == 0) does not
+        hold."""
         m, h = x2d.shape
-        if m % 256 or h % 128:
+        if not self._mxfp8 or m % 256 or h % 128:
             return None
         rowwise_only = layout is QuantizeLayout.ROWWISE
         outs = qk.mxfp8_norm_quantize_2x(
@@ -314,10 +375,9 @@ class NVFP4Quantizer(Quantizer):
                              f"got {self.scaling_mode}")
 
     def _seed(self, generator):
-        if not self.stochastic_rounding or generator is None:
+        if not self.stochastic_rounding:
             return None
-        return int(torch.randint(0, 2 ** 32, (), generator=generator,
-                                 device=generator.device))
+        return super()._seed(generator)
 
     def _quantize_2d(self, x2d, colwise=False, seed=None):
         if self.with_rht and colwise:

@@ -1,6 +1,8 @@
 """Quantized tensors (counterpart of transformerengine_tpu/quantize/
 tensor.py): one usage (``ScaledTensor1x``) or both (``ScaledTensor2x``),
-per-tensor scaled, MXFP8 or NVFP4."""
+per-tensor scaled, MXFP8, FP8 block scaled or NVFP4; and
+:class:`QDQKernel`, a kernel's two dequantized orientations, which the
+GEMMs take in place of its quantized usages."""
 from __future__ import annotations
 
 import dataclasses
@@ -22,7 +24,9 @@ class ScaledTensor1x:
     ceil(cols / 32)) of E8M0 biased exponents along the stored last axis
     of the 2D view: (leading dims, last dim) for "N", (first dim, the
     others) for "T", the transpose of the input's 2D view that the
-    quantizer folds its leading dims into. Under NVFP4 ``data`` holds e2m1
+    quantizer folds its leading dims into. Under FP8 block scaling
+    ``scale_inv`` is an f32 grid (rows / br, cols / bc) of the 2D view.
+    Under NVFP4 ``data`` holds e2m1
     values in e4m3 bytes, ``scale_inv`` the e4m3 block scales (rows / br,
     cols / 16) and ``tensor_scale_inv`` the (1,) f32 second-level scale.
     ``resident`` marks tensors that live in device memory across steps
@@ -55,13 +59,15 @@ class ScaledTensor1x:
         """The high-precision tensor, in stored orientation. An MXFP8 or
         NVFP4 payload times its block scale is exact in bf16, so without a
         second-level scale a bf16 result is multiplied in bf16 (as the
-        reference does), anything else in f32; the tensor scale then
-        multiplies in f32."""
+        reference does), anything else in f32 (FP8 block scaling's f32
+        scales always: such a product need not be a bf16 value); the
+        tensor scale then multiplies in f32."""
         if self.scaling_mode.is_tensor_scaling:
             return (self.data.float() * self.scale_inv.float().reshape(())
                     ).to(self.dq_dtype)
         exact_bf16 = (self.dq_dtype == torch.bfloat16
-                      and self.tensor_scale_inv is None)
+                      and self.tensor_scale_inv is None
+                      and not self.scaling_mode.is_fp8_block)
         out = dequantize_blocks(
             self, torch.bfloat16 if exact_bf16 else torch.float32)
         if self.tensor_scale_inv is not None:
@@ -88,6 +94,25 @@ def dequantize_blocks(t: ScaledTensor1x, mul_t: torch.dtype) -> torch.Tensor:
     return out.reshape(t.data.shape)
 
 
+def dequantize_to_bf16(t: ScaledTensor1x) -> torch.Tensor:
+    """A block-scaled GEMM operand's bf16 values, the tensor scale left
+    out: MXFP8 and NVFP4 multiply in bf16 (exact), FP8 block scaling in
+    f32, rounded once, as the reference's ``_dq_block_to_bf16``."""
+    mul_t = torch.float32 if t.scaling_mode.is_fp8_block else torch.bfloat16
+    return dequantize_blocks(t, mul_t).to(torch.bfloat16)
+
+
+@dataclasses.dataclass(frozen=True)
+class QDQKernel:
+    """A block-scaled kernel as both dequantized bf16 orientations, the
+    once-per-step workspace of ``quantize/microbatch.py``: ``row`` (K, N),
+    the dgrad's operand, and ``col`` (N, K), the forward GEMM's. Their
+    values equal the quantized usages dequantized inside the GEMMs."""
+
+    row: torch.Tensor
+    col: torch.Tensor
+
+
 @dataclasses.dataclass(frozen=True)
 class ScaledTensor2x:
     """Rowwise (layout "N") and colwise (layout "T") usages of one tensor.
@@ -109,10 +134,16 @@ class ScaledTensor2x:
 
 
 def get_rowwise(x):
-    """The rowwise usage of a ScaledTensor2x; anything else as it is."""
+    """The rowwise usage of a ScaledTensor2x (a QDQKernel's ``row``);
+    anything else as it is."""
+    if isinstance(x, QDQKernel):
+        return x.row
     return x.rowwise if isinstance(x, ScaledTensor2x) else x
 
 
 def get_colwise(x):
-    """The colwise usage of a ScaledTensor2x; anything else as it is."""
+    """The colwise usage of a ScaledTensor2x (a QDQKernel's ``col``);
+    anything else as it is."""
+    if isinstance(x, QDQKernel):
+        return x.col
     return x.colwise if isinstance(x, ScaledTensor2x) else x
